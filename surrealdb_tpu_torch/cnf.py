@@ -1,0 +1,60 @@
+"""Environment-variable knobs the device runner reads: the KNN and
+DEVICE settings of the reference package's `cnf.py`, with the same
+SURREAL_* names and defaults."""
+
+from __future__ import annotations
+
+import os
+
+
+def env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def env_str(name: str, default: str) -> str:
+    return os.environ.get(name, "") or default
+
+
+# -- KNN kernel selection (shipped per store in the vec_load `cfg`) ----------
+KNN_BLOCK_ROWS = env_int("SURREAL_KNN_BLOCK_ROWS", 262144)
+# query rows per ranking step
+KNN_QUERY_CHUNK = env_int("SURREAL_KNN_QUERY_CHUNK", 512)
+# peak [chunk, N] f32 score-matrix elements per ranking step; large
+# stores shrink the per-step query chunk to stay under this
+KNN_SCORE_BUDGET_ELEMS = env_int("SURREAL_KNN_SCORE_BUDGET_ELEMS", 1 << 29)
+# device byte budget for a bf16-rank + f32-full store (6 B/elem); above
+# it the reference switches to an int8 ranking store
+KNN_HBM_BUDGET_BYTES = env_int("SURREAL_KNN_HBM_BUDGET_BYTES", 12 << 30)
+KNN_INT8_OVERSAMPLE = env_int("SURREAL_KNN_INT8_OVERSAMPLE", 128)
+
+# -- device runner ------------------------------------------------------------
+# runner store budget across the vec/csr block caches + multipart
+# staging, per device; 0 = the per-kind LRU entry caps only
+DEVICE_MEM_BUDGET_MB = env_int("SURREAL_DEVICE_MEM_BUDGET_MB", 0)
+# runner init (torch + CUDA + kernel build) watchdog
+BACKEND_INIT_TIMEOUT_S = env_float("SURREAL_BACKEND_INIT_TIMEOUT_S", 240.0)
+DEVICE_DISPATCH_TIMEOUT_S = env_float("SURREAL_DEVICE_DISPATCH_TIMEOUT_S",
+                                      10.0)
+DEVICE_LOAD_TIMEOUT_S = env_float("SURREAL_DEVICE_LOAD_TIMEOUT_S", 120.0)
+
+
+def device_cfg() -> dict:
+    """The per-store kernel budgets a serving process ships with a
+    vec_load (the reference's `TpuVectorIndex._device_cfg`)."""
+    return {
+        "hbm_budget": KNN_HBM_BUDGET_BYTES,
+        "score_budget": KNN_SCORE_BUDGET_ELEMS,
+        "query_chunk": KNN_QUERY_CHUNK,
+        "int8_oversample": KNN_INT8_OVERSAMPLE,
+        "block_rows": KNN_BLOCK_ROWS,
+    }

@@ -1,0 +1,351 @@
+"""Device op dispatch table of the torch runner (the reference's
+`device/handlers.py`, for one device).
+
+Every handler is `(meta, bufs) -> (tag, meta_out, bufs_out)`; raising
+maps to an `("err", ...)` reply. Op names, the meta/bufs layout and the
+`ok`/`stale`/`err` tags are the reference's, so a reference supervisor
+can drive this host. The store caches are bounded LRU: an evicted store
+answers `stale` on its next use and the serving side re-ships (device
+blocks are a cache over KV truth). The byte budget
+(SURREAL_DEVICE_MEM_BUDGET_MB) admits a ship by evicting LRU stores
+first and refuses it with `DeviceBudgetError` only when the store
+cannot fit an otherwise-empty runner. Every store lives on one device
+(`mesh_ndev` = 1).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch.device.vecstore import NotPorted, to_device
+
+# bounded block caches: enough for every live index in a busy node, and
+# an eviction is only a re-ship (never an error)
+MAX_VEC_STORES = 64
+MAX_CSR_STORES = 64
+
+
+class DeviceBudgetError(RuntimeError):
+    """A ship would exceed the runner's device-memory byte budget even
+    after evicting every other store. The reply carries `oom: true`;
+    the serving side degrades that store to its host path."""
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for the CPU. Raises when CUDA was asked for and is absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' "
+                           "(runner: --device cpu) to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _vec_estimate(n: int, dim: int, itemsize: int, meta: dict) -> int:
+    from surrealdb_tpu_torch.device.vecstore import VecStore
+
+    return VecStore.estimate_device_bytes(
+        n, dim, itemsize, meta["metric"], meta["cfg"]
+    )
+
+
+class DeviceHost:
+    """Per-runner registry of vector + CSR block caches."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            from surrealdb_tpu_torch.device import compile_cache
+
+            compile_cache.ensure_built()
+        self.vec: OrderedDict = OrderedDict()  # key -> (tag, VecStore)
+        self.csr: OrderedDict = OrderedDict()  # key -> (tag, CsrStore)
+        # multipart vec loads in flight: key -> (meta, vecs, valid)
+        self._staging: dict = {}
+        self.budget_bytes = cnf.env_int(
+            "SURREAL_DEVICE_MEM_BUDGET_MB", cnf.DEVICE_MEM_BUDGET_MB
+        ) << 20
+        self.oom_refusals = 0
+        self.budget_evictions = 0
+        # multipart install reservations: key -> install bytes admitted
+        # at vec_load_begin but not yet resident
+        self._reserved: dict = {}
+
+    # -- device-memory budget ------------------------------------------------
+
+    def mem_used(self) -> int:
+        """Estimated device-resident bytes across the block caches plus
+        multipart staging (host-side until load_end, admitted up
+        front) and reservations."""
+        total = 0
+        for cache in (self.vec, self.csr):
+            for _tag, st in cache.values():
+                total += st.device_nbytes()
+        for _m, vecs, valid in self._staging.values():
+            total += int(vecs.nbytes) + int(valid.nbytes)
+        total += sum(self._reserved.values())
+        return total
+
+    # one device: its share is the whole
+    mem_used_device0 = mem_used
+
+    def _evict_key(self, key: str):
+        for cache in (self.vec, self.csr):
+            cache.pop(key, None)
+
+    def _admit(self, share: int, keep_key: str = ""):
+        """Make room for `share` estimated bytes or raise
+        DeviceBudgetError. Victims pop oldest-first, csr before vec
+        (ascending re-ship cost). `keep_key`'s outdated copy is dropped
+        first and is never counted against its replacement."""
+        if self.budget_bytes <= 0:
+            return
+        if keep_key:
+            self._evict_key(keep_key)
+        if share > self.budget_bytes:
+            self.oom_refusals += 1
+            raise DeviceBudgetError(
+                f"store needs ~{share >> 20} MiB per device but the "
+                f"device budget is {self.budget_bytes >> 20} MiB "
+                f"(SURREAL_DEVICE_MEM_BUDGET_MB)"
+            )
+        while self.mem_used() + share > self.budget_bytes:
+            victim = None
+            for cache in (self.csr, self.vec):
+                for key in cache:
+                    if key != keep_key:
+                        victim = (cache, key)
+                        break
+                if victim is not None:
+                    break
+            if victim is None:
+                self.oom_refusals += 1
+                raise DeviceBudgetError(
+                    f"store needs ~{share >> 20} MiB per device; "
+                    f"{self.mem_used() >> 20} MiB resident is "
+                    f"unevictable (staging) under the "
+                    f"{self.budget_bytes >> 20} MiB budget"
+                )
+            victim[0].pop(victim[1], None)
+            self.budget_evictions += 1
+
+    # -- ops ----------------------------------------------------------------
+
+    def handle(self, op: str, meta: dict, bufs: list):
+        fn = getattr(self, f"op_{op}", None)
+        if fn is None:
+            raise ValueError(f"unknown device op {op!r}")
+        return fn(meta, bufs)
+
+    def op_ping(self, meta, bufs):
+        return "ok", {}, []
+
+    def platform(self) -> str:
+        return self.device.type
+
+    def device_count(self) -> int:
+        return torch.cuda.device_count() if self.device.type == "cuda" else 1
+
+    def op_status(self, meta, bufs):
+        from surrealdb_tpu_torch.device import compile_cache, kernelstats
+
+        return "ok", {
+            "platform": self.platform(),
+            "device_count": self.device_count(),
+            "mesh": {"ndev": 1, "sharded_vec": 0, "sharded_ann": 0,
+                     "sharded_csr": 0},
+            "mem_used_device0": self.mem_used(),
+            "vec_blocks": len(self.vec),
+            "csr_blocks": len(self.csr),
+            "ann_blocks": 0,
+            "vec_bytes": sum(s.nbytes() for _t, s in self.vec.values()),
+            "csr_bytes": sum(s.nbytes() for _t, s in self.csr.values()),
+            "ann_bytes": 0,
+            "mem_used": self.mem_used(),
+            "mem_budget": self.budget_bytes,
+            "oom_refusals": self.oom_refusals,
+            "budget_evictions": self.budget_evictions,
+            "compile_cache": compile_cache.status(),
+            "cc": kernelstats.snapshot(),
+            "launches": kernelstats.launches(),
+        }, []
+
+    def op_launch_counts(self, meta, bufs):
+        """Kernel launch counts of this runner; `reset` zeroes them
+        after reading."""
+        from surrealdb_tpu_torch.device import kernelstats
+
+        out = kernelstats.launches()
+        if meta.get("reset"):
+            kernelstats.reset_launches()
+        return "ok", {"launches": out}, []
+
+    def _install_vec(self, key, tag, st):
+        st.ensure()
+        self.vec.pop(key, None)
+        self.vec[key] = (list(tag), st)
+        while len(self.vec) > MAX_VEC_STORES:
+            self.vec.popitem(last=False)
+        return "ok", {"rank_mode": st.rank_mode, "mesh_ndev": 1}, []
+
+    def _vec_store(self, key, vecs, valid, meta):
+        from surrealdb_tpu_torch.device.vecstore import VecStore
+
+        return VecStore(key, vecs, valid, meta["metric"],
+                        meta.get("mink_p", 3.0), meta["cfg"], self.device)
+
+    def op_vec_load(self, meta, bufs):
+        key = meta["key"]
+        vecs, valid = bufs
+        self._admit(
+            _vec_estimate(vecs.shape[0], vecs.shape[1],
+                          vecs.dtype.itemsize, meta),
+            keep_key=key,
+        )
+        return self._install_vec(
+            key, meta["tag"], self._vec_store(key, vecs, valid, meta))
+
+    def op_vec_load_begin(self, meta, bufs):
+        key = meta["key"]
+        n, dim = meta["shape"]
+        dtype = np.dtype(meta["dtype"])
+        # admit staging + the final device arrays up front, BEFORE the
+        # big allocation; the install share stays reserved until
+        # load_end so a concurrent ship cannot overcommit
+        est = _vec_estimate(int(n), int(dim), dtype.itemsize, meta)
+        self._admit(int(n) * int(dim) * dtype.itemsize + int(n) + est,
+                    keep_key=key)
+        self._reserved.pop(key, None)
+        if self.budget_bytes > 0:
+            self._reserved[key] = est
+        vecs = np.empty((int(n), int(dim)), dtype=dtype)
+        (valid,) = bufs
+        self._staging[key] = (dict(meta), vecs, valid)
+        return "ok", {}, []
+
+    def op_vec_load_part(self, meta, bufs):
+        ent = self._staging.get(meta["key"])
+        if ent is None:
+            return "stale", {}, []
+        _m, vecs, _valid = ent
+        off = int(meta["off"])
+        (chunk,) = bufs
+        vecs[off:off + chunk.shape[0]] = chunk
+        return "ok", {}, []
+
+    def op_vec_load_end(self, meta, bufs):
+        key = meta["key"]
+        ent = self._staging.pop(key, None)
+        self._reserved.pop(key, None)  # the install replaces it below
+        if ent is None:
+            return "stale", {}, []
+        lmeta, vecs, valid = ent
+        return self._install_vec(
+            key, meta["tag"], self._vec_store(key, vecs, valid, lmeta))
+
+    def op_vec_drop(self, meta, bufs):
+        self.vec.pop(meta["key"], None)
+        self._staging.pop(meta["key"], None)
+        self._reserved.pop(meta["key"], None)
+        return "ok", {}, []
+
+    def op_vec_knn(self, meta, bufs):
+        ent = self.vec.get(meta["key"])
+        if ent is None or ent[0] != list(meta["tag"]):
+            return "stale", {}, []
+        self.vec.move_to_end(meta["key"])
+        out_meta, out_bufs = ent[1].knn(bufs[0], int(meta["k"]))
+        out_meta.setdefault("mesh_ndev", 1)
+        return "ok", out_meta, out_bufs
+
+    def _prewarm_shapes(self, cache, meta, field, warm_one):
+        """Run one dispatch per listed step against a loaded block ahead
+        of traffic. Best-effort by contract: a failed step stops the
+        ladder but never fails serving; a dropped/re-tagged block is
+        `stale`."""
+        ent = cache.get(meta["key"])
+        if ent is None or ent[0] != list(meta["tag"]):
+            return "stale", {}, []
+        warmed = []
+        for v in meta.get(field, (1,)):
+            v = int(v)
+            if v < 1:
+                continue
+            try:
+                warm_one(ent[1], v)
+                warmed.append(v)
+            except Exception:
+                break
+        return "ok", {"warmed": warmed}, []
+
+    def op_vec_prewarm(self, meta, bufs):
+        k = int(meta.get("k", 10))
+
+        def warm(st, b):
+            st.knn(np.zeros((b, st.vecs.shape[1]), np.float32), k)
+
+        return self._prewarm_shapes(self.vec, meta, "buckets", warm)
+
+    def _not_ported(self, meta, bufs):
+        raise NotPorted("ANN graph stores (ann_* ops)")
+
+    op_ann_load = op_ann_load_begin = op_ann_load_part = _not_ported
+    op_ann_load_end = op_ann_search = op_ann_prewarm = _not_ported
+    op_ann_drop = _not_ported
+
+    def op_csr_load(self, meta, bufs):
+        from surrealdb_tpu_torch.device.csrstore import CsrStore
+
+        key = meta["key"]
+        rows, cols = bufs
+        self._admit(int(rows.nbytes) + int(cols.nbytes), keep_key=key)
+        st = CsrStore(key, rows, cols, int(meta["n_nodes"]), self.device)
+        self.csr.pop(key, None)
+        self.csr[key] = (list(meta["tag"]), st)
+        while len(self.csr) > MAX_CSR_STORES:
+            self.csr.popitem(last=False)
+        return "ok", {}, []
+
+    def op_csr_drop(self, meta, bufs):
+        self.csr.pop(meta["key"], None)
+        return "ok", {}, []
+
+    def op_csr_hop(self, meta, bufs):
+        ent = self.csr.get(meta["key"])
+        if ent is None or ent[0] != list(meta["tag"]):
+            return "stale", {}, []
+        self.csr.move_to_end(meta["key"])
+        mask = ent[1].multi_hop(
+            bufs[0], int(meta["hops"]), bool(meta["union"])
+        )
+        return "ok", {"mesh_ndev": 1}, [mask]
+
+    def op_csr_prewarm(self, meta, bufs):
+        def warm(st, hops):
+            start = np.zeros((1, st.n_nodes), np.uint8)
+            for union in (False, True):
+                st.multi_hop(start, hops, union)
+
+        return self._prewarm_shapes(self.csr, meta, "hops", warm)
+
+    def op_brute_knn(self, meta, bufs):
+        """One-shot exact KNN over ephemeral rows (the planner's brute
+        path: nothing cached, the rows ship with the call)."""
+        from surrealdb_tpu_torch.ops.topk import knn_search
+
+        xs, qs = bufs
+        d, i = knn_search(
+            to_device(xs, self.device, torch.float32),
+            to_device(qs, self.device, torch.float32),
+            int(meta["k"]), meta["metric"], float(meta.get("p", 3.0)),
+        )
+        return "ok", {}, [
+            np.ascontiguousarray(d.cpu().numpy(), np.float32),
+            np.ascontiguousarray(i.cpu().numpy(), np.int32),
+        ]

@@ -1,0 +1,69 @@
+"""Kernel accounting for the device runner.
+
+Two kinds of count:
+
+- compile-shape hits/misses, as in the reference runner. Here a
+  "compile" is the first build (or load) of the CUDA library in this
+  process; a shape note is a dispatch against a (kernel, shape) pair,
+  kept so the serving side's gauges read the same keys;
+- launches: each CUDA kernel's wrapper adds one where it launches its
+  kernel, and nowhere else (the plain PyTorch versions never count).
+  A run reads them to show that its path really went through the
+  kernels.
+
+Lock-free on purpose: a lost increment under a thread race skews a
+gauge by one sample.
+"""
+
+from __future__ import annotations
+
+COUNTS = {"hits": 0, "misses": 0, "sharded": 0}
+_SEEN: set = set()
+# store shapes change every sync epoch under write load, so the
+# seen-set is bounded; overflow clears it
+_SEEN_MAX = 4096
+
+KERNELS = ("distance_tile", "select_topk_rows", "rank_scores_bf16",
+           "gather_rescore", "csr_hop_step")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def note_compile(kernel: str):
+    COUNTS["misses"] += 1
+
+
+def note_hit(kernel: str):
+    COUNTS["hits"] += 1
+
+
+def note_shape(kernel: str, shape_key) -> bool:
+    """Record a dispatch against (kernel, shape_key); True when this
+    shape was already seen in this process (a hit)."""
+    key = (kernel, shape_key)
+    if key in _SEEN:
+        COUNTS["hits"] += 1
+        return True
+    if len(_SEEN) >= _SEEN_MAX:
+        _SEEN.clear()
+    _SEEN.add(key)
+    COUNTS["misses"] += 1
+    return False
+
+
+def note_launch(kernel: str):
+    LAUNCHES[kernel] += 1
+
+
+def launches() -> dict:
+    return dict(LAUNCHES)
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def snapshot() -> dict:
+    out = dict(COUNTS)
+    out["mesh_ndev"] = 1
+    return out

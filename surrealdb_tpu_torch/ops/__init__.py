@@ -1,0 +1,7 @@
+"""Kernel wrappers and their plain PyTorch versions.
+
+distance: [B, N] distance matrices (csrc/distance.cu)
+topk:     exact top-k selection, exact and blocked KNN, bf16 rank + f32
+          rescore (csrc/select.cu, csrc/rank_rescore.cu)
+metrics:  metric ids
+"""

@@ -1,0 +1,61 @@
+"""The port stands alone: no module of surrealdb_tpu_torch (nor
+chip_smoke.py) imports jax or the JAX package, and importing the port
+initialises no CUDA."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "surrealdb_tpu_torch")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _dirs, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "surrealdb_tpu"), (path, name)
+
+
+def test_import_initialises_nothing():
+    code = (
+        "import sys, surrealdb_tpu_torch, "
+        "surrealdb_tpu_torch.device.handlers, "
+        "surrealdb_tpu_torch.device.supervisor, "
+        "surrealdb_tpu_torch.device.runner, surrealdb_tpu_torch.carry, "
+        "surrealdb_tpu_torch.ops.topk\n"
+        "import torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'surrealdb_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "from surrealdb_tpu_torch.device import compile_cache\n"
+        "assert compile_cache.status()['built'] == []\n"
+        "print('isolated')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
