@@ -19,11 +19,17 @@ exits non-zero):
               through the port's supervisor client and sends it frames:
               knn1m (1M x 768 cosine rows, bf16 rank + f32 rescore store,
               vec_knn at B in 1/128/512, recall@10 against an exact f64
-              oracle), brute (brute_knn over 20k x 128 cosine rows) and
+              oracle), brute (brute_knn over 20k x 128 cosine rows),
               graph3hop (1M nodes / 10M edges, 3-hop csr_hop at B in 1/8,
-              frontier and union, bit-equal to the plain version). Each
-              path runs with the runner's launch counts set to 0 just
-              before it and read just after.
+              frontier and union, bit-equal to the plain version), knn10m
+              (10M x 768 cosine rows: the int8 rank store, vec_knn at B in
+              1/128/512 answering kc = 1280 candidates, rescored exactly
+              here, recall@10 against an exact f64 oracle) and ann (the
+              graph-ANN store over 250k x 768 clustered cosine rows, built
+              here, shipped in parts, ann_search at B in 1/128/512,
+              recall@10, ids equal to the plain descent and unchanged after
+              a drop and a reship). Each path runs with the runner's
+              launch counts set to 0 just before it and read just after.
 
 It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -37,6 +43,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -45,11 +52,19 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 
 KNN1M = dict(n=1_000_000, dim=768, seed=13, batches=(1, 128, 512), k=10)
 BRUTE = dict(n=20_000, dim=128, seed=17, k=10)
 GRAPH = dict(nodes=1_000_000, edges=10_000_000, seed=19, batches=(1, 8),
              hops=3)
+# BASELINE config 3 (bench.py:613 bench_knn10m): the int8 rank store
+KNN10M = dict(n=10_000_000, dim=768, seed=31, batches=(1, 128, 512), k=10,
+              recall_q=8)
+# bench.py:750 bench_ann10m at that function's own reduced size: the
+# graph is built here by the port's numpy builder on the host
+ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
+           batches=(1, 128, 512), k=10, recall_q=16)
 
 SOURCES = {
     "distance_tile": ("surrealdb_tpu_torch/csrc/distance.cu",
@@ -62,6 +77,12 @@ SOURCES = {
                        "surrealdb_tpu/ops/topk.py:78"),
     "csr_hop_step": ("surrealdb_tpu_torch/csrc/csr_hop.cu",
                      "surrealdb_tpu/device/csrstore.py:14"),
+    "quantize_rows_int8": ("surrealdb_tpu_torch/csrc/rank_int8.cu",
+                           "surrealdb_tpu/device/vecstore.py:150"),
+    "rank_scores_int8": ("surrealdb_tpu_torch/csrc/rank_int8.cu",
+                         "surrealdb_tpu/ops/topk.py:145"),
+    "ann_descent": ("surrealdb_tpu_torch/csrc/ann_descent.cu",
+                    "surrealdb_tpu/device/annstore.py:29"),
 }
 
 
@@ -86,6 +107,59 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def normal_rows(n, dim, seed, threads=8):
+    """i.i.d. N(0, 1) f32 rows [n, dim] from `threads` independent
+    streams of SeedSequence(seed); numpy fills without the GIL, so the
+    streams run in parallel (a 30 GB store in seconds, not minutes)."""
+    out = np.empty((n, dim), np.float32)
+    gens = [np.random.default_rng(s)
+            for s in np.random.SeedSequence(seed).spawn(threads)]
+    step = -(-n // threads)
+
+    def fill(i):
+        gens[i].standard_normal(out=out[i * step:(i + 1) * step],
+                                dtype=np.float32)
+
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(fill, range(threads)))
+    return out
+
+
+def clustered_rows(n, dim, nc, std, seed, chunk=1_000_000):
+    """bench.py's `_clustered_rows`: `nc` gaussian clusters (the low
+    intrinsic dimension of real embeddings)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(nc, dim)).astype(np.float32)
+    xs = np.empty((n, dim), np.float32)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        xs[s:e] = centers[rng.integers(0, nc, e - s)]
+        xs[s:e] += std * rng.normal(size=(e - s, dim)).astype(np.float32)
+    return xs, rng
+
+
+def build_ann_index():
+    """The ann phase's store, built on the host as the serving side
+    builds it: clustered rows, queries near them, the port's CAGRA
+    graph and int8 rows (cosine: x2q is zeros)."""
+    from surrealdb_tpu_torch.idx import cagra
+
+    t0 = time.perf_counter()
+    xs, rng = clustered_rows(ANN["n"], ANN["dim"], ANN["n"] // 100,
+                             ANN["std"], ANN["seed"])
+    qi = rng.integers(0, ANN["n"], max(ANN["batches"]))
+    qs = xs[qi] + ANN["noise"] * rng.normal(
+        size=(len(qi), ANN["dim"])).astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x2, norms = cagra.row_stats(xs)
+    graph = cagra.build_graph(xs, "cosine", x2=x2, norms=norms)
+    x8, arow = cagra.quantize_int8(xs, "cosine", norms=norms)
+    return {"xs": xs, "qs": qs, "graph": graph, "x8": x8, "arow": arow,
+            "x2q": np.zeros(ANN["n"], np.float32), "gen_s": gen_s,
+            "build_s": time.perf_counter() - t0}
+
+
 def bound(nbytes, ops, peak):
     """Least time (ms) the card could take: the larger of bytes over
     the HBM rate and operations over the peak rate of their type."""
@@ -103,6 +177,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from surrealdb_tpu_torch import cnf
+    from surrealdb_tpu_torch.device import annstore as A
     from surrealdb_tpu_torch.device import compile_cache, kernelstats
     from surrealdb_tpu_torch.device.csrstore import (
         csr_hop_step, multi_hop_masks, multi_hop_plain,
@@ -116,6 +191,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # the serving side's descent knobs and candidate count for k
+    # (idx/vector.py _ann_search_cfg, _ann_knn_batch) at the defaults
+    ann_cfg = cnf.ann_search_cfg()
+    ann_kc = min(ANN["n"], max(cnf.KNN_ANN_OVERSAMPLE * ANN["k"], 32))
 
     def cuda_ms(fn, iters=10):
         fn()
@@ -144,12 +223,13 @@ def main() -> int:
         check(ok, f"{what}: max error {err} over atol={atol} rtol={rtol}")
         return err
 
-    def check_ids(ref_d, ref_i, got_i, what, atol=1e-4):
+    def check_ids(ref_d, ref_i, got_i, what, atol=1e-4, rtol=0.0):
         """Ids equal wherever the reference's neighbouring distances
-        differ by more than atol (near-ties may swap)."""
+        differ by more than atol + rtol*|d| (near-ties may swap)."""
         ref_d = np.asarray(ref_d, np.float64)
         with np.errstate(invalid="ignore"):
-            gap = np.diff(ref_d, axis=1) > atol
+            gap = np.diff(ref_d, axis=1) > (
+                atol + rtol * np.abs(ref_d[:, 1:]))
         sep = np.isfinite(ref_d)
         sep[:, 1:] &= gap
         sep[:, :-1] &= gap
@@ -207,6 +287,18 @@ def main() -> int:
     note("distance_tile", max_err(bd, pd, *tol_d, "knn_search_blocked"))
     check_ids(pd.cpu().numpy(), pi.cpu().numpy(), bi.cpu().numpy(),
               "knn_search_blocked")
+    # the blocked scan is a host loop over the two kernels (no cell of
+    # this script reaches it through the runner): its time at this shape
+    nb_, bb_, db_ = xs.shape[0], qs.shape[0], xs.shape[1]
+    emit("kernel", name="knn_search_blocked",
+         shape=f"B={bb_} N={nb_} D={db_} k=64 manhattan block=65536",
+         ms=cuda_ms(lambda: T.knn_search_blocked(xs, qs, 64, "manhattan",
+                                                 3.0, valid), 5),
+         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(
+             D.distance_matrix_plain(xs, qs, "manhattan", 3.0, valid), 64),
+             5),
+         bound_ms=bound(4 * nb_ * db_ + nb_ + 4 * bb_ * db_ + 8 * bb_ * 64,
+                        3 * bb_ * nb_ * db_, PEAK_F32)[0])
     rng = np.random.default_rng(BRUTE["seed"])
     bxs_np = rng.normal(size=(BRUTE["n"], BRUTE["dim"])).astype(np.float32)
     bq_np = rng.normal(size=(1, BRUTE["dim"])).astype(np.float32)
@@ -381,6 +473,212 @@ def main() -> int:
     del contrib, cols_l, front, nxt, want
     torch.cuda.empty_cache()
 
+    # select_topk_rows past its shared-memory buffer: k = 5120
+    lk_rows, lk_n, lk_k = 16, 1_000_000, 5120
+    vals = torch.randn(lk_rows, lk_n, generator=g).to(dev)
+    vals[3, ::9] = 0.0  # a block of ties across the k-th position
+    v, i = T.select_topk_rows(vals, lk_k)
+    pv, pi = T.top_k_smallest_plain(vals, lk_k)
+    check(torch.equal(i, pi) and torch.equal(v, pv),
+          f"select_topk_rows {lk_rows}x{lk_n} k={lk_k}")
+    lms, lby = bound(4 * lk_rows * lk_n + 8 * lk_rows * lk_k,
+                     lk_rows * lk_n, PEAK_F32)
+    emit("kernel", name="select_topk_rows", shape=f"R={lk_rows} N={lk_n} "
+         f"k={lk_k}", ms=cuda_ms(lambda: T.select_topk_rows(vals, lk_k), 5),
+         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(vals, lk_k), 3),
+         library_ms=cuda_ms(lambda: torch.topk(vals, lk_k, dim=1,
+                                               largest=False), 5),
+         bound_ms=lms, bound_by=lby)
+    del vals, v, i, pv, pi
+
+    # the knn10m store: rows made here, quantised on the card in blocks
+    # (quantize_rows_int8 against its plain version, bit for bit); the
+    # same pass keeps the exact f64 top 10 of the recall queries
+    n10, d10, k10 = KNN10M["n"], KNN10M["dim"], KNN10M["k"]
+    t0 = time.perf_counter()
+    xs10 = normal_rows(n10, d10, KNN10M["seed"])
+    q10 = normal_rows(max(KNN10M["batches"]), d10, KNN10M["seed"] + 1)
+    gen10_s = time.perf_counter() - t0
+    w10 = T.int8_width(d10)
+    x8_10 = torch.empty((n10, w10), dtype=torch.int8, device=dev)
+    arow10 = torch.empty((n10,), dtype=torch.float32, device=dev)
+    x2_10 = torch.zeros((n10,), dtype=torch.float32, device=dev)
+    nq10 = KNN10M["recall_q"]
+    qn10 = torch.from_numpy(q10[:nq10]).to(dev).double()
+    qn10 = qn10 / qn10.norm(dim=1, keepdim=True)
+    top_v, top_i = [], []
+    step = 1 << 19
+    for s0 in range(0, n10, step):
+        e0 = min(s0 + step, n10)
+        blk = torch.from_numpy(xs10[s0:e0]).to(dev)
+        T.quantize_rows_int8(blk, "cosine", x8_10[s0:e0], arow10[s0:e0],
+                             x2_10[s0:e0])
+        p8, pa, _ = T.quantize_rows_plain(blk, "cosine", w10)
+        check(torch.equal(p8, x8_10[s0:e0]) and torch.equal(pa,
+                                                            arow10[s0:e0]),
+              f"quantize_rows_int8 rows {s0}:{e0} differ from the plain "
+              f"version")
+        del p8, pa
+        b64 = blk.double()
+        sims = (b64 @ qn10.T) / b64.norm(dim=1).clamp_min(1e-30)[:, None]
+        tv, ti = torch.topk(sims, k10, dim=0)
+        top_v.append(tv)
+        top_i.append(ti + s0)
+        del b64, sims
+    tv, sel = torch.topk(torch.cat(top_v), k10, dim=0)
+    oracle10 = torch.gather(torch.cat(top_i), 0, sel).T.cpu().numpy()
+    del top_v, top_i, tv, sel
+    for metric in ("euclidean", "cosine", "dot"):
+        for dt in (torch.float32, torch.float64):
+            xq = torch.randn(3001, 37, generator=g, dtype=dt).to(dev)
+            xq[5] = 0.0
+            o8 = torch.empty((3001, 48), dtype=torch.int8, device=dev)
+            oa = torch.empty((3001,), dtype=torch.float32, device=dev)
+            o2 = torch.zeros((3001,), dtype=torch.float32, device=dev)
+            T.quantize_rows_int8(xq, metric, o8, oa, o2)
+            p8, pa, p2 = T.quantize_rows_plain(xq, metric, 48)
+            check(torch.equal(o8, p8) and torch.equal(oa, pa)
+                  and torch.equal(o2, p2), f"quantize_rows_int8 {metric} {dt}")
+    qrows = min(1 << 20, n10)  # one block of the runner's ensure()
+    blk = torch.from_numpy(xs10[:qrows]).to(dev)
+    o8 = torch.empty((qrows, w10), dtype=torch.int8, device=dev)
+    oa = torch.empty((qrows,), dtype=torch.float32, device=dev)
+    o2 = torch.zeros((qrows,), dtype=torch.float32, device=dev)
+    qms, qby = bound(qrows * (4 * d10 + w10 + 4), 5 * qrows * d10, PEAK_F32)
+    note("quantize_rows_int8", 0.0,
+         ms=cuda_ms(lambda: T.quantize_rows_int8(blk, "cosine", o8, oa, o2),
+                    5),
+         plain_ms=cuda_ms(lambda: T.quantize_rows_plain(blk, "cosine", w10),
+                          2),
+         library_ms=None, bound_ms=qms, bound_by=qby,
+         shape=f"R={qrows} D={d10} cosine f32")
+    emit("kernel", name="quantize_rows_int8", tol=[0, 0], max_abs_err=0.0,
+         ms=kern["quantize_rows_int8"]["ms"], rows_checked=n10)
+    del blk, o8, oa, o2
+
+    # rank_scores_int8 at the path's shape: a 16-query chunk over 10M rows
+    c16 = 16
+    qs16 = torch.from_numpy(q10[:c16]).to(dev)
+    valid10 = torch.ones(n10, dtype=torch.bool, device=dev)
+    valid10[::97] = False
+    tol_i = (0.0, 1e-5)  # the kernel repeats the reference's float order
+    s_k = T.rank_scores_int8(x8_10, qs16, "cosine", arow10, None, valid10)
+    s_p = T.rank_scores_int8_plain(x8_10, qs16, "cosine", arow10, None,
+                                   valid10)
+    err = max_err(s_k, s_p, *tol_i, "rank_scores_int8 16x10Mx768")
+    kc10 = min(n10, max(cnf.KNN_INT8_OVERSAMPLE * k10, k10 + 16))
+    ck_v, ck_i = T.select_topk_rows(s_k, kc10)
+    cp_v, cp_i = T.top_k_smallest_plain(s_p, kc10)
+    check_ids(cp_v.cpu().numpy(), cp_i.cpu().numpy(), ck_i.cpu().numpy(),
+              "int8 candidates 16x10M kc=1280", atol=0.0, rtol=1e-5)
+    sel_ms = cuda_ms(lambda: T.select_topk_rows(s_k, kc10), 5)
+    emit("kernel", name="select_topk_rows", shape=f"R={c16} N={n10} "
+         f"k={kc10}", ms=sel_ms, bound_ms=bound(
+             4 * c16 * n10 + 8 * c16 * kc10, c16 * n10, PEAK_F32)[0])
+    del s_p, cp_v, cp_i, ck_v, ck_i
+    for metric in ("euclidean", "cosine", "dot"):
+        for probe_order in (False, True):
+            sx = torch.randint(-127, 128, (5000, 64), generator=g,
+                               dtype=torch.int8).to(dev)
+            sa = (torch.rand(5000, generator=g) + 0.01).to(dev) / 127
+            s2 = (torch.rand(5000, generator=g) * 10).to(dev)
+            sv = (torch.rand(5000, generator=g) > 0.1).to(dev)
+            sq_ = torch.randn(70, 64, generator=g).to(dev)
+            sq_[0] = 0.0  # a zero (padding) query: finite scores
+            e2 = max_err(
+                T.rank_scores_int8(sx, sq_, metric, sa, s2, sv, probe_order),
+                T.rank_scores_int8_plain(sx, sq_, metric, sa, s2, sv,
+                                         probe_order),
+                *tol_i, f"rank_scores_int8 {metric} probe={probe_order}")
+            err = max(err, e2)
+    q8_16, _ = T.quantize_queries_plain(qs16)
+    q8t = q8_16.t()
+
+    def int_mm():
+        return torch._int_mm(x8_10, q8t)
+
+    try:
+        lib_ms = cuda_ms(int_mm, 5)
+    except RuntimeError as e:  # a yardstick only: shapes it refuses
+        print(f"torch._int_mm refused [{n10}, {w10}] x [{w10}, {c16}]: "
+              f"{e}", file=sys.stderr)
+        lib_ms = None
+    ims, iby = bound(n10 * w10 + 4 * c16 * w10 + 5 * n10 + 4 * c16 * n10,
+                     2 * c16 * n10 * w10, PEAK_INT8)
+    note("rank_scores_int8", err,
+         ms=cuda_ms(lambda: T.rank_scores_int8(x8_10, qs16, "cosine",
+                                               arow10, None, valid10), 10),
+         plain_ms=cuda_ms(lambda: T.rank_scores_int8_plain(
+             x8_10, qs16, "cosine", arow10, None, valid10), 2),
+         library_ms=lib_ms, bound_ms=ims, bound_by=iby,
+         shape=f"C={c16} N={n10} D={d10} cosine")
+    emit("kernel", name="rank_scores_int8", tol=tol_i, max_abs_err=err,
+         ms=kern["rank_scores_int8"]["ms"])
+    # the runner's first chunk (queries 0..15, an all-valid store) must
+    # give these candidates
+    s_p = T.rank_scores_int8_plain(x8_10, qs16, "cosine", arow10)
+    cand10_v, cand10_i = (t.cpu().numpy()
+                          for t in T.top_k_smallest_plain(s_p, kc10))
+    del s_k, s_p, x8_10, arow10, x2_10, valid10, q8_16, q8t
+    torch.cuda.empty_cache()
+
+    def check_ann_descent():
+        """ann_descent at B = 512 on the ann phase's store against its
+        plain version on the card, from the same probe seed (itself the
+        probe kernels against their plain versions). Returns the built
+        index, the plain descent's candidates and the exact f64 top 10
+        of the recall queries."""
+        # built here, when no other path is measured: the build keeps the
+        # host's cores busy for tens of seconds
+        a = build_ann_index()
+        st = A.AnnStore("check", a["graph"], a["x8"], a["arow"], a["x2q"],
+                        "cosine", ann_cfg, dev)
+        dv = st._ensure()
+        width, iters, expand, kc = st._clamped(ann_kc)
+        qa = torch.from_numpy(a["qs"]).to(dev)
+        ids0, d0 = A.probe_seed(dv, qa, "cosine", width)
+        pscore = T.rank_scores_int8_plain(dv["x8p"], qa, "cosine",
+                                          dv["arowp"], dv["x2qp"],
+                                          probe_order=True)
+        pd0, psel = T.top_k_smallest_plain(pscore, width)
+        check(torch.equal(pd0, d0)
+              and torch.equal(dv["probe_ids"][psel.long()], ids0),
+              "ann probe seed differs from the plain version")
+        args = (dv["graph"], dv["x8"], dv["arow"], dv["x2q"], qa, ids0, d0,
+                "cosine", iters, expand, kc)
+        ki, kd = A.ann_descent_cuda(*args)
+        trace = {}
+        pi, pd = A.ann_descent_plain(*args, trace=trace)
+        tol_a = (0.0, 1e-5)
+        err = max_err(kd, pd, *tol_a, "ann_descent B=512")
+        check_ids(pd.cpu().numpy(), pi.cpu().numpy(), ki.cpu().numpy(),
+                  "ann_descent B=512 ids", atol=0.0, rtol=1e-5)
+        b, w10_ = qa.shape[0], dv["x8"].shape[1]
+        scored = torch.cat(trace["scored"])
+        expanded = torch.cat(trace["expanded"])
+        d_out = dv["graph"].shape[1]
+        nbytes = (int(torch.unique(scored).numel()) * (w10_ + 8)
+                  + int(torch.unique(expanded).numel()) * 4 * d_out
+                  + 4 * b * w10_ + 8 * b * width + 8 * b * kc)
+        ams, aby = bound(nbytes, 2 * int(scored.numel()) * w10_, PEAK_INT8)
+        note("ann_descent", err,
+             ms=cuda_ms(lambda: A.ann_descent_cuda(*args), 10),
+             plain_ms=cuda_ms(lambda: A.ann_descent_plain(*args), 2),
+             library_ms=None, bound_ms=ams, bound_by=aby,
+             shape=f"B={b} N={ANN['n']} D={ANN['dim']} W={width} "
+                   f"E={expand} iters={iters} kc={kc} cosine")
+        emit("kernel", name="ann_descent", tol=tol_a, max_abs_err=err,
+             ms=kern["ann_descent"]["ms"], rows_scored=int(scored.numel()))
+        # the exact f64 cosine top 10 of the recall queries
+        x64 = torch.from_numpy(a["xs"]).to(dev).double()
+        q64 = qa[:ANN["recall_q"]].double()
+        sims = (x64 @ q64.T) / x64.norm(dim=1).clamp_min(1e-30)[:, None]
+        oracle = torch.topk(sims, ANN["k"], dim=0).indices.T.cpu().numpy()
+        plain_ids = pi.cpu().numpy()
+        del st, dv, x64, sims, scored, expanded
+        torch.cuda.empty_cache()
+        return a, plain_ids, oracle
+
     # -- 4. the runner as a server ----------------------------------------------
     sup = DeviceSupervisor(device="cuda")
     try:
@@ -497,15 +795,144 @@ def main() -> int:
                     out[f"B{bsz}_{tagn}_reached"] = int(bufs[0].sum())
             return out
 
+        def knn10m():
+            cfg = cnf.device_cfg()
+            key, tag = "vec/b/b/tbl10m/ix", [1, 0]
+            t0 = time.perf_counter()
+            sup.ensure_loaded(key, tag, lambda: (
+                "vec_load", {"metric": "cosine", "mink_p": 3.0, "cfg": cfg},
+                [xs10, np.ones(n10, np.uint8)]))
+            out = {"rows": n10, "dim": d10, "gen_s": round(gen10_s, 3),
+                   "load_s": round(time.perf_counter() - t0, 3)}
+            results = {}
+            for bsz in KNN10M["batches"]:
+                meta = {"key": key, "tag": tag, "k": k10}
+                t, m, bufs = sup.call("vec_knn", meta, [q10[:bsz]])
+                check(t == "ok" and m["mode"] == "cand"
+                      and m["rank_mode"] == "int8" and m["kc"] == kc10,
+                      f"vec_knn {t} {m}")
+                iters = 3
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    _, _, bufs = sup.call("vec_knn", meta, [q10[:bsz]])
+                ms = (time.perf_counter() - t0) * 1e3 / iters
+                (cand,) = bufs
+                check(cand.shape == (bsz, kc10) and cand.dtype == np.int32
+                      and ((cand >= 0) & (cand < n10)).all(),
+                      f"knn10m B={bsz} candidates shape/values")
+                results[bsz] = cand
+                out[f"B{bsz}_ms"] = ms
+                out[f"B{bsz}_qps"] = bsz / ms * 1e3
+            cand = results[max(KNN10M["batches"])]
+            # the first 16-query chunk equals the plain pipeline's
+            check_ids(cand10_v, cand10_i, cand[:c16],
+                      "knn10m candidates vs the plain pipeline", atol=0.0,
+                      rtol=1e-5)
+            # the serving side's exact rescore (idx/vector.py:1432), in
+            # f64 from the rows here, then recall@10 against the oracle
+            hits = 0
+            for qi in range(nq10):
+                ids = cand[qi]
+                rows = xs10[ids].astype(np.float64)
+                q = q10[qi].astype(np.float64)
+                d = 1.0 - rows @ q / np.maximum(
+                    np.linalg.norm(rows, axis=1) * np.linalg.norm(q), 1e-30)
+                top = ids[np.argsort(d, kind="stable")[:k10]]
+                hits += len(set(top.tolist()) & set(oracle10[qi].tolist()))
+            recall = hits / (k10 * nq10)
+            check(recall >= 0.95, f"knn10m recall@10 {recall} < 0.95")
+            out["recall_at_10"] = recall
+            out["kc"] = kc10
+            sup.call("vec_drop", {"key": key})
+            sup.forget(key)
+            return out
+
+        def ann_phase():
+            key, tag = "ann/b/b/tbl/ix", [1, 0, 0]
+            bufs = [ann["graph"], ann["x8"], ann["arow"], ann["x2q"]]
+
+            def ship():
+                # 226 MB ships in parts of 64 MB (the multipart path)
+                sup.LOAD_PART_BYTES = 64 << 20
+                try:
+                    t0 = time.perf_counter()
+                    sup.ensure_loaded(key, tag, lambda: (
+                        "ann_load", {"metric": "cosine", "cfg": ann_cfg},
+                        bufs))
+                    return time.perf_counter() - t0
+                finally:
+                    sup.LOAD_PART_BYTES = DeviceSupervisor.LOAD_PART_BYTES
+
+            out = {"rows": ANN["n"], "dim": ANN["dim"],
+                   "gen_s": round(ann["gen_s"], 3),
+                   "build_s": round(ann["build_s"], 3),
+                   "load_s": round(ship(), 3)}
+            meta = {"key": key, "tag": tag, "kc": ann_kc}
+            results = {}
+            for bsz in ANN["batches"]:
+                t, m, rb = sup.call("ann_search", meta, [ann["qs"][:bsz]])
+                check(t == "ok" and m["mode"] == "cand",
+                      f"ann_search {t} {m}")
+                iters = 5
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    _, _, rb = sup.call("ann_search", meta,
+                                        [ann["qs"][:bsz]])
+                ms = (time.perf_counter() - t0) * 1e3 / iters
+                check(rb[0].shape == (bsz, ann_kc)
+                      and ((rb[0] >= 0) & (rb[0] < ANN["n"])).all(),
+                      f"ann B={bsz} candidates shape/values")
+                results[bsz] = rb[0]
+                out[f"B{bsz}_ms"] = ms
+                out[f"B{bsz}_qps"] = bsz / ms * 1e3
+            cand = results[max(ANN["batches"])]
+            out["ids_equal_plain"] = bool(np.array_equal(cand, ann_plain))
+            check(out["ids_equal_plain"],
+                  "ann candidates differ from the plain descent")
+            # exact rescore of the 40 candidates, recall@10 vs the oracle
+            xs, qs = ann["xs"], ann["qs"]
+            hits = 0
+            for qi in range(ANN["recall_q"]):
+                ids = cand[qi]
+                rows = xs[ids].astype(np.float64)
+                q = qs[qi].astype(np.float64)
+                d = 1.0 - rows @ q / np.maximum(
+                    np.linalg.norm(rows, axis=1) * np.linalg.norm(q), 1e-30)
+                top = ids[np.argsort(d, kind="stable")[:ANN["k"]]]
+                hits += len(set(top.tolist()) & set(ann_oracle[qi].tolist()))
+            recall = hits / (ANN["k"] * ANN["recall_q"])
+            check(recall >= 0.95, f"ann recall@10 {recall} < 0.95")
+            out["recall_at_10"] = recall
+            # drop, stale, reship: the same candidates
+            sup.call("ann_drop", {"key": key})
+            check(sup.call("ann_search", meta, [qs[:1]])[0] == "stale",
+                  "a dropped ann store must answer stale")
+            sup.forget(key)
+            out["reship_s"] = round(ship(), 3)
+            _, _, rb = sup.call("ann_search", meta, [qs])
+            out["ids_equal_after_reship"] = bool(np.array_equal(rb[0], cand))
+            check(out["ids_equal_after_reship"],
+                  "ann candidates changed after a drop and a reship")
+            return out
+
         drive("knn1m", knn1m)
         drive("brute", brute)
         drive("graph3hop", graph3hop)
+        sup.call("vec_drop", {"key": "vec/b/b/tbl/ix"})  # the knn1m store
+        sup.forget("vec/b/b/tbl/ix")
+        xs_np = full = rank = None  # the knn1m rows: host and card memory
+        torch.cuda.empty_cache()
+        drive("knn10m", knn10m)
+        xs10 = None
+        ann, ann_plain, ann_oracle = check_ann_descent()
+        drive("ann", ann_phase)
         _, stat, _ = sup.call("status", {})
         check(stat["platform"] == "cuda", "status platform")
         emit("status", platform=stat["platform"],
              mem_used=stat["mem_used"], vec_bytes=stat["vec_bytes"],
              csr_bytes=stat["csr_bytes"], vec_blocks=stat["vec_blocks"],
-             csr_blocks=stat["csr_blocks"],
+             csr_blocks=stat["csr_blocks"], ann_blocks=stat["ann_blocks"],
+             ann_bytes=stat["ann_bytes"],
              compile_cache=stat["compile_cache"])
     finally:
         sup.shutdown()

@@ -37,6 +37,29 @@ KNN_SCORE_BUDGET_ELEMS = env_int("SURREAL_KNN_SCORE_BUDGET_ELEMS", 1 << 29)
 KNN_HBM_BUDGET_BYTES = env_int("SURREAL_KNN_HBM_BUDGET_BYTES", 12 << 30)
 KNN_INT8_OVERSAMPLE = env_int("SURREAL_KNN_INT8_OVERSAMPLE", 128)
 
+# -- quantized graph-ANN index (idx/cagra.py, device/annstore.py) ------------
+# fixed out-degree of the search graph ([N, D_out] int32)
+KNN_ANN_DEGREE = env_int("SURREAL_KNN_ANN_DEGREE", 32)
+# greedy-descent frontier width; rounded up to a power of two by the
+# serving side and never below the re-rank candidate count
+KNN_ANN_SEARCH_WIDTH = env_int("SURREAL_KNN_ANN_SEARCH_WIDTH", 64)
+# fixed descent iterations / nodes expanded per iteration
+KNN_ANN_ITERS = env_int("SURREAL_KNN_ANN_ITERS", 24)
+KNN_ANN_EXPAND = env_int("SURREAL_KNN_ANN_EXPAND", 2)
+# exact re-rank oversampling: kc = max(OVERSAMPLE * k, 32) candidates
+KNN_ANN_OVERSAMPLE = env_int("SURREAL_KNN_ANN_OVERSAMPLE", 4)
+# routing probe (strided rows scored to seed the descent): a floor and
+# a fraction of N, so the per-cluster miss rate stays flat as N grows
+KNN_ANN_PROBE = env_int("SURREAL_KNN_ANN_PROBE", 4096)
+KNN_ANN_PROBE_FRAC = env_float("SURREAL_KNN_ANN_PROBE_FRAC", 1 / 24)
+# build knobs: RP-partition leaf size, trees merged, NN-descent refine
+# rounds (-1 = auto: 1 round up to 200k rows, 0 above)
+KNN_ANN_LEAF = env_int("SURREAL_KNN_ANN_LEAF", 512)
+KNN_ANN_TREES = env_int("SURREAL_KNN_ANN_TREES", 2)
+KNN_ANN_REFINE = env_int("SURREAL_KNN_ANN_REFINE", -1)
+# int8 quantization clip quantile (1.0 = the exact per-row max)
+KNN_ANN_CLIP_Q = env_float("SURREAL_KNN_ANN_CLIP_Q", 1.0)
+
 # -- device runner ------------------------------------------------------------
 # runner store budget across the vec/csr block caches + multipart
 # staging, per device; 0 = the per-kind LRU entry caps only
@@ -57,4 +80,18 @@ def device_cfg() -> dict:
         "query_chunk": KNN_QUERY_CHUNK,
         "int8_oversample": KNN_INT8_OVERSAMPLE,
         "block_rows": KNN_BLOCK_ROWS,
+    }
+
+
+def ann_search_cfg() -> dict:
+    """The descent knobs a serving process ships with an ann_load (the
+    reference's `TpuVectorIndex._ann_search_cfg`): the width rounded up
+    to a power of two."""
+    width = 1
+    while width < max(KNN_ANN_SEARCH_WIDTH, 1):
+        width *= 2
+    return {
+        "width": width,
+        "iters": max(KNN_ANN_ITERS, 1),
+        "expand": max(KNN_ANN_EXPAND, 1),
     }

@@ -26,8 +26,21 @@ enum Metric {
   M_JACCARD = 8,
 };
 
-// largest k select_topk_rows takes (its sort buffer lives in shared memory)
+// largest k whose select_topk_rows sort buffer lives in shared memory;
+// a larger k sorts in the caller's device scratch
 #define SURREAL_SELECT_MAX_K 4096
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` unless an
+// earlier launch already did (the attribute call costs host time on
+// every launch otherwise). `*done` is the launch site's record.
+template <typename K>
+inline cudaError_t surreal_smem_limit(K* kernel, int bytes, int* done) {
+  if (bytes <= *done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done = bytes;
+  return err;
+}
 
 __device__ __forceinline__ float surreal_warp_sum(float v) {
 #pragma unroll
@@ -46,11 +59,14 @@ SURREAL_API int distance_tile(const float* xs, const float* qs,
 // select.cu: per row r, the k smallest of vals[r, 0:n] (row stride ld)
 // in ascending (value, index) order -- ties go to the lower index.
 // out_idx holds the position, or ids[r, position] when ids is not null.
+// For k > SURREAL_SELECT_MAX_K, scratch is a [rows, scratch_ld] u64
+// buffer with scratch_ld >= the power of two >= k (else it may be null).
 SURREAL_API int select_topk_rows(const float* vals, long long ld,
                                  const int32_t* ids, long long ids_ld,
                                  int rows, long long n, int k,
                                  float* out_vals, int32_t* out_idx,
-                                 void* stream);
+                                 unsigned long long* scratch,
+                                 long long scratch_ld, void* stream);
 
 // rank_rescore.cu: out[c, n] = x2[n] - 2 dot(qs_bf16[c], xs_rank[n])
 // (euclid != 0) or -dot, f32 accumulation, +inf where valid[n] == 0.
@@ -68,6 +84,35 @@ SURREAL_API int gather_rescore(const float* xs_full, const float* qs,
                                const uint8_t* valid, float* out,
                                long long n, int c, int kc, int d,
                                int metric, void* stream);
+
+// rank_int8.cu: out[c, n] = score of the int8 row xs[n] (width d, a
+// multiple of 16, at most 2048) against query c quantised in the
+// prologue (sq = 127 / max|q|, q8 = rint(q sq)): approx = dots *
+// (arow[n] / sq) (probe_order 0, knn_rank_int8) or dots * (arow[n] *
+// (1 / sq)) (probe_order 1, the ANN probe); x2[n] - 2 approx (euclid)
+// or -approx; +inf where valid[n] == 0.
+SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
+                                 const float* arow, const float* x2,
+                                 const uint8_t* valid, float* out,
+                                 long long n, int c, int d, int euclid,
+                                 int probe_order, void* stream);
+
+// rank_int8.cu: the int8 store of [n, d] rows (f32, or f64 when is_f64):
+// x8[n, width] (zero columns past d), arow[n], x2[n] (euclidean only).
+SURREAL_API int quantize_rows_int8(const void* rows, int is_f64, long long n,
+                                   int d, int width, int metric, int8_t* x8,
+                                   float* arow, float* x2, void* stream);
+
+// ann_descent.cu: per query b, `iters` rounds of the greedy graph descent
+// from the frontier (init_ids, init_dist)[b, width]; writes the kc best
+// (ids, int8 scores). d is the int8 row width (a multiple of 16).
+SURREAL_API int ann_descent(const int32_t* graph, const int8_t* x8,
+                            const float* arow, const float* x2q,
+                            const float* qs, const int32_t* init_ids,
+                            const float* init_dist, int32_t* out_ids,
+                            float* out_dist, long long n, int d_out, int d,
+                            int b, int width, int expand, int iters, int kc,
+                            int euclid, void* stream);
 
 // csr_hop.cu: for every edge e and batch row b, if frontier[b, rows[e]]
 // then next[b, cols[e]] = 1 (and acc[b, cols[e]] = 1 when acc is not

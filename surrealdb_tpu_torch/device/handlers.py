@@ -1,5 +1,6 @@
 """Device op dispatch table of the torch runner (the reference's
-`device/handlers.py`, for one device).
+`device/handlers.py`, for one device): vector, graph-ANN and CSR block
+caches, brute KNN, status.
 
 Every handler is `(meta, bufs) -> (tag, meta_out, bufs_out)`; raising
 maps to an `("err", ...)` reply. Op names, the meta/bufs layout and the
@@ -21,11 +22,12 @@ import numpy as np
 import torch
 
 from surrealdb_tpu_torch import cnf
-from surrealdb_tpu_torch.device.vecstore import NotPorted, to_device
+from surrealdb_tpu_torch.device.vecstore import to_device
 
 # bounded block caches: enough for every live index in a busy node, and
 # an eviction is only a re-ship (never an error)
 MAX_VEC_STORES = 64
+MAX_ANN_STORES = 16
 MAX_CSR_STORES = 64
 
 
@@ -56,7 +58,7 @@ def _vec_estimate(n: int, dim: int, itemsize: int, meta: dict) -> int:
 
 
 class DeviceHost:
-    """Per-runner registry of vector + CSR block caches."""
+    """Per-runner registry of vector, graph-ANN and CSR block caches."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
@@ -66,8 +68,12 @@ class DeviceHost:
             compile_cache.ensure_built()
         self.vec: OrderedDict = OrderedDict()  # key -> (tag, VecStore)
         self.csr: OrderedDict = OrderedDict()  # key -> (tag, CsrStore)
+        self.ann: OrderedDict = OrderedDict()  # key -> (tag, AnnStore)
         # multipart vec loads in flight: key -> (meta, vecs, valid)
         self._staging: dict = {}
+        # multipart ANN loads: key -> (meta, {name: array}); the int8
+        # rows and the graph ship as independently chunked buffers
+        self._ann_staging: dict = {}
         self.budget_bytes = cnf.env_int(
             "SURREAL_DEVICE_MEM_BUDGET_MB", cnf.DEVICE_MEM_BUDGET_MB
         ) << 20
@@ -84,11 +90,13 @@ class DeviceHost:
         multipart staging (host-side until load_end, admitted up
         front) and reservations."""
         total = 0
-        for cache in (self.vec, self.csr):
+        for cache in (self.vec, self.csr, self.ann):
             for _tag, st in cache.values():
                 total += st.device_nbytes()
         for _m, vecs, valid in self._staging.values():
             total += int(vecs.nbytes) + int(valid.nbytes)
+        for _m, by_name in self._ann_staging.values():
+            total += sum(int(a.nbytes) for a in by_name.values())
         total += sum(self._reserved.values())
         return total
 
@@ -96,14 +104,15 @@ class DeviceHost:
     mem_used_device0 = mem_used
 
     def _evict_key(self, key: str):
-        for cache in (self.vec, self.csr):
+        for cache in (self.vec, self.csr, self.ann):
             cache.pop(key, None)
 
     def _admit(self, share: int, keep_key: str = ""):
         """Make room for `share` estimated bytes or raise
-        DeviceBudgetError. Victims pop oldest-first, csr before vec
-        (ascending re-ship cost). `keep_key`'s outdated copy is dropped
-        first and is never counted against its replacement."""
+        DeviceBudgetError. Victims pop oldest-first, in kind order
+        csr -> vec -> ann (ascending re-ship cost). `keep_key`'s
+        outdated copy is dropped first and is never counted against its
+        replacement."""
         if self.budget_bytes <= 0:
             return
         if keep_key:
@@ -117,7 +126,7 @@ class DeviceHost:
             )
         while self.mem_used() + share > self.budget_bytes:
             victim = None
-            for cache in (self.csr, self.vec):
+            for cache in (self.csr, self.vec, self.ann):
                 for key in cache:
                     if key != keep_key:
                         victim = (cache, key)
@@ -163,10 +172,10 @@ class DeviceHost:
             "mem_used_device0": self.mem_used(),
             "vec_blocks": len(self.vec),
             "csr_blocks": len(self.csr),
-            "ann_blocks": 0,
+            "ann_blocks": len(self.ann),
             "vec_bytes": sum(s.nbytes() for _t, s in self.vec.values()),
             "csr_bytes": sum(s.nbytes() for _t, s in self.csr.values()),
-            "ann_bytes": 0,
+            "ann_bytes": sum(s.nbytes() for _t, s in self.ann.values()),
             "mem_used": self.mem_used(),
             "mem_budget": self.budget_bytes,
             "oom_refusals": self.oom_refusals,
@@ -292,12 +301,94 @@ class DeviceHost:
 
         return self._prewarm_shapes(self.vec, meta, "buckets", warm)
 
-    def _not_ported(self, meta, bufs):
-        raise NotPorted("ANN graph stores (ann_* ops)")
+    # -- quantized graph-ANN blocks (device/annstore.py) --------------------
 
-    op_ann_load = op_ann_load_begin = op_ann_load_part = _not_ported
-    op_ann_load_end = op_ann_search = op_ann_prewarm = _not_ported
-    op_ann_drop = _not_ported
+    def _ann_install(self, key, tag, meta, graph, x8, arow, x2q):
+        from surrealdb_tpu_torch.device.annstore import AnnStore
+
+        self._admit(AnnStore.estimate_device_bytes(
+            x8.shape[0], x8.shape[1], graph.shape[1]), keep_key=key)
+        st = AnnStore(key, graph, x8, arow, x2q, meta["metric"],
+                      meta.get("cfg") or {}, self.device)
+        st._ensure()
+        self.ann.pop(key, None)
+        self.ann[key] = (list(tag), st)
+        while len(self.ann) > MAX_ANN_STORES:
+            self.ann.popitem(last=False)
+        return "ok", {"mesh_ndev": 1}, []
+
+    def op_ann_load(self, meta, bufs):
+        graph, x8, arow, x2q = bufs
+        return self._ann_install(meta["key"], meta["tag"], meta,
+                                 graph, x8, arow, x2q)
+
+    def op_ann_load_begin(self, meta, bufs):
+        from surrealdb_tpu_torch.device.annstore import AnnStore
+
+        key = meta["key"]
+        arow, x2q = bufs
+        n = arow.shape[0]
+        # host staging (~est) and the installed arrays (est) coexist
+        # briefly at load_end; the install share stays reserved until
+        # then so a concurrent ship cannot overcommit
+        est = AnnStore.estimate_device_bytes(
+            n, int(meta["dim"]), int(meta["d_out"]))
+        self._admit(est + est, keep_key=key)
+        self._reserved.pop(key, None)
+        if self.budget_bytes > 0:
+            self._reserved[key] = est
+        by_name = {
+            "graph": np.empty((n, int(meta["d_out"])), np.int32),
+            "x8": np.empty((n, int(meta["dim"])), np.int8),
+            "arow": arow,
+            "x2q": x2q,
+        }
+        self._ann_staging[key] = (dict(meta), by_name)
+        return "ok", {}, []
+
+    def op_ann_load_part(self, meta, bufs):
+        ent = self._ann_staging.get(meta["key"])
+        if ent is None:
+            return "stale", {}, []
+        target = ent[1][meta["buf"]]
+        off = int(meta["off"])
+        (chunk,) = bufs
+        target[off:off + chunk.shape[0]] = chunk
+        return "ok", {}, []
+
+    def op_ann_load_end(self, meta, bufs):
+        key = meta["key"]
+        ent = self._ann_staging.pop(key, None)
+        self._reserved.pop(key, None)  # _ann_install re-admits below
+        if ent is None:
+            return "stale", {}, []
+        lmeta, by_name = ent
+        return self._ann_install(
+            key, meta["tag"], lmeta, by_name["graph"], by_name["x8"],
+            by_name["arow"], by_name["x2q"])
+
+    def op_ann_drop(self, meta, bufs):
+        self.ann.pop(meta["key"], None)
+        self._ann_staging.pop(meta["key"], None)
+        self._reserved.pop(meta["key"], None)
+        return "ok", {}, []
+
+    def op_ann_search(self, meta, bufs):
+        ent = self.ann.get(meta["key"])
+        if ent is None or ent[0] != list(meta["tag"]):
+            return "stale", {}, []
+        self.ann.move_to_end(meta["key"])
+        cand = ent[1].search(bufs[0], int(meta["kc"]))
+        return "ok", {"mode": "cand", "mesh_ndev": 1}, [cand]
+
+    def op_ann_prewarm(self, meta, bufs):
+        """Query-bucket ladder for an ANN index's descent."""
+        kc = int(meta.get("kc", 40))
+
+        def warm(st, b):
+            st.search(np.zeros((b, st.x8.shape[1]), np.float32), kc)
+
+        return self._prewarm_shapes(self.ann, meta, "buckets", warm)
 
     def op_csr_load(self, meta, bufs):
         from surrealdb_tpu_torch.device.csrstore import CsrStore

@@ -24,7 +24,8 @@ _SEEN: set = set()
 _SEEN_MAX = 4096
 
 KERNELS = ("distance_tile", "select_topk_rows", "rank_scores_bf16",
-           "gather_rescore", "csr_hop_step")
+           "gather_rescore", "csr_hop_step", "quantize_rows_int8",
+           "rank_scores_int8", "ann_descent")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 

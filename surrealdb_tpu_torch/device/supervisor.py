@@ -4,8 +4,9 @@
 `DeviceSupervisor` spawns `python -m surrealdb_tpu_torch.device.runner`
 with one end of a socketpair, waits for its ready frame under the init
 watchdog, sends one op at a time with a timeout (a timeout or a lost
-runner kills it and raises `DeviceUnavailable`), ships vector stores in
-parts above `LOAD_PART_BYTES` and shuts the runner down. The reference's
+runner kills it and raises `DeviceUnavailable`), ships vector and
+graph-ANN stores in parts above `LOAD_PART_BYTES` and shuts the runner
+down. The reference's
 background re-probe, degrade/promote state machine and cross-query
 batching are not part of this client.
 """
@@ -194,6 +195,9 @@ class DeviceSupervisor:
         meta["tag"] = tag
         if op == "vec_load" and bufs[0].nbytes > self.LOAD_PART_BYTES:
             self._multipart_vec_load(key, tag, meta, bufs[0], bufs[1])
+        elif (op == "ann_load"
+                and sum(b.nbytes for b in bufs) > self.LOAD_PART_BYTES):
+            self._multipart_ann_load(key, tag, meta, bufs)
         else:
             self.call(op, meta, bufs, timeout_s=self.load_timeout_s)
         self._loaded[key] = tag
@@ -214,6 +218,32 @@ class DeviceSupervisor:
             if t == "stale":
                 raise DeviceUnavailable("runner lost mid-load")
         t, _m, _b = self.call("vec_load_end", {"key": key, "tag": tag},
+                              timeout_s=self.load_timeout_s)
+        if t == "stale":
+            raise DeviceUnavailable("runner lost mid-load")
+
+    def _multipart_ann_load(self, key, tag, meta, bufs):
+        """Chunked ship of a quantized ANN index: begin carries the
+        small per-row arrays + shapes, the graph and the int8 rows
+        stream as named row-chunked parts (no single frame, and no
+        transient copy, holds a large index whole)."""
+        graph, x8, arow, x2q = bufs
+        begin = dict(meta)
+        begin["d_out"] = int(graph.shape[1])
+        begin["dim"] = int(x8.shape[1])
+        self.call("ann_load_begin", begin, [arow, x2q],
+                  timeout_s=self.load_timeout_s)
+        for name, arr in (("graph", graph), ("x8", x8)):
+            row_bytes = max(1, arr.shape[1] * arr.dtype.itemsize)
+            step = max(1, self.LOAD_PART_BYTES // row_bytes)
+            for off in range(0, arr.shape[0], step):
+                t, _m, _b = self.call(
+                    "ann_load_part", {"key": key, "buf": name, "off": off},
+                    [arr[off:off + step]], timeout_s=self.load_timeout_s,
+                )
+                if t == "stale":
+                    raise DeviceUnavailable("runner lost mid-load")
+        t, _m, _b = self.call("ann_load_end", {"key": key, "tag": tag},
                               timeout_s=self.load_timeout_s)
         if t == "stale":
             raise DeviceUnavailable("runner lost mid-load")

@@ -9,10 +9,11 @@ cache epoch; queries arrive as `[B, D]` f32 batches and leave as
   on the device (the f32 rows are the one host-to-device transfer; the
   bf16 rows, divided by their norms first for cosine, are derived on the
   device), served by `knn_rank_rescore`;
-- when that pair (6 B/elem) exceeds `cfg["hbm_budget"]` the reference
-  switches to an int8 ranking store; that branch is not ported yet and
-  raises `NotPorted`, which the runner answers as an `err` reply (the
-  serving side then degrades that store to its host path);
+- when that pair (6 B/elem) exceeds `cfg["hbm_budget"]`: the int8
+  ranking store (1 B/elem), quantised on the device in blocks of rows
+  (`quantize_rows_int8`, the reference's formula bit for bit) and served
+  by `knn_rank_int8`, whose kc = `int8_oversample`·k candidates leave as
+  a "cand" reply for the serving side's exact rescore;
 - other metrics: the exact store (`knn_search`), blockwise above
   `cfg["block_rows"]` (`knn_search_blocked`).
 """
@@ -29,13 +30,6 @@ from surrealdb_tpu_torch.ops.metrics import COSINE, EUCLIDEAN, GEMM_METRICS
 
 # rows per step of the on-device f64 row statistics
 _STAT_ROWS = 1 << 16
-
-
-class NotPorted(RuntimeError):
-    """A reference branch this slice of the port does not run yet."""
-
-    def __init__(self, what: str):
-        super().__init__(f"not ported: {what}")
 
 
 def _pow2_chunks(b_total: int, n: int, query_chunk: int,
@@ -90,7 +84,8 @@ class VecStore:
         self.device_full = None
         self.device_norms = None
         self.device_x2 = None
-        self.rank_mode = None  # "bf16" | None (exact store)
+        self.device_arow = None
+        self.rank_mode = None  # "bf16" | "int8" | None (exact store)
 
     def nbytes(self) -> int:
         return int(self.vecs.nbytes)
@@ -131,7 +126,11 @@ class VecStore:
             return
         n, dim = self.vecs.shape
         if 6 * n * dim > self.cfg["hbm_budget"]:
-            raise NotPorted("int8 rank store")
+            # bf16 rank + f32 full (6 B/elem) won't fit: int8 ranking
+            # store (1 B/elem); the exact rescore of the oversampled
+            # candidates happens on the serving side
+            self._ensure_int8(valid)
+            return
         full = to_device(self.vecs, dev, torch.float32)
         x2 = norms = None
         if self.metric == EUCLIDEAN:
@@ -152,16 +151,69 @@ class VecStore:
         self.device_rank = rank.to(torch.bfloat16)
         self.rank_mode = "bf16"
 
+    def _ensure_int8(self, valid):
+        """Quantise the rows into the device int8 store, one block of
+        rows (256 MB of f32, as the reference steps) at a time: only the
+        int8 rows, their scales, x2 (euclidean, else zeros) and the mask
+        stay on the device."""
+        from surrealdb_tpu_torch.ops import topk
+
+        dev = self.device
+        n, dim = self.vecs.shape
+        x8 = torch.empty((n, topk.int8_width(dim)), dtype=torch.int8,
+                         device=dev)
+        arow = torch.empty((n,), dtype=torch.float32, device=dev)
+        x2 = torch.zeros((n,), dtype=torch.float32, device=dev)
+        rows = self.vecs
+        if rows.dtype not in (np.float32, np.float64):
+            rows = rows.astype(np.float64)
+        step = max(1, (256 << 20) // max(dim * 4, 1))
+        for s in range(0, n, step):
+            e = min(s + step, n)
+            topk.quantize_rows(to_device(rows[s:e], dev), self.metric,
+                               x8[s:e], arow[s:e], x2[s:e])
+        self.device_rank = x8
+        self.device_arow = arow
+        self.device_x2 = x2
+        self.device_valid = valid
+        self.rank_mode = "int8"
+
     def knn(self, qvs: np.ndarray, k: int):
-        """Batched device search: [B, D] f32 queries -> (meta, bufs),
-        bufs = [dists f32 [B, k'], ids i32 [B, k']] (invalid slots carry
-        inf / out-of-range ids)."""
+        """Batched device search: [B, D] f32 queries -> (meta, bufs).
+
+        mode "pairs": bufs = [dists f32 [B, k'], ids i32 [B, k']]
+        (invalid slots carry inf / out-of-range ids).
+        mode "cand": bufs = [cand i32 [B, kc]], int8 ranking candidates
+        for the serving side's exact rescore."""
         self.ensure()
         from surrealdb_tpu_torch.ops import topk
 
         cfg = self.cfg
         n = self.vecs.shape[0]
         qs = to_device(qvs, self.device, torch.float32)
+        if self.rank_mode == "int8":
+            kc = min(n, max(cfg["int8_oversample"] * k, k + 16))
+            b_total = qs.shape[0]
+            # the halved score budget, as the reference's: its int8
+            # kernel holds int32 dots AND the f32 scores at [chunk, N]
+            bucket, chunk, r = _pow2_chunks(
+                b_total, n, cfg["query_chunk"], cfg["score_budget"] // 2
+            )
+            kernelstats.note_shape(
+                "knn_rank_int8", (self.vecs.shape, chunk, kc, self.metric))
+            if bucket != b_total:
+                qs = torch.cat([qs, qs.new_zeros((bucket - b_total,
+                                                  qs.shape[1]))])
+            cand = topk.knn_rank_int8(
+                self.device_rank, self.device_arow, self.device_x2,
+                self.device_valid, qs.reshape(r, chunk, -1), kc,
+                self.metric,
+            )
+            cand = cand.reshape(bucket, kc)[:b_total]
+            return (
+                {"mode": "cand", "rank_mode": self.rank_mode, "kc": kc},
+                [np.ascontiguousarray(cand.cpu().numpy(), np.int32)],
+            )
         if self.device_rank is not None:
             # oversampling absorbs bf16 ranking error AND tombstoned
             # rows ranked into the candidate set

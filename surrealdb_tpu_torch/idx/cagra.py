@@ -1,0 +1,310 @@
+"""CAGRA-style quantized graph-ANN index: the host-side construction
+(the reference package's `idx/cagra.py`, trimmed to what the port's
+runner, its tests and chip_smoke.py need).
+
+- `build_graph`: fixed-out-degree flat search graph `[N, D_out]` int32.
+  A kNN-graph init (random-projection partition trees, exact kNN inside
+  each leaf via one gemm, merged across trees, optional NN-descent
+  refine), then CAGRA's rank-based reordering + reverse-edge merge
+  (arXiv:2308.15136).
+- `quantize_int8`: per-row int8 with an optional |x| quantile clip;
+  cosine quantizes the pre-normalized rows.
+- `entry_ids` / `probe_count`: the strided routing probe the device
+  descent (`device/annstore.py`) scores to seed its frontier.
+
+Pure numpy, the same arrays byte for byte as the reference's builder
+for the same inputs and seed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from surrealdb_tpu_torch import cnf
+
+MXU_METRICS = ("euclidean", "cosine", "dot")
+
+
+# ---------------------------------------------------------------------------
+# quantization
+# ---------------------------------------------------------------------------
+
+
+def row_stats(xs: np.ndarray, block_elems: int = 16 << 20):
+    """f64-accurate per-row stats as f32: (x2 squared norms, norms).
+    Blockwise: never materializes an [N, D] copy."""
+    n, dim = xs.shape
+    x2 = np.empty(n, np.float32)
+    step = max(1, block_elems // max(dim, 1))
+    for s in range(0, n, step):
+        blk = xs[s:s + step].astype(np.float64)
+        x2[s:s + step] = (blk * blk).sum(axis=1).astype(np.float32)
+    norms = np.sqrt(x2, dtype=np.float32)
+    return x2, norms
+
+
+def quantize_int8(xs: np.ndarray, metric: str = "euclidean",
+                  clip_q: float = None, norms: np.ndarray = None):
+    """Per-row int8: row r stores `round(clip(x_r, ±m_r) * 127 / m_r)`
+    where `m_r` is the row's |x| quantile at `clip_q` (1.0 = the exact
+    max). Cosine quantizes the pre-normalized rows. Returns
+    (x8 [N, D] int8, arow [N] f32 dequant scale)."""
+    if clip_q is None:
+        clip_q = cnf.KNN_ANN_CLIP_Q
+    n, dim = xs.shape
+    x8 = np.empty((n, dim), np.int8)
+    arow = np.empty(n, np.float32)
+    kth = min(max(int(clip_q * (dim - 1)), 0), dim - 1)
+    step = max(1, (64 << 20) // max(dim * 4, 1))
+    for s in range(0, n, step):
+        blk = xs[s:s + step].astype(np.float32)
+        if metric == "cosine":
+            nb = norms[s:s + step] if norms is not None else np.maximum(
+                np.linalg.norm(blk.astype(np.float64), axis=1), 1e-30
+            ).astype(np.float32)
+            blk = blk / np.maximum(nb, 1e-30)[:, None]
+        a = np.abs(blk)
+        if kth >= dim - 1:
+            m = a.max(axis=1)
+        else:
+            m = np.partition(a, kth, axis=1)[:, kth]
+            # all-outlier rows (the quantile lands on 0 while the max
+            # does not) fall back to the max
+            zero = m <= 0
+            if zero.any():
+                m[zero] = a[zero].max(axis=1)
+        m = np.maximum(m, 1e-30)
+        x8[s:s + step] = np.clip(
+            np.rint(blk * (127.0 / m)[:, None]), -127, 127
+        ).astype(np.int8)
+        arow[s:s + step] = m / 127.0
+    return x8, arow
+
+
+# ---------------------------------------------------------------------------
+# graph construction
+# ---------------------------------------------------------------------------
+
+
+def pack_csr(rows: np.ndarray, cols: np.ndarray, n_nodes: int):
+    """Stable-sorted CSR arrays from an edge list: returns
+    (indptr [n+1] int64, sorted_cols [E], order [E]) where `order` is
+    the stable row-sort permutation (per-row destinations keep their
+    edge-list order)."""
+    order = np.argsort(rows, kind="stable")
+    sorted_cols = cols[order]
+    indptr = np.zeros(n_nodes + 1, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    return np.cumsum(indptr), sorted_cols, order
+
+
+class _Space:
+    """Metric-transformed row access for the BUILD distance (squared
+    euclidean in the transformed space, monotone with the metric).
+    Gathers transform on the fly; no transformed [N, D] copy."""
+
+    def __init__(self, xs, metric, x2, norms):
+        self.xs = xs
+        self.metric = metric
+        self.dim = xs.shape[1] + (1 if metric == "dot" else 0)
+        if metric == "cosine":
+            self.inv = (1.0 / np.maximum(norms, 1e-30)).astype(np.float32)
+            self.aug = None
+        elif metric == "dot":
+            # the MIPS -> L2 reduction: x' = [x, sqrt(M^2 - |x|^2)]
+            self.inv = None
+            m2 = float(x2.max()) if len(x2) else 0.0
+            self.aug = np.sqrt(np.maximum(m2 - x2, 0.0)).astype(np.float32)
+        else:
+            self.inv = None
+            self.aug = None
+
+    def gather(self, ids) -> np.ndarray:
+        """Transformed f32 rows for (possibly multi-dim) id arrays."""
+        rows = self.xs[ids].astype(np.float32, copy=False)
+        if self.inv is not None:
+            rows = rows * self.inv[ids][..., None]
+        elif self.aug is not None:
+            rows = np.concatenate(
+                [rows, self.aug[ids][..., None]], axis=-1
+            )
+        return rows
+
+    def project(self, ids, r: np.ndarray) -> np.ndarray:
+        """Projection of transformed rows onto direction r [dim]."""
+        p = self.xs[ids].astype(np.float32, copy=False) @ r[:self.xs.shape[1]]
+        if self.inv is not None:
+            p = p * self.inv[ids]
+        elif self.aug is not None:
+            p = p + self.aug[ids] * r[-1]
+        return p
+
+
+def _merge_into(best_i, best_d, rows, new_i, new_d, keep: int):
+    """Merge candidate (id, dist) lists into the running per-node best,
+    deduping by id (min dist wins): one lexsort per block."""
+    ci = np.concatenate([best_i[rows], new_i], axis=1)
+    cd = np.concatenate([best_d[rows], new_d], axis=1)
+    order = np.lexsort((cd, ci), axis=1)  # by id, then dist
+    ci = np.take_along_axis(ci, order, 1)
+    cd = np.take_along_axis(cd, order, 1)
+    dup = np.zeros(ci.shape, bool)
+    dup[:, 1:] = ci[:, 1:] == ci[:, :-1]
+    cd[dup] = np.inf
+    cd[ci < 0] = np.inf
+    sel = np.argpartition(cd, keep - 1, axis=1)[:, :keep]
+    best_i[rows] = np.take_along_axis(ci, sel, 1)
+    best_d[rows] = np.take_along_axis(cd, sel, 1)
+
+
+def _leaf_pass(space: _Space, best_i, best_d, keep, leaf, rng):
+    """One random-projection partition tree: median-split on random
+    directions until leaves <= `leaf`, then exact kNN inside each leaf
+    via one gemm."""
+    n = len(best_i)
+    k = min(keep // 2, leaf - 1)
+    stack = [np.arange(n, dtype=np.int64)]
+    while stack:
+        idx = stack.pop()
+        if len(idx) > leaf:
+            r = rng.standard_normal(space.dim).astype(np.float32)
+            p = space.project(idx, r)
+            med = np.median(p)
+            left = idx[p < med]
+            right = idx[p >= med]
+            if len(left) == 0 or len(right) == 0:
+                # degenerate projection (constant rows): random halves
+                perm = rng.permutation(len(idx))
+                half = len(idx) // 2
+                left, right = idx[perm[:half]], idx[perm[half:]]
+            stack.append(left)
+            stack.append(right)
+            continue
+        if len(idx) < 2:
+            continue
+        rows = space.gather(idx)
+        x2 = (rows * rows).sum(axis=1)
+        g = x2[:, None] + x2[None, :] - 2.0 * (rows @ rows.T)
+        np.fill_diagonal(g, np.inf)
+        kk = min(k, len(idx) - 1)
+        sel = np.argpartition(g, kk - 1, axis=1)[:, :kk]
+        d = np.take_along_axis(g, sel, axis=1)
+        _merge_into(best_i, best_d, idx, idx[sel], d, keep)
+
+
+def _refine_pass(space: _Space, best_i, best_d, keep, d_out, rng):
+    """One NN-descent round: each node scores its neighbors' neighbors
+    (sampled), repairing partition-boundary misses of the tree init."""
+    n = len(best_i)
+    order = np.argsort(best_d, axis=1, kind="stable")[:, :d_out]
+    fwd = np.take_along_axis(best_i, order, 1)
+    fwd = np.where(fwd < 0, np.arange(n, dtype=np.int64)[:, None], fwd)
+    s = min(4, d_out)
+    step = max(1, (256 << 20) // max(s * d_out * space.dim * 4, 1))
+    for lo in range(0, n, step):
+        rows = np.arange(lo, min(lo + step, n), dtype=np.int64)
+        cand = fwd[fwd[rows, :s]].reshape(len(rows), s * d_out)
+        base = space.gather(rows)          # [B, D]
+        crows = space.gather(cand)         # [B, C, D]
+        d = (
+            (base * base).sum(axis=1)[:, None]
+            + (crows * crows).sum(axis=2)
+            - 2.0 * np.einsum("bcd,bd->bc", crows, base)
+        ).astype(np.float32)
+        d[cand == rows[:, None]] = np.inf  # never link to self
+        _merge_into(best_i, best_d, rows, cand, d, keep)
+
+
+def build_graph(xs: np.ndarray, metric: str = "euclidean",
+                d_out: int = None, leaf: int = None, trees: int = None,
+                refine: int = None, seed: int = 7,
+                x2: np.ndarray = None, norms: np.ndarray = None):
+    """Fixed-out-degree search graph [N, d_out] int32: kNN-graph init
+    (RP-trees + optional NN-descent), then CAGRA rank-based reordering
+    with reverse-edge merge. Rows with fewer than d_out distinct
+    neighbors pad with self-loops."""
+    if d_out is None:
+        d_out = cnf.KNN_ANN_DEGREE
+    if leaf is None:
+        leaf = cnf.KNN_ANN_LEAF
+    if trees is None:
+        trees = cnf.KNN_ANN_TREES
+    if refine is None:
+        refine = cnf.KNN_ANN_REFINE
+    n = xs.shape[0]
+    if refine < 0:
+        refine = 1 if n <= 200_000 else 0
+    if x2 is None or norms is None:
+        x2, norms = row_stats(xs)
+    space = _Space(xs, metric, x2, norms)
+    rng = np.random.default_rng(seed)
+    keep = 2 * d_out
+    best_i = np.full((n, keep), -1, np.int64)
+    best_d = np.full((n, keep), np.inf, np.float32)
+    for _t in range(max(trees, 1)):
+        _leaf_pass(space, best_i, best_d, keep, max(leaf, d_out + 1), rng)
+    for _r in range(max(refine, 0)):
+        _refine_pass(space, best_i, best_d, keep, d_out, rng)
+    # forward edges in rank order (CAGRA "reordering": rank = closeness
+    # position, which the merge below prefers over raw distance)
+    order = np.argsort(best_d, axis=1, kind="stable")[:, :d_out]
+    fwd = np.take_along_axis(best_i, order, 1)
+    fwd_d = np.take_along_axis(best_d, order, 1)
+    self_col = np.arange(n, dtype=np.int64)[:, None]
+    fwd = np.where(np.isinf(fwd_d) | (fwd < 0), self_col, fwd)
+    # reverse edges, rank-ordered per destination: the forward edge list
+    # flattened RANK-major, so the CSR pack's stable sort keeps rank
+    # order inside each destination's segment
+    rev_rows = fwd.T.reshape(-1).astype(np.int64)   # destinations
+    rev_cols = np.tile(np.arange(n, dtype=np.int64), d_out)  # sources
+    indptr, rev_sorted, _ = pack_csr(rev_rows, rev_cols, n)
+    # bounded gather of each node's first d_out reverse edges
+    counts = np.minimum(indptr[1:] - indptr[:-1], d_out).astype(np.int64)
+    rev = np.full((n, d_out), -1, np.int64)
+    pos = np.nonzero(counts)[0]
+    if len(pos):
+        starts = indptr[:-1][pos]
+        cts = counts[pos]
+        # rank of each kept reverse edge within its destination segment
+        rcol = (
+            np.arange(cts.sum()) - np.repeat(np.cumsum(cts) - cts, cts)
+        )
+        flat = np.repeat(starts, cts) + rcol
+        rev[np.repeat(pos, cts), rcol] = rev_sorted[flat]
+    # merge: forward rank r at priority 2r, reverse rank r at 2r+1,
+    # dedupe by id (min priority wins), truncate to d_out
+    cand = np.concatenate([fwd, rev], axis=1)
+    pri = np.empty((n, 2 * d_out), np.float32)
+    pri[:, :d_out] = 2.0 * np.arange(d_out, dtype=np.float32)
+    pri[:, d_out:] = 2.0 * np.arange(d_out, dtype=np.float32) + 1.0
+    pri[cand < 0] = np.inf
+    pri[cand == self_col] = np.inf
+    order = np.lexsort((pri, cand), axis=1)
+    ci = np.take_along_axis(cand, order, 1)
+    cp = np.take_along_axis(pri, order, 1)
+    dup = np.zeros(ci.shape, bool)
+    dup[:, 1:] = ci[:, 1:] == ci[:, :-1]
+    cp[dup] = np.inf
+    sel = np.argsort(cp, axis=1, kind="stable")[:, :d_out]
+    graph = np.take_along_axis(ci, sel, 1)
+    gp = np.take_along_axis(cp, sel, 1)
+    graph = np.where(np.isinf(gp), self_col, graph)
+    return np.ascontiguousarray(graph, np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the routing probe of the device descent
+# ---------------------------------------------------------------------------
+
+
+def entry_ids(n: int, width: int) -> np.ndarray:
+    """Deterministic strided sample ids (byte-stable across restarts)."""
+    return ((np.arange(width, dtype=np.int64) * n) // width)
+
+
+def probe_count(n: int, width: int) -> int:
+    """Size of the strided routing probe scored per query batch to seed
+    the descent: an absolute floor (small stores: cover everything) and
+    a fraction of n (large stores: a constant per-cluster miss rate)."""
+    return min(n, max(4 * width, cnf.KNN_ANN_PROBE,
+                      int(n * cnf.KNN_ANN_PROBE_FRAC)))

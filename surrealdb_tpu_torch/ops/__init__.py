@@ -2,6 +2,7 @@
 
 distance: [B, N] distance matrices (csrc/distance.cu)
 topk:     exact top-k selection, exact and blocked KNN, bf16 rank + f32
-          rescore (csrc/select.cu, csrc/rank_rescore.cu)
+          rescore, the int8 ranking store and its quantisation
+          (csrc/select.cu, csrc/rank_rescore.cu, csrc/rank_int8.cu)
 metrics:  metric ids
 """

@@ -20,14 +20,16 @@ from surrealdb_tpu_torch.device import kernelstats
 from surrealdb_tpu_torch.ops.distance import _ptr, _stream, distance_matrix
 from surrealdb_tpu_torch.ops.metrics import COSINE, EUCLIDEAN, METRIC_CODE
 
-# largest k the select kernel takes (csrc/kernels.h SURREAL_SELECT_MAX_K)
+# largest k whose select buffer lives in shared memory (csrc/kernels.h
+# SURREAL_SELECT_MAX_K); a larger k sorts in a device scratch buffer
 SELECT_MAX_K = 4096
 
 
 # -- exact per-row selection ---------------------------------------------------
 
 def top_k_smallest_plain(vals, k: int, ids=None):
-    """Plain version: stable ascending sort, first k."""
+    """Plain version: stable ascending sort, first k (any k <= N, the
+    kernel's large-k case included)."""
     order = torch.sort(vals, dim=1, stable=True).indices[:, :k]
     out_v = torch.gather(vals, 1, order)
     if ids is not None:
@@ -43,9 +45,8 @@ def select_topk_rows(vals, k: int, ids=None):
         raise ValueError("select_topk_rows takes a 2-D CUDA tensor")
     vals = vals.to(torch.float32).contiguous()
     rows, n = vals.shape
-    if not 1 <= k <= min(n, SELECT_MAX_K):
-        raise ValueError(f"select_topk_rows: k={k} outside 1..min({n}, "
-                         f"{SELECT_MAX_K})")
+    if not 1 <= k <= n:
+        raise ValueError(f"select_topk_rows: k={k} outside 1..{n}")
     if ids is not None:
         ids = ids.to(torch.int32).contiguous()
         if ids.shape != vals.shape:
@@ -54,13 +55,21 @@ def select_topk_rows(vals, k: int, ids=None):
     out_i = torch.empty((rows, k), dtype=torch.int32, device=vals.device)
     if rows == 0:
         return out_v, out_i
+    scratch, scratch_ld = None, 0
+    if k > SELECT_MAX_K:
+        # the sort buffer of the large-k path: [rows, pow2 >= k] u64
+        scratch_ld = 1 << (k - 1).bit_length()
+        scratch = torch.empty((rows, scratch_ld), dtype=torch.int64,
+                              device=vals.device)
     fn = compile_cache.declare(
         compile_cache.library("select.cu"), "select_topk_rows",
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_void_p])
     err = fn(vals.data_ptr(), n, _ptr(ids), n, rows, n, k,
-             out_v.data_ptr(), out_i.data_ptr(), _stream(vals))
+             out_v.data_ptr(), out_i.data_ptr(), _ptr(scratch), scratch_ld,
+             _stream(vals))
     compile_cache.check(err, "select_topk_rows")
     kernelstats.note_launch("select_topk_rows")
     return out_v, out_i
@@ -253,3 +262,185 @@ def knn_rank_rescore(xs_rank, xs_full, qs_r, k: int, kc: int,
         d_parts.append(dk)
         i_parts.append(ik)
     return torch.stack(d_parts), torch.stack(i_parts)
+
+
+# -- int8 ranking store --------------------------------------------------------
+
+# the int8 kernels read rows 16 bytes at a time: stores and queries are
+# padded with zero columns to a multiple of this (zeros add nothing to a
+# dot product and never raise a row's max |x|)
+INT8_ALIGN = 16
+
+
+def int8_width(dim: int) -> int:
+    return -(-dim // INT8_ALIGN) * INT8_ALIGN
+
+
+def _full(t, value: float):
+    """`value` as a tensor of t's shape: dividing by it is an IEEE
+    division (torch turns `scalar / tensor` into reciprocal-multiply,
+    and a division by a scalar into a multiply by its reciprocal on the
+    card), as numpy and XLA divide."""
+    return torch.full_like(t, value)
+
+
+def quantize_rows_plain(rows, metric: str, width: int):
+    """Plain version of the reference's int8 store quantisation
+    (device/vecstore.py int8 branch): f64 row statistics, cosine rows
+    divided by their f32 norms, per-row scale m = max(max|x|, 1e-30),
+    x8 = rint(x * (127 / m)), arow = m / 127. Returns (x8 [N, width]
+    int8, arow [N] f32, x2 [N] f32, zeros unless euclidean)."""
+    r64 = rows.to(torch.float64)
+    ss = (r64 * r64).sum(1)
+    x2 = ss.to(torch.float32) if metric == EUCLIDEAN else torch.zeros_like(
+        ss, dtype=torch.float32)
+    blk = rows.to(torch.float32)
+    if metric == COSINE:
+        norms = torch.clamp(torch.sqrt(ss), min=1e-30).to(torch.float32)
+        blk = blk / norms[:, None]
+    m = torch.clamp(blk.abs().amax(1) if blk.shape[1] else
+                    blk.new_zeros(blk.shape[0]), min=1e-30)
+    x8 = torch.round(blk * (_full(m, 127.0) / m)[:, None]).to(torch.int8)
+    if width > x8.shape[1]:
+        x8 = torch.nn.functional.pad(x8, (0, width - x8.shape[1]))
+    return x8, m / _full(m, 127.0), x2
+
+
+def quantize_rows_int8(rows, metric: str, x8, arow, x2):
+    """Launch csrc/rank_int8.cu quantize_rows_int8: quantise the CUDA
+    rows [R, D] (f32 or f64) into x8 [R, W] (W >= D, zero columns past
+    D), arow [R] and, for euclidean, x2 [R] (caller's slices)."""
+    from surrealdb_tpu_torch.device import compile_cache
+
+    if not rows.is_cuda or rows.dim() != 2:
+        raise ValueError("quantize_rows_int8 takes a 2-D CUDA tensor")
+    if rows.dtype not in (torch.float32, torch.float64):
+        rows = rows.to(torch.float64)
+    rows = rows.contiguous()
+    n, dim = rows.shape
+    width = x8.shape[1]
+    for t, shape in ((x8, (n, width)), (arow, (n,)), (x2, (n,))):
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"output shape {tuple(t.shape)} != {shape}")
+    fn = compile_cache.declare(
+        compile_cache.library("rank_int8.cu"), "quantize_rows_int8",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(rows.data_ptr(), int(rows.dtype == torch.float64), n, dim,
+             width, METRIC_CODE[metric], x8.data_ptr(), arow.data_ptr(),
+             x2.data_ptr(), _stream(rows))
+    compile_cache.check(err, "quantize_rows_int8")
+    kernelstats.note_launch("quantize_rows_int8")
+
+
+def quantize_rows(rows, metric: str, x8, arow, x2):
+    """Fill the int8 store slices x8/arow/x2 from `rows` (the kernel on
+    the card, the plain version on the CPU)."""
+    if rows.is_cuda:
+        quantize_rows_int8(rows, metric, x8, arow, x2)
+        return
+    q, a, s = quantize_rows_plain(rows, metric, x8.shape[1])
+    x8.copy_(q)
+    arow.copy_(a)
+    x2.copy_(s)
+
+
+def _int8_dots(x8, q8):
+    """Exact int32 products [C, N] of int8 rows, as f32 (exact for
+    D <= 1040: every partial sum is an integer below 2^24), through an
+    f64 product in row blocks."""
+    step = max(1, (256 << 20) // max(8 * x8.shape[1], 1))
+    qd = q8.to(torch.float64)
+    return torch.cat([
+        (qd @ x8[s:s + step].to(torch.float64).T).to(torch.float32)
+        for s in range(0, x8.shape[0], step)
+    ] or [qd.new_zeros((q8.shape[0], 0), dtype=torch.float32)], dim=1)
+
+
+def quantize_queries_plain(qs):
+    """(q8 int8, sq f32): sq = 127 / max(|q|, 1e-30), q8 = round(q sq)
+    (half to even, as jnp.round)."""
+    m = torch.clamp(qs.abs().amax(1), min=1e-30)
+    sq = _full(m, 127.0) / m
+    return torch.round(qs * sq[:, None]).to(torch.int8), sq
+
+
+def rank_scores_int8_plain(x8, qs, metric: str, arow, x2=None, valid=None,
+                           probe_order: bool = False):
+    """Plain version: the reference's query quantisation, the exact
+    int8 product, its dequantisation order (knn_rank_int8:
+    dots * (arow / sq); the ANN probe: dots * (arow * (1 / sq))), the
+    score epilogue and the mask."""
+    qs = _pad_to(qs.to(torch.float32), x8.shape[1])
+    q8, sq = quantize_queries_plain(qs)
+    dots = _int8_dots(x8, q8)
+    if probe_order:
+        scale = arow[None, :] * (_full(sq, 1.0) / sq)[:, None]
+    else:
+        scale = arow[None, :] / sq[:, None]
+    approx = dots * scale
+    score = x2[None, :] - 2.0 * approx if metric == EUCLIDEAN else -approx
+    if valid is not None:
+        score = torch.where(valid.to(torch.bool)[None, :], score,
+                            torch.full_like(score, float("inf")))
+    return score
+
+
+def rank_scores_int8(x8, qs, metric: str, arow, x2=None, valid=None,
+                     probe_order: bool = False):
+    """Launch csrc/rank_int8.cu rank_scores_int8 -> [C, N] f32."""
+    from surrealdb_tpu_torch.device import compile_cache
+
+    if not (x8.is_cuda and qs.is_cuda):
+        raise ValueError("rank_scores_int8 takes CUDA tensors")
+    if x8.dtype != torch.int8 or x8.dim() != 2 or not x8.is_contiguous():
+        raise ValueError("int8 store must be a contiguous 2-D int8 tensor")
+    n, width = x8.shape
+    if width % INT8_ALIGN:
+        raise ValueError(f"int8 store width {width} is not a multiple of "
+                         f"{INT8_ALIGN}")
+    qs = _pad_to(qs.to(torch.float32), width).contiguous()
+    c = qs.shape[0]
+    euclid = metric == EUCLIDEAN
+    arow = arow.to(torch.float32).contiguous()
+    if euclid:
+        x2 = x2.to(torch.float32).contiguous()
+    if valid is not None:
+        valid = valid.to(torch.uint8).contiguous()
+    out = torch.empty((c, n), dtype=torch.float32, device=qs.device)
+    fn = compile_cache.declare(
+        compile_cache.library("rank_int8.cu"), "rank_scores_int8",
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p])
+    err = fn(x8.data_ptr(), qs.data_ptr(), arow.data_ptr(),
+             x2.data_ptr() if euclid else None, _ptr(valid), out.data_ptr(),
+             n, c, width, int(euclid), int(probe_order), _stream(qs))
+    compile_cache.check(err, "rank_scores_int8")
+    kernelstats.note_launch("rank_scores_int8")
+    return out
+
+
+def rank_int8(x8, qs, metric: str, arow, x2=None, valid=None,
+              probe_order: bool = False):
+    if x8.is_cuda:
+        return rank_scores_int8(x8, qs, metric, arow, x2, valid, probe_order)
+    return rank_scores_int8_plain(x8, qs, metric, arow, x2, valid,
+                                  probe_order)
+
+
+def knn_rank_int8(x8, arow, x2, valid, qs_r, kc: int,
+                  metric: str = EUCLIDEAN):
+    """Candidate ranking over the int8 store (the reference's
+    knn_rank_int8): per query chunk of `qs_r` ([R, C, D] f32), int8
+    scores over the whole store and the exact kc best (ties to the
+    lower index, in place of approx_max_k). Returns int32 [R, C, kc];
+    the exact rescore happens on the serving side."""
+    parts = []
+    for qs in qs_r.to(torch.float32):
+        score = rank_int8(x8, qs, metric, arow, x2, valid)
+        _, cand = top_k_smallest(score, kc)
+        del score
+        parts.append(cand)
+    return torch.stack(parts)

@@ -21,7 +21,6 @@ from surrealdb_tpu_torch.device.supervisor import (
     DeviceOpError,
     DeviceSupervisor,
 )
-from surrealdb_tpu_torch.device.vecstore import NotPorted
 from surrealdb_tpu_torch.device.vecstore import VecStore as PortVecStore
 
 from test_torch_ops import assert_knn_match
@@ -210,16 +209,21 @@ def test_estimate_picks_the_reference_branch(monkeypatch, n, dim, metric,
 
 
 def test_int8_branch_answers_not_ported(hosts):
+    """The int8 branch (once answered `NotPorted`) now answers like the
+    reference: the same rank mode and the same candidate reply; an
+    unknown ANN store is `stale`, as in the reference."""
     xs, valid = _vecs(2000, 16, 9)
     meta = {"key": "vec/i8", "tag": [1], "metric": "cosine",
             "cfg": dict(CFG, hbm_budget=2000 * 16)}
-    ref, port = hosts
-    tag, rmeta, _ = ref.handle("vec_load", dict(meta), [xs, valid])
-    assert tag == "ok" and rmeta["rank_mode"] == "int8"
-    with pytest.raises(NotPorted):
-        port.handle("vec_load", dict(meta), [xs, valid])
-    with pytest.raises(NotPorted):
-        port.handle("ann_search", {"key": "a", "tag": [1], "kc": 4}, [xs])
+    (rt, rmeta, _), (pt, pmeta, _) = both(hosts, "vec_load", meta,
+                                          [xs, valid])
+    assert rt == pt == "ok" and rmeta["rank_mode"] == "int8"
+    assert pmeta == rmeta
+    qs = np.random.default_rng(9).normal(size=(3, 16)).astype(np.float32)
+    _same(*both(hosts, "vec_knn", {"key": "vec/i8", "tag": [1], "k": 4},
+                [qs]))
+    _same(*both(hosts, "ann_search", {"key": "a", "tag": [1], "kc": 4},
+                [xs]))
 
 
 def test_host_from_snapshot_answers_like_the_reference(hosts):
@@ -298,8 +302,10 @@ def test_runner_subprocess_answers_like_the_inline_host():
         _, _, ibb = inline.handle("brute_knn",
                                   {"k": 4, "metric": "manhattan"}, [xs, qs])
         np.testing.assert_array_equal(bb[1], ibb[1])
+        assert sup.call("ann_search", {"key": "a", "tag": [1], "kc": 4},
+                        [qs])[0] == "stale"
         with pytest.raises(DeviceOpError):
-            sup.call("ann_search", {"key": "a", "tag": [1], "kc": 4}, [qs])
+            sup.call("no_such_op", {})
         t, counts, _ = sup.call("launch_counts", {"reset": True})
         assert t == "ok" and set(counts["launches"]) >= {
             "distance_tile", "csr_hop_step"}

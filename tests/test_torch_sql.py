@@ -161,3 +161,38 @@ def test_graph_and_brute_queries_return_reference_ids(port_and_ref):
     assert len(top10) == 10 and knn10 == top10
     # the hops and the brute scan ran on the port's host
     assert {"csr_hop", "brute_knn"} <= set(port.ops) and len(port.csr) == 1
+
+
+def test_forced_ann_query_returns_reference_ids(port_and_ref, monkeypatch):
+    """SURREAL_KNN_ANN=force (whole-store graph, segments off): the
+    serving side builds the CAGRA graph and serves `<|10|>` through
+    ann_load + ann_search and its exact rescore; the port's host gives
+    the reference's ids."""
+    monkeypatch.setattr(cnf, "KNN_ANN_MODE", "force")
+    monkeypatch.setattr(cnf, "KNN_SEG_MODE", "off")
+    rng = np.random.default_rng(41)
+    centers = rng.normal(size=(30, 32)).astype(np.float32)
+    xs = centers[rng.integers(0, 30, 3000)]
+    xs += 0.15 * rng.normal(size=xs.shape).astype(np.float32)
+    qs = xs[:4] + 0.075 * rng.normal(size=(4, 32)).astype(np.float32)
+    ds = Datastore("memory")
+    ds.query("DEFINE TABLE tbl; DEFINE INDEX ix ON tbl FIELDS emb HNSW "
+             "DIMENSION 32 DIST COSINE TYPE F32", ns="b", db="b")
+    _ingest(ds, "tbl", xs, ix="ix")
+    sql = "SELECT id FROM tbl WHERE emb <|10|> $q"
+    port = _recording(PortHost("cpu"))
+    _use(port)
+    ds.query_one(sql, ns="b", db="b", vars={"q": qs[0].tolist()})
+    ix = next(iter(ds.vector_indexes.values()))
+    assert ix.ensure_ann()
+    answers = {}
+    for name, host in (("port", port), ("ref", None)):
+        _use(host)
+        answers[name] = [_ids(ds.query_one(sql, ns="b", db="b",
+                                           vars={"q": q.tolist()}))
+                         for q in qs]
+    ds.close()
+    assert answers["port"] == answers["ref"]
+    assert all(len(a) == 10 for a in answers["port"])
+    # the graph served: the port answered ann_search from its ANN store
+    assert port.ops.count("ann_search") == 4 and len(port.ann) == 1
