@@ -29,7 +29,22 @@ exits non-zero):
               here, shipped in parts, ann_search at B in 1/128/512,
               recall@10, ids equal to the plain descent and unchanged after
               a drop and a reship). Each path runs with the runner's
-              launch counts set to 0 just before it and read just after.
+              launch counts set to 0 just before it and read just after;
+5. mesh    -- after that runner has shut down, runners started with
+              `--mesh-devices 4` (four logical devices: shard s on
+              cuda:(s % device_count), all four on one card when there is
+              one, so the times measure partition and merge, not
+              scaling), SURREAL_DEVICE_MESH set per runner: mesh_knn1m
+              (auto: the knn1m store self-shards through
+              sharded_rank_rescore; ids as knn1m's, recall@10 1.0),
+              then under force mesh_exact (the same rows as a MeshVecStore,
+              exact pairs; ids as one device's exact scan, recall@10
+              1.0), mesh_int8 (the same rows, int8 candidates equal to a
+              one-device int8 store's wherever scores are not tied,
+              recall@10 >= 0.95 after an exact rescore), mesh_ann (the ann
+              index in 4 slices; ids equal to `search_seq`, also after a
+              drop and a reship; recall@10 printed) and mesh_graph3hop
+              (the graph in 4 edge slices; masks bit-equal to graph3hop's).
 
 It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -83,7 +98,15 @@ SOURCES = {
                          "surrealdb_tpu/ops/topk.py:145"),
     "ann_descent": ("surrealdb_tpu_torch/csrc/ann_descent.cu",
                     "surrealdb_tpu/device/annstore.py:29"),
+    "merge_partials_topk": ("surrealdb_tpu_torch/csrc/mesh_merge.cu",
+                            "surrealdb_tpu/device/mesh.py:203"),
+    "mask_or_reduce": ("surrealdb_tpu_torch/csrc/mesh_merge.cu",
+                       "surrealdb_tpu/device/mesh.py:733"),
 }
+# the mesh phases: four logical devices, shards of the stores above
+MESH = dict(ndev=4, int8_budget=512 << 20)
+# int8 rows wider than the 2048 columns a query tile holds at once
+WIDE = dict(n=200_000, dim=3072, c=16)
 
 
 class SmokeFailure(RuntimeError):
@@ -179,11 +202,14 @@ def main() -> int:
     from surrealdb_tpu_torch import cnf
     from surrealdb_tpu_torch.device import annstore as A
     from surrealdb_tpu_torch.device import compile_cache, kernelstats
+    from surrealdb_tpu_torch.device import mesh as DM
     from surrealdb_tpu_torch.device.csrstore import (
         csr_hop_step, multi_hop_masks, multi_hop_plain,
     )
     from surrealdb_tpu_torch.device.supervisor import DeviceSupervisor
+    from surrealdb_tpu_torch.device.vecstore import VecStore
     from surrealdb_tpu_torch.ops import distance as D
+    from surrealdb_tpu_torch.ops import merge as MG
     from surrealdb_tpu_torch.ops import topk as T
 
     # the plain versions are the references: full f32 products
@@ -471,6 +497,94 @@ def main() -> int:
     emit("kernel", name="csr_hop_step", tol=[0, 0], max_abs_err=0.0,
          ms=kern["csr_hop_step"]["ms"])
     del contrib, cols_l, front, nxt, want
+
+    # mask_or_reduce: the OR of 4 hop masks [8, 1M] (+ the union
+    # accumulator), bit-equal to the plain version
+    mparts = [(torch.rand(b, nn_, generator=g) > 0.999).to(torch.uint8).to(
+        dev) for _ in range(MESH["ndev"])]
+    macc = (torch.rand(b, nn_, generator=g) > 0.999).to(torch.uint8).to(dev)
+    pacc = macc.clone()
+    check(torch.equal(MG.mask_or_reduce(mparts, macc),
+                      MG.mask_or_plain(mparts, pacc))
+          and torch.equal(macc, pacc), "mask_or_reduce not bit-equal")
+    check(torch.equal(MG.mask_or_reduce(mparts),
+                      torch.stack(mparts).amax(0)), "mask_or_reduce no acc")
+    nb_ = MESH["ndev"] * b * nn_
+    oms, oby = bound(nb_ + 3 * b * nn_, nb_, PEAK_F32)
+    note("mask_or_reduce", 0.0,
+         ms=cuda_ms(lambda: MG.mask_or_reduce(mparts, macc), 20),
+         plain_ms=cuda_ms(lambda: MG.mask_or_plain(mparts, pacc), 10),
+         library_ms=cuda_ms(lambda: torch.stack(mparts).amax(0), 10),
+         bound_ms=oms, bound_by=oby,
+         shape=f"S={MESH['ndev']} B={b} n={nn_} acc")
+    emit("kernel", name="mask_or_reduce", tol=[0, 0], max_abs_err=0.0,
+         ms=kern["mask_or_reduce"]["ms"])
+    del mparts, macc, pacc
+
+    # merge_partials_topk: 4 partial top-k tiles with planted ties, +inf
+    # (masked rows) and short parts (padding columns), sorted and
+    # unsorted, against the plain stable sort over the concatenation
+    def partials(rows, widths, sort, seed):
+        gm = torch.Generator(device="cpu").manual_seed(seed)
+        ds, ids = [], []
+        for ws in widths:
+            d = torch.round(torch.randn(rows, ws, generator=gm) * 8) / 8
+            d[:, ::5] = float("inf")
+            if sort:
+                d = torch.sort(d, dim=1).values
+            ds.append(d.to(dev))
+            ids.append(torch.randint(0, 250_000, (rows, ws), generator=gm,
+                                     dtype=torch.int32).to(dev))
+        return ds, ids
+
+    bases4 = [s * 250_000 for s in range(MESH["ndev"])]
+    for seed, (rows_, widths, w_, k_out, srt) in enumerate((
+            (512, (10,) * 4, 10, 10, True),
+            (16, (1280,) * 4, 1280, 1280, False),
+            (16, (1280, 300, 1280, 0), 1280, 1280, True),
+            (16, (1280, 7, 0, 0), 1280, 2000, False),
+            (8, (5000,) * 4, 5000, 3000, True))):
+        ds, ids = partials(rows_, widths, srt, seed)
+        kd, ki = MG.merge_partials_topk(ds, ids, bases4, w_, k_out, 999_999)
+        pd, pi = MG.merge_partials_plain(ds, ids, bases4, w_, k_out, 999_999)
+        check(torch.equal(kd, pd) and torch.equal(ki, pi),
+              f"merge_partials_topk [{rows_}, {widths}] k={k_out}")
+    # at the mesh_int8 path's shape: 512 queries, 4 sorted x 1280. The
+    # bound's bytes: every entry's dist, the k_out winners' ids, the
+    # [B, k_out] (dist, id) output
+    def merge_bound(rows, entries, k_out):
+        return bound(4 * rows * entries + 12 * rows * k_out,
+                     rows * entries, PEAK_F32)
+
+    rows_, w_ = 512, 1280
+    ds, ids = partials(rows_, (w_,) * 4, True, 9)
+    kd, ki = MG.merge_partials_topk(ds, ids, bases4, w_, w_, 999_999)
+    pd, pi = MG.merge_partials_plain(ds, ids, bases4, w_, w_, 999_999)
+    check(torch.equal(kd, pd) and torch.equal(ki, pi),
+          f"merge_partials_topk [{rows_}, 4x{w_}] k={w_}")
+    del kd, ki, pd, pi
+    cat_d = torch.cat(ds, dim=1)
+    mms, mby = merge_bound(rows_, 4 * w_, w_)
+    note("merge_partials_topk", 0.0,
+         ms=cuda_ms(lambda: MG.merge_partials_topk(ds, ids, bases4, w_, w_,
+                                                   999_999), 20),
+         plain_ms=cuda_ms(lambda: MG.merge_partials_plain(
+             ds, ids, bases4, w_, w_, 999_999), 10),
+         library_ms=cuda_ms(lambda: torch.topk(cat_d, w_, dim=1,
+                                               largest=False), 10),
+         bound_ms=mms, bound_by=mby, shape=f"B={rows_} S=4 w={w_} k={w_}")
+    emit("kernel", name="merge_partials_topk", tol=[0, 0], max_abs_err=0.0,
+         ms=kern["merge_partials_topk"]["ms"])
+    ds, ids = partials(rows_, (10,) * 4, True, 10)
+    emit("kernel", name="merge_partials_topk", shape="B=512 S=4 w=10 k=10",
+         ms=cuda_ms(lambda: MG.merge_partials_topk(ds, ids, bases4, 10, 10,
+                                                   999_999), 20),
+         plain_ms=cuda_ms(lambda: MG.merge_partials_plain(
+             ds, ids, bases4, 10, 10, 999_999), 10),
+         library_ms=cuda_ms(lambda: torch.topk(torch.cat(ds, dim=1), 10,
+                                               dim=1, largest=False), 10),
+         bound_ms=merge_bound(rows_, 40, 10)[0])
+    del ds, ids, cat_d
     torch.cuda.empty_cache()
 
     # select_topk_rows past its shared-memory buffer: k = 5120
@@ -571,11 +685,16 @@ def main() -> int:
     cp_v, cp_i = T.top_k_smallest_plain(s_p, kc10)
     check_ids(cp_v.cpu().numpy(), cp_i.cpu().numpy(), ck_i.cpu().numpy(),
               "int8 candidates 16x10M kc=1280", atol=0.0, rtol=1e-5)
+    del s_p, cp_v, cp_i, ck_v, ck_i
+    torch.cuda.empty_cache()
     sel_ms = cuda_ms(lambda: T.select_topk_rows(s_k, kc10), 5)
     emit("kernel", name="select_topk_rows", shape=f"R={c16} N={n10} "
-         f"k={kc10}", ms=sel_ms, bound_ms=bound(
-             4 * c16 * n10 + 8 * c16 * kc10, c16 * n10, PEAK_F32)[0])
-    del s_p, cp_v, cp_i, ck_v, ck_i
+         f"k={kc10}", ms=sel_ms,
+         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(s_k, kc10), 2),
+         library_ms=cuda_ms(lambda: torch.topk(s_k, kc10, dim=1,
+                                               largest=False), 5),
+         bound_ms=bound(4 * c16 * n10 + 8 * c16 * kc10, c16 * n10,
+                        PEAK_F32)[0])
     for metric in ("euclidean", "cosine", "dot"):
         for probe_order in (False, True):
             sx = torch.randint(-127, 128, (5000, 64), generator=g,
@@ -620,6 +739,46 @@ def main() -> int:
     cand10_v, cand10_i = (t.cpu().numpy()
                           for t in T.top_k_smallest_plain(s_p, kc10))
     del s_k, s_p, x8_10, arow10, x2_10, valid10, q8_16, q8t
+    torch.cuda.empty_cache()
+
+    # the int8 kernels past 2048 columns: 3072-d rows (a query tile's
+    # width chunks accumulate in int32), bit-equal to the plain versions
+    nw, dw, cw = WIDE["n"], WIDE["dim"], WIDE["c"]
+    xw = torch.randn(nw, dw, generator=g).to(dev)
+    w8 = torch.empty((nw, dw), dtype=torch.int8, device=dev)
+    wa = torch.empty((nw,), dtype=torch.float32, device=dev)
+    w2 = torch.zeros((nw,), dtype=torch.float32, device=dev)
+    for metric in ("cosine", "euclidean"):
+        w2.zero_()  # only euclidean writes x2
+        T.quantize_rows_int8(xw, metric, w8, wa, w2)
+        p8, pa, p2 = T.quantize_rows_plain(xw, metric, dw)
+        check(torch.equal(p8, w8) and torch.equal(pa, wa)
+              and torch.equal(p2, w2), f"quantize_rows_int8 D={dw} {metric}")
+        del p8, pa, p2
+    wq = torch.randn(cw, dw, generator=g).to(dev)
+    wv = (torch.rand(nw, generator=g) > 0.05).to(dev)
+    for probe_order in (False, True):
+        check(torch.equal(
+            T.rank_scores_int8(w8, wq, "euclidean", wa, w2, wv, probe_order),
+            T.rank_scores_int8_plain(w8, wq, "euclidean", wa, w2, wv,
+                                     probe_order)),
+            f"rank_scores_int8 D={dw} probe={probe_order} not bit-equal")
+    emit("kernel", name="rank_scores_int8", shape=f"C={cw} N={nw} D={dw} "
+         "euclidean", tol=[0, 0],
+         ms=cuda_ms(lambda: T.rank_scores_int8(w8, wq, "euclidean", wa, w2,
+                                               wv), 10),
+         plain_ms=cuda_ms(lambda: T.rank_scores_int8_plain(
+             w8, wq, "euclidean", wa, w2, wv), 2),
+         bound_ms=bound(nw * dw + 4 * cw * dw + 9 * nw + 4 * cw * nw,
+                        2 * cw * nw * dw, PEAK_INT8)[0])
+    emit("kernel", name="quantize_rows_int8", shape=f"R={nw} D={dw} "
+         "euclidean f32", tol=[0, 0],
+         ms=cuda_ms(lambda: T.quantize_rows_int8(xw, "euclidean", w8, wa,
+                                                 w2), 5),
+         plain_ms=cuda_ms(lambda: T.quantize_rows_plain(xw, "euclidean",
+                                                        dw), 2),
+         bound_ms=bound(nw * (4 * dw + dw + 8), 5 * nw * dw, PEAK_F32)[0])
+    del xw, w8, wa, w2, wq, wv
     torch.cuda.empty_cache()
 
     def check_ann_descent():
@@ -686,13 +845,19 @@ def main() -> int:
         check(ready["platform"] == "cuda", f"runner platform {ready}")
         emit("runner", ready=ready, pid=sup.runner_pid())
         launches = {name: 0 for name in kernelstats.KERNELS}
+        # the answers of the one-device paths the mesh phases repeat
+        single = {}
 
-        def drive(name, fn):
-            sup.call("launch_counts", {"reset": True})
+        def drive(name, fn, runner=None, needs=()):
+            runner = runner or sup
+            runner.call("launch_counts", {"reset": True})
             out = fn()
-            _, m, _ = sup.call("launch_counts", {})
+            _, m, _ = runner.call("launch_counts", {})
             for kname, v in m["launches"].items():
                 launches[kname] += v
+            for kname in needs:
+                check(m["launches"][kname] > 0,
+                      f"{name}: kernel {kname} was not launched")
             emit(name, **out, launches=m["launches"])
 
         def knn1m():
@@ -735,6 +900,8 @@ def main() -> int:
             recall = np.mean([len(set(a) & set(b)) / k
                               for a, b in zip(oracle, got)])
             check(recall >= 0.99, f"knn1m recall@10 {recall} < 0.99")
+            single["knn1m"] = results
+            single["knn1m_oracle"] = oracle
             # the same 16 queries through the plain versions on the card
             ps = T.rank_scores_plain(rank, qs[:nq], "cosine")
             _, pc = T.top_k_smallest_plain(ps, kc)
@@ -791,6 +958,7 @@ def main() -> int:
                         torch.uint8).cpu().numpy()),
                         f"graph3hop B={bsz} union={union} not bit-equal")
                     tagn = "union" if union else "frontier"
+                    single[("graph3hop", bsz, union)] = bufs[0]
                     out[f"B{bsz}_{tagn}_ms"] = ms
                     out[f"B{bsz}_{tagn}_reached"] = int(bufs[0].sum())
             return out
@@ -936,6 +1104,283 @@ def main() -> int:
              compile_cache=stat["compile_cache"])
     finally:
         sup.shutdown()
+
+    # -- 5. the mesh: runners with four logical devices -------------------------
+    # started after the first runner has shut down, so the two runners'
+    # stores never share the card; each sets SURREAL_DEVICE_MESH before
+    # it is spawned (the runner reads its environment)
+    ndev = MESH["ndev"]
+    cards = DM.physical_devices(DM.device_list(ndev, "cuda"))
+    t0 = time.perf_counter()
+    xs_np = np.random.default_rng(KNN1M["seed"]).standard_normal(
+        (n, dim), dtype=np.float32)  # the knn1m rows, same generator
+    gen_s = time.perf_counter() - t0
+
+    def mesh_runner(mode):
+        os.environ["SURREAL_DEVICE_MESH"] = mode
+        runner = DeviceSupervisor(device="cuda", mesh_devices=ndev)
+        ready = runner.start()
+        check(ready["mesh"] == {"mode": mode, "n_devices": ndev,
+                                "mesh_shape": [ndev], "axis": "mesh"}
+              and ready["device_count"] == ndev, f"mesh runner {ready}")
+        emit("runner", mesh_devices=ndev, physical_cards=cards, mode=mode,
+             ready=ready, pid=runner.runner_pid())
+        return runner
+
+    def frames(runner, op, meta, batches, qsrc, iters, check_reply):
+        """Warm each batch size once, then time `iters` frames;
+        returns ({B: last bufs}, {timing fields}, last reply meta)."""
+        res, out, m = {}, {}, None
+        for bsz in batches:
+            t, m, bufs = runner.call(op, meta, [qsrc[:bsz]])
+            check(t == "ok", f"{op} {t} {m}")
+            check_reply(m)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                _, _, bufs = runner.call(op, meta, [qsrc[:bsz]])
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+            res[bsz] = bufs
+            out[f"B{bsz}_ms"] = ms
+            out[f"B{bsz}_qps"] = bsz / ms * 1e3
+        return res, out, m
+
+    def recall_rescored(cand, xs_rows, qs_rows, oracle, kk):
+        """recall@kk of candidates after the serving side's exact f64
+        cosine rescore, against the oracle's ids."""
+        hits = 0
+        for qi in range(len(oracle)):
+            ids = cand[qi]
+            rows = xs_rows[ids].astype(np.float64)
+            q = qs_rows[qi].astype(np.float64)
+            d = 1.0 - rows @ q / np.maximum(
+                np.linalg.norm(rows, axis=1) * np.linalg.norm(q), 1e-30)
+            top = ids[np.argsort(d, kind="stable")[:kk]]
+            hits += len(set(top.tolist()) & set(oracle[qi].tolist()))
+        return hits / (kk * len(oracle))
+
+    def vec_ship(runner, key, cfg):
+        """Ship the knn1m rows (in parts); the placement shows in the
+        replies of the queries."""
+        t0 = time.perf_counter()
+        runner.ensure_loaded(key, [1, 0], lambda: (
+            "vec_load", {"metric": "cosine", "mink_p": 3.0, "cfg": cfg},
+            [xs_np, np.ones(n, np.uint8)]))
+        return time.perf_counter() - t0
+
+    def vec_drop(runner, key):
+        runner.call("vec_drop", {"key": key})
+        runner.forget(key)
+
+    def mesh_knn1m(runner):
+        cfg = cnf.device_cfg()
+        load_s = vec_ship(runner, "vec/mesh/knn1m", cfg)
+        res, out, m = frames(
+            runner, "vec_knn", {"key": "vec/mesh/knn1m", "tag": [1, 0],
+                                "k": k}, KNN1M["batches"], qs_np, 5,
+            # the self-sharded store answers as the reference's does:
+            # mesh_ndev 1 (its shards are the runner's device list)
+            lambda m: check(m["rank_mode"] == "bf16"
+                            and m["mesh_ndev"] == 1, f"reply {m}"))
+        for bsz, (d, ids) in res.items():
+            rd, ri = single["knn1m"][bsz]
+            check(np.allclose(d, rd, atol=1e-4, rtol=1e-5),
+                  f"mesh_knn1m B={bsz} distances differ from knn1m's")
+            check_ids(rd, ri, ids, f"mesh_knn1m B={bsz} vs knn1m")
+        got = res[max(KNN1M["batches"])][1][:len(single["knn1m_oracle"])]
+        recall = np.mean([len(set(a) & set(b)) / k for a, b in
+                          zip(single["knn1m_oracle"], got)])
+        check(recall == 1.0, f"mesh_knn1m recall@10 {recall} < 1.0")
+        vec_drop(runner, "vec/mesh/knn1m")
+        return dict(out, rows=n, dim=dim, load_s=round(load_s, 3),
+                    gen_s=round(gen_s, 3), mesh_ndev=m["mesh_ndev"],
+                    self_sharded_over=ndev, recall_at_10=float(recall),
+                    ids_equal_knn1m=True)
+
+    def mesh_exact(runner):
+        # one device's exact answer: distance_tile + select_topk_rows
+        # over the whole store, here in the script
+        full = torch.from_numpy(xs_np).to(dev)
+        one_d, one_i = (t.cpu().numpy() for t in T.knn_search(
+            full, torch.from_numpy(qs_np).to(dev), k, "cosine"))
+        del full
+        torch.cuda.empty_cache()
+        load_s = vec_ship(runner, "vec/mesh/exact", cnf.device_cfg())
+        res, out, m = frames(
+            runner, "vec_knn", {"key": "vec/mesh/exact", "tag": [1, 0],
+                                "k": k}, KNN1M["batches"], qs_np, 5,
+            lambda m: check(m["mode"] == "pairs" and m["rank_mode"] is None
+                            and m["mesh_ndev"] == ndev, f"reply {m}"))
+        same = True
+        for bsz, (d, ids) in res.items():
+            check(np.allclose(d, one_d[:bsz], atol=1e-4, rtol=1e-5),
+                  f"mesh_exact B={bsz} distances differ from one device's")
+            check_ids(one_d[:bsz], one_i[:bsz], ids, f"mesh_exact B={bsz}")
+            same = same and np.array_equal(d, one_d[:bsz]) \
+                and np.array_equal(ids, one_i[:bsz])
+        got = res[max(KNN1M["batches"])][1][:len(single["knn1m_oracle"])]
+        recall = np.mean([len(set(a) & set(b)) / k for a, b in
+                          zip(single["knn1m_oracle"], got)])
+        check(recall == 1.0, f"mesh_exact recall@10 {recall} < 1.0")
+        vec_drop(runner, "vec/mesh/exact")
+        return dict(out, rows=n, dim=dim, load_s=round(load_s, 3),
+                    mesh_ndev=m["mesh_ndev"], recall_at_10=float(recall),
+                    bytes_equal_one_device=bool(same))
+
+    def mesh_int8(runner):
+        cfg = dict(cnf.device_cfg(), hbm_budget=MESH["int8_budget"])
+        kc8 = min(n, max(cfg["int8_oversample"] * k, k + 16))
+        # one device's int8 store of the same rows, here in the script
+        one = VecStore("one", xs_np, np.ones(n, np.uint8), "cosine", 3.0,
+                       cfg, dev)
+        (_, (one_c,)) = one.knn(qs_np, k)
+        load_s = vec_ship(runner, "vec/mesh/int8", cfg)
+        res, out, m = frames(
+            runner, "vec_knn", {"key": "vec/mesh/int8", "tag": [1, 0],
+                                "k": k}, KNN1M["batches"], qs_np, 3,
+            lambda m: check(m["mode"] == "cand" and m["kc"] == kc8
+                            and m["rank_mode"] == "int8"
+                            and m["mesh_ndev"] == ndev, f"reply {m}"))
+        cand = res[max(KNN1M["batches"])][0]
+        check(cand.shape == one_c.shape, "mesh_int8 candidate shape")
+        # equal in order wherever the (shard-independent) scores are not
+        # tied: the one-device store's sorted scores say where
+        qd = torch.from_numpy(qs_np).to(dev)
+        for s0 in range(0, len(qs_np), 128):
+            sc = T.rank_scores_int8(one.device_rank, qd[s0:s0 + 128],
+                                    "cosine", one.device_arow, None,
+                                    one.device_valid)
+            sv, si = (t.cpu().numpy() for t in T.select_topk_rows(sc, kc8))
+            del sc
+            check(np.array_equal(si, one_c[s0:s0 + 128]),
+                  "the one-device int8 store's candidates")
+            check_ids(sv, si, cand[s0:s0 + 128],
+                      f"mesh_int8 candidates rows {s0}+", atol=0.0,
+                      rtol=1e-6)
+        for bsz, (c_,) in res.items():
+            check(np.array_equal(c_, cand[:bsz]) or bsz == len(cand),
+                  f"mesh_int8 B={bsz} is not a prefix of B=512's")
+        del one
+        torch.cuda.empty_cache()
+        oracle = single["knn1m_oracle"]
+        recall = recall_rescored(cand, xs_np, qs_np, oracle, k)
+        check(recall >= 0.95, f"mesh_int8 recall@10 {recall} < 0.95")
+        vec_drop(runner, "vec/mesh/int8")
+        return dict(out, rows=n, dim=dim, load_s=round(load_s, 3),
+                    mesh_ndev=m["mesh_ndev"], kc=kc8,
+                    candidates_equal_one_device=float(
+                        np.mean(cand == one_c)),
+                    recall_at_10=recall)
+
+    def mesh_ann(runner):
+        key, tag = "ann/mesh", [1, 0, 0]
+        bufs = [ann["graph"], ann["x8"], ann["arow"], ann["x2q"]]
+        seq = DM.MeshAnnStore("seq", *bufs, "cosine", ann_cfg, ndev,
+                              devices=[dev] * ndev).search_seq(ann["qs"],
+                                                               ann_kc)
+
+        def ship():
+            runner.LOAD_PART_BYTES = 64 << 20
+            try:
+                t0 = time.perf_counter()
+                runner.ensure_loaded(key, tag, lambda: (
+                    "ann_load", {"metric": "cosine", "cfg": ann_cfg}, bufs))
+                return time.perf_counter() - t0
+            finally:
+                runner.LOAD_PART_BYTES = DeviceSupervisor.LOAD_PART_BYTES
+
+        load_s = ship()
+        meta = {"key": key, "tag": tag, "kc": ann_kc}
+        res, out, m = frames(
+            runner, "ann_search", meta, ANN["batches"], ann["qs"], 5,
+            lambda m: check(m["mode"] == "cand" and m["mesh_ndev"] == ndev,
+                            f"reply {m}"))
+        cand = res[max(ANN["batches"])][0]
+        check(np.array_equal(cand, seq),
+              "mesh_ann candidates differ from search_seq")
+        for bsz, (c_,) in res.items():
+            check(c_.shape == (bsz, ann_kc)
+                  and ((c_ >= 0) & (c_ < ANN["n"])).all(),
+                  f"mesh_ann B={bsz} candidates shape/values")
+        recall = recall_rescored(cand, ann["xs"], ann["qs"], ann_oracle,
+                                 ANN["k"])
+        runner.call("ann_drop", {"key": key})
+        check(runner.call("ann_search", meta, [ann["qs"][:1]])[0]
+              == "stale", "a dropped mesh ann store must answer stale")
+        runner.forget(key)
+        reship_s = ship()
+        _, _, rb = runner.call("ann_search", meta, [ann["qs"]])
+        check(np.array_equal(rb[0], seq),
+              "mesh_ann candidates changed after a drop and a reship")
+        runner.call("ann_drop", {"key": key})
+        return dict(out, rows=ANN["n"], dim=ANN["dim"],
+                    load_s=round(load_s, 3), reship_s=round(reship_s, 3),
+                    mesh_ndev=m["mesh_ndev"], ids_equal_search_seq=True,
+                    ids_equal_after_reship=True, recall_at_10=recall)
+
+    def mesh_graph3hop(runner):
+        key, tag = "csr/mesh/person/knows/out", [1]
+        t0 = time.perf_counter()
+        runner.ensure_loaded(key, tag, lambda: (
+            "csr_load", {"n_nodes": nn_}, [src_np, dst_np]))
+        out = {"nodes": nn_, "edges": ne,
+               "load_s": round(time.perf_counter() - t0, 3)}
+        for bsz in GRAPH["batches"]:
+            start = np.zeros((bsz, nn_), np.uint8)
+            start[np.arange(bsz), np.arange(bsz)] = 1
+            for union in (False, True):
+                meta = {"key": key, "tag": tag, "hops": GRAPH["hops"],
+                        "union": union}
+                t, m, bufs = runner.call("csr_hop", meta, [start])
+                check(t == "ok" and m["mesh_ndev"] == ndev, f"csr_hop {m}")
+                iters = 3
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    _, _, bufs = runner.call("csr_hop", meta, [start])
+                ms = (time.perf_counter() - t0) * 1e3 / iters
+                check(np.array_equal(bufs[0],
+                                     single[("graph3hop", bsz, union)]),
+                      f"mesh_graph3hop B={bsz} union={union} masks differ "
+                      f"from graph3hop's")
+                tagn = "union" if union else "frontier"
+                out[f"B{bsz}_{tagn}_ms"] = ms
+                out[f"B{bsz}_{tagn}_reached"] = int(bufs[0].sum())
+        out["mesh_ndev"] = ndev
+        out["masks_equal_graph3hop"] = True
+        return out
+
+    saved_mode = os.environ.get("SURREAL_DEVICE_MESH")
+    try:
+        runner = mesh_runner("auto")
+        try:
+            drive("mesh_knn1m", lambda: mesh_knn1m(runner), runner,
+                  ("rank_scores_bf16", "select_topk_rows", "gather_rescore",
+                   "merge_partials_topk"))
+        finally:
+            runner.shutdown()
+        runner = mesh_runner("force")
+        try:
+            drive("mesh_exact", lambda: mesh_exact(runner), runner,
+                  ("distance_tile", "select_topk_rows",
+                   "merge_partials_topk"))
+            drive("mesh_int8", lambda: mesh_int8(runner), runner,
+                  ("quantize_rows_int8", "rank_scores_int8",
+                   "select_topk_rows", "merge_partials_topk"))
+            drive("mesh_ann", lambda: mesh_ann(runner), runner,
+                  ("rank_scores_int8", "select_topk_rows", "ann_descent",
+                   "merge_partials_topk"))
+            drive("mesh_graph3hop", lambda: mesh_graph3hop(runner), runner,
+                  ("csr_hop_step", "mask_or_reduce"))
+            _, stat, _ = runner.call("status", {})
+            emit("mesh_status", mesh=stat["mesh"], cc=stat["cc"],
+                 mem_used_device0=stat["mem_used_device0"],
+                 device_count=stat["device_count"])
+        finally:
+            runner.shutdown()
+    finally:
+        if saved_mode is None:
+            os.environ.pop("SURREAL_DEVICE_MESH", None)
+        else:
+            os.environ["SURREAL_DEVICE_MESH"] = saved_mode
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the path")
         kern[name]["launches"] = count

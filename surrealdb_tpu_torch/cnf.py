@@ -61,6 +61,13 @@ KNN_ANN_REFINE = env_int("SURREAL_KNN_ANN_REFINE", -1)
 KNN_ANN_CLIP_Q = env_float("SURREAL_KNN_ANN_CLIP_Q", 1.0)
 
 # -- device runner ------------------------------------------------------------
+# mesh execution (device/mesh.py): row-shard vec/ANN/CSR blocks across
+# the runner's device list with a partial top-k per shard and an exact
+# merge. auto (default): shard only when a store's single-device share
+# busts the per-device byte budget. off: single-device stores. force:
+# always shard across the full device list. An integer caps the mesh
+# width. Read per call (the environment first), as the reference does.
+DEVICE_MESH = env_str("SURREAL_DEVICE_MESH", "auto")
 # runner store budget across the vec/csr block caches + multipart
 # staging, per device; 0 = the per-kind LRU entry caps only
 DEVICE_MEM_BUDGET_MB = env_int("SURREAL_DEVICE_MEM_BUDGET_MB", 0)

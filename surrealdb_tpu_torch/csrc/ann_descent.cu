@@ -217,7 +217,7 @@ SURREAL_API int ann_descent(const int32_t* graph, const int8_t* x8,
   const long long smem = d + 8 * total + 8 * total + 8LL * width +
                          4LL * expand + total + width + 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  static int smem_done = 0;
+  static SurrealSmemDone smem_done;
   const cudaError_t attr =
       surreal_smem_limit(ann_descent_kernel, (int)smem, &smem_done);
   if (attr != cudaSuccess) return (int)attr;

@@ -30,15 +30,27 @@ enum Metric {
 // a larger k sorts in the caller's device scratch
 #define SURREAL_SELECT_MAX_K 4096
 
-// Raise a kernel's dynamic shared-memory limit to `bytes` unless an
-// earlier launch already did (the attribute call costs host time on
-// every launch otherwise). `*done` is the launch site's record.
+// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
+// device unless an earlier launch there already did (the attribute call
+// costs host time on every launch otherwise; each device holds its own
+// copy of the kernel, so the record is kept per device). `done` is the
+// launch site's record, a zero-initialised static.
+#define SURREAL_MAX_DEVICES 64
+struct SurrealSmemDone {
+  int bytes[SURREAL_MAX_DEVICES];
+};
+
 template <typename K>
-inline cudaError_t surreal_smem_limit(K* kernel, int bytes, int* done) {
-  if (bytes <= *done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+inline cudaError_t surreal_smem_limit(K* kernel, int bytes,
+                                      SurrealSmemDone* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int* rec = dev < SURREAL_MAX_DEVICES ? &done->bytes[dev] : nullptr;
+  if (rec != nullptr && bytes <= *rec) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done = bytes;
+  if (err == cudaSuccess && rec != nullptr) *rec = bytes;
   return err;
 }
 
@@ -85,17 +97,19 @@ SURREAL_API int gather_rescore(const float* xs_full, const float* qs,
                                long long n, int c, int kc, int d,
                                int metric, void* stream);
 
-// rank_int8.cu: out[c, n] = score of the int8 row xs[n] (width d, a
-// multiple of 16, at most 2048) against query c quantised in the
-// prologue (sq = 127 / max|q|, q8 = rint(q sq)): approx = dots *
-// (arow[n] / sq) (probe_order 0, knn_rank_int8) or dots * (arow[n] *
-// (1 / sq)) (probe_order 1, the ANN probe); x2[n] - 2 approx (euclid)
-// or -approx; +inf where valid[n] == 0.
+// rank_int8.cu: out[c, n] = score of the int8 row xs[n] (width d, any
+// multiple of 16) against query c quantised first (sq = 127 / max|q|,
+// q8 = rint(q sq), into the caller's scratch q8[c, d] and qscale[c]):
+// approx = dots * (arow[n] / sq) (probe_order 0, knn_rank_int8) or
+// dots * (arow[n] * (1 / sq)) (probe_order 1, the ANN probe), dots the
+// exact int32 product; x2[n] - 2 approx (euclid) or -approx; +inf where
+// valid[n] == 0.
 SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
                                  const float* arow, const float* x2,
                                  const uint8_t* valid, float* out,
-                                 long long n, int c, int d, int euclid,
-                                 int probe_order, void* stream);
+                                 int8_t* q8, float* qscale, long long n,
+                                 int c, int d, int euclid, int probe_order,
+                                 void* stream);
 
 // rank_int8.cu: the int8 store of [n, d] rows (f32, or f64 when is_f64):
 // x8[n, width] (zero columns past d), arow[n], x2[n] (euclidean only).
@@ -121,3 +135,31 @@ SURREAL_API int csr_hop_step(const int32_t* rows, const int32_t* cols,
                              long long e, const uint8_t* frontier,
                              uint8_t* next, uint8_t* acc, int b,
                              long long n, void* stream);
+
+// mesh_merge.cu: the merge of per-shard partial top-k tiles. Part s
+// holds [b, widths[s]] (dist, local id) pairs (widths[s] <= w); its
+// columns widths[s]..w-1 stand for padding rows: (+inf, local id = the
+// column). Row r's answer is the k_out smallest of the parts * w entries
+// by (dist, position in the concatenation of the parts in order), with
+// ids min(local + bases[s], id_max). dists/ids/bases/widths are host
+// arrays of `parts` entries (at most SURREAL_MERGE_MAX_PARTS) holding
+// device pointers. When parts * w exceeds SURREAL_MERGE_SMEM_KEYS,
+// scratch is a [b, scratch_ld] u64 buffer with scratch_ld >= the power
+// of two >= parts * w (else it may be null).
+#define SURREAL_MERGE_MAX_PARTS 32
+#define SURREAL_MERGE_SMEM_KEYS 16384
+SURREAL_API int merge_partials_topk(const float* const* dists,
+                                    const int32_t* const* ids,
+                                    const long long* bases,
+                                    const int* widths, int parts, int b,
+                                    int w, int k_out, long long id_max,
+                                    float* out_dist, int32_t* out_ids,
+                                    unsigned long long* scratch,
+                                    long long scratch_ld, void* stream);
+
+// mesh_merge.cu: out = OR of the `parts` uint8 masks of nbytes each
+// (host array of device pointers, at most SURREAL_MERGE_MAX_PARTS), and
+// acc |= out when acc is not null.
+SURREAL_API int mask_or_reduce(const uint8_t* const* masks, int parts,
+                               long long nbytes, uint8_t* out,
+                               uint8_t* acc, void* stream);

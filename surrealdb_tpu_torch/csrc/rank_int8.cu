@@ -16,21 +16,26 @@
 // round-to-nearest intrinsics, never contracted, so the scores are the
 // reference's bit for bit.
 //
-// Design: a block owns a tile of 64 queries, quantises them once in
-// its prologue into shared memory, then walks store tiles of 128 rows
-// (a persistent loop over blockIdx.y, so the prologue is paid once per
-// block, not per tile). Store rows stream through a 4-stage cp.async
-// ring in steps of 64 bytes; the product runs on the int8 tensor cores
-// through WMMA (16x16x16 s8 fragments, s32 accumulators): 8 warps as
-// 2 (queries) x 4 (rows), each 32 x 32. WMMA wants fragment pointers
-// 32-byte aligned, which 16-byte k-steps of a row-major tile are not,
-// so both operands sit in shared memory chunk-major: [k/16][row][16].
-// Fragments past the last query (a 16-query chunk at N = 10M) are
-// skipped, uniform over the warp. The int32 tile goes through shared
-// memory (aliasing the ring) to the epilogue, which dequantises,
-// scores, masks and writes the [C, N] f32 scores coalesced. The store
-// width must be a multiple of 16 (the stores pad rows with zero
-// columns) and at most 2048.
+// Design: a first small kernel quantises the C queries once into the
+// wrapper's scratch (q8 [C, D] int8, the per-query scale [C]). Then a
+// block owns a tile of 64 queries and walks store tiles of 128 rows (a
+// persistent loop over blockIdx.y). The block's int8 query tile sits in
+// shared memory for one width chunk of at most 2048 columns: a store up
+// to 2048 wide loads it once in the prologue; a wider one (3072-d
+// embeddings) reloads each chunk from the (L2-resident) scratch as the
+// k loop crosses into it, and the int32 accumulators run on across the
+// chunks, so the product stays exact int32 at any width. Store rows
+// stream through a 4-stage cp.async ring in steps of 64 bytes; the
+// product runs on the int8 tensor cores through WMMA (16x16x16 s8
+// fragments, s32 accumulators): 8 warps as 2 (queries) x 4 (rows), each
+// 32 x 32. WMMA wants fragment pointers 32-byte aligned, which 16-byte
+// k-steps of a row-major tile are not, so both operands sit in shared
+// memory chunk-major: [k/16][row][16]. Fragments past the last query (a
+// 16-query chunk at N = 10M) are skipped, uniform over the warp. The
+// int32 tile goes through shared memory (aliasing the ring) to the
+// epilogue, which dequantises, scores, masks and writes the [C, N] f32
+// scores coalesced. The store width must be a multiple of 16 (the
+// stores pad rows with zero columns).
 // Bound on the H100: bytes. At C = 16, N = 10M, D = 768 the store read
 // is 7.7 GB and the score write 0.64 GB (2.5 ms at 3.35 TB/s); the
 // 0.25 TOP of int8 products are 0.12 ms at 1,979 TOP/s. The persistent
@@ -63,7 +68,8 @@ constexpr int RING_BYTES = ISTAGES * STAGE_BYTES;
 constexpr int CLD = IN + 4;      // int32 tile pitch
 constexpr int TILE_BYTES = IM * CLD * 4;
 constexpr int WORK_BYTES = RING_BYTES > TILE_BYTES ? RING_BYTES : TILE_BYTES;
-constexpr int MAX_WIDTH = 2048;  // q8 tile: IM * 2048 bytes of shared memory
+constexpr int KW = 2048;         // query columns held in shared memory
+constexpr int KSPC = KW / IK;    // ring steps per width chunk
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -96,9 +102,27 @@ __device__ __forceinline__ double warp_sum_f64(double v) {
   return v;
 }
 
+__global__ void quantize_queries_kernel(const float* __restrict__ qs, int c,
+                                        int d, int probe_order,
+                                        int8_t* __restrict__ q8,
+                                        float* __restrict__ qscale) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= c) return;
+  const float* q = qs + (long long)r * d;
+  float m = 0.f;
+  for (int i = lane; i < d; i += 32) m = fmaxf(m, fabsf(q[i]));
+  m = warp_max(m);
+  const float sq = __fdiv_rn(127.0f, fmaxf(m, 1e-30f));
+  for (int i = lane; i < d; i += 32)
+    q8[(long long)r * d + i] = (int8_t)__float2int_rn(__fmul_rn(q[i], sq));
+  if (lane == 0) qscale[r] = probe_order ? __fdiv_rn(1.0f, sq) : sq;
+}
+
 __global__ void __launch_bounds__(ITHREADS, 2)
     rank_int8_kernel(const int8_t* __restrict__ xs,
-                     const float* __restrict__ qs,
+                     const int8_t* __restrict__ q8,
+                     const float* __restrict__ qscale,
                      const float* __restrict__ arow,
                      const float* __restrict__ x2,
                      const uint8_t* __restrict__ valid,
@@ -106,10 +130,12 @@ __global__ void __launch_bounds__(ITHREADS, 2)
                      int euclid, int probe_order) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* work = smem;                          // ring / int32 tile
-  // the quantised query tile, chunk-major [d/16][IM][16]
+  const int qw = d < KW ? d : KW;  // query columns a chunk holds
+  // one width chunk of the quantised query tile, chunk-major
+  // [qw/16][IM][16]
   int8_t* q8s = reinterpret_cast<int8_t*>(smem + WORK_BYTES);
   float* s_scale = reinterpret_cast<float*>(smem + WORK_BYTES +
-                                            (size_t)IM * d);
+                                            (size_t)IM * qw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2;  // 0..1: 32 queries each
   const int wn = warp & 3;   // 0..3: 32 store rows each
@@ -117,25 +143,26 @@ __global__ void __launch_bounds__(ITHREADS, 2)
   const int nq = min(IM, c - m0);
   const int kchunks = d >> 4;
   const int ksteps = (d + IK - 1) / IK;
+  const int nwchunks = (d + KW - 1) / KW;
 
-  // prologue: quantise this tile's queries, one warp a row
-  for (int r = warp; r < IM; r += ITHREADS / 32) {
-    if (r < nq) {
-      const float* q = qs + (long long)(m0 + r) * d;
-      float m = 0.f;
-      for (int i = lane; i < d; i += 32) m = fmaxf(m, fabsf(q[i]));
-      m = warp_max(m);
-      const float sq = __fdiv_rn(127.0f, fmaxf(m, 1e-30f));
-      for (int i = lane; i < d; i += 32)
-        q8s[(i >> 4) * (IM * 16) + r * 16 + (i & 15)] =
-            (int8_t)__float2int_rn(__fmul_rn(q[i], sq));
-      if (lane == 0) s_scale[r] = probe_order ? __fdiv_rn(1.0f, sq) : sq;
-    } else {
-      for (int i = lane; i < d; i += 32)
-        q8s[(i >> 4) * (IM * 16) + r * 16 + (i & 15)] = 0;
-      if (lane == 0) s_scale[r] = 1.0f;
+  // copy width chunk `wc` of the tile's quantised queries into q8s, 16
+  // bytes a thread; rows past the batch are zeros
+  auto load_queries = [&](int wc) {
+    const int k0 = wc * KW;
+    const int c16 = (min(KW, d - k0)) >> 4;
+    for (int i = tid; i < IM * c16; i += ITHREADS) {
+      const int r = i / c16, j = i % c16;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (r < nq)
+        v = *reinterpret_cast<const int4*>(q8 + (long long)(m0 + r) * d +
+                                           k0 + j * 16);
+      *reinterpret_cast<int4*>(q8s + j * (IM * 16) + r * 16) = v;
     }
-  }
+  };
+
+  for (int r = tid; r < IM; r += ITHREADS)
+    s_scale[r] = r < nq ? qscale[m0 + r] : 1.0f;
+  if (nwchunks == 1) load_queries(0);
   __syncthreads();
 
   const long long ntiles = (n + IN - 1) / IN;
@@ -168,6 +195,11 @@ __global__ void __launch_bounds__(ITHREADS, 2)
     for (int ks = 0; ks < ksteps; ++ks) {
       cp_async_wait<ISTAGES - 2>();  // step ks has landed
       __syncthreads();               // ...for all; slot ks-1 is free
+      if (nwchunks > 1 && ks % KSPC == 0) {
+        // every warp is past step ks-1: the next width chunk may land
+        load_queries(ks / KSPC);
+        __syncthreads();
+      }
       const int nk = ks + ISTAGES - 1;
       if (nk < ksteps) load_stage(nk % ISTAGES, nk);
       cp_async_commit();
@@ -177,6 +209,7 @@ __global__ void __launch_bounds__(ITHREADS, 2)
       for (int kk = 0; kk < ICH; ++kk) {
         const int kc = ks * ICH + kk;
         if (kc >= kchunks) break;  // a partial last step
+        const int kl = (ks % KSPC) * ICH + kk;  // within the width chunk
         wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
                        wmma::col_major> b[2];
 #pragma unroll
@@ -189,7 +222,7 @@ __global__ void __launch_bounds__(ITHREADS, 2)
           wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
                          wmma::row_major> a;
           wmma::load_matrix_sync(
-              a, q8s + kc * (IM * 16) + (wm * 32 + i * 16) * 16, 16);
+              a, q8s + kl * (IM * 16) + (wm * 32 + i * 16) * 16, 16);
 #pragma unroll
           for (int j = 0; j < 2; ++j)
             wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
@@ -284,26 +317,33 @@ int sm_count() {
 SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
                                  const float* arow, const float* x2,
                                  const uint8_t* valid, float* out,
-                                 long long n, int c, int d, int euclid,
-                                 int probe_order, void* stream) {
+                                 int8_t* q8, float* qscale, long long n,
+                                 int c, int d, int euclid, int probe_order,
+                                 void* stream) {
   if (n <= 0 || c <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d % 16 != 0 || d > MAX_WIDTH || arow == nullptr ||
-      (euclid && x2 == nullptr))
+  if (d <= 0 || d % 16 != 0 || arow == nullptr || q8 == nullptr ||
+      qscale == nullptr || (euclid && x2 == nullptr))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  quantize_queries_kernel<<<(unsigned)((c + 7) / 8), 256, 0, st>>>(
+      qs, c, d, probe_order, q8, qscale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int mtiles = (c + IM - 1) / IM;
   const long long ntiles = (n + IN - 1) / IN;
   // two persistent blocks an SM over all query tiles
   long long per = (2LL * sm_count() + mtiles - 1) / mtiles;
   if (per > ntiles) per = ntiles;
   if (per > 65535) per = 65535;
-  const size_t smem = (size_t)WORK_BYTES + (size_t)IM * d + IM * sizeof(float);
-  static int smem_done = 0;
-  const cudaError_t attr =
-      surreal_smem_limit(rank_int8_kernel, (int)smem, &smem_done);
-  if (attr != cudaSuccess) return (int)attr;
+  const int qw = d < KW ? d : KW;
+  const size_t smem =
+      (size_t)WORK_BYTES + (size_t)IM * qw + IM * sizeof(float);
+  static SurrealSmemDone smem_done;
+  err = surreal_smem_limit(rank_int8_kernel, (int)smem, &smem_done);
+  if (err != cudaSuccess) return (int)err;
   rank_int8_kernel<<<dim3((unsigned)mtiles, (unsigned)per), ITHREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      xs, qs, arow, x2, valid, out, n, c, d, euclid, probe_order);
+                     st>>>(xs, q8, qscale, arow, x2, valid, out, n, c, d,
+                           euclid, probe_order);
   return (int)cudaGetLastError();
 }
 

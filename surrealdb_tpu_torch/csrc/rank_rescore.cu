@@ -239,7 +239,7 @@ SURREAL_API int rank_scores_bf16(const void* xs_rank, const void* qs_bf16,
   const int mtiles = (c + RM - 1) / RM;
   const long long blocks = (long long)mtiles * ((n + RN - 1) / RN);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  static int smem_done = 0;
+  static SurrealSmemDone smem_done;
   const cudaError_t attr =
       surreal_smem_limit(rank_scores_kernel, SMEM_BYTES, &smem_done);
   if (attr != cudaSuccess) return (int)attr;

@@ -322,7 +322,7 @@ SURREAL_API int select_topk_rows(const float* vals, long long ld,
   if (t < 64) t = 64;
   if (t > 1024) t = 1024;
   auto kernel = large ? select_topk_kernel<true> : select_topk_kernel<false>;
-  static int smem_done[2] = {0, 0};
+  static SurrealSmemDone smem_done[2];
   const cudaError_t attr =
       surreal_smem_limit(kernel, SMEM_BYTES, &smem_done[large ? 1 : 0]);
   if (attr != cudaSuccess) return (int)attr;

@@ -26,7 +26,7 @@ from surrealdb_tpu_torch.device import kernelstats
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 SOURCES = ("distance.cu", "select.cu", "rank_rescore.cu", "csr_hop.cu",
-           "rank_int8.cu", "ann_descent.cu")
+           "rank_int8.cu", "ann_descent.cu", "mesh_merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,6 +1,6 @@
 """Device op dispatch table of the torch runner (the reference's
-`device/handlers.py`, for one device): vector, graph-ANN and CSR block
-caches, brute KNN, status.
+`device/handlers.py`): vector, graph-ANN and CSR block caches, on one
+device or sharded over the runner's device list, brute KNN, status.
 
 Every handler is `(meta, bufs) -> (tag, meta_out, bufs_out)`; raising
 maps to an `("err", ...)` reply. Op names, the meta/bufs layout and the
@@ -10,8 +10,11 @@ answers `stale` on its next use and the serving side re-ships (device
 blocks are a cache over KV truth). The byte budget
 (SURREAL_DEVICE_MEM_BUDGET_MB) admits a ship by evicting LRU stores
 first and refuses it with `DeviceBudgetError` only when the store
-cannot fit an otherwise-empty runner. Every store lives on one device
-(`mesh_ndev` = 1).
+cannot fit an otherwise-empty runner. The budget is per device: on a
+device list of several devices, placement (`device/mesh.py`
+`pick_ndev`) first widens a store over the mesh, so one that fits on 8
+devices but not on 1 shards instead of refusing; every store accounts
+its share on the most-loaded device.
 """
 
 from __future__ import annotations
@@ -49,19 +52,36 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _vec_estimate(n: int, dim: int, itemsize: int, meta: dict) -> int:
+def _vec_estimate(n: int, dim: int, itemsize: int, meta: dict,
+                  ndev: int, ndev_list: int) -> int:
+    """Install estimate: the mesh store's TOTAL bytes when the load is
+    placed on a mesh (`ndev` >= 1), else the VecStore formula over the
+    runner's `ndev_list` devices."""
+    if ndev:
+        from surrealdb_tpu_torch.device.mesh import MeshVecStore
+
+        return MeshVecStore.estimate_device_bytes(
+            n, dim, itemsize, meta["metric"], meta["cfg"], ndev
+        )
     from surrealdb_tpu_torch.device.vecstore import VecStore
 
     return VecStore.estimate_device_bytes(
-        n, dim, itemsize, meta["metric"], meta["cfg"]
+        n, dim, itemsize, meta["metric"], meta["cfg"], ndev_list
     )
 
 
 class DeviceHost:
-    """Per-runner registry of vector, graph-ANN and CSR block caches."""
+    """Per-runner registry of vector, graph-ANN and CSR block caches.
+    `mesh_devices` N asks for a device list of N logical devices
+    (device/mesh.py `device_list`); the default is every visible card,
+    or one CPU."""
 
-    def __init__(self, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, device="cuda", mesh_devices=None):
+        from surrealdb_tpu_torch.device import mesh as devmesh
+
+        self.devices = devmesh.device_list(mesh_devices,
+                                           resolve_device(device))
+        self.device = self.devices[0]
         if self.device.type == "cuda":
             from surrealdb_tpu_torch.device import compile_cache
 
@@ -85,6 +105,14 @@ class DeviceHost:
 
     # -- device-memory budget ------------------------------------------------
 
+    def _staged(self) -> int:
+        total = 0
+        for _m, vecs, valid in self._staging.values():
+            total += int(vecs.nbytes) + int(valid.nbytes)
+        for _m, by_name in self._ann_staging.values():
+            total += sum(int(a.nbytes) for a in by_name.values())
+        return total + sum(self._reserved.values())
+
     def mem_used(self) -> int:
         """Estimated device-resident bytes across the block caches plus
         multipart staging (host-side until load_end, admitted up
@@ -93,22 +121,64 @@ class DeviceHost:
         for cache in (self.vec, self.csr, self.ann):
             for _tag, st in cache.values():
                 total += st.device_nbytes()
-        for _m, vecs, valid in self._staging.values():
-            total += int(vecs.nbytes) + int(valid.nbytes)
-        for _m, by_name in self._ann_staging.values():
-            total += sum(int(a.nbytes) for a in by_name.values())
-        total += sum(self._reserved.values())
-        return total
+        return total + self._staged()
 
-    # one device: its share is the whole
-    mem_used_device0 = mem_used
+    def mem_used_device0(self) -> int:
+        """Estimated bytes on the most-loaded device: a sharded store
+        contributes its per-device share (estimate / mesh_ndev), an
+        unsharded one, staging and reservations their whole estimate —
+        what the per-device budget admits against."""
+        total = 0
+        for cache in (self.vec, self.csr, self.ann):
+            for _tag, st in cache.values():
+                ndev = max(int(getattr(st, "mesh_ndev", 1) or 1), 1)
+                total += -(-st.device_nbytes() // ndev)
+        return total + self._staged()
+
+    def _place(self, est_total_fn, n_items: int) -> int:
+        """Mesh width for an install: 0 = an unsharded store (mesh off,
+        one device, or a store that fits one device's budget), else the
+        budget-aware pow2 count of device/mesh.pick_ndev."""
+        from surrealdb_tpu_torch.device import mesh as devmesh
+
+        ndevs = len(self.devices)
+        if devmesh.mesh_size(ndevs) <= 1:
+            return 0
+        nd = devmesh.pick_ndev(est_total_fn, self.budget_bytes,
+                               n_rows=max(n_items, 1), n_devices=ndevs)
+        return nd if nd > 1 else 0
+
+    def _place_vec(self, n: int, dim: int, itemsize: int,
+                   meta: dict) -> int:
+        from surrealdb_tpu_torch.device.mesh import MeshVecStore
+
+        return self._place(lambda d: MeshVecStore.estimate_device_bytes(
+            n, dim, itemsize, meta["metric"], meta["cfg"], d), n)
+
+    def _place_ann(self, n: int, dim: int, d_out: int) -> int:
+        from surrealdb_tpu_torch.device.mesh import MeshAnnStore
+
+        return self._place(lambda d: MeshAnnStore.estimate_device_bytes(
+            n, dim, d_out, d), n)
+
+    def _place_csr(self, n_edges: int) -> int:
+        from surrealdb_tpu_torch.device.mesh import MeshCsrStore
+
+        return self._place(
+            lambda d: MeshCsrStore.estimate_device_bytes(n_edges, d),
+            n_edges)
 
     def _evict_key(self, key: str):
         for cache in (self.vec, self.csr, self.ann):
             cache.pop(key, None)
 
-    def _admit(self, share: int, keep_key: str = ""):
-        """Make room for `share` estimated bytes or raise
+    def _admit(self, incoming: int, keep_key: str = "", ndev: int = 1):
+        """Admit `incoming` total estimated bytes sharded over `ndev`
+        devices: the per-device budget sees `ceil(incoming/ndev)`."""
+        self._admit_share(-(-int(incoming) // max(int(ndev), 1)), keep_key)
+
+    def _admit_share(self, share: int, keep_key: str = ""):
+        """Make room for `share` estimated device-0 bytes or raise
         DeviceBudgetError. Victims pop oldest-first, in kind order
         csr -> vec -> ann (ascending re-ship cost). `keep_key`'s
         outdated copy is dropped first and is never counted against its
@@ -124,7 +194,7 @@ class DeviceHost:
                 f"device budget is {self.budget_bytes >> 20} MiB "
                 f"(SURREAL_DEVICE_MEM_BUDGET_MB)"
             )
-        while self.mem_used() + share > self.budget_bytes:
+        while self.mem_used_device0() + share > self.budget_bytes:
             victim = None
             for cache in (self.csr, self.vec, self.ann):
                 for key in cache:
@@ -137,7 +207,7 @@ class DeviceHost:
                 self.oom_refusals += 1
                 raise DeviceBudgetError(
                     f"store needs ~{share >> 20} MiB per device; "
-                    f"{self.mem_used() >> 20} MiB resident is "
+                    f"{self.mem_used_device0() >> 20} MiB resident is "
                     f"unevictable (staging) under the "
                     f"{self.budget_bytes >> 20} MiB budget"
                 )
@@ -159,17 +229,26 @@ class DeviceHost:
         return self.device.type
 
     def device_count(self) -> int:
-        return torch.cuda.device_count() if self.device.type == "cuda" else 1
+        """The device list's length (the reference's len(jax.devices()),
+        logical devices included)."""
+        return len(self.devices)
 
     def op_status(self, meta, bufs):
         from surrealdb_tpu_torch.device import compile_cache, kernelstats
+        from surrealdb_tpu_torch.device import mesh as devmesh
+
+        def _sharded(cache):
+            return sum(1 for _t, s in cache.values()
+                       if getattr(s, "mesh_ndev", 1) > 1)
 
         return "ok", {
             "platform": self.platform(),
             "device_count": self.device_count(),
-            "mesh": {"ndev": 1, "sharded_vec": 0, "sharded_ann": 0,
-                     "sharded_csr": 0},
-            "mem_used_device0": self.mem_used(),
+            "mesh": dict(devmesh.describe(len(self.devices)),
+                         sharded_vec=_sharded(self.vec),
+                         sharded_ann=_sharded(self.ann),
+                         sharded_csr=_sharded(self.csr)),
+            "mem_used_device0": self.mem_used_device0(),
             "vec_blocks": len(self.vec),
             "csr_blocks": len(self.csr),
             "ann_blocks": len(self.ann),
@@ -201,24 +280,38 @@ class DeviceHost:
         self.vec[key] = (list(tag), st)
         while len(self.vec) > MAX_VEC_STORES:
             self.vec.popitem(last=False)
-        return "ok", {"rank_mode": st.rank_mode, "mesh_ndev": 1}, []
+        return "ok", {"rank_mode": st.rank_mode,
+                      "mesh_ndev": getattr(st, "mesh_ndev", 1)}, []
 
-    def _vec_store(self, key, vecs, valid, meta):
+    def _vec_store(self, key, vecs, valid, meta, ndev: int):
+        """Placed construction: a MeshVecStore over `ndev` devices, else
+        the VecStore (which shards itself over a device list of several
+        devices, as the reference's does)."""
+        if ndev:
+            from surrealdb_tpu_torch.device.mesh import MeshVecStore
+
+            return MeshVecStore(key, vecs, valid, meta["metric"],
+                                meta.get("mink_p", 3.0), meta["cfg"], ndev,
+                                devices=self.devices[:ndev])
         from surrealdb_tpu_torch.device.vecstore import VecStore
 
         return VecStore(key, vecs, valid, meta["metric"],
-                        meta.get("mink_p", 3.0), meta["cfg"], self.device)
+                        meta.get("mink_p", 3.0), meta["cfg"], self.device,
+                        self.devices)
 
     def op_vec_load(self, meta, bufs):
         key = meta["key"]
         vecs, valid = bufs
+        ndev = self._place_vec(vecs.shape[0], vecs.shape[1],
+                               vecs.dtype.itemsize, meta)
         self._admit(
             _vec_estimate(vecs.shape[0], vecs.shape[1],
-                          vecs.dtype.itemsize, meta),
-            keep_key=key,
+                          vecs.dtype.itemsize, meta, ndev,
+                          len(self.devices)),
+            keep_key=key, ndev=max(ndev, 1),
         )
         return self._install_vec(
-            key, meta["tag"], self._vec_store(key, vecs, valid, meta))
+            key, meta["tag"], self._vec_store(key, vecs, valid, meta, ndev))
 
     def op_vec_load_begin(self, meta, bufs):
         key = meta["key"]
@@ -226,16 +319,23 @@ class DeviceHost:
         dtype = np.dtype(meta["dtype"])
         # admit staging + the final device arrays up front, BEFORE the
         # big allocation; the install share stays reserved until
-        # load_end so a concurrent ship cannot overcommit
-        est = _vec_estimate(int(n), int(dim), dtype.itemsize, meta)
-        self._admit(int(n) * int(dim) * dtype.itemsize + int(n) + est,
-                    keep_key=key)
+        # load_end so a concurrent ship cannot overcommit. Staging is a
+        # host buffer: it occupies the runner whole, the install share
+        # is what lands per device.
+        ndev = self._place_vec(int(n), int(dim), dtype.itemsize, meta)
+        est = _vec_estimate(int(n), int(dim), dtype.itemsize, meta, ndev,
+                            len(self.devices))
+        share = -(-est // max(ndev, 1))
+        self._admit_share(int(n) * int(dim) * dtype.itemsize + int(n)
+                          + share, keep_key=key)
         self._reserved.pop(key, None)
         if self.budget_bytes > 0:
-            self._reserved[key] = est
+            self._reserved[key] = share
         vecs = np.empty((int(n), int(dim)), dtype=dtype)
         (valid,) = bufs
-        self._staging[key] = (dict(meta), vecs, valid)
+        lmeta = dict(meta)
+        lmeta["_mesh_ndev"] = ndev
+        self._staging[key] = (lmeta, vecs, valid)
         return "ok", {}, []
 
     def op_vec_load_part(self, meta, bufs):
@@ -256,7 +356,8 @@ class DeviceHost:
             return "stale", {}, []
         lmeta, vecs, valid = ent
         return self._install_vec(
-            key, meta["tag"], self._vec_store(key, vecs, valid, lmeta))
+            key, meta["tag"], self._vec_store(
+                key, vecs, valid, lmeta, int(lmeta.get("_mesh_ndev", 0))))
 
     def op_vec_drop(self, meta, bufs):
         self.vec.pop(meta["key"], None)
@@ -270,7 +371,7 @@ class DeviceHost:
             return "stale", {}, []
         self.vec.move_to_end(meta["key"])
         out_meta, out_bufs = ent[1].knn(bufs[0], int(meta["k"]))
-        out_meta.setdefault("mesh_ndev", 1)
+        out_meta.setdefault("mesh_ndev", getattr(ent[1], "mesh_ndev", 1))
         return "ok", out_meta, out_bufs
 
     def _prewarm_shapes(self, cache, meta, field, warm_one):
@@ -304,18 +405,29 @@ class DeviceHost:
     # -- quantized graph-ANN blocks (device/annstore.py) --------------------
 
     def _ann_install(self, key, tag, meta, graph, x8, arow, x2q):
-        from surrealdb_tpu_torch.device.annstore import AnnStore
+        ndev = self._place_ann(x8.shape[0], x8.shape[1], graph.shape[1])
+        if ndev:
+            from surrealdb_tpu_torch.device.mesh import MeshAnnStore
 
-        self._admit(AnnStore.estimate_device_bytes(
-            x8.shape[0], x8.shape[1], graph.shape[1]), keep_key=key)
-        st = AnnStore(key, graph, x8, arow, x2q, meta["metric"],
-                      meta.get("cfg") or {}, self.device)
+            self._admit(MeshAnnStore.estimate_device_bytes(
+                x8.shape[0], x8.shape[1], graph.shape[1], ndev),
+                keep_key=key, ndev=ndev)
+            st = MeshAnnStore(key, graph, x8, arow, x2q, meta["metric"],
+                              meta.get("cfg") or {}, ndev,
+                              devices=self.devices[:ndev])
+        else:
+            from surrealdb_tpu_torch.device.annstore import AnnStore
+
+            self._admit(AnnStore.estimate_device_bytes(
+                x8.shape[0], x8.shape[1], graph.shape[1]), keep_key=key)
+            st = AnnStore(key, graph, x8, arow, x2q, meta["metric"],
+                          meta.get("cfg") or {}, self.device)
         st._ensure()
         self.ann.pop(key, None)
         self.ann[key] = (list(tag), st)
         while len(self.ann) > MAX_ANN_STORES:
             self.ann.popitem(last=False)
-        return "ok", {"mesh_ndev": 1}, []
+        return "ok", {"mesh_ndev": getattr(st, "mesh_ndev", 1)}, []
 
     def op_ann_load(self, meta, bufs):
         graph, x8, arow, x2q = bufs
@@ -328,15 +440,19 @@ class DeviceHost:
         key = meta["key"]
         arow, x2q = bufs
         n = arow.shape[0]
-        # host staging (~est) and the installed arrays (est) coexist
-        # briefly at load_end; the install share stays reserved until
-        # then so a concurrent ship cannot overcommit
+        # host staging (~est, occupying the runner whole) and the
+        # installed arrays (est, or its per-device share once
+        # _ann_install places a mesh store) coexist briefly at load_end;
+        # the install share stays reserved until then so a concurrent
+        # ship cannot overcommit
+        ndev = self._place_ann(n, int(meta["dim"]), int(meta["d_out"]))
         est = AnnStore.estimate_device_bytes(
             n, int(meta["dim"]), int(meta["d_out"]))
-        self._admit(est + est, keep_key=key)
+        share = -(-est // max(ndev, 1))
+        self._admit_share(est + share, keep_key=key)
         self._reserved.pop(key, None)
         if self.budget_bytes > 0:
-            self._reserved[key] = est
+            self._reserved[key] = share
         by_name = {
             "graph": np.empty((n, int(meta["d_out"])), np.int32),
             "x8": np.empty((n, int(meta["dim"])), np.int8),
@@ -379,7 +495,8 @@ class DeviceHost:
             return "stale", {}, []
         self.ann.move_to_end(meta["key"])
         cand = ent[1].search(bufs[0], int(meta["kc"]))
-        return "ok", {"mode": "cand", "mesh_ndev": 1}, [cand]
+        return "ok", {"mode": "cand",
+                      "mesh_ndev": getattr(ent[1], "mesh_ndev", 1)}, [cand]
 
     def op_ann_prewarm(self, meta, bufs):
         """Query-bucket ladder for an ANN index's descent."""
@@ -391,12 +508,22 @@ class DeviceHost:
         return self._prewarm_shapes(self.ann, meta, "buckets", warm)
 
     def op_csr_load(self, meta, bufs):
-        from surrealdb_tpu_torch.device.csrstore import CsrStore
-
         key = meta["key"]
         rows, cols = bufs
-        self._admit(int(rows.nbytes) + int(cols.nbytes), keep_key=key)
-        st = CsrStore(key, rows, cols, int(meta["n_nodes"]), self.device)
+        ndev = self._place_csr(rows.shape[0])
+        if ndev:
+            from surrealdb_tpu_torch.device.mesh import MeshCsrStore
+
+            self._admit(MeshCsrStore.estimate_device_bytes(
+                rows.shape[0], ndev), keep_key=key, ndev=ndev)
+            st = MeshCsrStore(key, rows, cols, int(meta["n_nodes"]), ndev,
+                              devices=self.devices[:ndev])
+        else:
+            from surrealdb_tpu_torch.device.csrstore import CsrStore
+
+            self._admit(int(rows.nbytes) + int(cols.nbytes), keep_key=key)
+            st = CsrStore(key, rows, cols, int(meta["n_nodes"]),
+                          self.device)
         self.csr.pop(key, None)
         self.csr[key] = (list(meta["tag"]), st)
         while len(self.csr) > MAX_CSR_STORES:
@@ -415,7 +542,7 @@ class DeviceHost:
         mask = ent[1].multi_hop(
             bufs[0], int(meta["hops"]), bool(meta["union"])
         )
-        return "ok", {"mesh_ndev": 1}, [mask]
+        return "ok", {"mesh_ndev": getattr(ent[1], "mesh_ndev", 1)}, [mask]
 
     def op_csr_prewarm(self, meta, bufs):
         def warm(st, hops):

@@ -19,13 +19,16 @@ from __future__ import annotations
 
 COUNTS = {"hits": 0, "misses": 0, "sharded": 0}
 _SEEN: set = set()
+# widest mesh any sharded dispatch ran on in this process
+MESH_LAST = {"ndev": 0}
 # store shapes change every sync epoch under write load, so the
 # seen-set is bounded; overflow clears it
 _SEEN_MAX = 4096
 
 KERNELS = ("distance_tile", "select_topk_rows", "rank_scores_bf16",
            "gather_rescore", "csr_hop_step", "quantize_rows_int8",
-           "rank_scores_int8", "ann_descent")
+           "rank_scores_int8", "ann_descent", "merge_partials_topk",
+           "mask_or_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 
@@ -35,6 +38,15 @@ def note_compile(kernel: str):
 
 def note_hit(kernel: str):
     COUNTS["hits"] += 1
+
+
+def note_sharded(kernel: str, ndev: int):
+    """Record a mesh dispatch (device/mesh.py stores) of width `ndev`;
+    width-1 meshes don't count as sharded execution."""
+    if ndev > 1:
+        COUNTS["sharded"] += 1
+        if ndev > MESH_LAST["ndev"]:
+            MESH_LAST["ndev"] = ndev
 
 
 def note_shape(kernel: str, shape_key) -> bool:
@@ -66,5 +78,5 @@ def reset_launches():
 
 def snapshot() -> dict:
     out = dict(COUNTS)
-    out["mesh_ndev"] = 1
+    out["mesh_ndev"] = MESH_LAST["ndev"]
     return out

@@ -16,7 +16,16 @@ Protocol (device/proto.py frames, the reference runner's):
 The loop is single-threaded and crash-only: the serving side rebuilds
 every store from its own data after a restart.
 
+`--mesh-devices N` gives the runner a device list of N logical devices
+(device/mesh.py): shard s on `cuda:(s % device_count)`, or every shard
+on the CPU with `--device cpu`. It is the counterpart of the
+reference's forced device count (`--xla_force_host_platform_device_count`),
+which widens its mesh on a CPU: several logical devices on one card
+check the partition and the merge; speed across cards needs as many
+cards. Without it the list is every visible card (one CPU).
+
     python -m surrealdb_tpu_torch.device.runner --fd N [--device cpu]
+        [--mesh-devices N]
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import socket
 import traceback
 
 
-def serve(sock, device: str = "cuda") -> None:
+def serve(sock, device: str = "cuda", mesh_devices=None) -> None:
     """Init torch (+ CUDA), announce readiness, serve until EOF or
     shutdown."""
     from surrealdb_tpu_torch.device import proto
@@ -35,14 +44,15 @@ def serve(sock, device: str = "cuda") -> None:
     try:
         from surrealdb_tpu_torch.device.handlers import DeviceHost
 
-        host = DeviceHost(device)
+        host = DeviceHost(device, mesh_devices)
         from surrealdb_tpu_torch.device import compile_cache
+        from surrealdb_tpu_torch.device import mesh as devmesh
 
         ready = {
             "platform": host.platform(),
             "device_count": host.device_count(),
             "compile_cache": compile_cache.status(),
-            "mesh": {"ndev": 1},
+            "mesh": devmesh.describe(host.device_count()),
         }
     except BaseException as e:  # init failed: report, then die
         try:
@@ -90,7 +100,7 @@ def serve(sock, device: str = "cuda") -> None:
                 return
 
 
-def main(fd: int, device: str = "cuda") -> None:
+def main(fd: int, device: str = "cuda", mesh_devices=None) -> None:
     # the supervisor owns this process's lifetime; a Ctrl-C aimed at the
     # server must not race the supervisor's orderly shutdown
     try:
@@ -99,7 +109,7 @@ def main(fd: int, device: str = "cuda") -> None:
         pass
     sock = socket.socket(fileno=fd)
     try:
-        serve(sock, device)
+        serve(sock, device, mesh_devices)
     finally:
         try:
             sock.close()
@@ -116,9 +126,12 @@ def _parse(argv=None):
                     help="inherited socket file descriptor")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the card (default) or on the CPU")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="N logical devices in the mesh's device list "
+                         "(default: every visible card, or one CPU)")
     return ap.parse_args(argv)
 
 
 if __name__ == "__main__":
     args = _parse()
-    main(args.fd, args.device)
+    main(args.fd, args.device, args.mesh_devices)

@@ -49,8 +49,11 @@ class DeviceSupervisor:
     def __init__(self, device: str = "cuda",
                  init_timeout_s: Optional[float] = None,
                  dispatch_timeout_s: Optional[float] = None,
-                 load_timeout_s: Optional[float] = None):
+                 load_timeout_s: Optional[float] = None,
+                 mesh_devices: Optional[int] = None):
         self.device = device
+        # the runner's --mesh-devices (device/mesh.py device_list)
+        self.mesh_devices = mesh_devices
         self.init_timeout_s = (
             cnf.env_float("SURREAL_DEVICE_INIT_TIMEOUT_S",
                           cnf.BACKEND_INIT_TIMEOUT_S)
@@ -86,9 +89,12 @@ class DeviceSupervisor:
             env["PYTHONPATH"] = os.pathsep.join(
                 p for p in (_pkg_root(), env.get("PYTHONPATH", "")) if p)
             try:
+                mesh = ([] if self.mesh_devices is None else
+                        ["--mesh-devices", str(int(self.mesh_devices))])
                 proc = subprocess.Popen(
                     [sys.executable, "-m", "surrealdb_tpu_torch.device.runner",
-                     "--fd", str(child.fileno()), "--device", self.device],
+                     "--fd", str(child.fileno()), "--device", self.device,
+                     *mesh],
                     pass_fds=(child.fileno(),), env=env,
                 )
             except OSError as e:

@@ -347,9 +347,10 @@ def quantize_rows(rows, metric: str, x8, arow, x2):
 
 
 def _int8_dots(x8, q8):
-    """Exact int32 products [C, N] of int8 rows, as f32 (exact for
-    D <= 1040: every partial sum is an integer below 2^24), through an
-    f64 product in row blocks."""
+    """Exact int32 products [C, N] of int8 rows, rounded to f32 as the
+    reference's `dots.astype(float32)` rounds them, through an f64
+    product in row blocks (exact at any width: |dot| <= 127^2 D stays
+    far below 2^53)."""
     step = max(1, (256 << 20) // max(8 * x8.shape[1], 1))
     qd = q8.to(torch.float64)
     return torch.cat([
@@ -409,14 +410,18 @@ def rank_scores_int8(x8, qs, metric: str, arow, x2=None, valid=None,
     if valid is not None:
         valid = valid.to(torch.uint8).contiguous()
     out = torch.empty((c, n), dtype=torch.float32, device=qs.device)
+    # the queries quantised once: int8 rows and their scales
+    q8 = torch.empty((c, width), dtype=torch.int8, device=qs.device)
+    qscale = torch.empty((c,), dtype=torch.float32, device=qs.device)
     fn = compile_cache.declare(
         compile_cache.library("rank_int8.cu"), "rank_scores_int8",
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p])
     err = fn(x8.data_ptr(), qs.data_ptr(), arow.data_ptr(),
              x2.data_ptr() if euclid else None, _ptr(valid), out.data_ptr(),
-             n, c, width, int(euclid), int(probe_order), _stream(qs))
+             q8.data_ptr(), qscale.data_ptr(), n, c, width, int(euclid),
+             int(probe_order), _stream(qs))
     compile_cache.check(err, "rank_scores_int8")
     kernelstats.note_launch("rank_scores_int8")
     return out

@@ -172,6 +172,25 @@ def test_ann_search_odd_width_pads_with_zero_columns():
     assert_ids_match(np.asarray(rd)[:3], np.asarray(rid)[:3], got_ids)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_ann_search_wide_rows_match_reference(metric):
+    """3072-wide rows, past the 2048 columns the int8 kernels hold of a
+    query tile at once: the probe and the descent give the reference's
+    scores and ids."""
+    xs, rng = _clustered(n=600, d=3072, seed=21)
+    ann = rcagra.build_index(xs, metric, 0, 0)
+    ref = RefAnnStore("k", ann.graph, ann.x8, ann.arow, ann.x2, metric, CFG)
+    port = PortAnnStore("k", ann.graph, ann.x8, ann.arow, ann.x2, metric,
+                        CFG, "cpu")
+    qs = xs[:4] + 0.05 * rng.normal(size=(4, 3072)).astype(np.float32)
+    rid, rd = _descent_jit(ref._ensure() + (jnp.asarray(qs),),
+                           (metric, 64, 24, 2, 40), scored=True)
+    got_ids, got_d = port.search_scored(qs, 40)
+    np.testing.assert_array_equal(np.asarray(rid), ref.search(qs, 40))
+    np.testing.assert_allclose(got_d, np.asarray(rd), rtol=RTOL, atol=0)
+    assert_ids_match(np.asarray(rd), np.asarray(rid), got_ids)
+
+
 @pytest.fixture()
 def hosts(monkeypatch):
     monkeypatch.setattr(jax, "device_count", lambda: 1)

@@ -261,7 +261,10 @@ def test_runner_subprocess_answers_like_the_inline_host():
     try:
         ready = sup.start()
         assert ready["platform"] == "cpu"
-        assert ready["mesh"] == {"ndev": 1}
+        # the reference's describe() of a one-device runner
+        assert ready["mesh"] == {"mode": "auto", "n_devices": 1,
+                                 "mesh_shape": [1], "axis": "mesh"}
+        assert ready["device_count"] == 1
         xs, valid = _vecs(1500, 16, 21)
         meta = {"metric": "euclidean", "cfg": CFG}
         sup.ensure_loaded("vec/r", [1, 0],

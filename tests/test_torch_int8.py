@@ -159,7 +159,7 @@ def test_probe_order_is_the_descent_probes(metric):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("dim", [48, 37])
+@pytest.mark.parametrize("dim", [48, 37, 3072])
 @pytest.mark.parametrize("metric", METRICS)
 def test_vec_knn_cand_replies_match(one_device, metric, dim):
     hosts = (ref_handlers.DeviceHost(), port_handlers.DeviceHost("cpu"))

@@ -23,7 +23,8 @@ HEADERS = [
                "compile_cache": {"dir": "/srv/build/torch_kernels/ab12",
                                  "hits": 0, "misses": 1, "build_s": 7.25,
                                  "built": ["csr_hop.cu", "distance.cu"]},
-               "mesh": {"ndev": 1}}, []],
+               "mesh": {"mode": "auto", "n_devices": 1,
+                        "mesh_shape": [1], "axis": "mesh"}}, []],
     ["init_error", {"error": "RuntimeError: CUDA is not available"}, []],
     ["vec_load", {"metric": "cosine", "mink_p": 3.0, "cfg": CFG,
                   "key": "vec/b/b/tbl/ix", "tag": [3, 0], "seq": 7},
