@@ -10,8 +10,9 @@ exits non-zero):
 2. build   -- builds the CUDA kernels (csrc/*.cu, one nvcc each, in
               parallel) into build/torch_kernels/;
 3. kernels -- every kernel of the path against its plain PyTorch version
-              on the card, at a small shape and at the shape the path
-              gives it, with the stated tolerance; times the kernel, the
+              on the card, at edge shapes (ragged, odd, tied, short)
+              and at the shape the path gives it, with the stated
+              tolerance; times the kernel, the
               plain version and, where one exists, a single PyTorch call
               computing the same function (a yardstick the port never
               calls);
@@ -55,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -389,19 +391,58 @@ def main() -> int:
     plain = T.rank_scores_plain(rank, qs, "cosine")
     err = max_err(score, plain, *tol_r, "rank_scores_bf16 512x1Mx768")
     del plain
-    small_x = torch.randn(3000, 64, generator=g).to(dev)
-    small_q = torch.randn(70, 64, generator=g).to(dev)
-    small_v = (torch.rand(3000, generator=g) > 0.1).to(dev)
-    small_x2 = (small_x * small_x).sum(1)
-    for metric in ("euclidean", "dot"):
-        e2 = max_err(T.rank_scores_bf16(small_x.bfloat16(), small_q, metric,
-                                        small_x2, small_v),
-                     T.rank_scores_plain(small_x.bfloat16(), small_q,
-                                         metric, small_x2, small_v),
-                     *tol_r, f"rank_scores_bf16 {metric} small")
-        err = max(err, e2)
-    rms, rby = bound(2 * n * dim + 4 * c * dim + n + 4 * c * n,
-                     2 * c * n * dim, PEAK_BF16)
+    # edge shapes: query counts around the 64-query tile (C <= 64 splits
+    # the store rows between the consumers), store rows ragged against
+    # the 256-row tile and odd or not a multiple of 4 (the store path),
+    # widths under, across and past the 64-column k-step (the tensor
+    # maps' zero fill), every metric, masked and unmasked
+    rank_c = (1, 7, 64, 65, 512)
+    n_edge = 0
+    for n_e in (3000, 4097, 4098):
+        for d_e in (8, 64, 136, 768):
+            ex = torch.randn(n_e, d_e, generator=g).to(dev)
+            ex2 = (ex * ex).sum(1)
+            ev = (torch.rand(n_e, generator=g) > 0.1).to(dev)
+            exb = ex.to(torch.bfloat16)
+            for c_e in rank_c:
+                eq = torch.randn(c_e, d_e, generator=g).to(dev)
+                for metric in ("euclidean", "cosine", "dot"):
+                    for vm in (None, ev):
+                        e2 = max_err(
+                            T.rank_scores_bf16(exb, eq, metric, ex2, vm),
+                            T.rank_scores_plain(exb, eq, metric, ex2, vm),
+                            *tol_r, f"rank_scores_bf16 C={c_e} N={n_e} "
+                            f"D={d_e} {metric} masked={vm is not None}")
+                        err = max(err, e2)
+                        n_edge += 1
+    # and over the knn1m store itself, at every query count
+    rank_x2 = torch.cat([rank[s0:s0 + 65536].float().square().sum(1)
+                         for s0 in range(0, n, 65536)])
+    rank_v = torch.rand(n, generator=g).to(dev) > 0.1
+    for c_e in rank_c:
+        for metric in ("euclidean", "cosine", "dot"):
+            for vm in (None, rank_v):
+                e2 = max_err(
+                    T.rank_scores_bf16(rank, qs[:c_e], metric, rank_x2, vm),
+                    T.rank_scores_plain(rank, qs[:c_e], metric, rank_x2, vm),
+                    *tol_r, f"rank_scores_bf16 C={c_e} N={n} D={dim} "
+                    f"{metric} masked={vm is not None}")
+                err = max(err, e2)
+                n_edge += 1
+    del rank_x2, rank_v
+    torch.cuda.empty_cache()
+
+    def rank_bounds(c_):
+        """The kernel's bound (bf16 store and queries read, f32 [C, N]
+        written) and torch.mm's own (the same reads, bf16 [C, N]
+        written: half the kernel's output bytes)."""
+        ops = 2 * c_ * n * dim
+        return (bound(2 * n * dim + 4 * c_ * dim + 4 * c_ * n, ops,
+                      PEAK_BF16),
+                bound(2 * n * dim + 2 * c_ * dim + 2 * c_ * n, ops,
+                      PEAK_BF16)[0])
+
+    (rms, rby), mm_bound = rank_bounds(c)
     qb = qs.to(torch.bfloat16)
     note("rank_scores_bf16", err,
          ms=cuda_ms(lambda: T.rank_scores_bf16(rank, qs, "cosine"), 5),
@@ -410,7 +451,20 @@ def main() -> int:
          library_ms=cuda_ms(lambda: torch.mm(qb, rank.T), 5),
          bound_ms=rms, bound_by=rby, shape=f"C={c} N={n} D={dim} cosine")
     emit("kernel", name="rank_scores_bf16", tol=tol_r, max_abs_err=err,
-         ms=kern["rank_scores_bf16"]["ms"])
+         ms=kern["rank_scores_bf16"]["ms"],
+         library_ms=kern["rank_scores_bf16"]["library_ms"],
+         library_bound_ms=mm_bound, edge_shapes_checked=n_edge)
+    # the path's other query counts (B = 1 and 128 frames)
+    for c_e in (1, 128):
+        (bms, bby), mmb = rank_bounds(c_e)
+        qe, qeb = qs[:c_e], qb[:c_e]
+        emit("kernel", name="rank_scores_bf16",
+             shape=f"C={c_e} N={n} D={dim} cosine",
+             ms=cuda_ms(lambda: T.rank_scores_bf16(rank, qe, "cosine"), 10),
+             plain_ms=cuda_ms(lambda: T.rank_scores_plain(rank, qe,
+                                                          "cosine"), 3),
+             library_ms=cuda_ms(lambda: torch.mm(qeb, rank.T), 10),
+             bound_ms=bms, bound_by=bby, library_bound_ms=mmb)
 
     # select_topk_rows at the path's candidate stage: kc of 1M per query
     cv, cand = T.select_topk_rows(score, kc)
@@ -521,15 +575,17 @@ def main() -> int:
          ms=kern["mask_or_reduce"]["ms"])
     del mparts, macc, pacc
 
-    # merge_partials_topk: 4 partial top-k tiles with planted ties, +inf
-    # (masked rows) and short parts (padding columns), sorted and
-    # unsorted, against the plain stable sort over the concatenation
-    def partials(rows, widths, sort, seed):
+    # merge_partials_topk: partial top-k tiles with planted ties, +inf
+    # (masked rows), short parts (padding columns) and all-tie rows,
+    # sorted and unsorted, against the plain stable sort over the
+    # concatenation, bit for bit
+    def partials(rows, widths, sort, seed, tie_rows=0):
         gm = torch.Generator(device="cpu").manual_seed(seed)
         ds, ids = [], []
         for ws in widths:
             d = torch.round(torch.randn(rows, ws, generator=gm) * 8) / 8
             d[:, ::5] = float("inf")
+            d[:tie_rows] = 0.5  # every entry of these rows ties
             if sort:
                 d = torch.sort(d, dim=1).values
             ds.append(d.to(dev))
@@ -537,18 +593,40 @@ def main() -> int:
                                      dtype=torch.int32).to(dev))
         return ds, ids
 
-    bases4 = [s * 250_000 for s in range(MESH["ndev"])]
-    for seed, (rows_, widths, w_, k_out, srt) in enumerate((
-            (512, (10,) * 4, 10, 10, True),
-            (16, (1280,) * 4, 1280, 1280, False),
-            (16, (1280, 300, 1280, 0), 1280, 1280, True),
-            (16, (1280, 7, 0, 0), 1280, 2000, False),
-            (8, (5000,) * 4, 5000, 3000, True))):
-        ds, ids = partials(rows_, widths, srt, seed)
-        kd, ki = MG.merge_partials_topk(ds, ids, bases4, w_, k_out, 999_999)
-        pd, pi = MG.merge_partials_plain(ds, ids, bases4, w_, k_out, 999_999)
+    # (rows, part widths, w, k_out, sorted, all-tie rows): the path's two
+    # tiles, short and empty parts, padding past the real entries, the
+    # winners' sort past shared memory (k_out > 4096), many ties across
+    # the threshold, a warp a row (S w <= 256) and a block a row
+    merge_cases = [
+        (512, (1280,) * 4, 1280, 1280, True, 0),
+        (512, (10,) * 4, 10, 10, True, 0),
+        (512, (10,) * 4, 10, 10, False, 100),
+        (16, (1280,) * 4, 1280, 1280, False, 0),
+        (16, (1280, 300, 1280, 0), 1280, 1280, True, 0),
+        (16, (1280, 7, 0, 0), 1280, 2000, False, 4),
+        (8, (5000,) * 4, 5000, 3000, True, 0),
+        (8, (5000,) * 4, 5000, 4500, False, 3),
+        (9, (2000,) * 10, 2000, 4000, False, 2),
+        (33, (7,) * 32, 7, 50, False, 5),
+        (33, (40,) * 32, 40, 300, False, 0),
+        (64, (100, 37), 100, 30, False, 7),
+        (64, (1000,) * 3, 1000, 500, True, 9),
+        (5, (1,), 1, 1, False, 0)]
+    # every part count, k_out well under S w / 4
+    merge_cases += [(17, (64,) * s_, 64, max(1, s_ * 64 // 5), s_ % 3 == 0,
+                     4 * (s_ % 2)) for s_ in range(1, MG.MAX_PARTS + 1)]
+    for seed, (rows_, widths, w_, k_out, srt, tie_rows) in enumerate(
+            merge_cases):
+        ds, ids = partials(rows_, widths, srt, seed, tie_rows)
+        bases_s = [s * 250_000 for s in range(len(widths))]
+        kd, ki = MG.merge_partials_topk(ds, ids, bases_s, w_, k_out,
+                                        999_999)
+        pd, pi = MG.merge_partials_plain(ds, ids, bases_s, w_, k_out,
+                                         999_999)
         check(torch.equal(kd, pd) and torch.equal(ki, pi),
-              f"merge_partials_topk [{rows_}, {widths}] k={k_out}")
+              f"merge_partials_topk [{rows_}, {widths}] k={k_out} "
+              f"sorted={srt} tie_rows={tie_rows}")
+    bases4 = [s * 250_000 for s in range(MESH["ndev"])]
     # at the mesh_int8 path's shape: 512 queries, 4 sorted x 1280. The
     # bound's bytes: every entry's dist, the k_out winners' ids, the
     # [B, k_out] (dist, id) output
@@ -574,15 +652,24 @@ def main() -> int:
                                                largest=False), 10),
          bound_ms=mms, bound_by=mby, shape=f"B={rows_} S=4 w={w_} k={w_}")
     emit("kernel", name="merge_partials_topk", tol=[0, 0], max_abs_err=0.0,
-         ms=kern["merge_partials_topk"]["ms"])
+         ms=kern["merge_partials_topk"]["ms"],
+         library_ms=kern["merge_partials_topk"]["library_ms"],
+         edge_shapes_checked=len(merge_cases))
+    # a launch here is a few microseconds of device work behind tens of
+    # the host's, so both sides are the median of five timed loops
     ds, ids = partials(rows_, (10,) * 4, True, 10)
+    cat_d = torch.cat(ds, dim=1)
+
+    def host_bound_ms(fn):
+        return statistics.median(cuda_ms(fn, 50) for _ in range(5))
+
     emit("kernel", name="merge_partials_topk", shape="B=512 S=4 w=10 k=10",
-         ms=cuda_ms(lambda: MG.merge_partials_topk(ds, ids, bases4, 10, 10,
-                                                   999_999), 20),
+         ms=host_bound_ms(lambda: MG.merge_partials_topk(
+             ds, ids, bases4, 10, 10, 999_999)),
          plain_ms=cuda_ms(lambda: MG.merge_partials_plain(
              ds, ids, bases4, 10, 10, 999_999), 10),
-         library_ms=cuda_ms(lambda: torch.topk(torch.cat(ds, dim=1), 10,
-                                               dim=1, largest=False), 10),
+         library_ms=host_bound_ms(lambda: torch.topk(cat_d, 10, dim=1,
+                                                     largest=False)),
          bound_ms=merge_bound(rows_, 40, 10)[0])
     del ds, ids, cat_d
     torch.cuda.empty_cache()
@@ -763,12 +850,20 @@ def main() -> int:
             T.rank_scores_int8_plain(w8, wq, "euclidean", wa, w2, wv,
                                      probe_order)),
             f"rank_scores_int8 D={dw} probe={probe_order} not bit-equal")
+    wq8t = T.quantize_queries_plain(wq)[0].t()
+    try:  # the int8 product alone, as at the 10M shape
+        wlib_ms = cuda_ms(lambda: torch._int_mm(w8, wq8t), 10)
+    except RuntimeError as e:
+        print(f"torch._int_mm refused [{nw}, {dw}] x [{dw}, {cw}]: {e}",
+              file=sys.stderr)
+        wlib_ms = None
     emit("kernel", name="rank_scores_int8", shape=f"C={cw} N={nw} D={dw} "
          "euclidean", tol=[0, 0],
          ms=cuda_ms(lambda: T.rank_scores_int8(w8, wq, "euclidean", wa, w2,
                                                wv), 10),
          plain_ms=cuda_ms(lambda: T.rank_scores_int8_plain(
              w8, wq, "euclidean", wa, w2, wv), 2),
+         library_ms=wlib_ms,
          bound_ms=bound(nw * dw + 4 * cw * dw + 9 * nw + 4 * cw * nw,
                         2 * cw * nw * dw, PEAK_INT8)[0])
     emit("kernel", name="quantize_rows_int8", shape=f"R={nw} D={dw} "
@@ -778,7 +873,7 @@ def main() -> int:
          plain_ms=cuda_ms(lambda: T.quantize_rows_plain(xw, "euclidean",
                                                         dw), 2),
          bound_ms=bound(nw * (4 * dw + dw + 8), 5 * nw * dw, PEAK_F32)[0])
-    del xw, w8, wa, w2, wq, wv
+    del xw, w8, wa, w2, wq, wv, wq8t
     torch.cuda.empty_cache()
 
     def check_ann_descent():

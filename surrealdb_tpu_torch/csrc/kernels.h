@@ -54,6 +54,23 @@ inline cudaError_t surreal_smem_limit(K* kernel, int bytes,
   return err;
 }
 
+// the current device's SM count (recorded per device; 132 when the
+// runtime cannot say)
+inline int surreal_sm_count() {
+  static int count[SURREAL_MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  int* rec = dev < SURREAL_MAX_DEVICES ? &count[dev] : nullptr;
+  if (rec != nullptr && *rec > 0) return *rec;
+  int c = 0;
+  if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      c <= 0)
+    c = 132;
+  if (rec != nullptr) *rec = c;
+  return c;
+}
+
 __device__ __forceinline__ float surreal_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -141,19 +158,18 @@ SURREAL_API int csr_hop_step(const int32_t* rows, const int32_t* cols,
 // columns widths[s]..w-1 stand for padding rows: (+inf, local id = the
 // column). Row r's answer is the k_out smallest of the parts * w entries
 // by (dist, position in the concatenation of the parts in order), with
-// ids min(local + bases[s], id_max). dists/ids/bases/widths are host
-// arrays of `parts` entries (at most SURREAL_MERGE_MAX_PARTS) holding
-// device pointers. When parts * w exceeds SURREAL_MERGE_SMEM_KEYS,
-// scratch is a [b, scratch_ld] u64 buffer with scratch_ld >= the power
-// of two >= parts * w (else it may be null).
+// ids min(local + bases[s], id_max). `table` is a host array of
+// 4 * parts entries (parts at most SURREAL_MERGE_MAX_PARTS): the parts'
+// dist pointers, their id pointers (device pointers; 0 where
+// widths[s] == 0), bases[s], widths[s]. When k_out exceeds
+// SURREAL_MERGE_SORT_KEYS, scratch is a [b, scratch_ld] u64 buffer with
+// scratch_ld >= the power of two >= k_out (else it may be null).
 #define SURREAL_MERGE_MAX_PARTS 32
-#define SURREAL_MERGE_SMEM_KEYS 16384
-SURREAL_API int merge_partials_topk(const float* const* dists,
-                                    const int32_t* const* ids,
-                                    const long long* bases,
-                                    const int* widths, int parts, int b,
-                                    int w, int k_out, long long id_max,
-                                    float* out_dist, int32_t* out_ids,
+#define SURREAL_MERGE_SORT_KEYS 4096
+SURREAL_API int merge_partials_topk(const long long* table, int parts,
+                                    int b, int w, int k_out,
+                                    long long id_max, float* out_dist,
+                                    int32_t* out_ids,
                                     unsigned long long* scratch,
                                     long long scratch_ld, void* stream);
 

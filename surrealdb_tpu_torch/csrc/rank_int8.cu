@@ -300,18 +300,6 @@ __global__ void quantize_rows_kernel(const T* __restrict__ rows, long long n,
   if (lane == 0) arow[row] = __fdiv_rn(m, 127.0f);
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      count = 132;
-  }
-  return count;
-}
-
 }  // namespace
 
 SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
@@ -332,7 +320,7 @@ SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
   const int mtiles = (c + IM - 1) / IM;
   const long long ntiles = (n + IN - 1) / IN;
   // two persistent blocks an SM over all query tiles
-  long long per = (2LL * sm_count() + mtiles - 1) / mtiles;
+  long long per = (2LL * surreal_sm_count() + mtiles - 1) / mtiles;
   if (per > ntiles) per = ntiles;
   if (per > 65535) per = 65535;
   const int qw = d < KW ? d : KW;

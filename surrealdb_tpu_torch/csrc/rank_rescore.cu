@@ -8,25 +8,45 @@
 // exactly; (4) takes the exact top k. Here (1) is rank_scores_bf16, (2)
 // and (4) are select_topk_rows (select.cu) and (3) is gather_rescore.
 //
-// rank_scores_bf16 -- a tiled bf16 x bf16 -> f32 product on the tensor
-// cores through the WMMA interface (mma.sync m16n8k16 underneath). A
-// 256-thread block computes a 128-query x 128-row score tile; each of
-// its 8 warps owns a 64 x 32 sub-tile (4 x 2 fragments). Tiles of 32
-// dimensions stream into a 3-stage shared-memory ring with cp.async
-// (16 bytes a thread, zero-filled past the edges), so the copy of step
-// t+2 overlaps the products of step t. The wrapper rounds the queries
-// to bf16 first (the reference's qs.astype(bfloat16)); the store width
-// must be a multiple of 8 (the vector store pads its bf16 rows with
-// zero columns). The score epilogue (|x|^2 - 2 dot, or -dot) and the
-// validity mask are fused into the store of the [C, N] score matrix.
-// Blocks walk the query tiles fastest, so the tiles of one query chunk
-// that read the same store rows run together and those rows come from
-// L2 after the first read.
+// rank_scores_bf16 -- out[c, n] = x2[n] - 2 dot (euclidean) or -dot,
+// dot = bf16(q_c) . x_n in f32, +inf where valid[n] == 0.
 // Bound on the H100: at C = 512, N = 1M, D = 768 the product is
-// 2*C*N*D = 0.81 TFLOP (0.81 ms at 989 TFLOP/s bf16) and the bytes are
-// the 1.5 GB bf16 store read plus the 2.1 GB f32 score write (1.1 ms at
-// 3.35 TB/s), so bytes bound it; mma.sync without wgmma/TMA reaches
-// only part of the tensor-core rate.
+// 2 C N D = 0.81 TFLOP (0.82 ms at 989 TFLOP/s bf16) and the bytes are
+// the 1.5 GB bf16 store read plus the 2.1 GB f32 score write (1.07 ms at
+// 3.35 TB/s): bytes bound it, and the score write is most of them. At
+// C = 1 and 128 the store read alone bounds it (0.46 ms).
+// Design (Hopper: TMA + wgmma, warp-specialised, persistent):
+// - one persistent block per SM walks output tiles of 64*WGM queries x
+//   256 store rows, the query tiles of one 256-row store stripe one after
+//   another on neighbouring blocks, so a stripe comes from HBM about once
+//   per query chunk and from L2 for the other query tiles;
+// - warpgroup 0 is the producer: one thread keeps a 4-stage ring of
+//   64-wide k-steps in flight with TMA (both operands K-major, no
+//   transpose; 128-byte swizzle, matched by the wgmma descriptors; the
+//   tensor maps zero-fill rows past C and N and columns past D, so ragged
+//   shapes need no predicated loads), each stage completing on an
+//   mbarrier, and gives its registers to the consumers (setmaxnreg);
+// - warpgroups 1 and 2 consume: wgmma.mma_async m64nNk16 from shared
+//   memory into f32 registers, one group kept in flight, each stage
+//   released as soon as its products retire. Queries sit on the wgmma M
+//   side and store rows on N, so an accumulator fragment holds pairs of
+//   neighbouring store rows, i.e. neighbouring output columns. With
+//   C > 64 (WGM = 2) each consumer owns 64 queries x 256 rows (n256);
+//   with C <= 64 (WGM = 1) both share the 64 queries and take 128 rows
+//   each (n128), so a small batch does not idle half the tensor cores;
+// - epilogue: the score and the mask are applied to the fragments in
+//   registers and written straight out with evict-first 8-byte stores
+//   (a quad of lanes writes one full 32-byte sector of a row, scalar
+//   stores where N is odd): no shared-memory staging and no barrier
+//   sits between a tile's epilogue and the next tile, whose first
+//   k-steps the producer has already loaded. On the H100 the score
+//   write still costs about as much again as the products (PERF.md).
+// The wrapper rounds the queries to bf16 (the reference's
+// qs.astype(bfloat16)); the store width must be a multiple of 8 (a
+// 16-byte row pitch for TMA; the vector store pads with zero columns).
+// TMA descriptors come from cuTensorMapEncodeTiled through the runtime's
+// driver entry point (no -lcuda) and are cached per (pointer, rows,
+// width, box).
 //
 // gather_rescore -- one block per query; the query sits in shared
 // memory, each warp takes candidates in turn, reads the candidate's f32
@@ -36,143 +56,356 @@
 // candidate scores +inf. Bound: the C*kc*D*4 bytes of gathered rows.
 #include "kernels.h"
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include <mutex>
 
 namespace {
 
-constexpr int RM = 128;        // queries per tile
-constexpr int RN = 128;        // store rows per tile
-constexpr int RK = 32;         // dimensions per step
-constexpr int STAGES = 3;      // cp.async ring depth
-constexpr int RLD = RK + 8;    // staged row pitch (bf16), a multiple of 8
-constexpr int CLD = RN + 4;    // score tile pitch (f32), a multiple of 4
-constexpr int RTHREADS = 256;  // 8 warps: 2 (queries) x 4 (rows)
-constexpr int STAGE_ELEMS = (RM + RN) * RLD;
-constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
-constexpr int SCORE_BYTES = RM * CLD * 4;
-constexpr int SMEM_BYTES = RING_BYTES > SCORE_BYTES ? RING_BYTES : SCORE_BYTES;
+constexpr int BK = 64;        // bf16 columns a k-step: one 128-byte row
+constexpr int BN = 256;       // store rows a tile
+constexpr int STAGES = 4;     // TMA ring depth
+constexpr int A_BYTES = 128 * BK * 2;   // query slot (WGM = 2 fills it)
+constexpr int B_BYTES = BN * BK * 2;    // store slot
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int RANK_SMEM = 1024 + STAGES * STAGE_BYTES;  // + alignment
+constexpr int RTHREADS = 384;  // producer warpgroup + two consumers
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned int s =
-      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0 = zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the box at (column c0, row c1) of `map` into shared memory at
+// `dst`, completing `bytes` on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile whose 128-byte rows
+// TMA wrote with the 128-byte swizzle: 8-row groups 1024 bytes apart
+// (stride byte offset), leading byte offset unused by this layout (1),
+// layout type 1 = SWIZZLE_128B. The tile base is 1024-byte aligned; a
+// 16-column k-slice inside the row starts 32 bytes further (+2 in the
+// address field).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// two blocks an SM: caps the kernel at 128 registers a thread
-__global__ void __launch_bounds__(RTHREADS, 2)
-    rank_scores_kernel(const __nv_bfloat16* __restrict__ xs,
-                       const __nv_bfloat16* __restrict__ qb,
-                       const float* __restrict__ x2,
-                       const uint8_t* __restrict__ valid,
-                       float* __restrict__ out, long long n, int c, int d,
-                       int euclid, int mtiles) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the k loop
+// keeps the compiler from moving accumulator accesses across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(float* acc) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
 
-  const long long bid = blockIdx.x;
-  const int m0 = (int)(bid % mtiles) * RM;
-  const long long n0 = (bid / mtiles) * RN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 0..1: 64 query rows each
-  const int wn = warp & 3;   // 0..3: 32 store rows each
-  const int ktiles = (d + RK - 1) / RK;
+// one m64n256k16 bf16 x bf16 -> f32 product, both operands K-major in
+// shared memory; acc[128] is this thread's accumulator fragment
+__device__ __forceinline__ void wgmma_m64n256(float* acc, uint64_t da,
+                                              uint64_t db, int accum) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31]),
+        "+f"(acc[32]), "+f"(acc[33]), "+f"(acc[34]), "+f"(acc[35]),
+        "+f"(acc[36]), "+f"(acc[37]), "+f"(acc[38]), "+f"(acc[39]),
+        "+f"(acc[40]), "+f"(acc[41]), "+f"(acc[42]), "+f"(acc[43]),
+        "+f"(acc[44]), "+f"(acc[45]), "+f"(acc[46]), "+f"(acc[47]),
+        "+f"(acc[48]), "+f"(acc[49]), "+f"(acc[50]), "+f"(acc[51]),
+        "+f"(acc[52]), "+f"(acc[53]), "+f"(acc[54]), "+f"(acc[55]),
+        "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
+        "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63]),
+        "+f"(acc[64]), "+f"(acc[65]), "+f"(acc[66]), "+f"(acc[67]),
+        "+f"(acc[68]), "+f"(acc[69]), "+f"(acc[70]), "+f"(acc[71]),
+        "+f"(acc[72]), "+f"(acc[73]), "+f"(acc[74]), "+f"(acc[75]),
+        "+f"(acc[76]), "+f"(acc[77]), "+f"(acc[78]), "+f"(acc[79]),
+        "+f"(acc[80]), "+f"(acc[81]), "+f"(acc[82]), "+f"(acc[83]),
+        "+f"(acc[84]), "+f"(acc[85]), "+f"(acc[86]), "+f"(acc[87]),
+        "+f"(acc[88]), "+f"(acc[89]), "+f"(acc[90]), "+f"(acc[91]),
+        "+f"(acc[92]), "+f"(acc[93]), "+f"(acc[94]), "+f"(acc[95]),
+        "+f"(acc[96]), "+f"(acc[97]), "+f"(acc[98]), "+f"(acc[99]),
+        "+f"(acc[100]), "+f"(acc[101]), "+f"(acc[102]), "+f"(acc[103]),
+        "+f"(acc[104]), "+f"(acc[105]), "+f"(acc[106]), "+f"(acc[107]),
+        "+f"(acc[108]), "+f"(acc[109]), "+f"(acc[110]), "+f"(acc[111]),
+        "+f"(acc[112]), "+f"(acc[113]), "+f"(acc[114]), "+f"(acc[115]),
+        "+f"(acc[116]), "+f"(acc[117]), "+f"(acc[118]), "+f"(acc[119]),
+        "+f"(acc[120]), "+f"(acc[121]), "+f"(acc[122]), "+f"(acc[123]),
+        "+f"(acc[124]), "+f"(acc[125]), "+f"(acc[126]), "+f"(acc[127])
+      : "l"(da), "l"(db), "r"(accum));
+}
 
-  // stage one 32-wide step: 128 query rows and 128 store rows, four
-  // 16-byte chunks each
-  auto load_stage = [&](int slot, int kt) {
-    __nv_bfloat16* As = ring + slot * STAGE_ELEMS;
-    __nv_bfloat16* Bs = As + RM * RLD;
-    const int k0 = kt * RK;
-    for (int i = tid; i < RM * (RK / 8); i += RTHREADS) {
-      const int r = i / (RK / 8), seg = i % (RK / 8);
-      const int gq = m0 + r, gk = k0 + seg * 8;
-      const bool p = gq < c && gk < d;
-      cp_async16(As + r * RLD + seg * 8,
-                 p ? qb + (long long)gq * d + gk : qb, p);
+// one m64n128k16 bf16 x bf16 -> f32 product, both operands K-major in
+// shared memory; acc[64] is this thread's accumulator fragment
+__device__ __forceinline__ void wgmma_m64n128(float* acc, uint64_t da,
+                                              uint64_t db, int accum) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31]),
+        "+f"(acc[32]), "+f"(acc[33]), "+f"(acc[34]), "+f"(acc[35]),
+        "+f"(acc[36]), "+f"(acc[37]), "+f"(acc[38]), "+f"(acc[39]),
+        "+f"(acc[40]), "+f"(acc[41]), "+f"(acc[42]), "+f"(acc[43]),
+        "+f"(acc[44]), "+f"(acc[45]), "+f"(acc[46]), "+f"(acc[47]),
+        "+f"(acc[48]), "+f"(acc[49]), "+f"(acc[50]), "+f"(acc[51]),
+        "+f"(acc[52]), "+f"(acc[53]), "+f"(acc[54]), "+f"(acc[55]),
+        "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
+        "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63])
+      : "l"(da), "l"(db), "r"(accum));
+}
+
+__device__ __forceinline__ float rank_score(float dot, const float* x2,
+                                            const uint8_t* valid, int col,
+                                            int euclid) {
+  float s = euclid ? x2[col] - 2.f * dot : -dot;
+  if (valid != nullptr && valid[col] == 0) s = INFINITY;
+  return s;
+}
+
+// one consumer's 64 x (8 NJ) fragment -> out rows q0 + warp*16 + lane/4
+// (+8), columns col0 + 8j + 2(lane%4) (+1)
+template <int NJ>
+__device__ __forceinline__ void store_tile(const float* acc,
+                                           const float* __restrict__ x2,
+                                           const uint8_t* __restrict__ valid,
+                                           float* __restrict__ out, int n,
+                                           int c, int q0, int col0,
+                                           int euclid) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int r0 = q0 + warp * 16 + (lane >> 2);
+  const bool ok0 = r0 < c, ok1 = r0 + 8 < c;
+  float* o0 = out + (long long)r0 * n;
+  float* o1 = o0 + 8LL * n;
+  const int cb = col0 + 2 * (lane & 3);
+  const bool pairs = (n & 1) == 0;  // 8-byte aligned column pairs
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = cb + 8 * j;
+    if (col >= n) continue;
+    const bool two = col + 1 < n;
+    const float s00 = rank_score(acc[4 * j], x2, valid, col, euclid);
+    const float s10 = rank_score(acc[4 * j + 2], x2, valid, col, euclid);
+    float s01 = 0.f, s11 = 0.f;
+    if (two) {
+      s01 = rank_score(acc[4 * j + 1], x2, valid, col + 1, euclid);
+      s11 = rank_score(acc[4 * j + 3], x2, valid, col + 1, euclid);
     }
-    for (int i = tid; i < RN * (RK / 8); i += RTHREADS) {
-      const int r = i / (RK / 8), seg = i % (RK / 8);
-      const long long gr = n0 + r;
-      const int gk = k0 + seg * 8;
-      const bool p = gr < n && gk < d;
-      cp_async16(Bs + r * RLD + seg * 8, p ? xs + gr * d + gk : xs, p);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // step kt has landed
-    __syncthreads();              // ...for every thread; slot kt-1 is free
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load_stage(nk % STAGES, nk);
-    cp_async_commit();
-    const __nv_bfloat16* As = ring + (kt % STAGES) * STAGE_ELEMS;
-    const __nv_bfloat16* Bs = As + RM * RLD;
-#pragma unroll
-    for (int kk = 0; kk < RK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn * 32 + j * 16) * RLD + kk, RLD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // fragments past the last query (a small batch) do no work:
-        // the condition is uniform over the warp, as WMMA requires
-        if (m0 + wm * 64 + i * 16 >= c) continue;
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * RLD + kk, RLD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    if (pairs && two) {
+      if (ok0) __stcs(reinterpret_cast<float2*>(o0 + col),
+                      make_float2(s00, s01));
+      if (ok1) __stcs(reinterpret_cast<float2*>(o1 + col),
+                      make_float2(s10, s11));
+    } else {
+      if (ok0) {
+        __stcs(o0 + col, s00);
+        if (two) __stcs(o0 + col + 1, s01);
+      }
+      if (ok1) {
+        __stcs(o1 + col, s10);
+        if (two) __stcs(o1 + col + 1, s11);
       }
     }
   }
-  cp_async_wait<0>();
+}
+
+// WGM query slabs of 64 a tile (1 when C <= 64, else 2)
+template <int WGM>
+__global__ void __launch_bounds__(RTHREADS, 1)
+    rank_scores_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_x,
+                       const float* __restrict__ x2,
+                       const uint8_t* __restrict__ valid,
+                       float* __restrict__ out, int n, int c, int ktiles,
+                       int euclid, int mtiles, long long tiles) {
+  constexpr int NACC = WGM == 2 ? 128 : 64;  // f32 accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  // the 128-byte swizzle needs 1024-byte aligned tiles
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty_bar[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      const uint32_t bytes = WGM * 64 * BK * 2 + B_BYTES;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (int)(t % mtiles) * 64 * WGM;
+        const int n0 = (int)(t / mtiles) * BN;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty_bar[stage], phase ^ 1u);  // slot free
+          mbar_expect_tx(&full_bar[stage], bytes);
+          const uint32_t slot = ring + stage * STAGE_BYTES;
+          tma_load_2d(slot, &tm_q, &full_bar[stage], kt * BK, m0);
+          tma_load_2d(slot + A_BYTES, &tm_x, &full_bar[stage], kt * BK, n0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    // this consumer's query rows and store rows inside a tile
+    const uint32_t a_off = WGM == 2 ? cw * 64 * BK * 2 : 0;
+    const uint32_t b_off = A_BYTES + (WGM == 2 ? 0 : cw * 128 * BK * 2);
+    float acc[NACC];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int q0 = (int)(t % mtiles) * 64 * WGM + (WGM == 2 ? cw * 64 : 0);
+      const int col0 = (int)(t / mtiles) * BN + (WGM == 2 ? 0 : cw * 128);
+      // a slab wholly past the last query (C = 65..127) does no products
+      // but still takes part in the ring (uniform over the warpgroup)
+      const bool active = q0 < c;
+      int prev = 0;
+      fence_regs<NACC>(acc);
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&full_bar[stage], phase);
+        if (active) {
+          const uint32_t slot = ring + stage * STAGE_BYTES;
+          const uint64_t da = sw128_desc(slot + a_off);
+          const uint64_t db = sw128_desc(slot + b_off);
+          wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * CLD + wn * 32 + j * 16,
-                              acc[i][j], CLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < RM * RN; i += RTHREADS) {
-    const int r = i / RN, col = i % RN;
-    const int gq = m0 + r;
-    const long long gn = n0 + col;
-    if (gq < c && gn < n) {
-      const float dot = Cs[r * CLD + col];
-      float s = euclid ? (x2[gn] - 2.f * dot) : -dot;
-      if (valid != nullptr && valid[gn] == 0) s = INFINITY;
-      out[(long long)gq * n + gn] = s;
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            if constexpr (WGM == 2)
+              wgmma_m64n256(acc, da + 2 * kk, db + 2 * kk, kt | kk);
+            else
+              wgmma_m64n128(acc, da + 2 * kk, db + 2 * kk, kt | kk);
+          }
+          wgmma_commit();
+          // one group stays in flight; the one before it has retired,
+          // so its stage goes back to the producer
+          wgmma_wait<1>();
+          if (kt > 0 && tid == 0) mbar_arrive(&empty_bar[prev]);
+        } else if (tid == 0) {
+          mbar_arrive(&empty_bar[stage]);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      if (!active) continue;
+      wgmma_wait<0>();
+      fence_regs<NACC>(acc);
+      if (tid == 0) mbar_arrive(&empty_bar[prev]);
+      store_tile<NACC / 4>(acc, x2, valid, out, n, c, q0, col0, euclid);
     }
   }
 }
@@ -227,6 +460,96 @@ __global__ void gather_rescore_kernel(const float* __restrict__ xs,
   }
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  });
+  return fn;
+}
+
+// a bf16 [rows, d] row-major tensor in boxes of 64 columns x box_rows,
+// 128-byte swizzle, zero fill past the edges; cached (a map holds only
+// the pointer, the shape and the box, so a cached map is always right)
+struct MapEntry {
+  const void* ptr;
+  long long rows;
+  int d;
+  int box_rows;
+  CUtensorMap map;
+};
+
+bool bf16_map(const void* ptr, long long rows, int d, int box_rows,
+              CUtensorMap* out) {
+  static std::mutex mu;
+  static MapEntry cache[32];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const MapEntry& e = cache[i];
+    if (e.ptr == ptr && e.rows == rows && e.d == d &&
+        e.box_rows == box_rows) {
+      *out = e.map;
+      return true;
+    }
+  }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  MapEntry e = {ptr, rows, d, box_rows, {}};
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  if (fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+         const_cast<void*>(ptr), dims, strides, box, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  cache[next] = e;
+  next = (next + 1) % 32;
+  if (used < 32) ++used;
+  *out = e.map;
+  return true;
+}
+
+template <int WGM>
+int launch_rank(const CUtensorMap& tmq, const CUtensorMap& tmx,
+                const float* x2, const uint8_t* valid, float* out, int n,
+                int c, int d, int euclid, cudaStream_t st) {
+  const int mtiles = (c + 64 * WGM - 1) / (64 * WGM);
+  const long long tiles = (long long)mtiles * ((n + BN - 1) / BN);
+  const int sms = surreal_sm_count();
+  const long long grid = tiles < sms ? tiles : sms;
+  static SurrealSmemDone smem_done;
+  const cudaError_t attr =
+      surreal_smem_limit(rank_scores_kernel<WGM>, RANK_SMEM, &smem_done);
+  if (attr != cudaSuccess) return (int)attr;
+  rank_scores_kernel<WGM><<<(unsigned)grid, RTHREADS, RANK_SMEM, st>>>(
+      tmq, tmx, x2, valid, out, n, c, (d + BK - 1) / BK, euclid, mtiles,
+      tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 SURREAL_API int rank_scores_bf16(const void* xs_rank, const void* qs_bf16,
@@ -234,21 +557,22 @@ SURREAL_API int rank_scores_bf16(const void* xs_rank, const void* qs_bf16,
                                  float* out, long long n, int c, int d,
                                  int euclid, void* stream) {
   if (n <= 0 || c <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d % 8 != 0 || (euclid && x2 == nullptr))
+  // TMA: a 16-byte row pitch and 16-byte aligned bases; int32 coordinates
+  if (d <= 0 || d % 8 != 0 || (euclid && x2 == nullptr) ||
+      n > 0x7FFFFFFFLL ||
+      (reinterpret_cast<uintptr_t>(xs_rank) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(qs_bf16) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const int mtiles = (c + RM - 1) / RM;
-  const long long blocks = (long long)mtiles * ((n + RN - 1) / RN);
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  static SurrealSmemDone smem_done;
-  const cudaError_t attr =
-      surreal_smem_limit(rank_scores_kernel, SMEM_BYTES, &smem_done);
-  if (attr != cudaSuccess) return (int)attr;
-  rank_scores_kernel<<<(unsigned)blocks, RTHREADS, SMEM_BYTES,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(xs_rank),
-      static_cast<const __nv_bfloat16*>(qs_bf16), x2, valid, out, n, c, d,
-      euclid, mtiles);
-  return (int)cudaGetLastError();
+  const int wgm = c <= 64 ? 1 : 2;
+  CUtensorMap tmq, tmx;
+  if (!bf16_map(qs_bf16, c, d, 64 * wgm, &tmq) ||
+      !bf16_map(xs_rank, n, d, BN, &tmx))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wgm == 1 ? launch_rank<1>(tmq, tmx, x2, valid, out, (int)n, c, d,
+                                   euclid, st)
+                  : launch_rank<2>(tmq, tmx, x2, valid, out, (int)n, c, d,
+                                   euclid, st);
 }
 
 SURREAL_API int gather_rescore(const float* xs_full, const float* qs,

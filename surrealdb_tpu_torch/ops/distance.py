@@ -85,7 +85,10 @@ def _elementwise(xs, qs, metric, p):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (what
+    `torch.cuda.current_stream(dev).cuda_stream` returns, without
+    building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _ptr(t):

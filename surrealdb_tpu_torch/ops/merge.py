@@ -9,6 +9,7 @@ partials arrive on the merging device through `gather_to`.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import contextlib
 
@@ -17,11 +18,16 @@ import torch
 from surrealdb_tpu_torch.device import kernelstats
 from surrealdb_tpu_torch.ops.distance import _ptr, _stream
 
-# csrc/kernels.h SURREAL_MERGE_MAX_PARTS / SURREAL_MERGE_SMEM_KEYS
+# csrc/kernels.h SURREAL_MERGE_MAX_PARTS / SURREAL_MERGE_SORT_KEYS
 MAX_PARTS = 32
-SMEM_KEYS = 16384
+SORT_KEYS = 4096
 # no clamp of the globalised ids (the legacy sharded store's rule)
 NO_CLAMP = (1 << 31) - 1
+# merge_partials_topk(table, parts, b, w, k_out, id_max, out_dist,
+# out_ids, scratch, scratch_ld, stream)
+_MERGE_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
 
 
 # -- moving tensors between the shards' devices ------------------------------
@@ -92,7 +98,9 @@ def merge_partials_topk(dists, ids, bases, w: int, k_out: int,
                         id_max: int = NO_CLAMP):
     """Launch csrc/mesh_merge.cu merge_partials_topk over the partials
     (CUDA tensors on one device, [B, w_s] f32 dists and int32 local
-    ids, w_s <= w) -> (dists [B, k_out] f32, ids [B, k_out] int32)."""
+    ids, w_s <= w) -> (dists [B, k_out] f32, ids [B, k_out] int32).
+    The launch path is one pass over the parts (checks and pointers)
+    and one C call: at the path's small tiles the host is most of it."""
     from surrealdb_tpu_torch.device import compile_cache
 
     nparts = len(dists)
@@ -103,38 +111,47 @@ def merge_partials_topk(dists, ids, bases, w: int, k_out: int,
     if not 1 <= k_out <= nparts * w:
         raise ValueError(f"merge_partials_topk: k_out={k_out} outside "
                          f"1..{nparts * w}")
-    dev = dists[0].device
-    b = dists[0].shape[0]
-    keep = []  # the contiguous copies the kernel reads
-    for d, i in zip(dists, ids):
-        if not (d.is_cuda and d.device == dev and i.device == dev):
+    d0 = dists[0]
+    if not d0.is_cuda:
+        raise ValueError("merge_partials_topk takes CUDA tensors")
+    dev, b = d0.device, d0.shape[0]
+    keep = []  # converted copies, alive until the launch
+    # the C side's table: dist pointers, id pointers, bases, widths
+    table = [0] * (4 * nparts)
+    for s in range(nparts):
+        d, i = dists[s], ids[s]
+        shape = d.shape
+        if shape != i.shape or shape[0] != b or shape[1] > w:
+            raise ValueError(f"partial shape {tuple(shape)} / "
+                             f"{tuple(i.shape)} for B={b} w={w}")
+        if d.device != dev or i.device != dev:
             raise ValueError("merge_partials_topk takes CUDA tensors on "
                              "one device")
-        if d.shape != i.shape or d.shape[0] != b or d.shape[1] > w:
-            raise ValueError(f"partial shape {tuple(d.shape)} / "
-                             f"{tuple(i.shape)} for B={b} w={w}")
-        keep.append((d.to(torch.float32).contiguous(),
-                     i.to(torch.int32).contiguous()))
+        if d.dtype is not torch.float32 or not d.is_contiguous():
+            d = d.to(torch.float32).contiguous()
+            keep.append(d)
+        if i.dtype is not torch.int32 or not i.is_contiguous():
+            i = i.to(torch.int32).contiguous()
+            keep.append(i)
+        table[2 * nparts + s] = int(bases[s])
+        table[3 * nparts + s] = shape[1]
+        if shape[1]:
+            table[s] = d.data_ptr()
+            table[nparts + s] = i.data_ptr()
     out_d = torch.empty((b, k_out), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k_out), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
-    m = 1 << (nparts * w - 1).bit_length()
-    scratch = None
-    if m > SMEM_KEYS:
+    scratch, m = None, 0
+    if k_out > SORT_KEYS:
+        # the winners' sort buffer: [B, pow2 >= k_out] u64
+        m = 1 << (k_out - 1).bit_length()
         scratch = torch.empty((b, m), dtype=torch.int64, device=dev)
-    vp = ctypes.c_void_p * nparts
-    fn = compile_cache.declare(
-        compile_cache.library("mesh_merge.cu"), "merge_partials_topk",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
-    err = fn(vp(*[d.data_ptr() if d.numel() else None for d, _ in keep]),
-             vp(*[i.data_ptr() if i.numel() else None for _, i in keep]),
-             (ctypes.c_longlong * nparts)(*[int(x) for x in bases]),
-             (ctypes.c_int * nparts)(*[d.shape[1] for d, _ in keep]),
-             nparts, b, w, k_out, int(id_max), out_d.data_ptr(),
-             out_i.data_ptr(), _ptr(scratch), 0 if scratch is None else m,
+    fn = compile_cache.declare(compile_cache.library("mesh_merge.cu"),
+                               "merge_partials_topk", _MERGE_ARGTYPES)
+    table = array.array("q", table)  # int64s the C side reads in place
+    err = fn(table.buffer_info()[0], nparts, b, w, k_out, int(id_max),
+             out_d.data_ptr(), out_i.data_ptr(), _ptr(scratch), m,
              _stream(out_d))
     compile_cache.check(err, "merge_partials_topk")
     kernelstats.note_launch("merge_partials_topk")

@@ -511,6 +511,11 @@ def _np_merge(dists, ids, bases, w, k_out, id_max):
     (3, (3, 0, 5), 8, 20),
     (2, (7,), 7, 7),
     (5, (6, 2, 6, 6, 6, 6, 6, 6), 6, 30),
+    # k_out far under S.w with ties across the threshold (values on a
+    # 0.1 grid), short shards beside full ones, every part of 32 used
+    (4, (500, 500, 500, 500), 500, 40),
+    (3, (700, 120, 700), 700, 90),
+    (2, (64,) * 32, 64, 100),
 ])
 def test_plain_merge_matches_numpy(shape):
     b, widths, w, k_out = shape

@@ -183,7 +183,7 @@ def test_top_k_through_an_id_map():
                                   np.take_along_axis(vals, order, 1))
 
 
-def _rank_inputs(metric, n=20_000, d=64, seed=29):
+def _rank_inputs(metric, n=20_000, d=64, seed=29, c=4):
     rng = np.random.default_rng(seed)
     xs = rng.normal(size=(n, d)).astype(np.float32)
     valid = np.ones(n, bool)
@@ -192,7 +192,7 @@ def _rank_inputs(metric, n=20_000, d=64, seed=29):
     norms = np.maximum(np.linalg.norm(xs.astype(np.float64), axis=1),
                        1e-30).astype(np.float32)
     rank = xs / norms[:, None] if metric == "cosine" else xs
-    qs_r = rng.normal(size=(2, 4, d)).astype(np.float32)
+    qs_r = rng.normal(size=(2, c, d)).astype(np.float32)
     return xs, rank, x2, norms, valid, qs_r
 
 
@@ -220,11 +220,21 @@ def test_reference_candidate_stage_is_exact_on_cpu():
     np.testing.assert_array_equal(np.asarray(approx), np.asarray(exact))
 
 
-@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dot"])
-def test_knn_rank_rescore_matches_reference(metric):
+# (metric, queries a chunk, store rows): the three metrics at 4 queries
+# over 20k rows, then query counts on both sides of the rank kernel's
+# 64-query tile over a row count that is no multiple of its row tile
+RANK_CASES = [pytest.param(m, 4, 20_000, id=m)
+              for m in ("euclidean", "cosine", "dot")] + [
+    pytest.param(m, c, 5_003, id=f"{m}-C{c}")
+    for m in ("euclidean", "cosine", "dot") for c in (1, 63, 65, 130)]
+
+
+@pytest.mark.parametrize("metric,c,n", RANK_CASES)
+def test_knn_rank_rescore_matches_reference(metric, c, n):
     k = 10
     kc = max(2 * k, k + 16)
-    xs, rank, x2, norms, valid, qs_r = _rank_inputs(metric)
+    xs, rank, x2, norms, valid, qs_r = _rank_inputs(metric, n=n, c=c)
+    rows = 2 * c
     jr = jnp.asarray(rank).astype(jnp.bfloat16)
     rd, ri = jtopk.knn_rank_rescore(
         jr, jnp.asarray(xs), jnp.asarray(qs_r), k, kc, metric,
@@ -232,10 +242,11 @@ def test_knn_rank_rescore_matches_reference(metric):
     tr = _t(rank).to(torch.bfloat16)
     gd, gi = ttopk.knn_rank_rescore(
         tr, _t(xs), _t(qs_r), k, kc, metric, _t(x2), _t(norms), _t(valid))
-    assert gd.shape == (2, 4, k) and gi.dtype == torch.int32
-    assert_knn_match(np.asarray(rd).reshape(8, k),
-                     np.asarray(ri).reshape(8, k),
-                     gd.reshape(8, k).numpy(), gi.reshape(8, k).numpy(), k)
+    assert gd.shape == (2, c, k) and gi.dtype == torch.int32
+    assert_knn_match(np.asarray(rd).reshape(rows, k),
+                     np.asarray(ri).reshape(rows, k),
+                     gd.reshape(rows, k).numpy(),
+                     gi.reshape(rows, k).numpy(), k)
     # the candidate stages agree too (the reference's is exact on CPU)
     q0 = qs_r[0]
     js = np.asarray(
@@ -254,10 +265,10 @@ def test_knn_rank_rescore_matches_reference(metric):
     # recall@10 against the exact f64 oracle
     hits = 0
     for r in range(2):
-        for c in range(4):
-            want = set(_oracle(xs, valid, qs_r[r, c], metric, k).tolist())
-            hits += len(want & set(gi[r, c].tolist()))
-    assert hits / (8 * k) >= 0.99
+        for j in range(c):
+            want = set(_oracle(xs, valid, qs_r[r, j], metric, k).tolist())
+            hits += len(want & set(gi[r, j].tolist()))
+    assert hits / (rows * k) >= 0.99
     assert valid[gi.numpy()].all()
 
 
