@@ -15,7 +15,13 @@ exits non-zero):
               tolerance; times the kernel, the
               plain version and, where one exists, a single PyTorch call
               computing the same function (a yardstick the port never
-              calls);
+              calls). The int8 store's one pass for a whole frame
+              (int8_candidates: threshold sample, candidates pass, final
+              select of pairs) is held id-equal to its plain version,
+              with duplicated rows, tombstones and a sorted store whose
+              small buffer forces the overflow path, and for all 512
+              queries over the 10M store to the chunked path; its S, cap,
+              overflow count and survivor counts are printed;
 4. runner  -- spawns `python -m surrealdb_tpu_torch.device.runner` (CUDA)
               through the port's supervisor client and sends it frames:
               knn1m (1M x 768 cosine rows, bf16 rank + f32 rescore store,
@@ -24,8 +30,10 @@ exits non-zero):
               graph3hop (1M nodes / 10M edges, 3-hop csr_hop at B in 1/8,
               frontier and union, bit-equal to the plain version), knn10m
               (10M x 768 cosine rows: the int8 rank store, vec_knn at B in
-              1/128/512 answering kc = 1280 candidates, rescored exactly
-              here, recall@10 against an exact f64 oracle) and ann (the
+              1/128/512 answering kc = 1280 candidates, equal to the
+              chunked path's for every query, one candidates pass a B=512
+              frame and no overflow, rescored exactly here, recall@10
+              against an exact f64 oracle) and ann (the
               graph-ANN store over 250k x 768 clustered cosine rows, built
               here, shipped in parts, ann_search at B in 1/128/512,
               recall@10, ids equal to the plain descent and unchanged after
@@ -98,6 +106,10 @@ SOURCES = {
                            "surrealdb_tpu/device/vecstore.py:150"),
     "rank_scores_int8": ("surrealdb_tpu_torch/csrc/rank_int8.cu",
                          "surrealdb_tpu/ops/topk.py:145"),
+    "rank_candidates_int8": ("surrealdb_tpu_torch/csrc/rank_int8.cu",
+                             "surrealdb_tpu/ops/topk.py:145"),
+    "select_topk_pairs": ("surrealdb_tpu_torch/csrc/select.cu",
+                          "surrealdb_tpu/ops/topk.py:174"),
     "ann_descent": ("surrealdb_tpu_torch/csrc/ann_descent.cu",
                     "surrealdb_tpu/device/annstore.py:29"),
     "merge_partials_topk": ("surrealdb_tpu_torch/csrc/mesh_merge.cu",
@@ -367,6 +379,55 @@ def main() -> int:
         pv, pi = T.top_k_smallest_plain(vals, k)
         check(torch.equal(i, pi) and torch.equal(v, pv),
               f"select_topk_rows k={k}")
+    # row counts around the SM count (few rows split over blocks, many a
+    # block each), planted ties, all-tie rows, shuffled id maps, k in and
+    # past the shared buffer: equal to the plain version bit for bit
+    gd = torch.Generator(device=dev).manual_seed(1)
+    n_sel = 0
+    for rows_ in (1, 2, 16, 131, 132, 512):
+        for n_, k_ in ((100_000, 26), (300_000, 1280), (70_000, 5000)):
+            if rows_ * n_ > 40_000_000:
+                continue
+            v_ = torch.randn(rows_, n_, generator=gd, device=dev)
+            v_[0, ::3] = 0.5
+            if rows_ > 1:
+                v_[1] = 0.25  # a row of ties only
+            ids_ = torch.argsort(torch.rand(rows_, n_, generator=gd,
+                                            device=dev), dim=1).to(torch.int32)
+            for im in (None, ids_):
+                kv, ki = T.select_topk_rows(v_, k_, im)
+                pv, pi = T.top_k_smallest_plain(v_, k_, im)
+                check(torch.equal(ki, pi) and torch.equal(kv, pv),
+                      f"select_topk_rows R={rows_} N={n_} k={k_} "
+                      f"ids={im is not None}")
+                n_sel += 1
+    del v_, ids_, kv, ki, pv, pi
+    # select_topk_pairs: packed (order key << 32 | id) rows in shuffled
+    # order with planted ties, counts past the buffer (read up to it) and
+    # short of k (left to the caller: +inf, -1)
+    n_pairs = 0
+    for rows_, cap_, k_ in ((1, 70_000, 1280), (16, 131_072, 1280),
+                            (512, 8192, 1280), (512, 40_000, 26),
+                            (3, 50_000, 5000)):
+        keys_ = T.order_key_plain(torch.round(torch.randn(
+            rows_, cap_, generator=gd, device=dev) * 64) / 64)
+        keys_[0, :cap_ // 2] = keys_[0, 0]
+        ids_ = torch.argsort(torch.rand(rows_, cap_, generator=gd,
+                                        device=dev), dim=1)
+        pairs_ = T.pack_pairs_plain(keys_, ids_)
+        counts_ = torch.randint(k_, cap_ + 1, (rows_,), generator=gd,
+                                device=dev, dtype=torch.int32)
+        counts_[0] = cap_ + 5
+        if rows_ > 2:
+            counts_[2] = k_ - 1
+        kv, ki = T.select_topk_pairs(pairs_, counts_, k_)
+        pv, pi = T.top_k_pairs_plain(pairs_, counts_, k_)
+        check(torch.equal(ki, pi) and torch.equal(kv, pv),
+              f"select_topk_pairs R={rows_} cap={cap_} k={k_}")
+        n_pairs += 1
+    del keys_, ids_, pairs_, counts_, kv, ki, pv, pi
+    emit("kernel", name="select_topk_rows", edge_shapes_checked=n_sel,
+         pair_shapes_checked=n_pairs)
 
     # the knn1m store (also shipped to the runner below)
     n, dim = KNN1M["n"], KNN1M["dim"]
@@ -797,6 +858,39 @@ def main() -> int:
                                          probe_order),
                 *tol_i, f"rank_scores_int8 {metric} probe={probe_order}")
             err = max(err, e2)
+    # bit for bit over widths under, at and past the 32-column k-slice
+    # and the 128-column k-step (16 mod 32 reads TMA's zero fill), query
+    # counts around the 64-query slab, odd store rows, both metrics'
+    # epilogues and both dequantisation orders; and the strided sample
+    n_rank = 0
+    for d_e in (16, 48, 768, 784, 3072):
+        n_e = 4097 if d_e < 3072 else 3001
+        ex8 = torch.randint(-127, 128, (n_e, d_e), generator=g,
+                            dtype=torch.int8).to(dev)
+        ea = ((torch.rand(n_e, generator=g) + 0.01) / 127).to(dev)
+        e2_ = (torch.rand(n_e, generator=g) * 10).to(dev)
+        ev = (torch.rand(n_e, generator=g) > 0.1).to(dev)
+        for c_e in (1, 16, 65, 512):
+            eq = torch.randn(c_e, d_e, generator=g).to(dev)
+            for metric in ("euclidean", "cosine"):
+                for probe_order in (False, True):
+                    check(torch.equal(
+                        T.rank_scores_int8(ex8, eq, metric, ea, e2_, ev,
+                                           probe_order),
+                        T.rank_scores_int8_plain(ex8, eq, metric, ea, e2_,
+                                                 ev, probe_order)),
+                        f"rank_scores_int8 C={c_e} N={n_e} D={d_e} {metric}"
+                        f" probe={probe_order} not bit-equal")
+                    n_rank += 1
+        sample = (256 * 3, 3)  # output tile t = store tile 3 t
+        check(torch.equal(
+            T.rank_scores_int8(ex8, eq, "euclidean", ea, e2_, ev,
+                               sample=sample),
+            T.rank_int8(ex8, eq, "euclidean", ea, e2_, ev, sample=sample,
+                        plain=True)),
+            f"rank_scores_int8 D={d_e} strided sample not bit-equal")
+        n_rank += 1
+    del ex8, ea, e2_, ev, eq
     q8_16, _ = T.quantize_queries_plain(qs16)
     q8t = q8_16.t()
 
@@ -819,13 +913,186 @@ def main() -> int:
          library_ms=lib_ms, bound_ms=ims, bound_by=iby,
          shape=f"C={c16} N={n10} D={d10} cosine")
     emit("kernel", name="rank_scores_int8", tol=tol_i, max_abs_err=err,
-         ms=kern["rank_scores_int8"]["ms"])
+         ms=kern["rank_scores_int8"]["ms"], edge_shapes_checked=n_rank)
+
+    # the candidates pass and the whole one-pass algorithm on a 200k x 768
+    # store with duplicated rows (ties at the kc-th score), tombstones and
+    # queries on the duplicates; then a store in sorted order (rows by
+    # their score against the queries' direction) with a small buffer
+    # that forces the overflow path. The pass's pairs arrive in no order:
+    # per query the sorted set and the count equal the plain version's.
+    nc_, kc_ = 200_003, 256  # S = 24,832 sample rows >= 64 kc
+    xc = torch.randn(nc_, d10, generator=gd, device=dev)
+    xc[1000:1100] = xc[5]
+    n_cand = 0
+    for metric in ("cosine", "euclidean"):
+        c8 = torch.empty((nc_, w10), dtype=torch.int8, device=dev)
+        ca = torch.empty((nc_,), dtype=torch.float32, device=dev)
+        c2 = torch.zeros((nc_,), dtype=torch.float32, device=dev)
+        T.quantize_rows_int8(xc, metric, c8, ca, c2)
+        cv = (torch.rand(nc_, generator=gd, device=dev) > 0.05)
+        for c_e in (1, 16, 65, 512):
+            qe = torch.randn(c_e, d10, generator=gd, device=dev)
+            qe[0] = xc[5]
+            q8e, qse = T.int8_query_scratch(c_e, w10, dev)
+            se = T.rank_scores_int8(c8, qe, metric, ca, c2, cv, q8=q8e,
+                                    qscale=qse)
+            te = T.top_k_smallest_plain(se, kc_)[0][:, -1]
+            del se
+            kp, kn = T.rank_candidates_int8(c8, q8e, qse, metric, ca, c2,
+                                            cv, te, 8192)
+            pp, pn = T.rank_candidates_plain(c8, qe, metric, ca, c2, cv, te,
+                                             8192)
+            check(torch.equal(kn, pn), f"rank_candidates_int8 counts "
+                  f"{metric} C={c_e}")
+            for r in range(c_e):
+                m_ = int(pn[r])
+                check(m_ > 8192 or torch.equal(
+                    torch.sort(kp[r, :m_]).values,
+                    torch.sort(pp[r, :m_]).values),
+                    f"rank_candidates_int8 pairs {metric} C={c_e} row {r}")
+            for cap_ in (None, 700):
+                st_ = {}
+                ki = T.int8_candidates(c8, ca, c2, cv, qe, kc_, metric,
+                                       cap=cap_, stats=st_)
+                pi = T.int8_candidates_plain(c8, ca, c2, cv, qe, kc_, metric,
+                                             cap=cap_)
+                check(torch.equal(ki, pi) and (cap_ is None
+                                               or st_["overflow"] > 0),
+                      f"int8_candidates {metric} C={c_e} cap={cap_}")
+                n_cand += 1
+        del c8, ca, c2, cv, kp, pp
+    # sorted store: every row ordered by its dot with u; queries near u
+    u = torch.randn(d10, generator=gd, device=dev)
+    xs_sorted = xc[torch.argsort(xc @ u)]
+    c8 = torch.empty((nc_, w10), dtype=torch.int8, device=dev)
+    ca = torch.empty((nc_,), dtype=torch.float32, device=dev)
+    c2 = torch.zeros((nc_,), dtype=torch.float32, device=dev)
+    T.quantize_rows_int8(xs_sorted, "cosine", c8, ca, c2)
+    cv = torch.ones(nc_, dtype=torch.bool, device=dev)
+    qe = u[None, :] + 0.3 * torch.randn(65, d10, generator=gd, device=dev)
+    for cap_ in (None, 700):
+        st_ = {}
+        ki = T.int8_candidates(c8, ca, c2, cv, qe, kc_, "cosine", cap=cap_,
+                               stats=st_)
+        check(torch.equal(ki, T.int8_candidates_plain(
+            c8, ca, c2, cv, qe, kc_, "cosine", cap=cap_))
+            and (cap_ is None or st_["overflow"] == 65),
+            f"int8_candidates sorted store cap={cap_}")
+        n_cand += 1
+    del xc, xs_sorted, c8, ca, c2, cv, qe, ki, pi
+    torch.cuda.empty_cache()
+
+    # at the path's shape: one pass for all 512 queries of a frame over
+    # the (all-valid) 10M store, equal to the chunked path (16-query
+    # chunks of scores and their kc best) for every query
+    ones10 = torch.ones(n10, dtype=torch.bool, device=dev)
+    qs512 = torch.from_numpy(q10).to(dev)
+    c512 = qs512.shape[0]
+    st10 = {}
+    cand_all = T.int8_candidates(x8_10, arow10, None, ones10, qs512, kc10,
+                                 "cosine", stats=st10)
+    chunked = torch.cat([T.select_topk_rows(T.rank_scores_int8(
+        x8_10, qs512[s0:s0 + c16], "cosine", arow10, None, ones10),
+        kc10)[1] for s0 in range(0, c512, c16)])
+    check(torch.equal(cand_all, chunked),
+          "int8_candidates 512x10M differ from the chunked path")
+    cnt10 = st10["counts"].double()
+    emit("int8_candidates", queries=c512, rows=n10, kc=kc10, S=st10["S"],
+         cap=st10["cap"], overflow=st10["overflow"],
+         survivors_min=int(cnt10.min()), survivors_median=float(
+             cnt10.median()), survivors_max=int(cnt10.max()),
+         equal_chunked_path=True, shapes_checked=n_cand)
+    cand_all = cand_all.cpu().numpy()
+    del chunked
+    # the pieces of that pass, each timed alone: the threshold sample's
+    # scores, its select, the candidates pass, the final select of pairs
+    s_rows, s_step, cap10 = T.int8_candidate_plan(n10, c512, kc10, 1 << 28)
+    q8a, qsa = T.int8_query_scratch(c512, w10, dev)
+    smp = (s_rows, s_step)
+    thr_ms = cuda_ms(lambda: T.rank_scores_int8(
+        x8_10, qs512, "cosine", arow10, None, ones10, sample=smp, q8=q8a,
+        qscale=qsa), 5)
+    ss = T.rank_scores_int8(x8_10, qs512, "cosine", arow10, None, ones10,
+                            sample=smp, q8=q8a, qscale=qsa)
+    emit("kernel", name="rank_scores_int8", shape=f"C={c512} S={s_rows} "
+         f"D={d10} cosine (threshold sample, every {s_step}th tile)",
+         ms=thr_ms, plain_ms=cuda_ms(lambda: T.rank_int8(
+             x8_10, qs512, "cosine", arow10, None, ones10, sample=smp,
+             plain=True), 1),
+         bound_ms=bound(s_rows * w10 + 4 * c512 * w10
+                                   + 5 * s_rows + 4 * c512 * s_rows,
+                                   2 * c512 * s_rows * w10, PEAK_INT8)[0])
+    thr10 = T.select_topk_rows(ss, kc10)[0][:, kc10 - 1].contiguous()
+    emit("kernel", name="select_topk_rows", shape=f"R={c512} N={s_rows} "
+         f"k={kc10} (threshold select)",
+         ms=cuda_ms(lambda: T.select_topk_rows(ss, kc10), 5),
+         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(ss, kc10), 1),
+         library_ms=cuda_ms(lambda: torch.topk(ss, kc10, dim=1,
+                                               largest=False), 5),
+         bound_ms=bound(4 * c512 * s_rows + 8 * c512 * kc10, c512 * s_rows,
+                        PEAK_F32)[0])
+    del ss
+    torch.cuda.empty_cache()
+    pairs10, counts10 = T.rank_candidates_int8(
+        x8_10, q8a, qsa, "cosine", arow10, None, ones10, thr10, cap10)
+    surv = int(counts10.sum())
+    # the bound: the store and its scales read, the pairs written; the
+    # 7.86 TOP of int8 products at the int8 peak bound it
+    cms, cby = bound(n10 * w10 + 5 * n10 + c512 * w10 + 8 * c512 + 8 * surv,
+                     2 * c512 * n10 * w10, PEAK_INT8)
+    q8at = q8a.t()
+
+    def int_mm_blocks():  # the product alone, in 1M-row blocks
+        for s0 in range(0, n10, 1 << 20):
+            torch._int_mm(x8_10[s0:s0 + (1 << 20)], q8at)
+
+    try:
+        cand_lib = cuda_ms(int_mm_blocks, 3)
+    except RuntimeError as e:  # a yardstick only
+        print(f"torch._int_mm refused the 512-query blocks: {e}",
+              file=sys.stderr)
+        cand_lib = None
+    note("rank_candidates_int8", 0.0,
+         ms=cuda_ms(lambda: T.rank_candidates_int8(
+             x8_10, q8a, qsa, "cosine", arow10, None, ones10, thr10,
+             cap10), 5),
+         plain_ms=cuda_ms(lambda: T.rank_candidates_plain(
+             x8_10, qs512, "cosine", arow10, None, ones10, thr10, cap10),
+             1),
+         library_ms=cand_lib, bound_ms=cms, bound_by=cby,
+         shape=f"C={c512} N={n10} D={d10} cosine cap={cap10}")
+    emit("kernel", name="rank_candidates_int8", tol=[0, 0],
+         max_abs_err=0.0, ms=kern["rank_candidates_int8"]["ms"],
+         library_ms=cand_lib, survivors=surv)
+    fms, fby = bound(8 * surv + 4 * c512 + 8 * c512 * kc10, surv, PEAK_F32)
+    note("select_topk_pairs", 0.0,
+         ms=cuda_ms(lambda: T.select_topk_pairs(pairs10, counts10, kc10),
+                    5),
+         plain_ms=cuda_ms(lambda: T.top_k_pairs_plain(pairs10, counts10,
+                                                      kc10), 1),
+         library_ms=None, bound_ms=fms, bound_by=fby,
+         shape=f"R={c512} cap={cap10} k={kc10} ({surv} pairs)")
+    emit("kernel", name="select_topk_pairs", tol=[0, 0], max_abs_err=0.0,
+         ms=kern["select_topk_pairs"]["ms"])
+    del pairs10, counts10, q8a, qsa, q8at, thr10
+    # the few-row select at a B = 1 frame's threshold pass
+    s1_rows = T.int8_candidate_plan(n10, 1, kc10, 1 << 28)[0]
+    s1 = s_k[:1, :s1_rows].contiguous()
+    emit("kernel", name="select_topk_rows", shape=f"R=1 N={s1_rows} "
+         f"k={kc10} (B=1 threshold select)",
+         ms=cuda_ms(lambda: T.select_topk_rows(s1, kc10), 20),
+         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(s1, kc10), 5),
+         library_ms=cuda_ms(lambda: torch.topk(s1, kc10, dim=1,
+                                               largest=False), 20),
+         bound_ms=bound(4 * s1_rows + 8 * kc10, s1_rows, PEAK_F32)[0])
+    del s1
     # the runner's first chunk (queries 0..15, an all-valid store) must
     # give these candidates
     s_p = T.rank_scores_int8_plain(x8_10, qs16, "cosine", arow10)
     cand10_v, cand10_i = (t.cpu().numpy()
                           for t in T.top_k_smallest_plain(s_p, kc10))
-    del s_k, s_p, x8_10, arow10, x2_10, valid10, q8_16, q8t
+    del s_k, s_p, x8_10, arow10, x2_10, valid10, q8_16, q8t, ones10, qs512
     torch.cuda.empty_cache()
 
     # the int8 kernels past 2048 columns: 3072-d rows (a query tile's
@@ -953,7 +1220,7 @@ def main() -> int:
             for kname in needs:
                 check(m["launches"][kname] > 0,
                       f"{name}: kernel {kname} was not launched")
-            emit(name, **out, launches=m["launches"])
+            emit(name, **out, launches=m["launches"], events=m["events"])
 
         def knn1m():
             cfg = cnf.device_cfg()
@@ -1091,6 +1358,27 @@ def main() -> int:
             check_ids(cand10_v, cand10_i, cand[:c16],
                       "knn10m candidates vs the plain pipeline", atol=0.0,
                       rtol=1e-5)
+            # every query's candidates equal the chunked path's, and the
+            # smaller frames' are their prefixes
+            check(np.array_equal(cand, cand_all),
+                  "knn10m candidates differ from the chunked path")
+            for bsz, c_ in results.items():
+                check(np.array_equal(c_, cand_all[:bsz]),
+                      f"knn10m B={bsz} differs from the chunked path")
+            # one B=512 frame is one candidates pass over the store
+            meta = {"key": key, "tag": tag, "k": k10}
+            _, m0, _ = sup.call("launch_counts", {})
+            sup.call("vec_knn", meta, [q10])
+            _, m1, _ = sup.call("launch_counts", {})
+            per_frame = {kn: m1["launches"][kn] - m0["launches"][kn]
+                         for kn in ("rank_candidates_int8", "rank_scores_int8",
+                                    "select_topk_rows", "select_topk_pairs")}
+            check(per_frame["rank_candidates_int8"] == 1,
+                  f"knn10m B=512 frame launches {per_frame}")
+            check(m1["events"]["int8_overflow_rows"] == 0,
+                  f"knn10m overflowed: {m1['events']}")
+            out["launches_per_B512_frame"] = per_frame
+            out["overflow_rows"] = m1["events"]["int8_overflow_rows"]
             # the serving side's exact rescore (idx/vector.py:1432), in
             # f64 from the rows here, then recall@10 against the oracle
             hits = 0
@@ -1185,7 +1473,9 @@ def main() -> int:
         sup.forget("vec/b/b/tbl/ix")
         xs_np = full = rank = None  # the knn1m rows: host and card memory
         torch.cuda.empty_cache()
-        drive("knn10m", knn10m)
+        drive("knn10m", knn10m, needs=(
+            "quantize_rows_int8", "rank_scores_int8", "rank_candidates_int8",
+            "select_topk_rows", "select_topk_pairs"))
         xs10 = None
         ann, ann_plain, ann_oracle = check_ann_descent()
         drive("ann", ann_phase)

@@ -90,12 +90,35 @@ SURREAL_API int distance_tile(const float* xs, const float* qs,
 // out_idx holds the position, or ids[r, position] when ids is not null.
 // For k > SURREAL_SELECT_MAX_K, scratch is a [rows, scratch_ld] u64
 // buffer with scratch_ld >= the power of two >= k (else it may be null).
+// blocks_per_row > 1 splits each row over that many blocks: then work
+// is a [rows, SURREAL_SELECT_WORK_U32] u32 workspace and gather a
+// [rows, gather_cap] u64 buffer (gather_cap >= k); else both may be
+// null.
+#define SURREAL_SELECT_WORK_U32 5124
 SURREAL_API int select_topk_rows(const float* vals, long long ld,
                                  const int32_t* ids, long long ids_ld,
                                  int rows, long long n, int k,
                                  float* out_vals, int32_t* out_idx,
                                  unsigned long long* scratch,
-                                 long long scratch_ld, void* stream);
+                                 long long scratch_ld, int blocks_per_row,
+                                 unsigned int* work,
+                                 unsigned long long* gather,
+                                 long long gather_cap, void* stream);
+
+// select.cu: per row r, the k smallest of the packed pairs
+// pairs[r, 0:min(counts[r], ld)] ((order key of the value) << 32 | id),
+// ascending by (value, id): out_vals the value, out_idx the id. A row
+// with fewer than k pairs is left unwritten. scratch, blocks_per_row,
+// work and gather as for select_topk_rows.
+SURREAL_API int select_topk_pairs(const unsigned long long* pairs,
+                                  long long ld, const unsigned int* counts,
+                                  int rows, int k, float* out_vals,
+                                  int32_t* out_idx,
+                                  unsigned long long* scratch,
+                                  long long scratch_ld, int blocks_per_row,
+                                  unsigned int* work,
+                                  unsigned long long* gather,
+                                  long long gather_cap, void* stream);
 
 // rank_rescore.cu: out[c, n] = x2[n] - 2 dot(qs_bf16[c], xs_rank[n])
 // (euclid != 0) or -dot, f32 accumulation, +inf where valid[n] == 0.
@@ -114,19 +137,39 @@ SURREAL_API int gather_rescore(const float* xs_full, const float* qs,
                                long long n, int c, int kc, int d,
                                int metric, void* stream);
 
-// rank_int8.cu: out[c, n] = score of the int8 row xs[n] (width d, any
+// rank_int8.cu: out[c, j] = score of the int8 row xs[j] (width d, any
 // multiple of 16) against query c quantised first (sq = 127 / max|q|,
-// q8 = rint(q sq), into the caller's scratch q8[c, d] and qscale[c]):
-// approx = dots * (arow[n] / sq) (probe_order 0, knn_rank_int8) or
-// dots * (arow[n] * (1 / sq)) (probe_order 1, the ANN probe), dots the
-// exact int32 product; x2[n] - 2 approx (euclid) or -approx; +inf where
-// valid[n] == 0.
+// q8 = rint(q sq), into the caller's scratch q8[c, d] and qscale[c];
+// qs null: q8 and qscale already hold them): approx = dots * (arow / sq)
+// (probe_order 0, knn_rank_int8) or dots * (arow * (1 / sq))
+// (probe_order 1, the ANN probe), dots the exact int32 product;
+// x2 - 2 approx (euclid) or -approx; +inf where valid == 0. With
+// tile_step 1, j runs over the n store rows (n_out == n); with
+// tile_step s > 1 over a sample of n_out rows (a multiple of 256):
+// output tile t (256 rows) is store tile t * s.
 SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
                                  const float* arow, const float* x2,
                                  const uint8_t* valid, float* out,
                                  int8_t* q8, float* qscale, long long n,
-                                 int c, int d, int euclid, int probe_order,
+                                 long long n_out, int tile_step, int c,
+                                 int d, int euclid, int probe_order,
                                  void* stream);
+
+// rank_int8.cu: the same scores (probe_order 0) of all n store rows,
+// filtered: every row j whose score's order key is at or below thr[c]'s
+// is appended to pairs[c, 0:cap] as (order key << 32 | j); counts[c]
+// (zeroed here) counts every survivor, also past cap. tile_x2min
+// (euclidean): the least x2 of each 256-row tile of the store (of the
+// last tile's rows that exist).
+SURREAL_API int rank_candidates_int8(const int8_t* xs, const float* qs,
+                                     const float* arow, const float* x2,
+                                     const uint8_t* valid, const float* thr,
+                                     unsigned long long* pairs,
+                                     unsigned int* counts, long long cap,
+                                     const float* tile_x2min,
+                                     int8_t* q8, float* qscale, long long n,
+                                     int c, int d, int euclid,
+                                     void* stream);
 
 // rank_int8.cu: the int8 store of [n, d] rows (f32, or f64 when is_f64):
 // x8[n, width] (zero columns past d), arow[n], x2[n] (euclidean only).

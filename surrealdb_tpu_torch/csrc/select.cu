@@ -1,5 +1,7 @@
 // select_topk_rows: exact per-row k smallest, in ascending (value, index)
 // order, so ties go to the lower index as jax.lax.top_k breaks them.
+// select_topk_pairs: the same over packed (order key << 32 | id) pairs
+// with a per-row count, ascending by (value, id).
 //
 // Replaces surrealdb_tpu/ops/topk.py:13 top_k_smallest (lax.top_k), and
 // the approx_max_k candidate stage of ops/topk.py:78 knn_rank_rescore
@@ -7,42 +9,63 @@
 // counterpart: selecting the candidates exactly gives the reference's
 // answer wherever the approximate stage was exact. It also serves the
 // running merge of knn_search_blocked (selection over [best, block] with
-// an id map).
+// an id map: ties go by column there, which is id order, since the best
+// ids precede the block's) and, in pair mode, the final select of the
+// int8 store's candidate pass (rank_int8.cu), whose survivors arrive in
+// no order: ties there go by id.
 //
-// Design: one block per row, over order-preserving uint32 keys (-0.0
-// and +0.0 share a key, as they compare equal). Every pass streams the
-// row as float4 pairs where it is 16-byte aligned (32 bytes in flight a
-// thread), else scalar. Pass 1 builds a 2048-bin shared-memory histogram
-// of the top 11 key bits and finds the bin that holds the k-th smallest.
-// When every key in that bin and below fits the 8192-entry shared buffer
-// (the usual case for KNN scores: k is small and the smallest values sit
-// in a sparse tail), pass 2 gathers those (key, index) pairs and a
-// bitonic sort of them orders the answer: two reads of the row.
-// Otherwise two more radix digits (11 and 10 bits) find the key T of the
-// k-th smallest and how many keys equal it; when the keys <= T fit the
-// buffer, one more read gathers them (in any order: the sort by (key,
-// index) puts the lowest-index ties first): five reads. Only when ties
-// at T overflow it does a compaction pass in index order (warp ballots +
-// a block prefix over warp counts, two barriers per 1024 keys) take
-// every key < T and the lowest-index keys == T.
+// Every entry is a 64-bit key: (order-preserving uint32 of the value,
+// -0.0 and +0.0 sharing one) << 32 | (its column, or the pair's id). The
+// keys are distinct, so "the k smallest" is one exact set, found by a
+// radix select over the 64 bits in digits of 11, 11, 10 (the value) and
+// 11, 11, 10 (the column or id) bits. After each digit, when every key
+// at or below the digit's bin fits the sort buffer, one more read
+// gathers those keys (in any order) and a bitonic sort of them finishes:
+// for KNN scores (k small, the smallest values in a sparse tail) that is
+// after the first digit, two reads of the row. The sort buffer is 8192
+// entries of shared memory, or for k > SURREAL_SELECT_MAX_K a per-row
+// slice of the caller's device scratch.
 //
-// Large k (k > SURREAL_SELECT_MAX_K, e.g. the int8 store's kc = 128 k
-// candidates for k >= 33): the (key, index) buffer is a per-row slice of
-// device memory that the wrapper allocates ([rows, m] u64, m the power
-// of two >= k); the radix passes, gathers and the sort run there.
+// Few rows over many entries (rows below the SM count, e.g. a query
+// batch of 1 or 16 over millions of scores): each row is split over G
+// blocks. Every block adds its slice's histogram of a digit into the
+// row's histogram in the caller's workspace (one launch per value
+// digit, each block walking the histograms before it to find the bin,
+// and returning at once when an earlier digit already fits the gather
+// buffer); then all G blocks gather the keys at or below the found bin
+// into the row's gather buffer through a warp-aggregated atomic count;
+// then one block a row selects the k smallest of the gathered keys as
+// above. A row whose ties at one value outnumber the gather buffer falls
+// back to one block over the whole row. Both paths sort the same keys,
+// so they give the same (value, index) output bit for bit.
 //
-// Bound on the H100: bytes, one read of the [rows, n] f32 input; this
-// design reads it two to five times. A row is one block: few rows over
-// many keys (16 x 10M at the int8 store's chunk) use 16 of 132 SMs.
+// Bound on the H100: bytes, one read of the [rows, n] f32 input (or of
+// the pairs' [0, count) prefixes); the usual case reads it twice.
 #include "kernels.h"
 
 namespace {
 
-constexpr int TOP_BITS = 11;               // first radix digit
-constexpr int NBINS = 1 << TOP_BITS;       // 2048 histogram bins
-constexpr int TOP_SHIFT = 32 - TOP_BITS;   // 21
-constexpr int CAP = 8192;                  // shared (key, index) buffer
+constexpr int NBINS = 2048;               // widest digit: 11 bits
+constexpr int CAP = 8192;                 // shared sort buffer
 constexpr int SMEM_BYTES = CAP * 8 + NBINS * 4;
+constexpr int NLEVELS = 6;                // digits over the 64-bit key
+constexpr int KEY_LEVELS = 3;             // digits over the value
+// the multi-block workspace of a row: the value digits' histograms
+// (2048, 2048 and 1024 bins) and the gather count
+constexpr int WS_COUNT = 5120;
+constexpr int WS_U32 = SURREAL_SELECT_WORK_U32;
+constexpr int MB_THREADS = 512;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ int level_width(int lv) {
+  return lv % 3 == 2 ? 10 : 11;
+}
+
+__device__ __forceinline__ int level_offset(int lv) {
+  return lv == 0 ? 0 : (lv == 1 ? 2048 : 4096);
+}
 
 __device__ __forceinline__ uint32_t order_key(float f) {
   if (f == 0.0f) f = 0.0f;  // -0.0 -> +0.0
@@ -50,18 +73,21 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
 // bitonic sort of sbuf[0:m] ascending (m a power of two); sbuf lies in
-// shared memory, or in device memory for k > CAP (__syncthreads orders
+// shared memory, or in device memory for a large k (__syncthreads orders
 // the block's global accesses as well)
-__device__ __forceinline__ void bitonic_sort(unsigned long long* sbuf,
-                                             int m) {
+__device__ __forceinline__ void bitonic_sort(u64* sbuf, int m) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
   for (int size = 2; size <= m; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int i = tid; i < m; i += nthreads) {
         const int j = i ^ stride;
         if (j > i) {
-          const unsigned long long a = sbuf[i], b = sbuf[j];
+          const u64 a = sbuf[i], b = sbuf[j];
           const bool up = (i & size) == 0;
           if ((a > b) == up) {
             sbuf[i] = b;
@@ -74,230 +100,494 @@ __device__ __forceinline__ void bitonic_sort(unsigned long long* sbuf,
   }
 }
 
-// thread 0: the bin of hist[0:nbins] holding the need-th key (1-based);
-// writes the bin and how many keys precede it
-__device__ __forceinline__ void find_bin(const unsigned int* hist,
-                                         int nbins, unsigned int need,
-                                         unsigned int* s_bin,
-                                         unsigned int* s_before) {
-  unsigned int cum = 0;
-  int bin = 0;
-  for (; bin < nbins - 1; ++bin) {
-    if (cum + hist[bin] >= need) break;
-    cum += hist[bin];
+// one full warp: the bin of hist[0:nb] (shared or global) holding the
+// need-th key (1-based) and how many keys precede it, written by one
+// lane to *bin / *before
+__device__ __forceinline__ void find_bin_warp(const unsigned int* hist,
+                                              int nb, unsigned int need,
+                                              unsigned int* bin,
+                                              unsigned int* before) {
+  const int lane = threadIdx.x & 31;
+  const int per = nb >> 5;
+  unsigned int s = 0;
+  for (int i = 0; i < per; ++i) s += hist[lane * per + i];
+  unsigned int inc = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned int t = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += t;
   }
-  *s_bin = (unsigned int)bin;
-  *s_before = cum;
-}
-
-// f(index, value, in) over row v[0:n], in no particular index order
-// (every thread calls f the same number of times; `in` is false past
-// the row): float4 pairs where v is 16-byte aligned, then a scalar tail
-template <typename F>
-__device__ __forceinline__ void for_each_value(const float* v, long long n,
-                                               F f) {
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  long long done = 0;
-  if ((reinterpret_cast<uintptr_t>(v) & 15) == 0) {
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-    const long long n4 = n >> 2;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (long long base = 0; base < n4; base += 2LL * nthreads) {
-      const long long j0 = base + tid, j1 = j0 + nthreads;
-      const bool p0 = j0 < n4, p1 = j1 < n4;
-      const float4 a = p0 ? v4[j0] : z;
-      const float4 b = p1 ? v4[j1] : z;
-      f(4 * j0, a.x, p0);
-      f(4 * j0 + 1, a.y, p0);
-      f(4 * j0 + 2, a.z, p0);
-      f(4 * j0 + 3, a.w, p0);
-      f(4 * j1, b.x, p1);
-      f(4 * j1 + 1, b.y, p1);
-      f(4 * j1 + 2, b.z, p1);
-      f(4 * j1 + 3, b.w, p1);
+  const unsigned int ball = __ballot_sync(FULL, inc >= need);
+  const int hit = ball ? __ffs(ball) - 1 : 31;
+  if (lane == hit) {
+    unsigned int cum = inc - s;
+    int b = lane * per;
+    const int last = b + per - 1;
+    for (; b < last; ++b) {
+      if (cum + hist[b] >= need) break;
+      cum += hist[b];
     }
-    done = n4 * 4;
+    *bin = (unsigned int)b;
+    *before = cum;
   }
-  for (long long start = done; start < n; start += nthreads) {
-    const long long i = start + tid;
-    const bool p = i < n;
-    f(i, p ? v[i] : 0.f, p);
+  __syncwarp();
+}
+
+// f(hk, lk, in) over entries [lo, hi) of a row of f32 values, the key's
+// high word hk = order_key(v[i]) and low word lk = i (the digits over
+// the value read the high word alone: 32-bit work, as one block a row is
+// bound by its ALU); every thread of the block calls f the same number
+// of times (`in` is false past the slice), so f may use warp votes.
+// float4 pairs where the slice is 16-byte aligned, scalars else.
+struct FloatRow {
+  const float* v;
+  template <typename F>
+  __device__ __forceinline__ void scan(long long lo, long long hi,
+                                       F f) const {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const long long mis = (reinterpret_cast<uintptr_t>(v + lo) & 15) >> 2;
+    long long a = lo + (mis ? 4 - mis : 0);
+    if (a > hi) a = hi;
+    for (long long s = lo; s < a; s += nt) {
+      const long long i = s + tid;
+      const bool p = i < a;
+      f(p ? order_key(v[i]) : ~0u, (uint32_t)i, p);
+    }
+    const float4* v4 = reinterpret_cast<const float4*>(v + a);
+    const long long n4 = (hi - a) >> 2;
+    for (long long base = 0; base < n4; base += 2LL * nt) {
+      const long long j0 = base + tid, j1 = j0 + nt;
+      const bool p0 = j0 < n4, p1 = j1 < n4;
+      const float4 x = p0 ? v4[j0] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 y = p1 ? v4[j1] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const uint32_t i0 = (uint32_t)(a + 4 * j0), i1 = (uint32_t)(a + 4 * j1);
+      f(order_key(x.x), i0, p0);
+      f(order_key(x.y), i0 + 1, p0);
+      f(order_key(x.z), i0 + 2, p0);
+      f(order_key(x.w), i0 + 3, p0);
+      f(order_key(y.x), i1, p1);
+      f(order_key(y.y), i1 + 1, p1);
+      f(order_key(y.z), i1 + 2, p1);
+      f(order_key(y.w), i1 + 3, p1);
+    }
+    for (long long s = a + 4 * n4; s < hi; s += nt) {
+      const long long i = s + tid;
+      const bool p = i < hi;
+      f(p ? order_key(v[i]) : ~0u, (uint32_t)i, p);
+    }
+  }
+};
+
+// the same over packed keys (a pair row, or a row's gathered keys)
+struct KeyRow {
+  const u64* p;
+  template <typename F>
+  __device__ __forceinline__ void scan(long long lo, long long hi,
+                                       F f) const {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    long long a = lo + ((reinterpret_cast<uintptr_t>(p + lo) & 15) ? 1 : 0);
+    if (a > hi) a = hi;
+    for (long long s = lo; s < a; s += nt) {
+      const long long i = s + tid;
+      const bool q = i < a;
+      const u64 x = q ? p[i] : ~0ull;
+      f((uint32_t)(x >> 32), (uint32_t)x, q);
+    }
+    const ulonglong2* p2 = reinterpret_cast<const ulonglong2*>(p + a);
+    const long long n2 = (hi - a) >> 1;
+    for (long long base = 0; base < n2; base += nt) {
+      const long long j = base + tid;
+      const bool q = j < n2;
+      const ulonglong2 x = q ? p2[j] : make_ulonglong2(~0ull, ~0ull);
+      f((uint32_t)(x.x >> 32), (uint32_t)x.x, q);
+      f((uint32_t)(x.y >> 32), (uint32_t)x.y, q);
+    }
+    for (long long s = a + 2 * n2; s < hi; s += nt) {
+      const long long i = s + tid;
+      const bool q = i < hi;
+      const u64 x = q ? p[i] : ~0ull;
+      f((uint32_t)(x >> 32), (uint32_t)x, q);
+    }
+  }
+};
+
+// output of a float row: the value read back (so -0.0 stays -0.0) and
+// the column, mapped through ids when given
+struct FloatOut {
+  const float* v;
+  const int32_t* ids;  // this row's id map, or null
+  float* ov;           // this row's outputs
+  int32_t* oi;
+  __device__ __forceinline__ void operator()(int i, u64 key) const {
+    const uint32_t idx = (uint32_t)key;
+    ov[i] = v[idx];
+    oi[i] = ids != nullptr ? ids[idx] : (int32_t)idx;
+  }
+};
+
+// output of a pair row: the value from its order key, the pair's id
+struct PairOut {
+  float* ov;
+  int32_t* oi;
+  __device__ __forceinline__ void operator()(int i, u64 key) const {
+    ov[i] = key_value((uint32_t)(key >> 32));
+    oi[i] = (int32_t)(uint32_t)key;
+  }
+};
+
+// one block: the k smallest keys of row[0:n] (k <= n), sorted, to out.
+// sbuf holds `cap` keys (a power of two >= k); hist 2048 shared bins.
+template <typename Row, typename Out>
+__device__ void block_select(const Row& row, long long n, int k, u64* sbuf,
+                             long long cap, unsigned int* hist,
+                             const Out& out) {
+  __shared__ unsigned int s_bin, s_before, s_count;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  u64 prefix = 0ull;
+  int shift = 64;
+  unsigned int need = (unsigned int)k, less = 0;
+  for (int lv = 0; lv < NLEVELS; ++lv) {
+    const int w = level_width(lv), nb = 1 << w;
+    const u64 hmask = shift == 64 ? 0ull : ~0ull << shift;
+    shift -= w;
+    for (int i = tid; i < nb; i += nt) hist[i] = 0u;
+    __syncthreads();
+    if (shift >= 32) {  // a digit of the value: the high word alone
+      const uint32_t mh = (uint32_t)(hmask >> 32), ph = (uint32_t)(prefix >> 32);
+      const int sh = shift - 32;
+      row.scan(0, n, [&](uint32_t hk, uint32_t, bool in) {
+        if (in && (hk & mh) == ph)
+          atomicAdd(&hist[(hk >> sh) & (unsigned int)(nb - 1)], 1u);
+      });
+    } else {
+      row.scan(0, n, [&](uint32_t hk, uint32_t lk, bool in) {
+        const u64 key = ((u64)hk << 32) | lk;
+        if (in && (key & hmask) == prefix)
+          atomicAdd(&hist[(unsigned int)(key >> shift) & (nb - 1)], 1u);
+      });
+    }
+    __syncthreads();
+    if (tid < 32) find_bin_warp(hist, nb, need, &s_bin, &s_before);
+    __syncthreads();
+    const unsigned int bin = s_bin, before = s_before;
+    const u64 le = (u64)less + before + hist[bin];  // keys <= the bin
+    prefix |= (u64)bin << shift;
+    less += before;
+    need -= before;
+    if (le <= (u64)cap || lv == NLEVELS - 1) {
+      // gather every key at or below the bin (in any order), sort
+      const int cnt = (int)(le < (u64)cap ? le : (u64)cap);
+      if (tid == 0) s_count = 0u;
+      __syncthreads();
+      const u64 top = prefix >> shift;
+      auto take = [&](uint32_t hk, uint32_t lk) {
+        const unsigned int pos = atomicAdd(&s_count, 1u);
+        if (pos < (unsigned int)cnt) sbuf[pos] = ((u64)hk << 32) | lk;
+      };
+      if (shift >= 32) {
+        const int sh = shift - 32;
+        const uint32_t top32 = (uint32_t)top;
+        row.scan(0, n, [&](uint32_t hk, uint32_t lk, bool in) {
+          if (in && (hk >> sh) <= top32) take(hk, lk);
+        });
+      } else {
+        row.scan(0, n, [&](uint32_t hk, uint32_t lk, bool in) {
+          if (in && ((((u64)hk << 32) | lk) >> shift) <= top) take(hk, lk);
+        });
+      }
+      int m = 1;
+      while (m < cnt) m <<= 1;
+      __syncthreads();
+      for (int i = cnt + tid; i < m; i += nt) sbuf[i] = ~0ull;
+      __syncthreads();
+      bitonic_sort(sbuf, m);
+      for (int i = tid; i < k; i += nt) out(i, sbuf[i]);
+      return;
+    }
+    __syncthreads();  // every thread has read hist[bin]
   }
 }
 
-// the first k sorted pairs -> values and (mapped) indices
-__device__ __forceinline__ void write_out(
-    const float* v, const unsigned long long* sbuf, const int32_t* ids,
-    long long ids_ld, long long row, int k, float* out_vals,
-    int32_t* out_idx) {
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const uint32_t idx = (uint32_t)(sbuf[i] & 0xFFFFFFFFull);
-    out_vals[row * k + i] = v[idx];
-    out_idx[row * k + i] =
-        ids != nullptr ? ids[row * ids_ld + idx] : (int32_t)idx;
-  }
+// the length of row r: n for a value row; count[r] (at most ld) for a
+// pair row
+__device__ __forceinline__ long long row_len(const unsigned int* counts,
+                                             long long ld, long long n,
+                                             long long r) {
+  if (counts == nullptr) return n;
+  const long long c = counts[r];
+  return c < ld ? c : ld;
 }
 
-// LARGE: k > SURREAL_SELECT_MAX_K, the (key, index) buffer is this
-// row's slice of the device scratch instead of shared memory
-template <bool LARGE>
+template <bool PAIRS>
 __global__ void __launch_bounds__(1024)
-    select_topk_kernel(const float* __restrict__ vals, long long ld,
+    select_rows_kernel(const void* __restrict__ in, long long ld,
+                       const unsigned int* __restrict__ counts,
                        const int32_t* __restrict__ ids, long long ids_ld,
                        long long n, int k, float* __restrict__ out_vals,
                        int32_t* __restrict__ out_idx,
-                       unsigned long long* __restrict__ scratch,
-                       long long scratch_ld) {
-  extern __shared__ __align__(16) unsigned long long smem[];
-  unsigned long long* s_pairs = smem;                    // (key << 32 | i)
+                       u64* __restrict__ scratch, long long scratch_ld) {
+  extern __shared__ __align__(16) u64 smem[];
   unsigned int* hist = reinterpret_cast<unsigned int*>(smem + CAP);
-  __shared__ unsigned int s_bin, s_before, s_count, s_eq;
-  __shared__ unsigned int warp_less[32], warp_eq[32];
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int warp = tid >> 5;
-  const long long row = blockIdx.x;
-  const float* v = vals + row * ld;
-  unsigned long long* sbuf = LARGE ? scratch + row * scratch_ld : s_pairs;
-  const long long cap = LARGE ? scratch_ld : CAP;
+  const long long r = blockIdx.x;
+  const bool large = k > SURREAL_SELECT_MAX_K;
+  u64* sbuf = large ? scratch + r * scratch_ld : smem;
+  const long long cap = large ? scratch_ld : CAP;
+  const long long len = row_len(counts, ld, n, r);
+  if (len < k) return;  // a pair row short of k: the caller's to serve
+  if constexpr (PAIRS) {
+    block_select(KeyRow{static_cast<const u64*>(in) + r * ld}, len, k,
+                 sbuf, cap, hist, PairOut{out_vals + r * k, out_idx + r * k});
+  } else {
+    const float* v = static_cast<const float*>(in) + r * ld;
+    block_select(FloatRow{v}, len, k, sbuf, cap, hist,
+                 FloatOut{v, ids != nullptr ? ids + r * ids_ld : nullptr,
+                          out_vals + r * k, out_idx + r * k});
+  }
+}
 
-  // pass 1: histogram of the top 11 key bits over the whole row
-  for (int i = tid; i < NBINS; i += nthreads) hist[i] = 0u;
+// -- few rows: G blocks a row ---------------------------------------------
+
+struct Walk {
+  int stop;  // first value digit whose keys <= its bin fit the gather
+             // buffer, or -1
+  int shift;
+  u64 prefix;
+  unsigned int le;
+};
+
+// warp 0: walk the row's digit histograms (workspace ws) through at most
+// `upto` digits, stopping at the first whose keys <= its bin fit gcap
+__device__ void walk_levels(const unsigned int* ws, unsigned int k,
+                            int upto, long long gcap, Walk* out) {
+  __shared__ unsigned int w_bin, w_before;
+  u64 prefix = 0ull;
+  int shift = 64, stop = -1;
+  unsigned int need = k, less = 0, le = 0;
+  for (int lv = 0; lv < upto; ++lv) {
+    shift -= level_width(lv);
+    const unsigned int* h = ws + level_offset(lv);
+    find_bin_warp(h, 1 << level_width(lv), need, &w_bin, &w_before);
+    const unsigned int bin = w_bin, before = w_before;
+    le = less + before + h[bin];
+    prefix |= (u64)bin << shift;
+    less += before;
+    need -= before;
+    __syncwarp();
+    if ((long long)le <= gcap) {
+      stop = lv;
+      break;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) *out = Walk{stop, shift, prefix, le};
+}
+
+// this block's slice of a row of len entries, in multiples of 1024
+__device__ __forceinline__ void slice(long long len, long long* lo,
+                                      long long* hi) {
+  long long per = (len + gridDim.x - 1) / gridDim.x;
+  per = (per + 1023) & ~1023LL;
+  *lo = (long long)blockIdx.x * per;
+  *hi = *lo + per < len ? *lo + per : len;
+  if (*lo > len) *lo = len;
+}
+
+// a value digit (shift >= 32): the high word alone
+template <typename Row>
+__device__ void hist_slice(const Row& row, long long lo, long long hi,
+                           int lv, u64 prefix, u64 hmask, int shift,
+                           unsigned int* sh, unsigned int* ws) {
+  const int nb = 1 << level_width(lv);
+  const uint32_t mh = (uint32_t)(hmask >> 32), ph = (uint32_t)(prefix >> 32);
+  const int s32 = shift - 32;
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) sh[i] = 0u;
   __syncthreads();
-  for_each_value(v, n, [&](long long, float x, bool in) {
-    if (in) atomicAdd(&hist[order_key(x) >> TOP_SHIFT], 1u);
+  row.scan(lo, hi, [&](uint32_t hk, uint32_t, bool in) {
+    if (in && (hk & mh) == ph)
+      atomicAdd(&sh[(hk >> s32) & (unsigned int)(nb - 1)], 1u);
   });
   __syncthreads();
-  if (tid == 0) {
-    find_bin(hist, NBINS, (unsigned int)k, &s_bin, &s_before);
-    s_count = 0u;
-  }
-  __syncthreads();
-  const unsigned int top = s_bin;
-  const unsigned int total = s_before + hist[top];  // keys in bins <= top
+  unsigned int* g = ws + level_offset(lv);
+  for (int i = threadIdx.x; i < nb; i += blockDim.x)
+    if (sh[i]) atomicAdd(&g[i], sh[i]);
+}
 
-  int m = 1;
-  if (!LARGE && total <= (unsigned int)CAP) {
-    // fast path: every key in bins <= top fits the buffer. One more read
-    // gathers them (in any order) and a sort by (key, index) finishes
-    // the selection exactly.
-    for_each_value(v, n, [&](long long i, float x, bool in) {
-      if (!in) return;
-      const uint32_t key = order_key(x);
-      if ((key >> TOP_SHIFT) <= top) {
-        const unsigned int pos = atomicAdd(&s_count, 1u);
-        sbuf[pos] = ((unsigned long long)key << 32) |
-                    (unsigned long long)(uint32_t)i;
-      }
-    });
-    while (m < (int)total) m <<= 1;
+// digit lv of every row's slices into the row's workspace histogram
+template <bool PAIRS>
+__global__ void __launch_bounds__(MB_THREADS)
+    select_hist_kernel(const void* __restrict__ in, long long ld,
+                       const unsigned int* __restrict__ counts, long long n,
+                       int k, unsigned int* __restrict__ work,
+                       long long gcap, int lv) {
+  __shared__ unsigned int sh[NBINS];
+  __shared__ Walk s_w;
+  const long long r = blockIdx.y;
+  const long long len = row_len(counts, ld, n, r);
+  if (len < k) return;
+  unsigned int* ws = work + r * WS_U32;
+  u64 prefix = 0ull, hmask = 0ull;
+  int shift = 64 - level_width(0);
+  if (lv > 0) {
+    if (threadIdx.x < 32) walk_levels(ws, (unsigned int)k, lv, gcap, &s_w);
     __syncthreads();
-    for (int i = (int)total + tid; i < m; i += nthreads) sbuf[i] = ~0ull;
-    __syncthreads();
-  } else {
-    // general path: two more radix digits (11 and 10 bits) over the
-    // whole row find the key T of the k-th smallest and the count of
-    // keys equal to it
-    unsigned int prefix = top << TOP_SHIFT;
-    unsigned int need = (unsigned int)k - s_before;
-    const int widths[2] = {11, 10};
-    int shift = TOP_SHIFT;
-    for (int pass = 0; pass < 2; ++pass) {
-      const unsigned int hi = 0xFFFFFFFFu << shift;
-      shift -= widths[pass];
-      const int nb = 1 << widths[pass];
-      __syncthreads();
-      for (int i = tid; i < nb; i += nthreads) hist[i] = 0u;
-      __syncthreads();
-      for_each_value(v, n, [&](long long, float x, bool in) {
-        const uint32_t key = order_key(x);
-        if (in && (key & hi) == prefix)
-          atomicAdd(&hist[(key >> shift) & (unsigned int)(nb - 1)], 1u);
-      });
-      __syncthreads();
-      if (tid == 0) {
-        find_bin(hist, nb, need, &s_bin, &s_before);
-        s_eq = hist[s_bin];  // after the last digit: the keys == T
-      }
-      __syncthreads();
-      prefix |= s_bin << shift;
-      need -= s_before;
-    }
-    const unsigned int thr = prefix;
-    const unsigned int n_eq = need;                     // taken == thr
-    const unsigned int n_less = (unsigned int)k - need;  // all keys < thr
-    const unsigned int n_le = n_less + s_eq;            // all keys <= thr
-    if ((long long)n_le <= cap) {
-      // the keys <= T fit: gather them in any order; the sort puts the
-      // lowest-index keys == T first
-      if (tid == 0) s_count = 0u;
-      __syncthreads();
-      for_each_value(v, n, [&](long long i, float x, bool in) {
-        if (!in) return;
-        const uint32_t key = order_key(x);
-        if (key <= thr) {
-          const unsigned int pos = atomicAdd(&s_count, 1u);
-          sbuf[pos] = ((unsigned long long)key << 32) |
-                      (unsigned long long)(uint32_t)i;
-        }
-      });
-      while (m < (int)n_le) m <<= 1;
-      __syncthreads();
-      for (int i = (int)n_le + tid; i < m; i += nthreads) sbuf[i] = ~0ull;
-      __syncthreads();
-      bitonic_sort(sbuf, m);
-      write_out(v, sbuf, ids, ids_ld, row, k, out_vals, out_idx);
-      return;
-    }
-    // ties at T overflow the buffer: a compaction in index order takes
-    // every key < T and the lowest-index keys == T
-    const int lane = tid & 31;
-    const int nwarps = nthreads >> 5;
-    const unsigned int lt_mask = (1u << lane) - 1u;
-    unsigned int base_less = 0, base_eq = 0;
-    for (long long start = 0; start < n; start += nthreads) {
-      const long long i = start + tid;
-      const bool in = i < n;
-      const uint32_t key = in ? order_key(v[i]) : 0xFFFFFFFFu;
-      const bool is_less = in && key < thr;
-      const bool is_eq = in && key == thr;
-      const unsigned int lm = __ballot_sync(0xFFFFFFFFu, is_less);
-      const unsigned int em = __ballot_sync(0xFFFFFFFFu, is_eq);
-      if (lane == 0) {
-        warp_less[warp] = __popc(lm);
-        warp_eq[warp] = __popc(em);
-      }
-      __syncthreads();
-      unsigned int off_less = 0, off_eq = 0, tot_less = 0, tot_eq = 0;
-      for (int w = 0; w < nwarps; ++w) {
-        const unsigned int cl = warp_less[w], ce = warp_eq[w];
-        if (w < warp) {
-          off_less += cl;
-          off_eq += ce;
-        }
-        tot_less += cl;
-        tot_eq += ce;
-      }
-      const unsigned long long packed =
-          ((unsigned long long)key << 32) | (unsigned long long)(uint32_t)i;
-      if (is_less) {
-        sbuf[base_less + off_less + __popc(lm & lt_mask)] = packed;
-      }
-      if (is_eq) {
-        const unsigned int pos = base_eq + off_eq + __popc(em & lt_mask);
-        if (pos < n_eq) sbuf[n_less + pos] = packed;
-      }
-      base_less += tot_less;
-      base_eq += tot_eq;
-      __syncthreads();  // warp counts are rewritten next round
-      if (base_less >= n_less && base_eq >= n_eq) break;
-    }
-    while (m < k) m <<= 1;
-    for (int i = k + tid; i < m; i += nthreads) sbuf[i] = ~0ull;
-    __syncthreads();
+    if (s_w.stop >= 0) return;  // an earlier digit already fits
+    prefix = s_w.prefix;
+    hmask = ~0ull << s_w.shift;
+    shift = s_w.shift - level_width(lv);
   }
-  bitonic_sort(sbuf, m);
-  write_out(v, sbuf, ids, ids_ld, row, k, out_vals, out_idx);
+  long long lo, hi;
+  slice(len, &lo, &hi);
+  if constexpr (PAIRS)
+    hist_slice(KeyRow{static_cast<const u64*>(in) + r * ld}, lo, hi, lv,
+               prefix, hmask, shift, sh, ws);
+  else
+    hist_slice(FloatRow{static_cast<const float*>(in) + r * ld}, lo, hi, lv,
+               prefix, hmask, shift, sh, ws);
+}
+
+// keys at or below the digit's bin (a value digit: shift >= 32)
+template <typename Row>
+__device__ void gather_slice(const Row& row, long long lo, long long hi,
+                             u64 top, int shift, unsigned int* count,
+                             u64* gbuf, long long gcap) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t top32 = (uint32_t)top;
+  const int s32 = shift - 32;
+  row.scan(lo, hi, [&](uint32_t hk, uint32_t lk, bool in) {
+    const bool take = in && (hk >> s32) <= top32;
+    const unsigned int b = __ballot_sync(FULL, take);
+    if (b == 0u) return;
+    const int leader = __ffs(b) - 1;
+    unsigned int base = 0;
+    if (lane == leader) base = atomicAdd(count, (unsigned int)__popc(b));
+    base = __shfl_sync(FULL, base, leader);
+    if (take) {
+      const unsigned int pos = base + __popc(b & ((1u << lane) - 1u));
+      if ((long long)pos < gcap) gbuf[pos] = ((u64)hk << 32) | lk;
+    }
+  });
+}
+
+// every key at or below the found bin into the row's gather buffer
+template <bool PAIRS>
+__global__ void __launch_bounds__(MB_THREADS)
+    select_gather_kernel(const void* __restrict__ in, long long ld,
+                         const unsigned int* __restrict__ counts,
+                         long long n, int k, unsigned int* __restrict__ work,
+                         u64* __restrict__ gather, long long gcap) {
+  __shared__ Walk s_w;
+  const long long r = blockIdx.y;
+  const long long len = row_len(counts, ld, n, r);
+  if (len < k) return;
+  unsigned int* ws = work + r * WS_U32;
+  if (threadIdx.x < 32)
+    walk_levels(ws, (unsigned int)k, KEY_LEVELS, gcap, &s_w);
+  __syncthreads();
+  if (s_w.stop < 0) return;  // ties overflow: the finish reads the row
+  long long lo, hi;
+  slice(len, &lo, &hi);
+  const u64 top = s_w.prefix >> s_w.shift;
+  if constexpr (PAIRS)
+    gather_slice(KeyRow{static_cast<const u64*>(in) + r * ld}, lo, hi, top,
+                 s_w.shift, ws + WS_COUNT, gather + r * gcap, gcap);
+  else
+    gather_slice(FloatRow{static_cast<const float*>(in) + r * ld}, lo, hi,
+                 top, s_w.shift, ws + WS_COUNT, gather + r * gcap, gcap);
+}
+
+// one block a row: the k smallest of the gathered keys (or, where ties
+// overflowed the gather buffer, of the whole row)
+template <bool PAIRS>
+__global__ void __launch_bounds__(1024)
+    select_finish_kernel(const void* __restrict__ in, long long ld,
+                         const unsigned int* __restrict__ counts,
+                         const int32_t* __restrict__ ids, long long ids_ld,
+                         long long n, int k, float* __restrict__ out_vals,
+                         int32_t* __restrict__ out_idx,
+                         u64* __restrict__ scratch, long long scratch_ld,
+                         const unsigned int* __restrict__ work,
+                         const u64* __restrict__ gather, long long gcap) {
+  extern __shared__ __align__(16) u64 smem[];
+  __shared__ Walk s_w;
+  unsigned int* hist = reinterpret_cast<unsigned int*>(smem + CAP);
+  const long long r = blockIdx.x;
+  const long long len = row_len(counts, ld, n, r);
+  if (len < k) return;
+  if (threadIdx.x < 32)
+    walk_levels(work + r * WS_U32, (unsigned int)k, KEY_LEVELS, gcap, &s_w);
+  __syncthreads();
+  const bool large = k > SURREAL_SELECT_MAX_K;
+  u64* sbuf = large ? scratch + r * scratch_ld : smem;
+  const long long cap = large ? scratch_ld : CAP;
+  const KeyRow gathered{gather + r * gcap};
+  if constexpr (PAIRS) {
+    const PairOut out{out_vals + r * k, out_idx + r * k};
+    if (s_w.stop >= 0)
+      block_select(gathered, (long long)s_w.le, k, sbuf, cap, hist, out);
+    else
+      block_select(KeyRow{static_cast<const u64*>(in) + r * ld}, len, k,
+                   sbuf, cap, hist, out);
+  } else {
+    const float* v = static_cast<const float*>(in) + r * ld;
+    const FloatOut out{v, ids != nullptr ? ids + r * ids_ld : nullptr,
+                       out_vals + r * k, out_idx + r * k};
+    if (s_w.stop >= 0)
+      block_select(gathered, (long long)s_w.le, k, sbuf, cap, hist, out);
+    else
+      block_select(FloatRow{v}, len, k, sbuf, cap, hist, out);
+  }
+}
+
+template <bool PAIRS>
+int launch_select(const void* in, long long ld, const unsigned int* counts,
+                  const int32_t* ids, long long ids_ld, int rows, long long n,
+                  int k, float* out_vals, int32_t* out_idx, u64* scratch,
+                  long long scratch_ld, int blocks_per_row,
+                  unsigned int* work, u64* gather, long long gather_cap,
+                  cudaStream_t st) {
+  if (k > SURREAL_SELECT_MAX_K) {
+    long long m = 1;
+    while (m < k) m <<= 1;
+    if (scratch == nullptr || scratch_ld < m)
+      return (int)cudaErrorInvalidValue;
+  }
+  static SurrealSmemDone done_rows, done_finish;
+  if (blocks_per_row <= 1) {
+    long long t = ((n + 31) / 32) * 32;
+    if (t < 64) t = 64;
+    if (t > 1024) t = 1024;
+    cudaError_t err = surreal_smem_limit(select_rows_kernel<PAIRS>,
+                                         SMEM_BYTES, &done_rows);
+    if (err != cudaSuccess) return (int)err;
+    select_rows_kernel<PAIRS><<<(unsigned)rows, (unsigned)t, SMEM_BYTES,
+                                st>>>(in, ld, counts, ids, ids_ld, n, k,
+                                      out_vals, out_idx, scratch,
+                                      scratch_ld);
+    return (int)cudaGetLastError();
+  }
+  if (work == nullptr || gather == nullptr || gather_cap < k ||
+      blocks_per_row > 65535 || rows > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      work, 0, (size_t)rows * WS_U32 * sizeof(unsigned int), st);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)blocks_per_row, (unsigned)rows);
+  for (int lv = 0; lv < KEY_LEVELS; ++lv) {
+    select_hist_kernel<PAIRS><<<grid, MB_THREADS, 0, st>>>(
+        in, ld, counts, n, k, work, gather_cap, lv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  select_gather_kernel<PAIRS><<<grid, MB_THREADS, 0, st>>>(
+      in, ld, counts, n, k, work, gather, gather_cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = surreal_smem_limit(select_finish_kernel<PAIRS>, SMEM_BYTES,
+                           &done_finish);
+  if (err != cudaSuccess) return (int)err;
+  select_finish_kernel<PAIRS><<<(unsigned)rows, 1024, SMEM_BYTES, st>>>(
+      in, ld, counts, ids, ids_ld, n, k, out_vals, out_idx, scratch,
+      scratch_ld, work, gather, gather_cap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -307,27 +597,34 @@ SURREAL_API int select_topk_rows(const float* vals, long long ld,
                                  int rows, long long n, int k,
                                  float* out_vals, int32_t* out_idx,
                                  unsigned long long* scratch,
-                                 long long scratch_ld, void* stream) {
+                                 long long scratch_ld, int blocks_per_row,
+                                 unsigned int* work,
+                                 unsigned long long* gather,
+                                 long long gather_cap, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
   if (k < 1 || (long long)k > n || n > 0x7FFFFFFFLL || ld < n)
     return (int)cudaErrorInvalidValue;
-  const bool large = k > SURREAL_SELECT_MAX_K;
-  if (large) {
-    long long m = 1;
-    while (m < k) m <<= 1;
-    if (scratch == nullptr || scratch_ld < m)
-      return (int)cudaErrorInvalidValue;
-  }
-  long long t = ((n + 31) / 32) * 32;
-  if (t < 64) t = 64;
-  if (t > 1024) t = 1024;
-  auto kernel = large ? select_topk_kernel<true> : select_topk_kernel<false>;
-  static SurrealSmemDone smem_done[2];
-  const cudaError_t attr =
-      surreal_smem_limit(kernel, SMEM_BYTES, &smem_done[large ? 1 : 0]);
-  if (attr != cudaSuccess) return (int)attr;
-  kernel<<<(unsigned)rows, (unsigned)t, SMEM_BYTES,
-           static_cast<cudaStream_t>(stream)>>>(
-      vals, ld, ids, ids_ld, n, k, out_vals, out_idx, scratch, scratch_ld);
-  return (int)cudaGetLastError();
+  return launch_select<false>(vals, ld, nullptr, ids, ids_ld, rows, n, k,
+                              out_vals, out_idx, scratch, scratch_ld,
+                              blocks_per_row, work, gather, gather_cap,
+                              static_cast<cudaStream_t>(stream));
+}
+
+SURREAL_API int select_topk_pairs(const unsigned long long* pairs,
+                                  long long ld, const unsigned int* counts,
+                                  int rows, int k, float* out_vals,
+                                  int32_t* out_idx,
+                                  unsigned long long* scratch,
+                                  long long scratch_ld, int blocks_per_row,
+                                  unsigned int* work,
+                                  unsigned long long* gather,
+                                  long long gather_cap, void* stream) {
+  if (rows <= 0) return (int)cudaSuccess;
+  if (k < 1 || counts == nullptr || ld < k || ld > 0x7FFFFFFFLL ||
+      (reinterpret_cast<uintptr_t>(pairs) & 7) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_select<true>(pairs, ld, counts, nullptr, 0, rows, ld, k,
+                             out_vals, out_idx, scratch, scratch_ld,
+                             blocks_per_row, work, gather, gather_cap,
+                             static_cast<cudaStream_t>(stream));
 }

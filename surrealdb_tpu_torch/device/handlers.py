@@ -265,14 +265,15 @@ class DeviceHost:
         }, []
 
     def op_launch_counts(self, meta, bufs):
-        """Kernel launch counts of this runner; `reset` zeroes them
-        after reading."""
+        """Kernel launch counts (and path events, such as int8
+        candidate overflows) of this runner; `reset` zeroes them after
+        reading."""
         from surrealdb_tpu_torch.device import kernelstats
 
-        out = kernelstats.launches()
+        out, events = kernelstats.launches(), kernelstats.events()
         if meta.get("reset"):
             kernelstats.reset_launches()
-        return "ok", {"launches": out}, []
+        return "ok", {"launches": out, "events": events}, []
 
     def _install_vec(self, key, tag, st):
         st.ensure()

@@ -27,9 +27,12 @@ _SEEN_MAX = 4096
 
 KERNELS = ("distance_tile", "select_topk_rows", "rank_scores_bf16",
            "gather_rescore", "csr_hop_step", "quantize_rows_int8",
-           "rank_scores_int8", "ann_descent", "merge_partials_topk",
-           "mask_or_reduce")
+           "rank_scores_int8", "rank_candidates_int8", "select_topk_pairs",
+           "ann_descent", "merge_partials_topk", "mask_or_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
+# path events that are not launches: int8 store queries whose
+# candidates overflowed their buffer and took the exact chunked path
+EVENTS = {"int8_overflow_rows": 0}
 
 
 def note_compile(kernel: str):
@@ -67,13 +70,23 @@ def note_launch(kernel: str):
     LAUNCHES[kernel] += 1
 
 
+def note_event(name: str, count: int = 1):
+    EVENTS[name] += count
+
+
 def launches() -> dict:
     return dict(LAUNCHES)
+
+
+def events() -> dict:
+    return dict(EVENTS)
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in EVENTS:
+        EVENTS[name] = 0
 
 
 def snapshot() -> dict:

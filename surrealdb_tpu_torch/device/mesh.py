@@ -13,8 +13,9 @@ does; nothing here uses `torch.distributed`.
 At install time a store cuts its shipped arrays into contiguous row
 (vec/ANN) or edge (CSR) slices, one per device, each a tensor of its
 own length on its own device (no padding to a uniform shape). A query
-runs each shard's partial kernel -- `distance_tile` or
-`rank_scores_int8` + `select_topk_rows`, the ANN probe +
+runs each shard's partial kernel -- `distance_tile` +
+`select_topk_rows`, the int8 store's one-pass candidates
+(`ops/topk.py int8_topk`), the ANN probe +
 `ann_descent`, `csr_hop_step` -- on that shard's device; the partials
 travel to the first device (`ops/merge.py`: a `.to(device,
 non_blocking=True)` after a CUDA event of the source's stream, nothing
@@ -315,7 +316,9 @@ class MeshVecStore:
         the exact VecStore.knn() contract plus meta["mesh_ndev"]."""
         self.ensure()
         from surrealdb_tpu_torch.ops.distance import distance_matrix
-        from surrealdb_tpu_torch.ops.topk import rank_int8
+        from surrealdb_tpu_torch.ops.topk import (
+            int8_topk_finish, int8_topk_start,
+        )
 
         cfg = self.cfg
         n = self.vecs.shape[0]
@@ -349,14 +352,35 @@ class MeshVecStore:
             kc = min(n, max(cfg["int8_oversample"] * k, k + 16))
             kc_l = min(kc, nloc)
             kc_out = min(kc, ndev * kc_l)
-            chunk = chunks(cfg["score_budget"] // 2)
             kernelstats.note_shape(
                 "mesh_vec_int8",
-                (self.vecs.shape, ndev, chunk, kc_out, self.metric))
+                (self.vecs.shape, ndev, b_total, kc_out, self.metric))
             kernelstats.note_sharded("mesh_vec_int8", ndev)
-            _, cand = run(chunk, kc_l, kc_out, lambda sh, q: rank_int8(
-                sh["x8"], q, self.metric, sh["arow"], sh["x2"],
-                sh["valid"]))
+            # per shard, every query in one pass over its rows (the
+            # shard's kc_l best by (score, row), as its select gave
+            # them), every shard launched before the first is awaited;
+            # then the exact merge
+            jobs = []
+            for sh in self._dev:
+                if sh["len"]:
+                    with M.on(sh["dev"]):
+                        jobs.append(int8_topk_start(
+                            sh["x8"], sh["arow"], sh["x2"], sh["valid"],
+                            M.move(qs, sh["dev"]), min(kc_l, sh["len"]),
+                            self.metric, cfg["score_budget"] // 2))
+                else:
+                    jobs.append(None)
+            d_parts, i_parts = [], []
+            for sh, job in zip(self._dev, jobs):
+                if job is None:
+                    d, i = _no_partial(b_total, dev0)
+                else:
+                    with M.on(sh["dev"]):
+                        d, i = int8_topk_finish(job)
+                d_parts.append(d)
+                i_parts.append(i)
+            _, cand = _merge_on(dev0, d_parts, i_parts, bases, kc_l, kc_out,
+                                n - 1)
             return (
                 {"mode": "cand", "rank_mode": "int8", "kc": kc_out,
                  "mesh_ndev": ndev},

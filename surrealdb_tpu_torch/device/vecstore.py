@@ -12,8 +12,10 @@ cache epoch; queries arrive as `[B, D]` f32 batches and leave as
 - when that pair (6 B/elem) exceeds `cfg["hbm_budget"]`: the int8
   ranking store (1 B/elem), quantised on the device in blocks of rows
   (`quantize_rows_int8`, the reference's formula bit for bit) and served
-  by `knn_rank_int8`, whose kc = `int8_oversample`·k candidates leave as
-  a "cand" reply for the serving side's exact rescore;
+  by `int8_candidates` (the reference's `knn_rank_int8`, all of a
+  frame's queries in one pass over the store), whose kc =
+  `int8_oversample`·k candidates leave as a "cand" reply for the
+  serving side's exact rescore;
 - other metrics: the exact store (`knn_search`), blockwise above
   `cfg["block_rows"]` (`knn_search_blocked`).
 
@@ -35,6 +37,11 @@ from surrealdb_tpu_torch.ops.metrics import COSINE, EUCLIDEAN, GEMM_METRICS
 
 # rows per step of the on-device f64 row statistics
 _STAT_ROWS = 1 << 16
+
+
+def _pow2(b: int) -> int:
+    """The power-of-two query bucket of a batch of b."""
+    return 1 << max(0, (max(int(b), 1) - 1).bit_length())
 
 
 def _pow2_chunks(b_total: int, n: int, query_chunk: int,
@@ -233,23 +240,18 @@ class VecStore:
             return self._pairs(*self._knn_sharded(qs, k))
         if self.rank_mode == "int8":
             kc = min(n, max(cfg["int8_oversample"] * k, k + 16))
-            b_total = qs.shape[0]
-            # the halved score budget, as the reference's: its int8
-            # kernel holds int32 dots AND the f32 scores at [chunk, N]
-            bucket, chunk, r = _pow2_chunks(
-                b_total, n, cfg["query_chunk"], cfg["score_budget"] // 2
-            )
+            # every query of the frame in one pass over the store (the
+            # chunking by the score budget is gone: each query's
+            # candidates are its own); the budget bounds the pass's
+            # transient memory, as the reference's int8 kernel holds
+            # int32 dots AND f32 scores at [chunk, N]
             kernelstats.note_shape(
-                "knn_rank_int8", (self.vecs.shape, chunk, kc, self.metric))
-            if bucket != b_total:
-                qs = torch.cat([qs, qs.new_zeros((bucket - b_total,
-                                                  qs.shape[1]))])
-            cand = topk.knn_rank_int8(
+                "knn_rank_int8", (self.vecs.shape, _pow2(qs.shape[0]), kc,
+                                  self.metric))
+            cand = topk.int8_candidates(
                 self.device_rank, self.device_arow, self.device_x2,
-                self.device_valid, qs.reshape(r, chunk, -1), kc,
-                self.metric,
-            )
-            cand = cand.reshape(bucket, kc)[:b_total]
+                self.device_valid, qs, kc, self.metric,
+                cfg["score_budget"] // 2)
             return (
                 {"mode": "cand", "rank_mode": self.rank_mode, "kc": kc},
                 [np.ascontiguousarray(cand.cpu().numpy(), np.int32)],

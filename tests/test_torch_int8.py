@@ -199,3 +199,156 @@ def test_large_k_select_matches_reference():
     assert ttopk.SELECT_MAX_K < 5000
     np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(rv))
+
+
+# -- one pass over the store for a whole frame (int8_candidates) -------------
+
+def _frame_case(metric, n=20_000, d=48, seed=21):
+    """A store with duplicated rows (ties at the kc-th score: query 0 is
+    one of them), tombstones, and 9 queries."""
+    rng = np.random.default_rng(seed)
+    xs = rng.normal(size=(n, d)).astype(np.float32)
+    xs[100:180] = xs[7]
+    valid = rng.random(n) > 0.05
+    qs = rng.normal(size=(9, d)).astype(np.float32)
+    qs[0] = xs[7]
+    x8, arow, x2 = ttopk.quantize_rows_plain(_t(xs), metric,
+                                             ttopk.int8_width(d))
+    return x8, arow, x2, valid, qs
+
+
+def _ref_candidates(x8, arow, x2, valid, qs, kc, metric):
+    d = qs.shape[1]
+    return np.asarray(jtopk.knn_rank_int8(
+        jnp.asarray(x8[:, :d].numpy()), jnp.asarray(arow.numpy()),
+        jnp.asarray(x2.numpy()), jnp.asarray(valid), jnp.asarray(qs[None]),
+        kc, metric))[0]
+
+
+FRAME_CASES = {
+    # (store rows, rows kept valid, cap): what the stats must show
+    "threshold": (40_000, None, None),
+    "overflow": (40_000, None, 100),
+    "no_finite_threshold": (40_000, (256, 356), None),
+    "small_store": (20_000, None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FRAME_CASES))
+@pytest.mark.parametrize("metric", METRICS)
+def test_int8_candidates_match_reference(one_device, metric, case):
+    """int8_candidates equals the reference's knn_rank_int8 id for id:
+    through the sample threshold and the candidates pass, with a small
+    cap that forces the overflow path, with every valid row outside
+    the sample (T = +inf: the count overflows), and on a store too small
+    for the sample (the chunked path)."""
+    n, keep, cap = FRAME_CASES[case]
+    x8, arow, x2, valid, qs = _frame_case(metric, n=n)
+    if keep is not None:
+        valid[:] = False
+        valid[keep[0]:keep[1]] = True
+    kc = 64
+    st = {}
+    got = ttopk.int8_candidates(x8, arow, x2, _t(valid), _t(qs), kc, metric,
+                                cap=cap, stats=st).numpy()
+    ref = _ref_candidates(x8, arow, x2, valid, qs, kc, metric)
+    assert got.dtype == np.int32 and got.shape == (9, kc)
+    np.testing.assert_array_equal(got, ref)
+    plain = ttopk.int8_candidates_plain(x8, arow, x2, _t(valid), _t(qs), kc,
+                                        metric, cap=cap).numpy()
+    np.testing.assert_array_equal(plain, got)
+    counts = st["counts"].numpy()
+    if case == "small_store":
+        assert st["chunked"] == 9 and st["S"] == 0
+        return
+    assert st["chunked"] == 0 and st["S"] >= ttopk.INT8_SAMPLE_PER_KC * kc
+    assert st["S"] % ttopk.INT8_TILE == 0 and (counts >= kc).all()
+    if case == "threshold":
+        assert st["overflow"] == 0 and (counts <= st["cap"]).all()
+    elif case == "overflow":
+        assert st["cap"] == 100
+        assert st["overflow"] == int((counts > 100).sum()) > 0
+    else:
+        assert st["overflow"] == 9 and (counts == n).all()
+
+
+def test_int8_candidate_plan_sizes():
+    """The threshold sample and buffer at the north-star frame: S = 2^19
+    rows for 512 queries over 10M, a 2^17 buffer (4x the expected 24.4k
+    survivors), 512 MiB of pairs under the chunked path's 2 GiB."""
+    s, step, cap = ttopk.int8_candidate_plan(10_000_000, 512, 1280, 1 << 28)
+    assert (s, cap) == (1 << 19, 1 << 17) and step == 19
+    assert ttopk.int8_query_group(10_000_000, 512, 1280, 1 << 28) == 512
+    # 2048 queries would need an 8 GiB buffer: two groups of 1024 (2 GiB
+    # each, the chunked path's f32 scores and int32 dots)
+    assert ttopk.int8_query_group(10_000_000, 2048, 1280, 1 << 28) == 1024
+    # B = 1: S = N / 8 in whole tiles
+    s1, _, _ = ttopk.int8_candidate_plan(10_000_000, 1, 1280, 1 << 28)
+    assert s1 == (10_000_000 // 8) // 256 * 256
+    # a 250k-row mesh shard: S = 31,232 < 64 kc, the chunked path for
+    # the whole batch at once (it chunks by the budget itself)
+    assert ttopk.int8_candidate_plan(250_000, 512, 1280, 1 << 28) is None
+    assert ttopk.int8_candidate_plan(250_000, 1, 1280, 1 << 28) is None
+    assert ttopk.int8_query_group(250_000, 512, 1280, 1 << 28) == 512
+    rows = ttopk.int8_sample_rows(3 * 256, 5)
+    assert rows[255] == 255 and rows[256] == 5 * 256 and len(rows) == 768
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_vec_knn_frame_matches_reference(one_device, metric):
+    """vec_knn "cand" replies of the int8 store through DeviceHost("cpu")
+    equal the reference's, id for id, at batch sizes whose old query
+    chunks differed, with the threshold path engaged."""
+    hosts = (ref_handlers.DeviceHost(), port_handlers.DeviceHost("cpu"))
+    n, dim = 70_000, 48
+    xs, valid, rng = _store(metric, n=n, d=dim, seed=8)
+    xs[300:360] = xs[11]
+    meta = {"key": f"vec/{metric}", "tag": [1, 2], "metric": metric,
+            "cfg": dict(CFG, hbm_budget=n * dim)}
+    _same(*both(hosts, "vec_load", meta, [xs, valid.astype(np.uint8)]))
+    for b in (1, 17, 64):
+        qs = rng.normal(size=(b, dim)).astype(np.float32)
+        qs[0] = xs[11]
+        assert ttopk.int8_candidate_plan(n, b, 128,
+                                         CFG["score_budget"] // 2)
+        (rt, rm, rb), (pt, pm, pb) = both(
+            hosts, "vec_knn", {"key": meta["key"], "tag": [1, 2], "k": 1},
+            [qs])
+        assert rt == pt == "ok" and pm == rm and pm["kc"] == 128
+        np.testing.assert_array_equal(pb[0], rb[0])
+
+
+def test_pair_select_plain_orders_by_value_then_id():
+    """The pair helpers: order keys round-trip, packed pairs select by
+    (value, id) whatever their order in the row, short rows give
+    (+inf, -1)."""
+    rng = np.random.default_rng(2)
+    vals = torch.from_numpy(np.round(rng.normal(size=(3, 500)), 1)
+                            .astype(np.float32))
+    vals[0, :3] = torch.tensor([-0.0, 0.0, float("inf")])
+    keys = ttopk.order_key_plain(vals)
+    back = ttopk.key_value_plain(keys)
+    assert torch.equal(back, torch.where(vals == 0, 0.0, vals))
+    ids = torch.from_numpy(rng.permutation(500)).repeat(3, 1)
+    pairs = ttopk.pack_pairs_plain(keys, ids)
+    counts = torch.tensor([500, 400, 20], dtype=torch.int32)
+    gv, gi = ttopk.top_k_pairs_plain(pairs, counts, 30)
+    for r in range(2):
+        m = int(counts[r])
+        order = np.lexsort((ids[r, :m].numpy(), vals[r, :m].numpy()))[:30]
+        np.testing.assert_array_equal(gi[r].numpy(), ids[r, :m][order])
+        np.testing.assert_array_equal(gv[r].numpy(), vals[r, :m][order])
+    assert (gi[2] == -1).all() and torch.isinf(gv[2]).all()
+
+
+def test_select_plan_splits_few_rows():
+    """Few rows over many entries split over blocks (about two per SM);
+    rows that fill the card, or short rows, take one block each."""
+    assert ttopk.select_plan(132, 10_000_000, 1280, 132) == (1, 0)
+    assert ttopk.select_plan(16, 20_000, 1280, 132) == (1, 0)
+    assert ttopk.select_plan(1, 250_000, 1280, 132) == (1, 0)
+    g, cap = ttopk.select_plan(16, 10_000_000, 1280, 132)
+    assert g == 17 and cap == ttopk.SELECT_GATHER_MIN
+    g, cap = ttopk.select_plan(1, 1_250_000, 5120, 132)
+    assert g == 1_250_000 // ttopk.SELECT_BLOCK_MIN and cap == 65536
+    assert ttopk.select_plan(2, 1_000_000, 26, 132)[0] == 61

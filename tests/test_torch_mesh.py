@@ -567,3 +567,33 @@ def test_selfcheck_and_budget_check_on_the_cpu_list():
     bud = port_mesh.budget_check(device="cpu", ndev=8)
     assert bud["ok"] and bud["mesh_ndev"] == 4, bud
     assert bud["single_device_refused"]
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_mesh_int8_one_pass_matches_reference(metric, ndev, split):
+    """A store large enough that shards take the one-pass path (sample
+    threshold, candidates pass, select of pairs; a short random slice may
+    take the chunked path beside them): the merged candidates equal the
+    reference mesh's, id for id, duplicated rows (ties across shards)
+    included."""
+    n, dim = 90_000, 16
+    rng = np.random.default_rng(40 + ndev)
+    xs = rng.normal(size=(n, dim)).astype(np.float32)
+    xs[[50, 3000, 6001, 11_999]] = xs[7]
+    valid = rng.random(n) > 0.05
+    qs = rng.normal(size=(NQ, dim)).astype(np.float32)
+    qs[0] = xs[7]
+    offs = _offsets(n, ndev, split, seed=3)
+    cfg = dict(CFG, hbm_budget=0)
+    kc = max(cfg["int8_oversample"] * K, K + 16)
+    assert any(ttopk.int8_candidate_plan(b - a, NQ, min(kc, b - a),
+                                         cfg["score_budget"] // 2)
+               for a, b in zip(offs, offs[1:]))
+    ref = ref_mesh.MeshVecStore("k", xs, valid, metric, 3.0, cfg, ndev, offs)
+    port = port_mesh.MeshVecStore("k", xs, valid, metric, 3.0, cfg, ndev,
+                                  offs, devices=_cpus(ndev))
+    (rm, rb), (pm, pb) = ref.knn(qs, K), port.knn(qs, K)
+    assert pm == rm and pm["mode"] == "cand" and pm["kc"] == kc
+    np.testing.assert_array_equal(pb[0], rb[0])

@@ -306,3 +306,21 @@ def test_csr_multi_hop_bit_equal(hops, union, b):
         np.testing.assert_array_equal(
             store.multi_hop(start[r].astype(np.uint8), hops, union),
             want[r].astype(np.uint8))
+
+
+def test_blocked_merge_keeps_ties_in_id_order():
+    """The running merge selects over [best, block] through an id map
+    with ties by column: the best ids precede the block's, so that is
+    id order, as the reference's lax.top_k over the concatenation. Exact
+    duplicates across blocks come back lowest id first."""
+    rng = np.random.default_rng(9)
+    xs = rng.normal(size=(700, 8)).astype(np.float32)
+    xs[[150, 300, 420, 690]] = xs[20]
+    qs = np.stack([xs[20], rng.normal(size=8).astype(np.float32)])
+    for metric in ("euclidean", "manhattan"):
+        bd, bi = jtopk.knn_search_blocked(jnp.asarray(xs), jnp.asarray(qs), 7,
+                                          metric, 3.0, block=128)
+        gd, gi = ttopk.knn_search_blocked(_t(xs), _t(qs), 7, metric, 3.0,
+                                          block=128)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(bi))
+        assert gi[0, :5].tolist() == [20, 150, 300, 420, 690]
