@@ -236,8 +236,17 @@ def main() -> int:
     ann_cfg = cnf.ann_search_cfg()
     ann_kc = min(ANN["n"], max(cnf.KNN_ANN_OVERSAMPLE * ANN["k"], 32))
 
-    def cuda_ms(fn, iters=10):
-        fn()
+    def cuda_ms(fn, iters=10, keep=None):
+        """ms a call (CUDA events over `iters` calls after a warm one);
+        `keep`, a list, receives the warm call's result."""
+        out = fn()
+        if keep is not None:
+            keep.append(out)
+            # the kept output's memory is not the allocator's to hand
+            # out again: a second warm call caches a block for the timed
+            # calls, which would otherwise time a cudaMalloc
+            fn()
+        del out
         torch.cuda.synchronize()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -275,6 +284,22 @@ def main() -> int:
         sep[:, :-1] &= gap
         check((np.asarray(got_i) == np.asarray(ref_i))[sep].all(),
               f"{what}: ids differ")
+
+    def check_pairs(kp, kn, pp, pn, what):
+        """A candidates pass against its plain version: equal counts,
+        and per query whose count fits the buffer the same set of
+        (order key, row) pairs (the kernel appends them in no order)."""
+        check(torch.equal(kn, pn), f"{what}: counts differ")
+        cap_ = kp.shape[1]
+        fit = pn <= cap_
+        used = (torch.arange(cap_, device=kp.device)[None, :]
+                < pn.clamp(max=cap_)[:, None])
+        for s0 in range(0, kp.shape[0], 64):
+            f_, u_ = fit[s0:s0 + 64], used[s0:s0 + 64]
+            a = torch.sort(torch.where(u_, kp[s0:s0 + 64], -1)).values
+            b = torch.sort(torch.where(u_, pp[s0:s0 + 64], -1)).values
+            check(torch.equal(a[f_], b[f_]),
+                  f"{what}: pairs differ in queries {s0}..{s0 + 63}")
 
     kern = {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": rep, "launches": 0, "max_abs_err": 0.0}
@@ -835,10 +860,16 @@ def main() -> int:
               "int8 candidates 16x10M kc=1280", atol=0.0, rtol=1e-5)
     del s_p, cp_v, cp_i, ck_v, ck_i
     torch.cuda.empty_cache()
-    sel_ms = cuda_ms(lambda: T.select_topk_rows(s_k, kc10), 5)
+    kept = []
+    sel_ms = cuda_ms(lambda: T.select_topk_rows(s_k, kc10), 5, kept)
+    sel_plain_ms = cuda_ms(lambda: T.top_k_smallest_plain(s_k, kc10), 2,
+                           kept)
+    (kv, ki), (pv, pi) = kept
+    check(torch.equal(kv, pv) and torch.equal(ki, pi),
+          f"select_topk_rows R={c16} N={n10} k={kc10}")
+    del kept, kv, ki, pv, pi
     emit("kernel", name="select_topk_rows", shape=f"R={c16} N={n10} "
-         f"k={kc10}", ms=sel_ms,
-         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(s_k, kc10), 2),
+         f"k={kc10}", ms=sel_ms, plain_ms=sel_plain_ms,
          library_ms=cuda_ms(lambda: torch.topk(s_k, kc10, dim=1,
                                                largest=False), 5),
          bound_ms=bound(4 * c16 * n10 + 8 * c16 * kc10, c16 * n10,
@@ -943,14 +974,8 @@ def main() -> int:
                                             cv, te, 8192)
             pp, pn = T.rank_candidates_plain(c8, qe, metric, ca, c2, cv, te,
                                              8192)
-            check(torch.equal(kn, pn), f"rank_candidates_int8 counts "
-                  f"{metric} C={c_e}")
-            for r in range(c_e):
-                m_ = int(pn[r])
-                check(m_ > 8192 or torch.equal(
-                    torch.sort(kp[r, :m_]).values,
-                    torch.sort(pp[r, :m_]).values),
-                    f"rank_candidates_int8 pairs {metric} C={c_e} row {r}")
+            check_pairs(kp, kn, pp, pn,
+                        f"rank_candidates_int8 {metric} C={c_e}")
             for cap_ in (None, 700):
                 st_ = {}
                 ki = T.int8_candidates(c8, ca, c2, cv, qe, kc_, metric,
@@ -1005,37 +1030,94 @@ def main() -> int:
          equal_chunked_path=True, shapes_checked=n_cand)
     cand_all = cand_all.cpu().numpy()
     del chunked
+    # a mesh's one pass per shard: a four-way MeshVecStore over the same
+    # rows, its shards views of the store above (2.5M rows a shard, a
+    # sample past the shape rule), every shard's passes launched before
+    # the first is awaited; equal to the one-device candidates
+    ndm = MESH["ndev"]
+    mdev = torch.device("cuda", torch.cuda.current_device())
+    mesh10 = DM.MeshVecStore(
+        "kernels/mesh10m", xs10, np.ones(n10, np.uint8), "cosine", 3.0,
+        dict(cnf.device_cfg(), hbm_budget=1), ndm, devices=[mdev] * ndm)
+    offs = mesh10.offsets
+    mesh10._dev = [{"dev": mdev, "len": offs[s + 1] - offs[s],
+                    "base": offs[s], "x8": x8_10[offs[s]:offs[s + 1]],
+                    "arow": arow10[offs[s]:offs[s + 1]],
+                    "x2": x2_10[offs[s]:offs[s + 1]],
+                    "valid": ones10[offs[s]:offs[s + 1]]}
+                   for s in range(ndm)]
+    mesh10._nloc = max(sh["len"] for sh in mesh10._dev)
+    shard_plan = T.int8_candidate_plan(
+        mesh10._nloc, c512, kc10, cnf.device_cfg()["score_budget"] // 2)
+    check(mesh10.rank_mode == "int8" and shard_plan is not None,
+          f"mesh one-pass check: rank mode {mesh10.rank_mode}, shard plan "
+          f"{shard_plan}")
+    l0, e0 = kernelstats.launches(), kernelstats.events()
+    m_meta, (m_cand,) = mesh10.knn(q10, k10)
+    l1, e1 = kernelstats.launches(), kernelstats.events()
+    m_launch = l1["rank_candidates_int8"] - l0["rank_candidates_int8"]
+    m_over = e1["int8_overflow_rows"] - e0["int8_overflow_rows"]
+    check(m_meta["kc"] == kc10 and m_launch == ndm and m_over == 0,
+          f"mesh one pass: {m_meta}, {m_launch} candidates launches, "
+          f"{m_over} rows overflowed")
+    check(np.array_equal(m_cand, cand_all),
+          "mesh one-pass candidates differ from the one-device path's")
+    emit("mesh_int8_one_pass", shards=ndm, shard_rows=mesh10._nloc,
+         queries=c512, kc=kc10, S=shard_plan[0], cap=shard_plan[2],
+         candidates_launches=m_launch, overflow=m_over,
+         equal_one_device=True)
+    del mesh10, m_cand
     # the pieces of that pass, each timed alone: the threshold sample's
     # scores, its select, the candidates pass, the final select of pairs
     s_rows, s_step, cap10 = T.int8_candidate_plan(n10, c512, kc10, 1 << 28)
     q8a, qsa = T.int8_query_scratch(c512, w10, dev)
     smp = (s_rows, s_step)
+    kept = []
     thr_ms = cuda_ms(lambda: T.rank_scores_int8(
         x8_10, qs512, "cosine", arow10, None, ones10, sample=smp, q8=q8a,
-        qscale=qsa), 5)
-    ss = T.rank_scores_int8(x8_10, qs512, "cosine", arow10, None, ones10,
-                            sample=smp, q8=q8a, qscale=qsa)
+        qscale=qsa), 5, kept)
+    thr_plain_ms = cuda_ms(lambda: T.rank_int8(
+        x8_10, qs512, "cosine", arow10, None, ones10, sample=smp,
+        plain=True), 1, kept)
+    ss, ss_p = kept
+    check(torch.equal(ss, ss_p), f"rank_scores_int8 C={c512} S={s_rows} "
+          "threshold sample not bit-equal to the plain version")
+    del kept, ss_p
     emit("kernel", name="rank_scores_int8", shape=f"C={c512} S={s_rows} "
          f"D={d10} cosine (threshold sample, every {s_step}th tile)",
-         ms=thr_ms, plain_ms=cuda_ms(lambda: T.rank_int8(
-             x8_10, qs512, "cosine", arow10, None, ones10, sample=smp,
-             plain=True), 1),
+         ms=thr_ms, plain_ms=thr_plain_ms,
          bound_ms=bound(s_rows * w10 + 4 * c512 * w10
                                    + 5 * s_rows + 4 * c512 * s_rows,
                                    2 * c512 * s_rows * w10, PEAK_INT8)[0])
-    thr10 = T.select_topk_rows(ss, kc10)[0][:, kc10 - 1].contiguous()
+    kept = []
+    tsel_ms = cuda_ms(lambda: T.select_topk_rows(ss, kc10), 5, kept)
+    tsel_plain_ms = cuda_ms(lambda: T.top_k_smallest_plain(ss, kc10), 1,
+                            kept)
+    (kv, ki), (pv, pi) = kept
+    check(torch.equal(kv, pv) and torch.equal(ki, pi),
+          f"select_topk_rows R={c512} N={s_rows} k={kc10} (threshold)")
+    thr10 = kv[:, kc10 - 1].contiguous()
+    del kept, kv, ki, pv, pi
     emit("kernel", name="select_topk_rows", shape=f"R={c512} N={s_rows} "
-         f"k={kc10} (threshold select)",
-         ms=cuda_ms(lambda: T.select_topk_rows(ss, kc10), 5),
-         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(ss, kc10), 1),
+         f"k={kc10} (threshold select)", ms=tsel_ms,
+         plain_ms=tsel_plain_ms,
          library_ms=cuda_ms(lambda: torch.topk(ss, kc10, dim=1,
                                                largest=False), 5),
          bound_ms=bound(4 * c512 * s_rows + 8 * c512 * kc10, c512 * s_rows,
                         PEAK_F32)[0])
     del ss
     torch.cuda.empty_cache()
-    pairs10, counts10 = T.rank_candidates_int8(
-        x8_10, q8a, qsa, "cosine", arow10, None, ones10, thr10, cap10)
+    kept = []
+    cand_ms = cuda_ms(lambda: T.rank_candidates_int8(
+        x8_10, q8a, qsa, "cosine", arow10, None, ones10, thr10, cap10), 5,
+        kept)
+    cand_plain_ms = cuda_ms(lambda: T.rank_candidates_plain(
+        x8_10, qs512, "cosine", arow10, None, ones10, thr10, cap10), 1, kept)
+    (pairs10, counts10), (pp10, pn10) = kept
+    del kept
+    check_pairs(pairs10, counts10, pp10, pn10,
+                f"rank_candidates_int8 C={c512} N={n10} cap={cap10}")
+    del pp10, pn10
     surv = int(counts10.sum())
     # the bound: the store and its scales read, the pairs written; the
     # 7.86 TOP of int8 products at the int8 peak bound it
@@ -1053,24 +1135,23 @@ def main() -> int:
         print(f"torch._int_mm refused the 512-query blocks: {e}",
               file=sys.stderr)
         cand_lib = None
-    note("rank_candidates_int8", 0.0,
-         ms=cuda_ms(lambda: T.rank_candidates_int8(
-             x8_10, q8a, qsa, "cosine", arow10, None, ones10, thr10,
-             cap10), 5),
-         plain_ms=cuda_ms(lambda: T.rank_candidates_plain(
-             x8_10, qs512, "cosine", arow10, None, ones10, thr10, cap10),
-             1),
+    note("rank_candidates_int8", 0.0, ms=cand_ms, plain_ms=cand_plain_ms,
          library_ms=cand_lib, bound_ms=cms, bound_by=cby,
          shape=f"C={c512} N={n10} D={d10} cosine cap={cap10}")
     emit("kernel", name="rank_candidates_int8", tol=[0, 0],
          max_abs_err=0.0, ms=kern["rank_candidates_int8"]["ms"],
          library_ms=cand_lib, survivors=surv)
     fms, fby = bound(8 * surv + 4 * c512 + 8 * c512 * kc10, surv, PEAK_F32)
-    note("select_topk_pairs", 0.0,
-         ms=cuda_ms(lambda: T.select_topk_pairs(pairs10, counts10, kc10),
-                    5),
-         plain_ms=cuda_ms(lambda: T.top_k_pairs_plain(pairs10, counts10,
-                                                      kc10), 1),
+    kept = []
+    psel_ms = cuda_ms(lambda: T.select_topk_pairs(pairs10, counts10, kc10),
+                      5, kept)
+    psel_plain_ms = cuda_ms(lambda: T.top_k_pairs_plain(pairs10, counts10,
+                                                        kc10), 1, kept)
+    (kv, ki), (pv, pi) = kept
+    check(torch.equal(kv, pv) and torch.equal(ki, pi),
+          f"select_topk_pairs R={c512} cap={cap10} k={kc10}")
+    del kept, kv, ki, pv, pi
+    note("select_topk_pairs", 0.0, ms=psel_ms, plain_ms=psel_plain_ms,
          library_ms=None, bound_ms=fms, bound_by=fby,
          shape=f"R={c512} cap={cap10} k={kc10} ({surv} pairs)")
     emit("kernel", name="select_topk_pairs", tol=[0, 0], max_abs_err=0.0,
@@ -1079,10 +1160,15 @@ def main() -> int:
     # the few-row select at a B = 1 frame's threshold pass
     s1_rows = T.int8_candidate_plan(n10, 1, kc10, 1 << 28)[0]
     s1 = s_k[:1, :s1_rows].contiguous()
+    kept = []
+    s1_ms = cuda_ms(lambda: T.select_topk_rows(s1, kc10), 20, kept)
+    s1_plain_ms = cuda_ms(lambda: T.top_k_smallest_plain(s1, kc10), 5, kept)
+    (kv, ki), (pv, pi) = kept
+    check(torch.equal(kv, pv) and torch.equal(ki, pi),
+          f"select_topk_rows R=1 N={s1_rows} k={kc10} (B=1 threshold)")
+    del kept, kv, ki, pv, pi
     emit("kernel", name="select_topk_rows", shape=f"R=1 N={s1_rows} "
-         f"k={kc10} (B=1 threshold select)",
-         ms=cuda_ms(lambda: T.select_topk_rows(s1, kc10), 20),
-         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(s1, kc10), 5),
+         f"k={kc10} (B=1 threshold select)", ms=s1_ms, plain_ms=s1_plain_ms,
          library_ms=cuda_ms(lambda: torch.topk(s1, kc10, dim=1,
                                                largest=False), 20),
          bound_ms=bound(4 * s1_rows + 8 * kc10, s1_rows, PEAK_F32)[0])

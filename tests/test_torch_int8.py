@@ -272,6 +272,25 @@ def test_int8_candidates_match_reference(one_device, metric, case):
         assert st["overflow"] == 9 and (counts == n).all()
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_int8_one_pass_equals_chunked_path(monkeypatch, metric):
+    """The one-pass path and the chunked path give the same candidates,
+    id for id, on one store: the shape rule (INT8_SAMPLE_PER_KC, which
+    `trace_mesh.py --sample-per-kc` moves to time either path) picks a
+    path, never an answer."""
+    x8, arow, x2, valid, qs = _frame_case(metric, n=40_000)
+    st = {}
+    one = ttopk.int8_candidates(x8, arow, x2, _t(valid), _t(qs), 64, metric,
+                                stats=st)
+    assert st["chunked"] == 0 and st["S"] > 0
+    monkeypatch.setattr(ttopk, "INT8_SAMPLE_PER_KC", 1 << 30)
+    st = {}
+    chunked = ttopk.int8_candidates(x8, arow, x2, _t(valid), _t(qs), 64,
+                                    metric, stats=st)
+    assert st["chunked"] == 9 and st["S"] == 0
+    np.testing.assert_array_equal(one.numpy(), chunked.numpy())
+
+
 def test_int8_candidate_plan_sizes():
     """The threshold sample and buffer at the north-star frame: S = 2^19
     rows for 512 queries over 10M, a 2^17 buffer (4x the expected 24.4k

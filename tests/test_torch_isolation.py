@@ -1,6 +1,6 @@
 """The port stands alone: no module of surrealdb_tpu_torch (nor
-chip_smoke.py, trace_mesh.py or trace_int8.py) imports jax or the JAX
-package, and importing the port initialises no CUDA."""
+chip_smoke.py or trace_mesh.py) imports jax or the JAX package, and
+importing the port initialises no CUDA."""
 
 import ast
 import os
@@ -14,8 +14,7 @@ PKG = os.path.join(ROOT, "surrealdb_tpu_torch")
 
 
 def _sources():
-    out = [os.path.join(ROOT, f)
-           for f in ("chip_smoke.py", "trace_mesh.py", "trace_int8.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "trace_mesh.py")]
     for d, _dirs, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
