@@ -58,6 +58,15 @@ exits non-zero):
 It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside it, it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --only distance,csr
+
+runs the card and build phases and only the named checks of the
+kernels phase (distance: distance_tile on both routes, its invariances
+and its times at the exact stores' shapes; csr: csr_hop_step), then
+stops without a result line. It also runs from an older checkout's root
+(copied there), whose distance_tile takes no row statistics, to time
+that checkout's kernels at the same shapes.
 """
 
 from __future__ import annotations
@@ -73,11 +82,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 CUDA-core
-# and bf16 tensor-core FLOP/s
+# and bf16 / int8 / TF32 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_TF32 = 495e12
 
 KNN1M = dict(n=1_000_000, dim=768, seed=13, batches=(1, 128, 512), k=10)
 BRUTE = dict(n=20_000, dim=128, seed=17, k=10)
@@ -94,6 +104,13 @@ ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
 SOURCES = {
     "distance_tile": ("surrealdb_tpu_torch/csrc/distance.cu",
                       "surrealdb_tpu/ops/distance.py:35"),
+    # distance_tile's two routes and the stores' row statistics
+    "distance_tile_tf32": ("surrealdb_tpu_torch/csrc/distance.cu",
+                           "surrealdb_tpu/ops/distance.py:35"),
+    "distance_tile_simt": ("surrealdb_tpu_torch/csrc/distance.cu",
+                           "surrealdb_tpu/ops/distance.py:35"),
+    "distance_row_stats": ("surrealdb_tpu_torch/csrc/distance.cu",
+                           "surrealdb_tpu/ops/distance.py:35"),
     "select_topk_rows": ("surrealdb_tpu_torch/csrc/select.cu",
                          "surrealdb_tpu/ops/topk.py:13"),
     "rank_scores_bf16": ("surrealdb_tpu_torch/csrc/rank_rescore.cu",
@@ -121,6 +138,10 @@ SOURCES = {
 MESH = dict(ndev=4, int8_budget=512 << 20)
 # int8 rows wider than the 2048 columns a query tile holds at once
 WIDE = dict(n=200_000, dim=3072, c=16)
+# a mesh_exact shard (knn1m's rows over four devices) and the one-device
+# exact store's largest unblocked scan (cnf KNN_BLOCK_ROWS)
+MESH_EXACT_SHARD = (250_000, 768)
+BLOCK_ROWS = 262_144
 
 
 class SmokeFailure(RuntimeError):
@@ -205,7 +226,18 @@ def bound(nbytes, ops, peak):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None,
+                    help="comma list of kernels-phase checks to run alone "
+                         "(distance, csr)")
+    args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else None
+    if only and set(only) - {"distance", "csr"}:
+        ap.error(f"unknown checks {only}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -311,6 +343,304 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"], err)
         k.update(fields)
 
+    # -- the distance and hop kernels' checks (also `--only`) -------------------
+    tol_d = (1e-4, 1e-5)
+    # a parent checkout's distance_tile takes no row statistics and has
+    # one route (its `--only` runs time it at the same shapes)
+    has_stats = hasattr(D, "row_stats")
+
+    def dist(xs, qs, metric, p=3.0, valid=None, st=None):
+        if has_stats:
+            return D.distance_tile(xs, qs, metric, p, valid, st)
+        return D.distance_tile(xs, qs, metric, p, valid)
+
+    def gemm_bound(b_, n_, d_):
+        """An f32-accurate product on the tensor cores: the 4(ND + BD +
+        BN) bytes against 3 x 2BND TF32 operations (3xTF32)."""
+        return bound(4 * (n_ * d_ + b_ * d_ + b_ * n_), 6 * b_ * n_ * d_,
+                     PEAK_TF32)
+
+    def lib_ms(fn, iters):
+        # the yardsticks are full f32 products
+        check(torch.backends.cuda.matmul.allow_tf32 is False,
+              "allow_tf32 must be False for the library times")
+        return cuda_ms(fn, iters)
+
+    def distance_checks():
+        g = torch.Generator(device="cpu").manual_seed(0)
+        # (rows, dim, queries): D = 37 on the CUDA cores only; 4, 40, 100
+        # and 768 on the tensor cores for the product metrics (ragged k
+        # steps, 1 to 3 query tiles of 8..128, rows past a 256-row tile)
+        n_small = 0
+        for n_, d_, b_ in ((3000, 37, 5), (1000, 4, 1), (3001, 40, 9),
+                           (700, 100, 300), (2999, 768, 130)):
+            for metric in D.METRIC_CODE:
+                xs = torch.randn(n_, d_, generator=g)
+                qs = torch.randn(b_, d_, generator=g)
+                xs[7] = 0.0  # a zero row: the 1e-30 clamp
+                if metric == "jaccard":
+                    xs, qs = xs.abs(), qs.abs()
+                if metric == "hamming":
+                    xs, qs = xs.round(), qs.round()
+                valid = (torch.rand(n_, generator=g) > 0.1).to(dev)
+                xs, qs = xs.to(dev), qs.to(dev)
+                want = D.distance_matrix_plain(xs, qs, metric, 2.5, valid)
+                what = f"distance_tile {metric} {n_}x{d_} B={b_}"
+                note("distance_tile", max_err(dist(xs, qs, metric, 2.5,
+                                                   valid), want, *tol_d,
+                                              what))
+                if has_stats and metric in D.STAT_METRICS:
+                    st = D.row_stats(xs, metric)
+                    max_err(st, D.row_stats_plain(xs, metric), 1e-4, 1e-5,
+                            f"distance_row_stats {metric} {n_}x{d_}")
+                    note("distance_tile", max_err(
+                        dist(xs, qs, metric, 2.5, valid, st), want, *tol_d,
+                        what + " cached stats"))
+                n_small += 1
+        # a shard's distances are the whole store's columns, and a query's
+        # do not depend on the batch around it: bit for bit, both routes
+        n_inv = 0
+        for metric, d_ in (("cosine", 768), ("euclidean", 768),
+                           ("pearson", 768), ("dot", 128), ("cosine", 37),
+                           ("manhattan", 128)):
+            xs = torch.randn(20_000, d_, generator=g).to(dev)
+            qs = torch.randn(140, d_, generator=g).to(dev)
+            st = D.row_stats(xs, metric) if has_stats else None
+            whole = dist(xs, qs, metric, st=st)
+            for a_, b_ in ((0, 256), (1, 19_999), (4_321, 12_345),
+                           (19_000, 20_000)):
+                part = dist(xs[a_:b_], qs, metric,
+                            st=None if st is None else st[a_:b_])
+                check(torch.equal(part, whole[:, a_:b_]),
+                      f"distance_tile {metric} D={d_}: rows {a_}:{b_} "
+                      f"differ from the whole store's")
+                if st is not None:
+                    check(torch.equal(dist(xs[a_:b_], qs, metric),
+                                      whole[:, a_:b_]),
+                          f"distance_tile {metric} D={d_}: per-call stats")
+                n_inv += 1
+            for bq_ in (1, 8, 9, 64, 100):
+                check(torch.equal(dist(xs, qs[:bq_], metric, st=st),
+                                  whole[:bq_]),
+                      f"distance_tile {metric} D={d_}: B={bq_} differs "
+                      f"from B=140")
+                n_inv += 1
+        # the blocked exact scan: the same two kernels over 65536-row blocks
+        xs = torch.randn(150_000, 24, generator=g).to(dev)
+        qs = torch.randn(6, 24, generator=g).to(dev)
+        valid = (torch.rand(150_000, generator=g) > 0.1).to(dev)
+        bd, bi = T.knn_search_blocked(xs, qs, 64, "manhattan", 3.0, valid)
+        pd, pi = T.top_k_smallest_plain(
+            D.distance_matrix_plain(xs, qs, "manhattan", 3.0, valid), 64)
+        note("distance_tile", max_err(bd, pd, *tol_d, "knn_search_blocked"))
+        check_ids(pd.cpu().numpy(), pi.cpu().numpy(), bi.cpu().numpy(),
+                  "knn_search_blocked")
+        # the blocked scan is a host loop over the two kernels (no cell of
+        # this script reaches it through the runner): its time at this
+        # shape
+        nb_, bb_, db_ = xs.shape[0], qs.shape[0], xs.shape[1]
+        emit("kernel", name="knn_search_blocked",
+             shape=f"B={bb_} N={nb_} D={db_} k=64 manhattan block=65536",
+             ms=cuda_ms(lambda: T.knn_search_blocked(xs, qs, 64, "manhattan",
+                                                     3.0, valid), 5),
+             plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(
+                 D.distance_matrix_plain(xs, qs, "manhattan", 3.0, valid),
+                 64), 5),
+             bound_ms=bound(4 * nb_ * db_ + nb_ + 4 * bb_ * db_
+                            + 8 * bb_ * 64, 3 * bb_ * nb_ * db_,
+                            PEAK_F32)[0])
+        # the brute path's shape (B=1 N=20000 D=128 cosine)
+        rng = np.random.default_rng(BRUTE["seed"])
+        bxs_np = rng.normal(size=(BRUTE["n"], BRUTE["dim"])).astype(
+            np.float32)
+        bq_np = rng.normal(size=(1, BRUTE["dim"])).astype(np.float32)
+        bxs = torch.from_numpy(bxs_np).to(dev)
+        bq = torch.from_numpy(bq_np).to(dev)
+        err = max_err(dist(bxs, bq, "cosine"),
+                      D.distance_matrix_plain(bxs, bq, "cosine"), *tol_d,
+                      "distance_tile cosine 1x20000x128")
+        b_, n_, d_ = 1, BRUTE["n"], BRUTE["dim"]
+        bms, bby = gemm_bound(b_, n_, d_)
+        note("distance_tile", err,
+             ms=cuda_ms(lambda: dist(bxs, bq, "cosine"), 50),
+             plain_ms=cuda_ms(
+                 lambda: D.distance_matrix_plain(bxs, bq, "cosine"), 50),
+             library_ms=cuda_ms(
+                 lambda: torch.nn.functional.cosine_similarity(
+                     bxs, bq, dim=1), 50),
+             bound_ms=bms, bound_by=bby,
+             shape=f"B={b_} N={n_} D={d_} cosine")
+        emit("kernel", name="distance_tile", tol=tol_d,
+             max_abs_err=kern["distance_tile"]["max_abs_err"],
+             ms=kern["distance_tile"]["ms"], small_shapes_checked=n_small,
+             invariance_checked=n_inv)
+
+        # the exact stores' shapes: a mesh_exact shard (250k rows) at the
+        # frames' batches, the one-device exact store at block_rows
+        gd = torch.Generator(device=dev).manual_seed(5)
+
+        def timed_row(metric, n_, d_, b_, library, label, entry=None):
+            xs = torch.randn(n_, d_, generator=gd, device=dev)
+            qs = torch.randn(b_, d_, generator=gd, device=dev)
+            valid = torch.ones(n_, dtype=torch.bool, device=dev)
+            valid[::97] = False
+            st = D.row_stats(xs, metric) if has_stats else None
+            err = max_err(dist(xs, qs, metric, 3.0, valid, st),
+                          D.distance_matrix_plain(xs, qs, metric, 3.0,
+                                                  valid),
+                          *tol_d, f"distance_tile {metric} B={b_} N={n_} "
+                                  f"D={d_}")
+            iters = 5 if b_ >= 128 else 20
+            if metric in ("euclidean", "cosine", "dot", "pearson"):
+                bms, bby = gemm_bound(b_, n_, d_)
+            else:
+                bms, bby = bound(4 * (n_ * d_ + b_ * d_ + b_ * n_),
+                                 3 * b_ * n_ * d_, PEAK_F32)
+            lib = library(xs, qs)
+            row = dict(
+                shape=f"B={b_} N={n_} D={d_} {metric}", max_abs_err=err,
+                ms=cuda_ms(lambda: dist(xs, qs, metric, 3.0, valid, st),
+                           iters),
+                plain_ms=cuda_ms(lambda: D.distance_matrix_plain(
+                    xs, qs, metric, 3.0, valid), 3),
+                library_ms=lib_ms(lib, iters), library=label,
+                bound_ms=bms, bound_by=bby,
+                route=D.tile_route(xs, metric) if has_stats else "cuda")
+            emit("kernel", name="distance_tile", **row)
+            if entry is not None and has_stats:
+                note(entry, err, **{k_: row[k_] for k_ in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")})
+            return xs
+
+        def normalised(x, centre=False):
+            if centre:
+                x = x - x.mean(1, keepdim=True)
+            return x / x.norm(dim=1, keepdim=True).clamp_min(1e-30)
+
+        def mm_normalised(centre):
+            def make(xs, qs):
+                xn, qn = normalised(xs, centre), normalised(qs, centre)
+                return lambda: torch.mm(qn, xn.T)
+            return make
+
+        n0, d0 = MESH_EXACT_SHARD
+        for b_ in KNN1M["batches"]:
+            xs = timed_row("cosine", n0, d0, b_, mm_normalised(False),
+                           "torch.mm f32 over normalised rows, product only",
+                           "distance_tile_tf32" if b_ == 512 else None)
+        timed_row("euclidean", n0, d0, 512,
+                  lambda xs, qs: lambda: torch.cdist(qs, xs),
+                  "torch.cdist")
+        timed_row("dot", n0, d0, 128,
+                  lambda xs, qs: lambda: torch.mm(qs, xs.T), "torch.mm f32")
+        timed_row("pearson", BLOCK_ROWS, d0, 128, mm_normalised(True),
+                  "torch.mm f32 over centred normalised rows, product only")
+        timed_row("manhattan", BLOCK_ROWS, 128, 128,
+                  lambda xs, qs: lambda: torch.cdist(qs, xs, p=1),
+                  "torch.cdist p=1", "distance_tile_simt")
+        if has_stats:
+            # the store's row statistics, once a store
+            st = D.row_stats(xs, "cosine")
+            note("distance_row_stats",
+                 max_err(st, D.row_stats_plain(xs, "cosine"), 1e-4, 1e-5,
+                         "distance_row_stats cosine"),
+                 shape=f"N={n0} D={d0} cosine",
+                 ms=cuda_ms(lambda: D.row_stats(xs, "cosine"), 20),
+                 plain_ms=cuda_ms(lambda: D.row_stats_plain(xs, "cosine"),
+                                  5),
+                 library_ms=cuda_ms(lambda: torch.linalg.norm(xs, dim=1),
+                                    20),
+                 **dict(zip(("bound_ms", "bound_by"), bound(
+                     4 * n0 * d0 + 8 * n0, 2 * n0 * d0, PEAK_F32))))
+            emit("kernel", **{k_: kern["distance_row_stats"][k_] for k_ in (
+                "name", "shape", "ms", "plain_ms", "library_ms",
+                "bound_ms")})
+        del xs
+        torch.cuda.empty_cache()
+        return bxs_np, bq_np, bxs, bq
+
+    def csr_checks():
+        """csr_hop_step bit-equal to the plain hops: the 1M-node / 10M-edge
+        graph at B = 1, 8 and 64 (two words a node), a small graph with
+        duplicate edges and self-loops at B = 1..64, union on and off;
+        then the time of one hop at B = 8 (the path's) and 64."""
+        g = torch.Generator(device="cpu").manual_seed(3)
+        nn_, ne = GRAPH["nodes"], GRAPH["edges"]
+        rng = np.random.default_rng(GRAPH["seed"])
+        src_np = rng.integers(0, nn_, size=ne).astype(np.int32)
+        dst_np = rng.integers(0, nn_, size=ne).astype(np.int32)
+        rows, cols = torch.from_numpy(src_np).to(dev), torch.from_numpy(
+            dst_np).to(dev)
+        starts = {}
+        for b in GRAPH["batches"] + (64,):
+            s = torch.zeros(b, nn_, dtype=torch.bool, device=dev)
+            s[torch.arange(b), torch.arange(b)] = True
+            starts[b] = s
+            for union in (False, True):
+                check(torch.equal(
+                    multi_hop_masks(rows, cols, s, GRAPH["hops"], union),
+                    multi_hop_plain(rows, cols, s, GRAPH["hops"], union)),
+                    f"csr multi-hop B={b} union={union} not bit-equal")
+        sr = np.random.default_rng(7)
+        sn, se = 5000, 40_000
+        srows = sr.integers(0, sn, se).astype(np.int32)
+        scols = sr.integers(0, sn, se).astype(np.int32)
+        srows[1::9], scols[1::9] = srows[::9][:len(srows[1::9])], \
+            scols[::9][:len(scols[1::9])]  # duplicate edges
+        scols[::13] = srows[::13]  # self-loops
+        srows_t, scols_t = (torch.from_numpy(a_).to(dev)
+                            for a_ in (srows, scols))
+        n_small = 0
+        for b in (1, 3, 8, 40, 64):
+            s = torch.rand(b, sn, generator=g) > 0.998
+            s = s.to(dev)
+            for hops in (1, 3):
+                for union in (False, True):
+                    check(torch.equal(
+                        multi_hop_masks(srows_t, scols_t, s, hops, union),
+                        multi_hop_plain(srows_t, scols_t, s, hops, union)),
+                        f"csr small graph B={b} hops={hops} union={union}")
+                    n_small += 1
+        b = max(GRAPH["batches"])
+        front = multi_hop_plain(rows, cols, starts[b], 2, False).to(
+            torch.uint8)
+        nxt = torch.zeros_like(front)
+        csr_hop_step(rows, cols, front, nxt)
+        want = multi_hop_plain(rows, cols, front, 1, False)
+        check(torch.equal(nxt.bool(), want), "csr_hop_step not bit-equal")
+        cols_l = cols.long()
+        for b_ in (b, 64):
+            fr = multi_hop_plain(rows, cols, starts[b_], 2, False).to(
+                torch.uint8)
+            contrib = fr.bool()[:, rows.long()].to(torch.int32)
+
+            def hop_kernel():
+                out = torch.zeros_like(fr)
+                csr_hop_step(rows, cols, fr, out)
+
+            hms, hby = bound(8 * ne + 2 * b_ * nn_, b_ * ne, PEAK_F32)
+            row = dict(
+                ms=cuda_ms(hop_kernel, 20),
+                plain_ms=cuda_ms(lambda: multi_hop_plain(rows, cols, fr, 1,
+                                                         False), 5),
+                library_ms=cuda_ms(lambda: torch.zeros(
+                    (b_, nn_), dtype=torch.int32, device=dev).index_add_(
+                        1, cols_l, contrib), 5),
+                bound_ms=hms, bound_by=hby,
+                shape=f"B={b_} n={nn_} E={ne}",
+                frontier_nodes=int(fr.sum()))
+            if b_ == b:
+                note("csr_hop_step", 0.0, **{k_: v_ for k_, v_ in row.items()
+                                             if k_ != "frontier_nodes"})
+            emit("kernel", name="csr_hop_step", tol=[0, 0], max_abs_err=0.0,
+                 small_graph_cases=n_small, **row)
+            del contrib, fr
+        del cols_l, front, nxt, want
+        starts.pop(64)
+        torch.cuda.empty_cache()
+        return nn_, ne, src_np, dst_np, rows, cols, starts
+
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -323,68 +653,23 @@ def main() -> int:
     st = compile_cache.ensure_built()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=st["build_s"], dir=st["dir"], built=st["built"])
+    if only:
+        if "distance" in only:
+            distance_checks()
+        if "csr" in only:
+            csr_checks()
+        emit("only", checks=only,
+             seconds=round(time.perf_counter() - t_start, 3))
+        return 0
 
     # -- 3. kernels against their plain versions ---------------------------------
     g = torch.Generator(device="cpu").manual_seed(0)
 
-    # distance_tile: nine metrics at a small shape, then the brute path's
-    tol_d = (1e-4, 1e-5)
-    for metric in D.METRIC_CODE:
-        xs = torch.randn(3000, 37, generator=g)
-        qs = torch.randn(5, 37, generator=g)
-        if metric == "jaccard":
-            xs, qs = xs.abs(), qs.abs()
-        if metric == "hamming":
-            xs, qs = xs.round(), qs.round()
-        valid = (torch.rand(3000, generator=g) > 0.1).to(dev)
-        xs, qs = xs.to(dev), qs.to(dev)
-        err = max_err(D.distance_tile(xs, qs, metric, 2.5, valid),
-                      D.distance_matrix_plain(xs, qs, metric, 2.5, valid),
-                      *tol_d, f"distance_tile {metric}")
-        note("distance_tile", err)
-    # the blocked exact scan: the same two kernels over 65536-row blocks
-    xs = torch.randn(150_000, 24, generator=g).to(dev)
-    qs = torch.randn(6, 24, generator=g).to(dev)
-    valid = (torch.rand(150_000, generator=g) > 0.1).to(dev)
-    bd, bi = T.knn_search_blocked(xs, qs, 64, "manhattan", 3.0, valid)
-    pd, pi = T.top_k_smallest_plain(
-        D.distance_matrix_plain(xs, qs, "manhattan", 3.0, valid), 64)
-    note("distance_tile", max_err(bd, pd, *tol_d, "knn_search_blocked"))
-    check_ids(pd.cpu().numpy(), pi.cpu().numpy(), bi.cpu().numpy(),
-              "knn_search_blocked")
-    # the blocked scan is a host loop over the two kernels (no cell of
-    # this script reaches it through the runner): its time at this shape
-    nb_, bb_, db_ = xs.shape[0], qs.shape[0], xs.shape[1]
-    emit("kernel", name="knn_search_blocked",
-         shape=f"B={bb_} N={nb_} D={db_} k=64 manhattan block=65536",
-         ms=cuda_ms(lambda: T.knn_search_blocked(xs, qs, 64, "manhattan",
-                                                 3.0, valid), 5),
-         plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(
-             D.distance_matrix_plain(xs, qs, "manhattan", 3.0, valid), 64),
-             5),
-         bound_ms=bound(4 * nb_ * db_ + nb_ + 4 * bb_ * db_ + 8 * bb_ * 64,
-                        3 * bb_ * nb_ * db_, PEAK_F32)[0])
-    rng = np.random.default_rng(BRUTE["seed"])
-    bxs_np = rng.normal(size=(BRUTE["n"], BRUTE["dim"])).astype(np.float32)
-    bq_np = rng.normal(size=(1, BRUTE["dim"])).astype(np.float32)
-    bxs, bq = torch.from_numpy(bxs_np).to(dev), torch.from_numpy(bq_np).to(dev)
-    err = max_err(D.distance_tile(bxs, bq, "cosine"),
-                  D.distance_matrix_plain(bxs, bq, "cosine"), *tol_d,
-                  "distance_tile cosine 1x20000x128")
-    b_, n_, d_ = 1, BRUTE["n"], BRUTE["dim"]
-    bms, bby = bound(4 * (n_ * d_ + b_ * d_ + b_ * n_), 2 * b_ * n_ * d_,
-                     PEAK_F32)
-    note("distance_tile", err,
-         ms=cuda_ms(lambda: D.distance_tile(bxs, bq, "cosine"), 50),
-         plain_ms=cuda_ms(
-             lambda: D.distance_matrix_plain(bxs, bq, "cosine"), 50),
-         library_ms=cuda_ms(lambda: torch.nn.functional.cosine_similarity(
-             bxs, bq, dim=1), 50),
-         bound_ms=bms, bound_by=bby,
-         shape=f"B={b_} N={n_} D={d_} cosine")
-    emit("kernel", name="distance_tile", tol=tol_d,
-         max_abs_err=kern["distance_tile"]["max_abs_err"],
-         ms=kern["distance_tile"]["ms"])
+    # distance_tile: nine metrics at ragged shapes on both routes (the
+    # product metrics on the tensor cores where D % 4 == 0, the rest and
+    # D = 37 on the CUDA cores), shard and batch invariance bit for bit,
+    # the blocked scan, then the path's shapes with times
+    bxs_np, bq_np, bxs, bq = distance_checks()
 
     # select_topk_rows: ties, k up to 1280, exact equality with the
     # stable-sort plain version
@@ -595,48 +880,8 @@ def main() -> int:
          ms=kern["gather_rescore"]["ms"])
     del cand, cv, valid
 
-    # csr_hop_step on the 1M-node / 10M-edge graph
-    nn_, ne = GRAPH["nodes"], GRAPH["edges"]
-    rng = np.random.default_rng(GRAPH["seed"])
-    src_np = rng.integers(0, nn_, size=ne).astype(np.int32)
-    dst_np = rng.integers(0, nn_, size=ne).astype(np.int32)
-    rows, cols = torch.from_numpy(src_np).to(dev), torch.from_numpy(
-        dst_np).to(dev)
-    starts = {}
-    for b in GRAPH["batches"]:
-        s = torch.zeros(b, nn_, dtype=torch.bool, device=dev)
-        s[torch.arange(b), torch.arange(b)] = True
-        starts[b] = s
-        for union in (False, True):
-            check(torch.equal(
-                multi_hop_masks(rows, cols, s, GRAPH["hops"], union),
-                multi_hop_plain(rows, cols, s, GRAPH["hops"], union)),
-                f"csr multi-hop B={b} union={union} not bit-equal")
+    nn_, ne, src_np, dst_np, rows, cols, starts = csr_checks()
     b = max(GRAPH["batches"])
-    front = multi_hop_plain(rows, cols, starts[b], 2, False).to(torch.uint8)
-    nxt = torch.zeros_like(front)
-    csr_hop_step(rows, cols, front, nxt)
-    want = multi_hop_plain(rows, cols, front, 1, False)
-    check(torch.equal(nxt.bool(), want), "csr_hop_step not bit-equal")
-    contrib = front.bool()[:, rows.long()].to(torch.int32)
-    cols_l = cols.long()
-
-    def hop_kernel():
-        out = torch.zeros_like(front)
-        csr_hop_step(rows, cols, front, out)
-
-    hms, hby = bound(8 * ne + 2 * b * nn_, b * ne, PEAK_F32)
-    note("csr_hop_step", 0.0,
-         ms=cuda_ms(hop_kernel, 20),
-         plain_ms=cuda_ms(lambda: multi_hop_plain(rows, cols, front, 1,
-                                                  False), 10),
-         library_ms=cuda_ms(lambda: torch.zeros(
-             (b, nn_), dtype=torch.int32, device=dev).index_add_(
-                 1, cols_l, contrib), 10),
-         bound_ms=hms, bound_by=hby, shape=f"B={b} n={nn_} E={ne}")
-    emit("kernel", name="csr_hop_step", tol=[0, 0], max_abs_err=0.0,
-         ms=kern["csr_hop_step"]["ms"])
-    del contrib, cols_l, front, nxt, want
 
     # mask_or_reduce: the OR of 4 hop masks [8, 1M] (+ the union
     # accumulator), bit-equal to the plain version
@@ -1378,7 +1623,20 @@ def main() -> int:
                 D.distance_matrix_plain(bxs, bq, "cosine"), BRUTE["k"])
             check(np.allclose(bufs[0], dd.cpu().numpy(), atol=1e-4,
                               rtol=1e-5), "brute distances vs plain")
+            # an elementwise metric takes the CUDA-core route
+            mmeta = dict(meta, metric="manhattan")
+            _, _, mb = sup.call("brute_knn", mmeta, [bxs_np, bq_np])
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                _, _, mb = sup.call("brute_knn", mmeta, [bxs_np, bq_np])
+            mms = (time.perf_counter() - t0) * 1e3 / iters
+            md, mi = (t.cpu().numpy() for t in T.top_k_smallest_plain(
+                D.distance_matrix_plain(bxs, bq, "manhattan"), BRUTE["k"]))
+            check(np.allclose(mb[0], md, atol=1e-4, rtol=1e-5),
+                  "brute manhattan distances vs plain")
+            check_ids(md, mi, mb[1], "brute manhattan vs plain")
             return {"rows": BRUTE["n"], "dim": BRUTE["dim"], "ms": ms,
+                    "manhattan_ms": mms,
                     "ids_equal_plain": bool(np.array_equal(
                         bufs[1], ii.cpu().numpy()))}
 
@@ -1553,7 +1811,8 @@ def main() -> int:
             return out
 
         drive("knn1m", knn1m)
-        drive("brute", brute)
+        drive("brute", brute, needs=("distance_tile", "distance_tile_tf32",
+                                     "distance_tile_simt"))
         drive("graph3hop", graph3hop)
         sup.call("vec_drop", {"key": "vec/b/b/tbl/ix"})  # the knn1m store
         sup.forget("vec/b/b/tbl/ix")
@@ -1692,6 +1951,7 @@ def main() -> int:
         recall = np.mean([len(set(a) & set(b)) / k for a, b in
                           zip(single["knn1m_oracle"], got)])
         check(recall == 1.0, f"mesh_exact recall@10 {recall} < 1.0")
+        check(same, "mesh_exact answers differ from one device's bytes")
         vec_drop(runner, "vec/mesh/exact")
         return dict(out, rows=n, dim=dim, load_s=round(load_s, 3),
                     mesh_ndev=m["mesh_ndev"], recall_at_10=float(recall),
@@ -1831,7 +2091,8 @@ def main() -> int:
         runner = mesh_runner("force")
         try:
             drive("mesh_exact", lambda: mesh_exact(runner), runner,
-                  ("distance_tile", "select_topk_rows",
+                  ("distance_tile", "distance_tile_tf32",
+                   "distance_row_stats", "select_topk_rows",
                    "merge_partials_topk"))
             drive("mesh_int8", lambda: mesh_int8(runner), runner,
                   ("quantize_rows_int8", "rank_scores_int8",

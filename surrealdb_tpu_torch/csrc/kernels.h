@@ -77,13 +77,30 @@ __device__ __forceinline__ float surreal_warp_sum(float v) {
   return v;
 }
 
+// distance.cu: stats[r] = the per-row statistics of x[r] that
+// euclidean (|x|^2, 1), cosine (0, max(|x|, 1e-30)) and pearson (mean,
+// max(|x - mean|, 1e-30)) take; [rows, 2] f32.
+SURREAL_API int distance_row_stats(const float* x, long long rows, int d,
+                                   int metric, float* stats, void* stream);
+
 // distance.cu: out[b, n] = distance(qs[b], xs[n]) for one metric, +inf
-// where valid[n] == 0. xstats/qstats are scratch of 2 floats per row.
-SURREAL_API int distance_tile(const float* xs, const float* qs,
-                              const uint8_t* valid, float* out,
-                              float* xstats, float* qstats, long long n,
-                              int b, int d, int metric, float p,
-                              void* stream);
+// where valid[n] == 0. xstats holds the rows' statistics when
+// xstats_ready (else it is [n, 2] scratch they are computed into);
+// qstats is [b, 2] scratch. distance_tile_tf32 (euclidean, cosine, dot,
+// pearson; d % 4 == 0, 16-byte aligned xs, n < 2^31) runs on the tensor
+// cores in 3xTF32; qhi and qlo are [b, d rounded up to 32] scratch (16-
+// byte aligned). distance_tile_simt takes every metric and shape.
+SURREAL_API int distance_tile_tf32(const float* xs, const float* qs,
+                                   const uint8_t* valid, float* out,
+                                   float* xstats, int xstats_ready,
+                                   float* qstats, float* qhi, float* qlo,
+                                   long long n, int b, int d, int metric,
+                                   void* stream);
+SURREAL_API int distance_tile_simt(const float* xs, const float* qs,
+                                   const uint8_t* valid, float* out,
+                                   float* xstats, int xstats_ready,
+                                   float* qstats, long long n, int b, int d,
+                                   int metric, float p, void* stream);
 
 // select.cu: per row r, the k smallest of vals[r, 0:n] (row stride ld)
 // in ascending (value, index) order -- ties go to the lower index.
@@ -190,11 +207,12 @@ SURREAL_API int ann_descent(const int32_t* graph, const int8_t* x8,
 
 // csr_hop.cu: for every edge e and batch row b, if frontier[b, rows[e]]
 // then next[b, cols[e]] = 1 (and acc[b, cols[e]] = 1 when acc is not
-// null). next must be zeroed by the caller.
+// null). next must be zeroed by the caller; words is 2 n ceil(b / 32)
+// u32 of scratch (the packed frontier and next frontier).
 SURREAL_API int csr_hop_step(const int32_t* rows, const int32_t* cols,
                              long long e, const uint8_t* frontier,
                              uint8_t* next, uint8_t* acc, int b,
-                             long long n, void* stream);
+                             long long n, uint32_t* words, void* stream);
 
 // mesh_merge.cu: the merge of per-shard partial top-k tiles. Part s
 // holds [b, widths[s]] (dist, local id) pairs (widths[s] <= w); its

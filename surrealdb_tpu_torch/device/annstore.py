@@ -160,7 +160,7 @@ class AnnStore:
 
     def __init__(self, key: str, graph: np.ndarray, x8: np.ndarray,
                  arow: np.ndarray, x2q: np.ndarray, metric: str,
-                 cfg: dict, device="cpu"):
+                 cfg: dict, device="cuda"):
         self.key = key
         self.graph = graph
         self.x8 = x8

@@ -35,10 +35,18 @@ def multi_hop_plain(rows, cols, start, hops: int, union: bool):
     return acc if union else frontier
 
 
+def hop_words(b: int) -> int:
+    """u32 words a node of the kernel's bit-packed frontier holds for a
+    batch of b rows."""
+    return max(1, -(-int(b) // 32))
+
+
 def csr_hop_step(rows, cols, frontier, nxt, acc=None):
     """Launch csrc/csr_hop.cu once: next[b, cols[e]] = 1 wherever
     frontier[b, rows[e]] (and acc too, when given). `nxt` must be
-    zero; all masks are [B, n] uint8 on the card."""
+    zero; all masks are [B, n] uint8 on the card. The kernel packs the
+    frontier into `hop_words(B)` words a node in scratch allocated
+    here."""
     from surrealdb_tpu_torch.device import compile_cache
 
     for t in (rows, cols, frontier, nxt) + ((acc,) if acc is not None
@@ -50,14 +58,20 @@ def csr_hop_step(rows, cols, frontier, nxt, acc=None):
     if frontier.dtype != torch.uint8 or nxt.dtype != torch.uint8:
         raise ValueError("frontier masks must be uint8")
     b, n = frontier.shape
+    if nxt.shape != (b, n) or (acc is not None and acc.shape != (b, n)):
+        raise ValueError("frontier, next and acc must share one shape")
+    # the packed frontier and next frontier, [2, n, W] u32
+    words = torch.empty((2, n, hop_words(b)), dtype=torch.int32,
+                        device=frontier.device)
     fn = compile_cache.declare(
         compile_cache.library("csr_hop.cu"), "csr_hop_step",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_longlong, ctypes.c_void_p])
+         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
     err = fn(rows.data_ptr(), cols.data_ptr(), rows.shape[0],
              frontier.data_ptr(), nxt.data_ptr(),
              None if acc is None else acc.data_ptr(), b, n,
+             words.data_ptr(),
              torch.cuda.current_stream(rows.device).cuda_stream)
     compile_cache.check(err, "csr_hop_step")
     kernelstats.note_launch("csr_hop_step")
@@ -81,7 +95,7 @@ class CsrStore:
     """Device-resident adjacency for ONE graph cache epoch."""
 
     def __init__(self, key: str, rows: np.ndarray, cols: np.ndarray,
-                 n_nodes: int, device="cpu"):
+                 n_nodes: int, device="cuda"):
         self.key = key
         self.n_nodes = int(n_nodes)
         self.rows = rows

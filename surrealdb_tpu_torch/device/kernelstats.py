@@ -25,7 +25,11 @@ MESH_LAST = {"ndev": 0}
 # seen-set is bounded; overflow clears it
 _SEEN_MAX = 4096
 
-KERNELS = ("distance_tile", "select_topk_rows", "rank_scores_bf16",
+# distance_tile counts every launch, and each of its two routes
+# (distance_tile_tf32: tensor cores; distance_tile_simt: CUDA cores) its
+# own
+KERNELS = ("distance_tile", "distance_tile_tf32", "distance_tile_simt",
+           "distance_row_stats", "select_topk_rows", "rank_scores_bf16",
            "gather_rescore", "csr_hop_step", "quantize_rows_int8",
            "rank_scores_int8", "rank_candidates_int8", "select_topk_pairs",
            "ann_descent", "merge_partials_topk", "mask_or_reduce")

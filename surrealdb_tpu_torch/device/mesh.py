@@ -61,6 +61,7 @@ from surrealdb_tpu_torch.device.vecstore import (
     _pow2_chunks, quantize_store, to_device,
 )
 from surrealdb_tpu_torch.ops import merge as M
+from surrealdb_tpu_torch.ops.distance import row_stats
 
 MESH_AXIS = "mesh"
 
@@ -290,6 +291,9 @@ class MeshVecStore:
                     self.vecs[lo:hi], self.metric, dev)
             else:
                 sh["rows"] = to_device(self.vecs[lo:hi], dev, torch.float32)
+                # the rows' statistics once a store, not once a query
+                # (row-independent: the single-device store's values)
+                sh["xstats"] = row_stats(sh["rows"], self.metric)
             shards.append(sh)
         self._dev = shards
 
@@ -394,7 +398,8 @@ class MeshVecStore:
             (self.vecs.shape, ndev, chunk, k_out, self.metric))
         kernelstats.note_sharded("mesh_vec_exact", ndev)
         dists, ids = run(chunk, k_l, k_out, lambda sh, q: distance_matrix(
-            sh["rows"], q, self.metric, self.mink_p, sh["valid"]))
+            sh["rows"], q, self.metric, self.mink_p, sh["valid"],
+            sh["xstats"]))
         return (
             {"mode": "pairs", "rank_mode": None, "mesh_ndev": ndev},
             [np.ascontiguousarray(dists.cpu().numpy(), np.float32),

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from surrealdb_tpu_torch.device import kernelstats
+from surrealdb_tpu_torch.ops.distance import STAT_METRICS, row_stats
 from surrealdb_tpu_torch.ops.metrics import COSINE, EUCLIDEAN, GEMM_METRICS
 
 # rows per step of the on-device f64 row statistics
@@ -105,7 +106,7 @@ class VecStore:
     """Device-resident blocks for ONE vector index cache epoch."""
 
     def __init__(self, key: str, vecs: np.ndarray, valid: np.ndarray,
-                 metric: str, mink_p: float, cfg: dict, device="cpu",
+                 metric: str, mink_p: float, cfg: dict, device="cuda",
                  devices=None):
         self.key = key
         self.vecs = vecs
@@ -119,6 +120,7 @@ class VecStore:
         self.device = self.devices[0]
         self.mesh = None
         self.device_vecs = None
+        self.device_xstats = None  # the exact store's row statistics
         self.device_valid = None
         self.device_rank = None
         self.device_full = None
@@ -172,9 +174,17 @@ class VecStore:
                 self.device_vecs = pmesh.shard_rows(self.mesh, self.vecs,
                                                     torch.float32)
                 self.device_valid = pmesh.shard_rows(self.mesh, self.valid)
+                if self.metric in STAT_METRICS:
+                    self.device_xstats = pmesh.Shards(
+                        [row_stats(r, self.metric)
+                         for r in self.device_vecs.parts],
+                        self.mesh, self.device_vecs.n)
             else:
                 self.device_vecs = to_device(self.vecs, dev, torch.float32)
                 self.device_valid = to_device(self.valid, dev)
+                # once a store, not once a query
+                self.device_xstats = row_stats(self.device_vecs,
+                                               self.metric)
             return
         n, dim = self.vecs.shape
         if (6 * n * dim) // len(self.devices) > self.cfg["hbm_budget"]:
@@ -283,14 +293,14 @@ class VecStore:
                 (self.vecs.shape, qs.shape[0], k, self.metric))
             dists, ids = topk.knn_search_blocked(
                 self.device_vecs, qs, k, self.metric, self.mink_p,
-                self.device_valid,
+                self.device_valid, xstats=self.device_xstats,
             )
         else:
             kernelstats.note_shape(
                 "knn_search", (self.vecs.shape, qs.shape[0], k, self.metric))
             dists, ids = topk.knn_search(
                 self.device_vecs, qs, k, self.metric, self.mink_p,
-                self.device_valid,
+                self.device_valid, self.device_xstats,
             )
         return self._pairs(dists, ids)
 
@@ -305,7 +315,7 @@ class VecStore:
                 "sharded_knn", (self.vecs.shape, qs.shape[0], k, self.metric))
             return pmesh.sharded_knn(self.mesh, self.device_vecs, qs,
                                      self.device_valid, k, self.metric,
-                                     self.mink_p)
+                                     self.mink_p, self.device_xstats)
         kc = max(2 * k, k + 16)
         b_total = qs.shape[0]
         _, chunk, _ = _pow2_chunks(b_total, self.device_rank.nloc,

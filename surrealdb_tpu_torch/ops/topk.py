@@ -209,17 +209,21 @@ def top_k_smallest(vals, k: int, ids=None):
 # -- exact KNN -------------------------------------------------------------------
 
 def knn_search(xs, qs, k: int, metric: str = EUCLIDEAN, p: float = 3.0,
-               valid=None):
-    """Distance + validity mask (+inf) + top-k."""
-    return top_k_smallest(distance_matrix(xs, qs, metric, p, valid), k)
+               valid=None, xstats=None):
+    """Distance + validity mask (+inf) + top-k; `xstats` the rows'
+    cached `ops.distance.row_stats`."""
+    return top_k_smallest(distance_matrix(xs, qs, metric, p, valid, xstats),
+                          k)
 
 
 def knn_search_blocked(xs, qs, k: int, metric: str = EUCLIDEAN,
-                       p: float = 3.0, valid=None, block: int = 65536):
+                       p: float = 3.0, valid=None, block: int = 65536,
+                       xstats=None):
     """Blockwise scan with a running exact top-k (peak [B, block]): the
-    same two kernels per block, then a selection over [best, block]
-    candidates through an id map. The running best starts as
-    (+inf, -1), as the reference's does."""
+    same two kernels per block (each block's slice of the cached
+    `xstats`), then a selection over [best, block] candidates through an
+    id map. The running best starts as (+inf, -1), as the reference's
+    does."""
     n = xs.shape[0]
     b = qs.shape[0]
     best_d = torch.full((b, k), float("inf"), dtype=torch.float32,
@@ -228,7 +232,8 @@ def knn_search_blocked(xs, qs, k: int, metric: str = EUCLIDEAN,
     for base in range(0, n, block):
         blk = xs[base:base + block]
         vmask = None if valid is None else valid[base:base + block]
-        d = distance_matrix(blk, qs, metric, p, vmask)
+        st = None if xstats is None else xstats[base:base + block]
+        d = distance_matrix(blk, qs, metric, p, vmask, st)
         cand_d, cand_i = top_k_smallest(d, min(k, blk.shape[0]))
         merged_d = torch.cat([best_d, cand_d], dim=1)
         merged_i = torch.cat([best_i, cand_i + base], dim=1)

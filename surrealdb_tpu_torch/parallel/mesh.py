@@ -84,9 +84,11 @@ def _empty(b: int, device):
 
 
 def sharded_knn(mesh: list, xs: Shards, qs, valid: Shards, k: int,
-                metric: str = EUCLIDEAN, p: float = 3.0):
+                metric: str = EUCLIDEAN, p: float = 3.0,
+                xstats: Shards = None):
     """Exact fused distance + top-k on row-sharded rows (the non-MXU
-    metrics): per shard `distance_matrix` (masked) and its k_l best,
+    metrics): per shard `distance_matrix` (masked, with the shard's
+    cached row statistics `xstats` when given) and its k_l best,
     then the exact merge. Returns (dists [B, k] f32, ids [B, k] int32)
     on the first device; padding slots carry +inf and ids >= N."""
     from surrealdb_tpu_torch.ops.distance import distance_matrix
@@ -102,7 +104,7 @@ def sharded_knn(mesh: list, xs: Shards, qs, valid: Shards, k: int,
         else:
             with M.on(dev):
                 d = distance_matrix(rows, M.move(qs, dev), metric, p,
-                                    _part(valid, s))
+                                    _part(valid, s), _part(xstats, s))
                 d, i = top_k_smallest(d, min(k_l, rows.shape[0]))
         d_parts.append(d)
         i_parts.append(i)

@@ -330,3 +330,21 @@ def test_cuda_is_the_default_device():
 
     with pytest.raises(DeviceUnavailable, match="CUDA is not available"):
         sup.start()
+
+
+def test_stores_default_to_the_card():
+    """A store built without a device lives on the card, as the host and
+    the runner do; the CPU is only ever asked for."""
+    from surrealdb_tpu_torch.device.annstore import AnnStore
+    from surrealdb_tpu_torch.device.csrstore import CsrStore
+
+    xs, valid = _vecs(10, 4, 0)
+    idx = np.zeros((10, 2), np.int32)
+    stores = (
+        PortVecStore("k", xs, valid, "pearson", 3.0, CFG),
+        CsrStore("k", idx[:, 0], idx[:, 1], 10),
+        AnnStore("k", idx, xs.astype(np.int8), xs[:, 0], xs[:, 0], "cosine",
+                 {}),
+    )
+    for st in stores:
+        assert st.device.type == "cuda"

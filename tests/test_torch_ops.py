@@ -23,7 +23,11 @@ from surrealdb_tpu.graph.csr import CsrGraph
 from surrealdb_tpu.ops import distance as jdist
 from surrealdb_tpu.ops import metrics as jmetrics
 from surrealdb_tpu.ops import topk as jtopk
-from surrealdb_tpu_torch.device.csrstore import CsrStore, multi_hop_plain
+from surrealdb_tpu_torch.device.csrstore import (
+    CsrStore,
+    hop_words,
+    multi_hop_plain,
+)
 from surrealdb_tpu_torch.ops import distance as tdist
 from surrealdb_tpu_torch.ops import metrics as tmetrics
 from surrealdb_tpu_torch.ops import topk as ttopk
@@ -281,8 +285,10 @@ def _graph(n=2000, e=20_000, seed=19):
 
 @pytest.mark.parametrize("hops", [1, 3])
 @pytest.mark.parametrize("union", [False, True])
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 8, 40])
 def test_csr_multi_hop_bit_equal(hops, union, b):
+    """Batches of 1 to 40 rows (40 buckets to 64: two words a node of the
+    kernel's packed frontier on the card)."""
     n = 2000
     rows, cols = _graph(n)
     rng = np.random.default_rng(hops * 10 + b)
@@ -306,6 +312,37 @@ def test_csr_multi_hop_bit_equal(hops, union, b):
         np.testing.assert_array_equal(
             store.multi_hop(start[r].astype(np.uint8), hops, union),
             want[r].astype(np.uint8))
+
+
+@pytest.mark.parametrize("union", [False, True])
+@pytest.mark.parametrize("b", [1, 3, 8, 40])
+def test_csr_multi_hop_duplicate_edges_and_self_loops(union, b):
+    """A graph with repeated edges (the same (row, col) many times, as the
+    packed kernel's atomics meet them) and self-loops, through
+    CsrStore.multi_hop, bit for bit with the reference's _multi_hop_impl
+    over 1 to 3 hops."""
+    n = 700
+    rows, cols = _graph(n, 6000, seed=23)
+    rows[1::5], cols[1::5] = rows[::5][:len(rows[1::5])], \
+        cols[::5][:len(cols[1::5])]
+    cols[::11] = rows[::11]
+    rng = np.random.default_rng(b)
+    start = rng.random((b, n)) > 0.995
+    start[0, rows[0]] = True
+    store = CsrStore("g", rows, cols, n, "cpu")
+    for hops in (1, 2, 3):
+        want = np.asarray(_multi_hop_impl(
+            jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(start), n,
+            hops, union))
+        np.testing.assert_array_equal(
+            store.multi_hop(start.astype(np.uint8), hops, union),
+            want.astype(np.uint8))
+
+
+def test_csr_hop_words():
+    """The packed frontier's words a node: one up to 32 batch rows."""
+    assert [hop_words(b) for b in (1, 8, 32, 33, 64, 65)] == [1, 1, 1, 2, 2,
+                                                              3]
 
 
 def test_blocked_merge_keeps_ties_in_id_order():

@@ -2,13 +2,16 @@
 the knn1m rows on one device and on four logical devices, and of the
 knn10m int8 store.
 
-Four stores of the same rows (1M x 768 cosine f32, seed 13, the
+Five stores of the same rows (1M x 768 cosine f32, seed 13, the
 generator of chip_smoke.py's knn1m phase), each on a DeviceHost of its
 own in this process, then on a runner over its socket:
 
 - knn1m       one device, default cfg (the bf16 rank store);
 - mesh_knn1m  four devices, SURREAL_DEVICE_MESH=auto (the self-sharded
               store, `sharded_rank_rescore`);
+- mesh_exact  four devices, SURREAL_DEVICE_MESH=force, default cfg (a
+              MeshVecStore of exact f32 shards: `distance_tile` +
+              `select_topk_rows` a shard, the merge);
 - int8        one device, cfg hbm_budget 512 MiB (the int8 rank store);
 - mesh_int8   four devices, SURREAL_DEVICE_MESH=force, the same cfg
               (a MeshVecStore, int8 "cand");
@@ -30,7 +33,7 @@ copies, syncs).
                           [--stores knn1m,int8,...] [--sample-per-kc N]
 
 `--batch` takes a comma list of frame sizes; `--stores` a comma list of
-the names above (default: all five). `--sample-per-kc N` sets the int8
+the names above (default: all six). `--sample-per-kc N` sets the int8
 stores' shape rule (ops/topk.py INT8_SAMPLE_PER_KC: the one-pass path
 needs a threshold sample of at least N kc rows; a large N sends every
 query to the chunked path) in this process, so it skips the runners.
@@ -63,6 +66,7 @@ STORES = (
     # name, logical devices, SURREAL_DEVICE_MESH, int8 cfg
     ("knn1m", 1, "auto", False),
     ("mesh_knn1m", NDEV, "auto", False),
+    ("mesh_exact", NDEV, "force", False),
     ("int8", 1, "auto", True),
     ("mesh_int8", NDEV, "force", True),
     ("knn10m", 1, "auto", True),
