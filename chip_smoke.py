@@ -59,14 +59,19 @@ It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside it, it exits non-zero before printing any result.
 
-    python3 chip_smoke.py --only distance,csr
+    python3 chip_smoke.py --only distance,csr,cand,ann
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
-and its times at the exact stores' shapes; csr: csr_hop_step), then
+and its times at the exact stores' shapes; csr: csr_hop_step; cand:
+rank_candidates_int8 at edge shapes and its times at a knn10m frame's
+shapes, over a 10M-row store made on the card; ann: ann_descent bit for
+bit at edge shapes and its times on the ann store, whose host build is
+kept under $CHIP_SMOKE_CACHE, default build/, for the next run), then
 stops without a result line. It also runs from an older checkout's root
-(copied there), whose distance_tile takes no row statistics, to time
-that checkout's kernels at the same shapes.
+(copied there), whose distance_tile takes no row statistics and whose
+candidates pass has one route, to time that checkout's kernels at the
+same shapes.
 """
 
 from __future__ import annotations
@@ -196,12 +201,17 @@ def clustered_rows(n, dim, nc, std, seed, chunk=1_000_000):
     return xs, rng
 
 
-def build_ann_index():
+def build_ann_index(cache=None):
     """The ann phase's store, built on the host as the serving side
     builds it: clustered rows, queries near them, the port's CAGRA
-    graph and int8 rows (cosine: x2q is zeros)."""
+    graph and int8 rows (cosine: x2q is zeros). With `cache` (a file
+    path) the index without its f32 rows is read from there, or built
+    and written there."""
     from surrealdb_tpu_torch.idx import cagra
 
+    if cache is not None and os.path.exists(cache):
+        with np.load(cache) as z:
+            return dict({k: z[k] for k in z.files}, gen_s=0.0, build_s=0.0)
     t0 = time.perf_counter()
     xs, rng = clustered_rows(ANN["n"], ANN["dim"], ANN["n"] // 100,
                              ANN["std"], ANN["seed"])
@@ -213,9 +223,14 @@ def build_ann_index():
     x2, norms = cagra.row_stats(xs)
     graph = cagra.build_graph(xs, "cosine", x2=x2, norms=norms)
     x8, arow = cagra.quantize_int8(xs, "cosine", norms=norms)
-    return {"xs": xs, "qs": qs, "graph": graph, "x8": x8, "arow": arow,
-            "x2q": np.zeros(ANN["n"], np.float32), "gen_s": gen_s,
-            "build_s": time.perf_counter() - t0}
+    out = {"xs": xs, "qs": qs, "graph": graph, "x8": x8, "arow": arow,
+           "x2q": np.zeros(ANN["n"], np.float32), "gen_s": gen_s,
+           "build_s": time.perf_counter() - t0}
+    if cache is not None:
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        np.savez(cache, **{k: out[k] for k in ("qs", "graph", "x8", "arow",
+                                               "x2q")})
+    return out
 
 
 def bound(nbytes, ops, peak):
@@ -232,10 +247,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
-                         "(distance, csr)")
+                         "(distance, csr, cand, ann)")
     args = ap.parse_args(argv)
     only = args.only.split(",") if args.only else None
-    if only and set(only) - {"distance", "csr"}:
+    if only and set(only) - {"distance", "csr", "cand", "ann"}:
         ap.error(f"unknown checks {only}")
 
     import torch
@@ -641,6 +656,249 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         return nn_, ne, src_np, dst_np, rows, cols, starts
 
+    # -- the candidates pass's and the descent's checks (also `--only`) -------
+    # a parent checkout (copied there) has no candidates_plan: one route
+    cand_plan = getattr(T, "candidates_plan", None)
+
+    def cand_inputs(x8, arow, valid, qs, kc):
+        """A frame's candidates-pass inputs as int8_topk makes them: the
+        quantised queries, each query's kc-th score of the threshold
+        sample, the buffer size."""
+        s_rows, s_step, cap_ = T.int8_candidate_plan(x8.shape[0],
+                                                     qs.shape[0], kc, 1 << 28)
+        q8, qsc = T.int8_query_scratch(qs.shape[0], x8.shape[1], dev)
+        ss = T.rank_scores_int8(x8, qs, "cosine", arow, None, valid,
+                                sample=(s_rows, s_step), q8=q8, qscale=qsc)
+        thr = T.select_topk_rows(ss, kc)[0][:, kc - 1].contiguous()
+        return q8, qsc, thr, cap_
+
+    def cand_edge_checks():
+        """rank_candidates_int8 against its plain version (check_pairs):
+        C = 1..512 (clusters of 1 to 4 blocks, a partial last slab) over
+        100,003 rows (no whole number of 128- or 256-row tiles) with
+        masked rows, both metrics, T at the 64th or 16th score, one
+        query's T +inf (every row survives: the inline path, and a count
+        past the buffer), one -inf, and a buffer that only the 16th-score
+        queries fit; then the other widths' routes (48: one k-step,
+        1024: four stages, 3072: the streamed route)."""
+        gc = torch.Generator(device=dev).manual_seed(11)
+        n_chk = 0
+        for d_, n_, cs in ((768, 100_003, (1, 16, 65, 128, 129, 257, 512)),
+                           (48, 20_011, (1, 65, 300)),
+                           (1024, 20_011, (64, 200)),
+                           (3072, 20_011, (16, 65))):
+            xs = torch.randn(n_, d_, generator=gc, device=dev)
+            valid = torch.rand(n_, generator=gc, device=dev) > 0.05
+            for metric in ("cosine", "euclidean"):
+                x8 = torch.empty((n_, d_), dtype=torch.int8, device=dev)
+                a8 = torch.empty((n_,), dtype=torch.float32, device=dev)
+                x2 = torch.zeros((n_,), dtype=torch.float32, device=dev)
+                T.quantize_rows_int8(xs, metric, x8, a8, x2)
+                for c_ in cs:
+                    qs = torch.randn(c_, d_, generator=gc, device=dev)
+                    q8, qsc = T.int8_query_scratch(c_, d_, dev)
+                    sc = T.rank_scores_int8(x8, qs, metric, a8, x2, valid,
+                                            q8=q8, qscale=qsc)
+                    top = T.top_k_smallest_plain(sc, 64)[0]
+                    thr = torch.where(torch.arange(c_, device=dev) % 2 == 0,
+                                      top[:, 63], top[:, 15]).contiguous()
+                    del sc, top
+                    if c_ > 2:
+                        thr[c_ // 2] = float("inf")
+                        thr[1] = float("-inf")
+                    for cap_ in (4096, 40):
+                        kp, kn = T.rank_candidates_int8(
+                            x8, q8, qsc, metric, a8, x2, valid, thr, cap_)
+                        pp, pn = T.rank_candidates_plain(
+                            x8, qs, metric, a8, x2, valid, thr, cap_)
+                        plan = cand_plan(c_, d_) if cand_plan else None
+                        check_pairs(kp, kn, pp, pn,
+                                    f"rank_candidates_int8 {metric} C={c_} "
+                                    f"N={n_} D={d_} cap={cap_} plan={plan}")
+                        n_chk += 1
+                del x8, a8, x2
+        emit("kernel", name="rank_candidates_int8", tol=[0, 0],
+             edge_shapes_checked=n_chk)
+        torch.cuda.empty_cache()
+
+    def cand_path_rows(x8, arow, valid, qs, kc):
+        """The candidates pass at a knn10m frame's shapes (B = 1, 128 and
+        512, inputs as int8_topk makes them): its time and bound, and at
+        B = 512 its plain version (check_pairs) and the int8 product
+        alone (torch._int_mm over 1M-row blocks). Returns the B = 512
+        pass's (pairs, counts, cap)."""
+        n_, w_ = x8.shape
+        out = None
+        for c_ in (1, 128, qs.shape[0]):
+            q8c, qsc, thr, cap_ = cand_inputs(x8, arow, valid, qs[:c_], kc)
+            kept = []
+            ms = cuda_ms(lambda: T.rank_candidates_int8(
+                x8, q8c, qsc, "cosine", arow, None, valid, thr, cap_),
+                10 if c_ == 1 else 5, kept)
+            pairs, counts = kept[0]
+            surv = int(counts.sum())
+            # the store and its scales read, the pairs written; the int8
+            # products
+            bms, bby = bound(n_ * w_ + 5 * n_ + c_ * w_ + 8 * c_ + 8 * surv,
+                             2 * c_ * n_ * w_, PEAK_INT8)
+            shape = f"C={c_} N={n_} D={w_} cosine cap={cap_}"
+            row = dict(shape=shape, ms=ms, bound_ms=bms, bound_by=bby,
+                       survivors=surv,
+                       plan=cand_plan(c_, w_) if cand_plan else None)
+            if c_ < qs.shape[0]:
+                emit("kernel", name="rank_candidates_int8", **row)
+                continue
+            plain_ms = cuda_ms(lambda: T.rank_candidates_plain(
+                x8, qs, "cosine", arow, None, valid, thr, cap_), 1, kept)
+            pp, pn = kept[-1]
+            check_pairs(pairs, counts, pp, pn, f"rank_candidates_int8 {shape}")
+            del pp, pn, kept
+            q8t = q8c.t()
+
+            def int_mm_blocks():  # the product alone, in 1M-row blocks
+                for s0 in range(0, n_, 1 << 20):
+                    torch._int_mm(x8[s0:s0 + (1 << 20)], q8t)
+
+            try:
+                lib = cuda_ms(int_mm_blocks, 3)
+            except RuntimeError as e:  # a yardstick only
+                print(f"torch._int_mm refused the {c_}-query blocks: {e}",
+                      file=sys.stderr)
+                lib = None
+            note("rank_candidates_int8", 0.0, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib, bound_ms=bms, bound_by=bby, shape=shape)
+            emit("kernel", name="rank_candidates_int8", tol=[0, 0],
+                 max_abs_err=0.0, plain_ms=plain_ms, library_ms=lib, **row)
+            out = (pairs, counts, cap_)
+        return out
+
+    def cand_only():
+        """`--only cand`: the edge checks, then the frame rows over a
+        10M x 768 cosine store quantised on the card from its own normal
+        rows, with the knn10m queries."""
+        cand_edge_checks()
+        n_, d_ = KNN10M["n"], KNN10M["dim"]
+        w_ = T.int8_width(d_)
+        gc = torch.Generator(device=dev).manual_seed(KNN10M["seed"])
+        x8 = torch.empty((n_, w_), dtype=torch.int8, device=dev)
+        a8 = torch.empty((n_,), dtype=torch.float32, device=dev)
+        x2 = torch.zeros((n_,), dtype=torch.float32, device=dev)
+        for s0 in range(0, n_, 1 << 20):
+            e0 = min(s0 + (1 << 20), n_)
+            T.quantize_rows_int8(torch.randn(e0 - s0, d_, generator=gc,
+                                             device=dev), "cosine",
+                                 x8[s0:e0], a8[s0:e0], x2[s0:e0])
+        qs = torch.from_numpy(normal_rows(max(KNN10M["batches"]), d_,
+                                          KNN10M["seed"] + 1)).to(dev)
+        kc = min(n_, max(cnf.KNN_INT8_OVERSAMPLE * KNN10M["k"],
+                         KNN10M["k"] + 16))
+        cand_path_rows(x8, a8, torch.ones(n_, dtype=torch.bool, device=dev),
+                       qs, kc)
+        del x8, a8, x2
+        torch.cuda.empty_cache()
+
+    def check_ann_descent(only=False):
+        """ann_descent on the ann phase's store against its plain version
+        on the card, ids and dists bit for bit: B = 1, 7 and 512, both
+        metrics (euclidean with random x2q), W = 32 and 64, the graph and
+        a copy with repeated and out-of-range ids; the probe seed against
+        its plain version; the times at B = 512 and 1. Returns the built
+        index, the plain descent's candidates and (not `only`) the exact
+        f64 top 10 of the recall queries."""
+        # built here, when no other path is measured: the build keeps the
+        # host's cores busy for tens of seconds
+        cache = os.path.join(os.environ.get("CHIP_SMOKE_CACHE", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build")),
+            f"ann_index_{ANN['n']}_{ANN['seed']}.npz") if only else None
+        a = build_ann_index(cache)
+        st = A.AnnStore("check", a["graph"], a["x8"], a["arow"], a["x2q"],
+                        "cosine", ann_cfg, dev)
+        dv = st._ensure()
+        width, iters, expand, kc = st._clamped(ann_kc)
+        qa = torch.from_numpy(a["qs"]).to(dev)
+        ids0, d0 = A.probe_seed(dv, qa, "cosine", width)
+        pscore = T.rank_scores_int8_plain(dv["x8p"], qa, "cosine",
+                                          dv["arowp"], dv["x2qp"],
+                                          probe_order=True)
+        pd0, psel = T.top_k_smallest_plain(pscore, width)
+        check(torch.equal(pd0, d0)
+              and torch.equal(dv["probe_ids"][psel.long()], ids0),
+              "ann probe seed differs from the plain version")
+        del pscore
+        na = dv["graph"].shape[0]
+        ga = torch.Generator(device=dev).manual_seed(23)
+        x2e = torch.rand(na, generator=ga, device=dev) * 4
+        bad = dv["graph"].clone()
+        bad[::7, 3] = -5
+        bad[::11, 5] = na + 3
+        bad[::13, 6] = bad[::13, 7]
+        n_ann = 0
+        for metric in ("cosine", "euclidean"):
+            x2m = dv["x2q"] if metric == "cosine" else x2e
+            for w_ in (32, 64):
+                i0, dd0 = A.probe_seed(dv, qa, metric, w_)
+                for gname, g_ in (("graph", dv["graph"]), ("bad ids", bad)):
+                    for b_ in (1, 7, 512):
+                        ar = (g_, dv["x8"], dv["arow"], x2m, qa[:b_],
+                              i0[:b_], dd0[:b_], metric, iters, expand,
+                              min(kc, w_))
+                        ki, kd = A.ann_descent_cuda(*ar)
+                        pi, pd = A.ann_descent_plain(*ar)
+                        check(torch.equal(ki, pi) and torch.equal(kd, pd),
+                              f"ann_descent {metric} W={w_} B={b_} {gname}: "
+                              f"not bit-equal to the plain version")
+                        n_ann += 1
+        del bad, x2e
+        w10_ = dv["x8"].shape[1]
+        d_out = dv["graph"].shape[1]
+        plain_ids = None
+        for b in (qa.shape[0], 1):
+            args = (dv["graph"], dv["x8"], dv["arow"], dv["x2q"], qa[:b],
+                    ids0[:b], d0[:b], "cosine", iters, expand, kc)
+            ki, kd = A.ann_descent_cuda(*args)
+            trace = {}
+            pi, pd = A.ann_descent_plain(*args, trace=trace)
+            check(torch.equal(ki, pi) and torch.equal(kd, pd),
+                  f"ann_descent B={b}: not bit-equal to the plain version")
+            scored = torch.cat(trace["scored"])
+            expanded = torch.cat(trace["expanded"])
+            # the bound counts each unique row once (perfect reuse across
+            # queries); beside it the bytes of a walk with no reuse
+            rest = 4 * b * w10_ + 8 * b * width + 8 * b * kc
+            nbytes = (int(torch.unique(scored).numel()) * (w10_ + 8)
+                      + int(torch.unique(expanded).numel()) * 4 * d_out
+                      + rest)
+            no_reuse = (int(scored.numel()) * (w10_ + 8)
+                        + int(expanded.numel()) * 4 * d_out + rest)
+            ams, aby = bound(nbytes, 2 * int(scored.numel()) * w10_,
+                             PEAK_INT8)
+            row = dict(
+                ms=cuda_ms(lambda: A.ann_descent_cuda(*args),
+                           10 if b > 1 else 50),
+                plain_ms=cuda_ms(lambda: A.ann_descent_plain(*args), 2),
+                library_ms=None, bound_ms=ams, bound_by=aby,
+                shape=f"B={b} N={ANN['n']} D={ANN['dim']} W={width} "
+                      f"E={expand} iters={iters} kc={kc} cosine")
+            if b > 1:
+                note("ann_descent", 0.0, **row)
+                plain_ids = pi.cpu().numpy()
+            emit("kernel", name="ann_descent", tol=[0, 0], max_abs_err=0.0,
+                 rows_scored=int(scored.numel()), no_reuse_bytes=no_reuse,
+                 no_reuse_bound_ms=no_reuse / PEAK_BYTES_S * 1e3,
+                 edge_shapes_checked=n_ann, **row)
+            del scored, expanded, trace
+        oracle = None
+        if not only:
+            # the exact f64 cosine top 10 of the recall queries
+            x64 = torch.from_numpy(a["xs"]).to(dev).double()
+            q64 = qa[:ANN["recall_q"]].double()
+            sims = (x64 @ q64.T) / x64.norm(dim=1).clamp_min(1e-30)[:, None]
+            oracle = torch.topk(sims, ANN["k"], dim=0).indices.T.cpu().numpy()
+            del x64, sims
+        del st, dv
+        torch.cuda.empty_cache()
+        return a, plain_ids, oracle
+
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -658,6 +916,10 @@ def main(argv=None) -> int:
             distance_checks()
         if "csr" in only:
             csr_checks()
+        if "cand" in only:
+            cand_only()
+        if "ann" in only:
+            check_ann_descent(only=True)
         emit("only", checks=only,
              seconds=round(time.perf_counter() - t_start, 3))
         return 0
@@ -1252,6 +1514,7 @@ def main(argv=None) -> int:
         n_cand += 1
     del xc, xs_sorted, c8, ca, c2, cv, qe, ki, pi
     torch.cuda.empty_cache()
+    cand_edge_checks()
 
     # at the path's shape: one pass for all 512 queries of a frame over
     # the (all-valid) 10M store, equal to the chunked path (16-query
@@ -1352,40 +1615,12 @@ def main(argv=None) -> int:
                         PEAK_F32)[0])
     del ss
     torch.cuda.empty_cache()
-    kept = []
-    cand_ms = cuda_ms(lambda: T.rank_candidates_int8(
-        x8_10, q8a, qsa, "cosine", arow10, None, ones10, thr10, cap10), 5,
-        kept)
-    cand_plain_ms = cuda_ms(lambda: T.rank_candidates_plain(
-        x8_10, qs512, "cosine", arow10, None, ones10, thr10, cap10), 1, kept)
-    (pairs10, counts10), (pp10, pn10) = kept
-    del kept
-    check_pairs(pairs10, counts10, pp10, pn10,
-                f"rank_candidates_int8 C={c512} N={n10} cap={cap10}")
-    del pp10, pn10
+    # the candidates pass at B = 1, 128 and 512 (inputs made as the path
+    # makes them), held to its plain version at B = 512
+    pairs10, counts10, cap_p = cand_path_rows(x8_10, arow10, ones10, qs512,
+                                              kc10)
+    check(cap_p == cap10, f"candidates buffer {cap_p} != {cap10}")
     surv = int(counts10.sum())
-    # the bound: the store and its scales read, the pairs written; the
-    # 7.86 TOP of int8 products at the int8 peak bound it
-    cms, cby = bound(n10 * w10 + 5 * n10 + c512 * w10 + 8 * c512 + 8 * surv,
-                     2 * c512 * n10 * w10, PEAK_INT8)
-    q8at = q8a.t()
-
-    def int_mm_blocks():  # the product alone, in 1M-row blocks
-        for s0 in range(0, n10, 1 << 20):
-            torch._int_mm(x8_10[s0:s0 + (1 << 20)], q8at)
-
-    try:
-        cand_lib = cuda_ms(int_mm_blocks, 3)
-    except RuntimeError as e:  # a yardstick only
-        print(f"torch._int_mm refused the 512-query blocks: {e}",
-              file=sys.stderr)
-        cand_lib = None
-    note("rank_candidates_int8", 0.0, ms=cand_ms, plain_ms=cand_plain_ms,
-         library_ms=cand_lib, bound_ms=cms, bound_by=cby,
-         shape=f"C={c512} N={n10} D={d10} cosine cap={cap10}")
-    emit("kernel", name="rank_candidates_int8", tol=[0, 0],
-         max_abs_err=0.0, ms=kern["rank_candidates_int8"]["ms"],
-         library_ms=cand_lib, survivors=surv)
     fms, fby = bound(8 * surv + 4 * c512 + 8 * c512 * kc10, surv, PEAK_F32)
     kept = []
     psel_ms = cuda_ms(lambda: T.select_topk_pairs(pairs10, counts10, kc10),
@@ -1401,7 +1636,7 @@ def main(argv=None) -> int:
          shape=f"R={c512} cap={cap10} k={kc10} ({surv} pairs)")
     emit("kernel", name="select_topk_pairs", tol=[0, 0], max_abs_err=0.0,
          ms=kern["select_topk_pairs"]["ms"])
-    del pairs10, counts10, q8a, qsa, q8at, thr10
+    del pairs10, counts10, q8a, qsa, thr10
     # the few-row select at a B = 1 frame's threshold pass
     s1_rows = T.int8_candidate_plan(n10, 1, kc10, 1 << 28)[0]
     s1 = s_k[:1, :s1_rows].contiguous()
@@ -1473,63 +1708,6 @@ def main(argv=None) -> int:
          bound_ms=bound(nw * (4 * dw + dw + 8), 5 * nw * dw, PEAK_F32)[0])
     del xw, w8, wa, w2, wq, wv, wq8t
     torch.cuda.empty_cache()
-
-    def check_ann_descent():
-        """ann_descent at B = 512 on the ann phase's store against its
-        plain version on the card, from the same probe seed (itself the
-        probe kernels against their plain versions). Returns the built
-        index, the plain descent's candidates and the exact f64 top 10
-        of the recall queries."""
-        # built here, when no other path is measured: the build keeps the
-        # host's cores busy for tens of seconds
-        a = build_ann_index()
-        st = A.AnnStore("check", a["graph"], a["x8"], a["arow"], a["x2q"],
-                        "cosine", ann_cfg, dev)
-        dv = st._ensure()
-        width, iters, expand, kc = st._clamped(ann_kc)
-        qa = torch.from_numpy(a["qs"]).to(dev)
-        ids0, d0 = A.probe_seed(dv, qa, "cosine", width)
-        pscore = T.rank_scores_int8_plain(dv["x8p"], qa, "cosine",
-                                          dv["arowp"], dv["x2qp"],
-                                          probe_order=True)
-        pd0, psel = T.top_k_smallest_plain(pscore, width)
-        check(torch.equal(pd0, d0)
-              and torch.equal(dv["probe_ids"][psel.long()], ids0),
-              "ann probe seed differs from the plain version")
-        args = (dv["graph"], dv["x8"], dv["arow"], dv["x2q"], qa, ids0, d0,
-                "cosine", iters, expand, kc)
-        ki, kd = A.ann_descent_cuda(*args)
-        trace = {}
-        pi, pd = A.ann_descent_plain(*args, trace=trace)
-        tol_a = (0.0, 1e-5)
-        err = max_err(kd, pd, *tol_a, "ann_descent B=512")
-        check_ids(pd.cpu().numpy(), pi.cpu().numpy(), ki.cpu().numpy(),
-                  "ann_descent B=512 ids", atol=0.0, rtol=1e-5)
-        b, w10_ = qa.shape[0], dv["x8"].shape[1]
-        scored = torch.cat(trace["scored"])
-        expanded = torch.cat(trace["expanded"])
-        d_out = dv["graph"].shape[1]
-        nbytes = (int(torch.unique(scored).numel()) * (w10_ + 8)
-                  + int(torch.unique(expanded).numel()) * 4 * d_out
-                  + 4 * b * w10_ + 8 * b * width + 8 * b * kc)
-        ams, aby = bound(nbytes, 2 * int(scored.numel()) * w10_, PEAK_INT8)
-        note("ann_descent", err,
-             ms=cuda_ms(lambda: A.ann_descent_cuda(*args), 10),
-             plain_ms=cuda_ms(lambda: A.ann_descent_plain(*args), 2),
-             library_ms=None, bound_ms=ams, bound_by=aby,
-             shape=f"B={b} N={ANN['n']} D={ANN['dim']} W={width} "
-                   f"E={expand} iters={iters} kc={kc} cosine")
-        emit("kernel", name="ann_descent", tol=tol_a, max_abs_err=err,
-             ms=kern["ann_descent"]["ms"], rows_scored=int(scored.numel()))
-        # the exact f64 cosine top 10 of the recall queries
-        x64 = torch.from_numpy(a["xs"]).to(dev).double()
-        q64 = qa[:ANN["recall_q"]].double()
-        sims = (x64 @ q64.T) / x64.norm(dim=1).clamp_min(1e-30)[:, None]
-        oracle = torch.topk(sims, ANN["k"], dim=0).indices.T.cpu().numpy()
-        plain_ids = pi.cpu().numpy()
-        del st, dv, x64, sims, scored, expanded
-        torch.cuda.empty_cache()
-        return a, plain_ids, oracle
 
     # -- 4. the runner as a server ----------------------------------------------
     sup = DeviceSupervisor(device="cuda")

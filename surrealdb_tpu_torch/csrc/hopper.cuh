@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the TMA + wgmma kernels
-// (rank_rescore.cu, rank_int8.cu): mbarriers, 2-D TMA loads, the
-// 128-byte-swizzle wgmma descriptor, wgmma fences, and tensor maps from
+// (rank_rescore.cu, rank_int8.cu): mbarriers, 2-D TMA loads (multicast
+// across a thread block cluster too), the cluster's rank, barrier and
+// remote arrivals, the 128-byte-swizzle wgmma descriptor, wgmma fences,
+// and tensor maps from
 // cuTensorMapEncodeTiled through the runtime's driver entry point (no
 // -lcuda), cached per (pointer, type, shape, box).
 #pragma once
@@ -63,6 +65,66 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// -- thread block clusters (rank_int8.cu's candidates pass) ----------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster meets (and sees the others'
+// shared-memory writes before it, barrier initialisations included)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// one arrival on the barrier at `bar`'s offset in block `cta` of the
+// cluster (this block's own included). It publishes no data, only that
+// this block's wgmma reads of a stage are done, so it keeps the default
+// CTA-scope release: a cluster-scope release waits for the thread's
+// outstanding memory operations.
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// TMA multicast: the box at (c0, c1) into shared memory at `dst` of every
+// block in `mask`, completing its bytes on the barrier at `bar`'s offset
+// in each of them
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
       : "memory");
 }
 

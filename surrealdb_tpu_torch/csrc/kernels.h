@@ -177,7 +177,8 @@ SURREAL_API int rank_scores_int8(const int8_t* xs, const float* qs,
 // is appended to pairs[c, 0:cap] as (order key << 32 | j); counts[c]
 // (zeroed here) counts every survivor, also past cap. tile_x2min
 // (euclidean): the least x2 of each 256-row tile of the store (of the
-// last tile's rows that exist).
+// last tile's rows that exist). cluster, halves, stages: the launch
+// plan (ops/topk.py candidates_plan; stages 0 takes the streamed route).
 SURREAL_API int rank_candidates_int8(const int8_t* xs, const float* qs,
                                      const float* arow, const float* x2,
                                      const uint8_t* valid, const float* thr,
@@ -185,8 +186,8 @@ SURREAL_API int rank_candidates_int8(const int8_t* xs, const float* qs,
                                      unsigned int* counts, long long cap,
                                      const float* tile_x2min,
                                      int8_t* q8, float* qscale, long long n,
-                                     int c, int d, int euclid,
-                                     void* stream);
+                                     int c, int d, int euclid, int cluster,
+                                     int halves, int stages, void* stream);
 
 // rank_int8.cu: the int8 store of [n, d] rows (f32, or f64 when is_f64):
 // x8[n, width] (zero columns past d), arow[n], x2[n] (euclidean only).

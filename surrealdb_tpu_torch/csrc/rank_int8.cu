@@ -15,7 +15,7 @@
 // reproduce; each is computed with round-to-nearest intrinsics, never
 // contracted, so the scores are the reference's bit for bit.
 //
-// One main loop, two epilogues:
+// Two epilogues:
 // - scores (rank_scores_int8): out[c, n] f32, for the ANN probe, the
 //   int8 store's threshold sample and the exact chunked path. With
 //   tile_step > 1 it scores a strided sample of whole store tiles (tile
@@ -36,11 +36,46 @@
 //   exact score's order key. The values past the floor go to a short
 //   per-thread list in shared memory, tested by one rolled loop: the
 //   rare code stays small, so it stays in the instruction cache.
-//   Survivors are rare (about kc N / S of N per query), so an atomic
-//   per survivor is cheap.
 //
-// Design (Hopper: TMA + wgmma, warp-specialised, persistent), the
-// machinery of rank_rescore.cu's rank_scores_bf16 at 8 bits:
+// The candidates pass has its own kernel where a block can hold its
+// queries (cand_int8_kernel, the resident route: rows up to 1024 int8
+// columns at 128 queries a block; ops/topk.py candidates_plan sizes
+// it). Bound on the H100 at C = 512, N = 10M, D = 768: 7.86 TOP of int8
+// products (3.97 ms at 1,979 TOP/s) against the 7.7 GB store read (2.29
+// ms at 3.35 TB/s): operations. What it does about that:
+// - the queries stay in shared memory for the whole pass (128 x D
+//   bytes a block, loaded once by TMA in the swizzled K-major layout
+//   the wgmma descriptors read), so only store tiles stream;
+// - a frame of C > 128 queries runs as clusters of ceil(C / 128) <= 4
+//   blocks, one 128-query slab each; a cluster walks a contiguous stripe
+//   of 128-row store tiles, every block in the same order, and each
+//   16 KB k-step of a tile reaches all of them from one read of L2 (TMA
+//   multicast: each block issues a share of its four 32-row boxes). A
+//   ring stage is free again only when the consumer of it in every block
+//   of the cluster has released it (the empty barriers count one
+//   arrival per block, arriving remotely);
+// - the two consumer warpgroups take the store tiles in turn, each
+//   tile all of the block's queries x 128 rows (two m64n128k32 products
+//   a k-slice), and pass the tensor cores to each other through named
+//   barriers as soon as their products are issued: one consumer's
+//   epilogue runs beside the other's products. While those int8
+//   products run, the epilogue's instruction count sets its pace, so it
+//   is lean: one compare a value against its row's floor over the
+//   thread's columns (no branches), then only the groups of eight values
+//   with a value past it leave the registers, by predicated stores at
+//   places found by popcounts, into the warp's queue, where the warp
+//   tests them together (the cheap float test, then the exact key);
+// - survivors take positions from a shared-memory count per query and
+//   tile; one global atomicAdd per (query, tile) that has any reserves
+//   them in the query's buffer, issued at the end of the tile and used
+//   at the consumer's next one, so its latency is hidden (a survivor
+//   past the warp's list, the rare loose-T case, takes its own atomic).
+// Rows wider than that (the streamed route) take the scores kernel's
+// main loop with a candidates epilogue.
+//
+// Design of the scores kernel (Hopper: TMA + wgmma, warp-specialised,
+// persistent), the machinery of rank_rescore.cu's rank_scores_bf16 at 8
+// bits:
 // - a quantisation kernel writes the queries once into the caller's
 //   scratch (q8 [C, D] int8, sq [C]; or 1 / sq for the probe order);
 // - one persistent block per SM owns a contiguous stripe of output
@@ -67,10 +102,8 @@
 //   neighbouring store rows, whose arow / x2 the consumer fetched into
 //   shared memory (cp.async) while the tile's products ran, and scores
 //   leave as evict-first 8-byte stores.
-// Bound on the H100: the candidates pass at C = 512, N = 10M, D = 768
-// does 7.86 TOP of int8 products (3.97 ms at 1,979 TOP/s) and reads the
-// 7.7 GB store (2.29 ms at 3.35 TB/s): operations. The scores epilogue
-// at C = 16 writes [16, 10M] f32 beside the store read: bytes.
+// Bound on the H100: the scores epilogue at C = 16 writes [16, 10M] f32
+// beside the store read: bytes.
 // The store width must be a multiple of 16 (the stores pad rows with
 // zero columns): a 16-byte row pitch for TMA.
 //
@@ -729,6 +762,501 @@ bool rank_shape_ok(const int8_t* xs, const int8_t* q8, const float* qscale,
          (reinterpret_cast<uintptr_t>(x2) & 15) == 0;
 }
 
+// -- the candidates pass, queries resident ------------------------------------
+
+constexpr int CT_ROWS = 128;              // store rows a consumer tile
+constexpr int CT_STAGE = CT_ROWS * BK;    // a k-step of a store tile: 16 KB
+constexpr int CT_BOX = 32;                // store rows a TMA box
+constexpr int CT_SLAB = 128;              // queries a block holds
+constexpr int CT_CLUSTER_MAX = 4;         // blocks a cluster: 512 queries
+constexpr int CT_MAX_STAGES = 8;
+// a consumer warp's area: its queue of value groups (CT_WQ groups of
+// eight values a round), their tags, its survivor list and count
+constexpr int CT_WQ = 128;
+constexpr int CT_GV = CT_WQ * 32;
+constexpr int CT_GM = CT_WQ * 4;
+constexpr int CT_SURV = 64;
+constexpr int CT_WAREA = CT_GV + CT_GM + CT_SURV * 8 + 16;
+// dynamic shared memory besides the queries and the ring: alignment
+// slack; per consumer its tile's arow, x2 and mask bytes; the eight
+// consumer warps' areas; per query of the slab T, sq, 1 / sq and T's
+// key; per consumer and query the tile's survivor count and its
+// reserved base in the query's buffer
+constexpr int CT_COLS = 3 * CT_ROWS * 4;  // a consumer's columns
+constexpr int CT_FIXED = 1024 + 2 * CT_COLS + 8 * CT_WAREA +
+                         4 * CT_SLAB * 4 + 2 * 2 * CT_SLAB * 4;
+constexpr int CT_SMEM_MAX = 227 * 1024;
+
+struct CandArgs {
+  const float* qscale;      // sq [c]
+  const float* arow;        // [n]
+  const float* x2;          // [n], euclidean only
+  const uint8_t* valid;     // [n] or null
+  const float* thr;         // T [c]
+  u64* pairs;               // [c, cap]
+  unsigned int* counts;     // [c]
+  const float* tile_x2min;  // least x2 of each 256-row store tile
+  long long cap;
+  long long n;
+  int c, ktiles, euclid, cluster, stages;
+  int tiles;                // 128-row store tiles
+};
+
+// a value's exact order key (the reference's score, +inf where masked:
+// sv holds the tile's mask bytes when the store has a mask)
+__device__ __forceinline__ uint32_t cand_key(const CandArgs& p, int dot,
+                                             float a, float xv, float sq,
+                                             const uint8_t* sv, int c) {
+  float sc = int8_score(dot, a, xv, sq, p.euclid, 0);
+  if (p.valid != nullptr && sv[c] == 0) sc = INFINITY;
+  return order_key(sc);
+}
+
+__device__ __forceinline__ void put_pair(const CandArgs& p, long long q,
+                                         unsigned int pos, uint32_t key,
+                                         long long row) {
+  if ((long long)pos < p.cap)
+    p.pairs[q * p.cap + pos] = ((u64)key << 32) | (u64)(uint32_t)row;
+}
+
+// a warp's survivors of a tile, at their query's reserved base (s_base)
+// plus their position among its survivors; the list is emptied
+__device__ __forceinline__ void write_survivors(const CandArgs& p,
+                                               const u64* surv, int* nsurv,
+                                               const unsigned int* s_base,
+                                               int slab0, long long row0,
+                                               int lane) {
+  const int ns = min(*nsurv, CT_SURV);
+  for (int x = lane; x < ns; x += 32) {
+    const u64 v = surv[x];
+    const int ql = (int)(v & 0x7F);
+    put_pair(p, slab0 + ql, s_base[ql] + (unsigned int)((v >> 16) & 0xFF),
+             (uint32_t)(v >> 32), row0 + (int)((v >> 8) & 0xFF));
+  }
+  __syncwarp();
+  if (lane == 0) *nsurv = 0;
+  __syncwarp();
+}
+
+// the two consumers' turns at the tensor cores (named barriers 3 and 4;
+// 1 and 2 are consumer_sync's)
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + cw) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - cw) : "memory");
+}
+
+// The candidates pass with the queries resident (see the design notes at
+// the top). MH query halves of 64 a block (1 when C <= 64). Each block of
+// a cluster holds its own 128-query slab in shared memory for the whole
+// pass; the cluster walks one contiguous stripe of 128-row store tiles,
+// every block in the same order, and each stage of a tile is one TMA
+// multicast to all of them (each block issues a share of the stage's four
+// 32-row boxes). The two consumer warpgroups take the tiles in turn: a
+// consumer's tile is all MH x 64 queries x 128 rows, and the tensor
+// cores run one consumer's products while the other runs its epilogue.
+template <int MH>
+__global__ void __launch_bounds__(RTHREADS, 1)
+    cand_int8_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_x,
+                     const CandArgs p) {
+  constexpr int NACC = 64 * MH;             // s32 accumulators a thread
+  constexpr int QSTEP = MH * 64 * BK;       // a k-step of the slab
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[CT_MAX_STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[CT_MAX_STAGES];
+  __shared__ __align__(8) uint64_t q_bar;
+  const uint32_t qres = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = qres + p.ktiles * QSTEP;
+  unsigned char* extra =
+      smem_raw + (ring - smem_u32(smem_raw)) + p.stages * CT_STAGE;
+  float(*tile_cols)[3][CT_ROWS] =
+      reinterpret_cast<float(*)[3][CT_ROWS]>(extra);
+  unsigned char* warp_area = extra + 2 * CT_COLS;
+  float* row_t = reinterpret_cast<float*>(warp_area + 8 * CT_WAREA);
+  float* row_sq = row_t + CT_SLAB;
+  float* row_inv = row_sq + CT_SLAB;
+  uint32_t* row_key = reinterpret_cast<uint32_t*>(row_inv + CT_SLAB);
+  unsigned int(*tile_cnt)[2][CT_SLAB] =
+      reinterpret_cast<unsigned int(*)[2][CT_SLAB]>(row_key + CT_SLAB);
+  // broadcast: the warpgroup index and all that follows are uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  const int tid = threadIdx.x & 127;
+  // (also broadcast: values read by asm look divergent to the compiler)
+  const int rank = __shfl_sync(0xffffffffu, (int)cluster_rank(), 0);
+  const int slab0 = rank * CT_SLAB;  // the block's first query
+  // the cluster's stripe of store tiles
+  const long long g = cluster_id(), ng = cluster_count();
+  const int u_begin =
+      __shfl_sync(0xffffffffu, (int)(p.tiles * g / ng), 0);
+  const int len = __shfl_sync(
+      0xffffffffu, (int)(p.tiles * (g + 1) / ng) - u_begin, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full_bar[s], 1);  // this block's expect_tx arrival
+      // the consumer of the stage in every block of the cluster
+      mbar_init(&empty_bar[s], p.cluster);
+    }
+    mbar_init(&q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < CT_SLAB) {
+    const int i = threadIdx.x;
+    const bool ok = slab0 + i < p.c;
+    const float t = ok ? p.thr[slab0 + i] : -INFINITY;
+    const float sq = ok ? p.qscale[slab0 + i] : 1.f;
+    row_t[i] = t;
+    row_sq[i] = sq;
+    row_inv[i] = __frcp_rn(sq);
+    row_key[i] = order_key(t);
+    tile_cnt[0][0][i] = tile_cnt[1][0][i] = 0;
+  }
+  // every block's barriers exist before any block signals them
+  cluster_sync();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      // producer: the slab once, then every stage of the stripe
+      mbar_expect_tx(&q_bar, (uint32_t)(p.ktiles * QSTEP));
+      for (int kt = 0; kt < p.ktiles; ++kt)
+        tma_load_2d(qres + kt * QSTEP, &tm_q, &q_bar, kt * BK, slab0);
+      const uint16_t mask = (uint16_t)((1u << p.cluster) - 1u);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < len; ++i) {
+        const int row = (u_begin + i) * CT_ROWS;
+        for (int kt = 0; kt < p.ktiles; ++kt) {
+          // free in every block of the cluster
+          mbar_wait(&empty_bar[stage], phase ^ 1u);
+          mbar_expect_tx(&full_bar[stage], CT_STAGE);
+          const uint32_t slot = ring + stage * CT_STAGE;
+          for (int b = rank; b < CT_ROWS / CT_BOX; b += p.cluster) {
+            if (p.cluster == 1)
+              tma_load_2d(slot + b * CT_BOX * BK, &tm_x, &full_bar[stage],
+                          kt * BK, row + b * CT_BOX);
+            else
+              tma_load_2d_mc(slot + b * CT_BOX * BK, &tm_x, &full_bar[stage],
+                             kt * BK, row + b * CT_BOX, mask);
+          }
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int lane = tid & 31;
+    // the thread's fragment rows: local query qrow + 64 h + 8 i for its
+    // rows e = 2 h + i, and fragment columns cb + 8 j (+1)
+    const int qrow = 16 * (tid >> 5) + (lane >> 2);
+    const int cb = 2 * (lane & 3);
+    float* sa = tile_cols[cw][0];
+    float* sx = tile_cols[cw][1];
+    const uint8_t* sv = reinterpret_cast<const uint8_t*>(tile_cols[cw][2]);
+    unsigned int* s_cnt = tile_cnt[cw][0];
+    unsigned int* s_base = tile_cnt[cw][1];
+    float t_e[2 * MH], sq_e[2 * MH];
+    bool ok_e[2 * MH];
+#pragma unroll
+    for (int e = 0; e < 2 * MH; ++e) {
+      const int ql = qrow + 64 * (e >> 1) + 8 * (e & 1);
+      t_e[e] = row_t[ql];
+      sq_e[e] = row_sq[ql];
+      ok_e[e] = slab0 + ql < p.c;
+    }
+    // the warp's area: its group queue and tags, survivor list and count
+    unsigned char* wa = warp_area + ((threadIdx.x >> 5) - 4) * CT_WAREA;
+    int4* gv = reinterpret_cast<int4*>(wa);
+    int* gm = reinterpret_cast<int*>(wa + CT_GV);
+    u64* surv = reinterpret_cast<u64*>(wa + CT_GV + CT_GM);
+    int* nsurv = reinterpret_cast<int*>(wa + CT_GV + CT_GM + CT_SURV * 8);
+    if (lane == 0) *nsurv = 0;
+    // the reservation in flight: this thread's query's survivor count of
+    // the consumer's last tile, its base, and that tile's first row
+    unsigned int held = 0, held_base = 0;
+    long long held_row0 = 0;
+    int acc[NACC];
+    mbar_wait(&q_bar, 0);
+    for (int i = cw; i < len; i += 2) {
+      const long long row0 = (long long)(u_begin + i) * CT_ROWS;
+      const long long left = p.n - row0;
+      const int cols = left < CT_ROWS ? (int)left : CT_ROWS;
+      // the tile's arow (threads 0-31), x2 (32-63) and mask bytes
+      // (64-71), 16 bytes each, in flight during the products; zeros
+      // past the store
+      if (tid < 64 && (tid < 32 || p.euclid)) {
+        const int q4 = (tid & 31) * 4;
+        const long long l4 = left - q4;
+        const int bytes = l4 >= 4 ? 16 : (l4 > 0 ? (int)l4 * 4 : 0);
+        const float* src = tid < 32 ? p.arow : p.x2;
+        cp_async16((tid < 32 ? sa : sx) + q4,
+                   bytes > 0 ? src + row0 + q4 : src, bytes);
+      } else if (tid >= 64 && tid < 72 && p.valid != nullptr) {
+        const int q16 = (tid - 64) * 16;
+        const long long l16 = left - q16;
+        const int bytes = l16 >= 16 ? 16 : (l16 > 0 ? (int)l16 : 0);
+        cp_async16(tile_cols[cw][2] + q16 / 4,
+                   bytes > 0 ? p.valid + row0 + q16 : p.valid, bytes);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      const float x2min = p.euclid ? p.tile_x2min[row0 >> 8] : 0.f;
+      // the consumers take the tensor cores in tile order
+      if (i > 0) turn_wait(cw);
+      const int seq = i * p.ktiles;
+      int stage = seq % p.stages;
+      uint32_t phase = (uint32_t)(seq / p.stages) & 1u;
+      int prev = stage;
+      fence_regs<NACC>(acc);
+      for (int kt = 0; kt < p.ktiles; ++kt) {
+        mbar_wait(&full_bar[stage], phase);
+        const uint64_t da = sw128_desc(qres + kt * QSTEP);
+        const uint64_t db = sw128_desc(ring + stage * CT_STAGE);
+        // four k32 slices; past the width they read TMA's zero fill
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          wgmma_s8_m64n128(acc, da + 2 * kk, db + 2 * kk, kt | kk);
+          if constexpr (MH == 2)
+            wgmma_s8_m64n128(acc + 64, da + ((64 * BK) >> 4) + 2 * kk,
+                             db + 2 * kk, kt | kk);
+        }
+        wgmma_commit();
+        // one group stays in flight; the one before it has retired, so
+        // its stage goes back to every block's producer
+        wgmma_wait<1>();
+        if (kt > 0 && tid < p.cluster) mbar_arrive_cta(&empty_bar[prev], tid);
+        prev = stage;
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      // the other consumer's products queue behind these
+      if (i + 1 < len) turn_pass(cw);
+      wgmma_wait<0>();
+      fence_regs<NACC>(acc);
+      if (tid < p.cluster) mbar_arrive_cta(&empty_bar[prev], tid);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      // the previous tile's reservation (issued at its end, long back)
+      if (tid < 64 * MH && held > 0) s_base[tid] = held_base;
+      consumer_sync(cw);  // every thread's columns have landed
+      // ... whose survivors this consumer writes now
+      write_survivors(p, surv, nsurv, s_base, slab0, held_row0, lane);
+
+      
+      // the hot pass: each value against its row's floor over the
+      // thread's 32 columns (from the largest arow among them, so at or
+      // below each column's own floor), a compare each, no branches:
+      // a bit per value past it (acc index 64h + 4j + e4: bit 2j +
+      // (e4 & 1) of word 2h + (e4 >> 1))
+      float amax = 0.f;  // the largest arow among the thread's columns
+#pragma unroll
+      for (int j = 0; j < CT_ROWS / 8; ++j) {
+        const float2 a2 = *reinterpret_cast<const float2*>(sa + cb + 8 * j);
+        amax = fmaxf(amax, fmaxf(a2.x, a2.y));
+      }
+      const float iamin =
+          __fdividef(1.f - 0x1p-10f, amax * (1.f + 0x1p-10f));
+      uint32_t bits[2 * MH];
+#pragma unroll
+      for (int w = 0; w < 2 * MH; ++w) {
+        const float r = row_reach(t_e[w], sq_e[w], x2min, p.euclid);
+        // a row past the batch takes nothing; a row with no floor all
+        const int lmin = !ok_e[w] ? INT_MAX
+                                  : (r >= 0.f ? dot_floor(r, iamin) : INT_MIN);
+        const int* a = acc + 64 * (w >> 1) + 2 * (w & 1);
+        uint32_t m0 = 0, m1 = 0;  // two chains, for the issue rate
+#pragma unroll
+        for (int j = 0; j < CT_ROWS / 8; j += 2) {
+          m0 |= ((uint32_t)(a[4 * j] >= lmin) << (2 * j)) |
+                ((uint32_t)(a[4 * j + 1] >= lmin) << (2 * j + 1));
+          m1 |= ((uint32_t)(a[4 * j + 4] >= lmin) << (2 * j + 2)) |
+                ((uint32_t)(a[4 * j + 5] >= lmin) << (2 * j + 3));
+        }
+        bits[w] = m0 | m1;
+      }
+      
+      // The values move out of registers in groups of eight (a 64-query
+      // half h and two column pairs: acc[64h + 8jj .. +7], rows +0 / +8
+      // x columns 16jj + {0, 1, 8, 9}) with any value past the floor,
+      // into the warp's queue in lane order: a group's place is its
+      // lane's prefix plus a popcount, so the stores do not wait on each
+      // other (each is predicated, not a branch). Rounds of CT_WQ
+      // groups; the warp then tests each round's groups together: the
+      // cheap float test (tighter than any floor), then the exact key. A
+      // survivor takes a position among its query's survivors of this
+      // tile (a shared-memory count) and a place in the warp's survivor
+      // list.
+      uint32_t nz[MH];  // bit 4jj: group (h, jj) has a value past it
+      int lane_groups = 0;
+#pragma unroll
+      for (int h = 0; h < MH; ++h) {
+        uint32_t x = bits[2 * h] | bits[2 * h + 1];
+        x |= x >> 2;
+        x |= x >> 1;
+        nz[h] = x & 0x11111111u;
+        lane_groups += __popc(nz[h]);
+      }
+      int pre = lane_groups;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, pre, o);
+        if (lane >= o) pre += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, pre, 31);
+      pre -= lane_groups;
+      const int wig = tid >> 5;  // the warp in its warpgroup
+      for (int done = 0; done < total; done += CT_WQ) {
+#pragma unroll
+        for (int h = 0; h < MH; ++h) {
+          const int base = pre - done + (h == 1 ? __popc(nz[0]) : 0);
+#pragma unroll
+          for (int jj = 0; jj < CT_ROWS / 16; ++jj) {
+            // value bit 4 (j & 1) + 2 (row + 8) + (column + 1)
+            const uint32_t lo = bits[2 * h] >> (4 * jj);
+            const uint32_t hi = bits[2 * h + 1] >> (4 * jj);
+            const uint32_t g = (lo & 3u) | ((hi & 3u) << 2) |
+                               ((lo & 12u) << 2) | ((hi & 12u) << 4);
+            const int r = base + __popc(nz[h] & ((1u << (4 * jj)) - 1u));
+            const int* a = acc + 64 * h + 8 * jj;
+            if (g != 0 && (unsigned)r < (unsigned)CT_WQ) {  // predicated
+              gv[2 * r] = make_int4(a[0], a[1], a[2], a[3]);
+              gv[2 * r + 1] = make_int4(a[4], a[5], a[6], a[7]);
+              gm[r] = (lane << 12) | (h << 11) | (jj << 8) | (int)g;
+            }
+          }
+        }
+        __syncwarp();
+        const int n = min(total - done, CT_WQ);
+        for (int x = lane; x < n; x += 32) {
+          const int4 v0 = gv[2 * x], v1 = gv[2 * x + 1];
+          const int meta = gm[x];
+          const int l = meta >> 12;
+          const int hq = 16 * wig + (l >> 2) + 64 * ((meta >> 11) & 1);
+          const int cl = 2 * (l & 3) + 16 * ((meta >> 8) & 7);
+          for (uint32_t g = meta & 255; g != 0; g &= g - 1) {
+            const int e8 = __ffs(g) - 1;
+            const int4 vv = e8 < 4 ? v0 : v1;
+            const int e4 = e8 & 3;
+            const int dot =
+                e4 == 0 ? vv.x : (e4 == 1 ? vv.y : (e4 == 2 ? vv.z : vv.w));
+            const int c = cl + 8 * (e8 >> 2) + (e4 & 1);
+            const int ql = hq + 8 * (e4 >> 1);
+            if (c >= cols) continue;
+            const float a = sa[c], xv = sx[c];
+            if (!maybe_below(__int2float_rn(dot) * (a * row_inv[ql]), xv,
+                             row_t[ql], p.euclid))
+              continue;
+            const uint32_t key = cand_key(p, dot, a, xv, row_sq[ql], sv, c);
+            if (key > row_key[ql]) continue;
+            const int ns = atomicAdd(nsurv, 1);
+            if (ns < CT_SURV) {
+              const unsigned int pos = atomicAdd(&s_cnt[ql], 1u);
+              surv[ns] = ((u64)key << 32) | ((u64)pos << 16) |
+                         ((u64)c << 8) | (u64)ql;
+            } else {  // the list is full (a loose T): its own atomic
+              put_pair(p, slab0 + ql, atomicAdd(&p.counts[slab0 + ql], 1u),
+                       key, row0 + c);
+            }
+          }
+        }
+        __syncwarp();  // the round's groups are read: the next round's land
+      }
+      
+      
+      consumer_sync(cw);
+      // one reservation in the query's buffer for the tile's survivors,
+      // not waited for: the bases are used at this consumer's next tile
+      if (tid < 64 * MH) {
+        held = s_cnt[tid];
+        s_cnt[tid] = 0;
+        if (held > 0) held_base = atomicAdd(&p.counts[slab0 + tid], held);
+      }
+      held_row0 = row0;
+      
+      consumer_sync(cw);  // the columns are read: the next tile's land
+    }
+    // the last tile's survivors
+    if (tid < 64 * MH && held > 0) s_base[tid] = held_base;
+    consumer_sync(cw);
+    write_survivors(p, surv, nsurv, s_base, slab0, held_row0, lane);
+  }
+  // no block leaves while the cluster's others may still signal its
+  // barriers
+  cluster_sync();
+}
+
+// the cluster count of each (device, kernel, cluster size, shared memory)
+// the card can hold at once, asked once
+struct ClusterFit {
+  int dev, mh, cluster, smem, count;
+};
+
+template <int MH>
+cudaError_t cand_clusters(cudaLaunchConfig_t* cfg, int cluster, int smem,
+                          int* count) {
+  static std::mutex mu;
+  static ClusterFit fits[32];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const ClusterFit& f = fits[i];
+    if (f.dev == dev && f.mh == MH && f.cluster == cluster && f.smem == smem) {
+      *count = f.count;
+      return cudaSuccess;
+    }
+  }
+  err = cudaOccupancyMaxActiveClusters(
+      count, (const void*)cand_int8_kernel<MH>, cfg);
+  if (err != cudaSuccess) return err;
+  if (*count < 1) return cudaErrorInvalidConfiguration;
+  if (used < 32) fits[used++] = {dev, MH, cluster, smem, *count};
+  return cudaSuccess;
+}
+
+template <int MH>
+int launch_cand(const CUtensorMap& tmq, const CUtensorMap& tmx,
+                const CandArgs& p, cudaStream_t st) {
+  const int smem = CT_FIXED + p.ktiles * MH * 64 * BK + p.stages * CT_STAGE;
+  if (smem > CT_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static SurrealSmemDone smem_done;
+  cudaError_t err = surreal_smem_limit(cand_int8_kernel<MH>, smem, &smem_done);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.cluster * surreal_sm_count()));
+  cfg.blockDim = dim3(RTHREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cand_clusters<MH>(&cfg, p.cluster, smem, &clusters);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters > p.tiles) clusters = p.tiles;
+  cfg.gridDim = dim3((unsigned)(clusters * p.cluster));
+  CUtensorMap a = tmq, b = tmx;
+  CandArgs q = p;
+  void* args[] = {&a, &b, &q};
+  err = cudaLaunchKernelExC(&cfg, (const void*)cand_int8_kernel<MH>, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 __global__ void quantize_rows_kernel(const T* __restrict__ rows, long long n,
                                      int d, int width, int metric,
@@ -811,7 +1339,8 @@ SURREAL_API int rank_candidates_int8(const int8_t* xs, const float* qs,
                                      const float* tile_x2min,
                                      int8_t* q8,
                                      float* qscale, long long n, int c,
-                                     int d, int euclid, void* stream) {
+                                     int d, int euclid, int cluster,
+                                     int halves, int stages, void* stream) {
   if (n <= 0 || c <= 0) return (int)cudaSuccess;
   if (!rank_shape_ok(xs, q8, qscale, arow, x2, n, d, euclid) ||
       thr == nullptr || pairs == nullptr || counts == nullptr || cap < 1 ||
@@ -821,6 +1350,44 @@ SURREAL_API int rank_candidates_int8(const int8_t* xs, const float* qs,
   const cudaError_t err =
       cudaMemsetAsync(counts, 0, (size_t)c * sizeof(unsigned int), st);
   if (err != cudaSuccess) return (int)err;
+  if (stages > 0) {
+    // the resident route, as ops/topk.py candidates_plan sized it: a
+    // cluster of `cluster` blocks of 128 queries (64 when halves = 1)
+    if (cluster < 1 || cluster > CT_CLUSTER_MAX || halves < 1 ||
+        halves > 2 || (cluster > 1 && halves != 2) ||
+        c <= (cluster - 1) * CT_SLAB ||
+        c > (cluster - 1) * CT_SLAB + halves * 64 ||
+        (reinterpret_cast<uintptr_t>(valid) & 15) != 0 ||
+        stages < 2 || stages > CT_MAX_STAGES)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tmq, tmx;
+    if (!tensor_map_2d(q8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, c, d,
+                       64 * halves, &tmq) ||
+        !tensor_map_2d(xs, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, d, CT_BOX,
+                       &tmx))
+      return (int)cudaErrorInvalidValue;
+    CandArgs a = {};
+    a.qscale = qscale;
+    a.arow = arow;
+    a.x2 = x2;
+    a.valid = valid;
+    a.thr = thr;
+    a.pairs = pairs;
+    a.counts = counts;
+    a.tile_x2min = tile_x2min;
+    a.cap = cap;
+    a.n = n;
+    a.c = c;
+    a.ktiles = (d + BK - 1) / BK;
+    a.euclid = euclid;
+    a.cluster = cluster;
+    a.stages = stages;
+    a.tiles = (int)((n + CT_ROWS - 1) / CT_ROWS);
+    return halves == 1 ? launch_cand<1>(tmq, tmx, a, st)
+                       : launch_cand<2>(tmq, tmx, a, st);
+  }
+  // the streamed route (rows too wide for a block to hold its queries):
+  // the scores kernel's main loop with the candidates epilogue
   RankArgs p = {};
   p.arow = arow;
   p.x2 = x2;

@@ -537,13 +537,13 @@ def _int8_args(x8, qs, metric, arow, x2, valid):
     arow = _aligned(arow.to(torch.float32).contiguous())
     x2 = _aligned(x2.to(torch.float32).contiguous()) if euclid else None
     if valid is not None:
-        valid = valid.to(torch.uint8).contiguous()
+        valid = _aligned(valid.to(torch.uint8).contiguous())
     return x8, qs, arow, x2, valid, euclid
 
 
 def _aligned(t):
     """t, or a copy of it when its data is not 16-byte aligned (the
-    kernels fetch per-row scales 16 bytes at a time)."""
+    kernels fetch per-row scales and mask bytes 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -628,10 +628,47 @@ def rank_candidates_plain(x8, qs, metric: str, arow, x2, valid, thr,
     return pairs, counts.to(torch.int32)
 
 
+# the candidates pass's resident route (csrc/rank_int8.cu
+# cand_int8_kernel): a block holds 128 queries (two halves of 64; one
+# half when C <= 64), a cluster of up to four blocks a launch of 512
+# queries; its ring stages are 16 KB k-steps of 128 store rows, as many
+# as shared memory holds beside the queries and the fixed part (alignment
+# slack, the consumers' columns, the eight consumer warps' areas (queue
+# of value groups, tags, survivor list: CT_WAREA), the per-query
+# constants and counters: CT_FIXED), between 3 and 8
+CAND_SLAB = 128
+CAND_LAUNCH = 512
+CAND_STAGE_BYTES = 128 * 128
+CAND_FIXED_BYTES = 1024 + 2 * 3 * 128 * 4 \
+    + 8 * (128 * 32 + 128 * 4 + 64 * 8 + 16) + 4 * 128 * 4 + 2 * 2 * 128 * 4
+CAND_SMEM_BYTES = 227 * 1024
+CAND_STAGES = (3, 8)
+
+
+def candidates_plan(c: int, width: int):
+    """(cluster blocks, query halves of 64 a block, ring stages) of the
+    candidates pass for 1 <= c <= 512 queries over int8 rows `width`
+    columns wide: ceil(c / 128) blocks, one half when c <= 64. Stages 0
+    (with (1, 0)) is the streamed route: the block's queries and three
+    stages do not fit in shared memory (rows past 1024 columns)."""
+    if not 1 <= c <= CAND_LAUNCH:
+        raise ValueError(f"{c} queries: a candidates launch takes 1.."
+                         f"{CAND_LAUNCH}")
+    halves = 1 if c <= 64 else 2
+    ktiles = -(-width // 128)
+    free = (CAND_SMEM_BYTES - CAND_FIXED_BYTES
+            - ktiles * halves * 64 * 128)
+    stages = min(CAND_STAGES[1], free // CAND_STAGE_BYTES)
+    if stages < CAND_STAGES[0]:
+        return 1, 0, 0
+    return -(-c // CAND_SLAB), halves, stages
+
+
 def rank_candidates_int8(x8, q8, qscale, metric: str, arow, x2, valid, thr,
                          cap: int):
     """Launch csrc/rank_int8.cu rank_candidates_int8 with the queries
-    quantised by an earlier rank_scores_int8 into q8 / qscale ->
+    quantised by an earlier rank_scores_int8 into q8 / qscale (one
+    launch per 512 queries, each as candidates_plan sizes it) ->
     (pairs [C, cap] int64 holding u64 (order key << 32 | row), in no
     order; counts [C] int32, also past cap)."""
     from surrealdb_tpu_torch.device import compile_cache
@@ -654,15 +691,18 @@ def rank_candidates_int8(x8, q8, qscale, metric: str, arow, x2, valid, thr,
         compile_cache.library("rank_int8.cu"), "rank_candidates_int8",
         [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p])
-    err = fn(x8.data_ptr(), None, arow.data_ptr(), _ptr(x2), _ptr(valid),
-             thr.data_ptr(), pairs.data_ptr(), counts.data_ptr(), cap,
-             _ptr(x2min), q8.data_ptr(), qscale.data_ptr(), n, c, width,
-             int(euclid), _stream(q8))
-    compile_cache.check(err, "rank_candidates_int8")
-    kernelstats.note_launch("rank_candidates_int8")
+                                 ctypes.c_longlong] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
+    for s in range(0, c, CAND_LAUNCH):
+        e = min(s + CAND_LAUNCH, c)
+        err = fn(x8.data_ptr(), None, arow.data_ptr(), _ptr(x2),
+                 _ptr(valid), thr[s:e].data_ptr(), pairs[s:e].data_ptr(),
+                 counts[s:e].data_ptr(), cap, _ptr(x2min),
+                 q8[s:e].data_ptr(), qscale[s:e].data_ptr(), n, e - s,
+                 width, int(euclid), *candidates_plan(e - s, width),
+                 _stream(q8))
+        compile_cache.check(err, "rank_candidates_int8")
+        kernelstats.note_launch("rank_candidates_int8")
     return pairs, counts
 
 
