@@ -26,7 +26,8 @@ exits non-zero):
               through the port's supervisor client and sends it frames:
               knn1m (1M x 768 cosine rows, bf16 rank + f32 rescore store,
               vec_knn at B in 1/128/512, recall@10 against an exact f64
-              oracle), brute (brute_knn over 20k x 128 cosine rows),
+              oracle, one rank, one candidate select and one fused
+              rescore a query chunk), brute (brute_knn over 20k x 128 cosine rows),
               graph3hop (1M nodes / 10M edges, 3-hop csr_hop at B in 1/8,
               frontier and union, bit-equal to the plain version), knn10m
               (10M x 768 cosine rows: the int8 rank store, vec_knn at B in
@@ -59,7 +60,7 @@ It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside it, it exits non-zero before printing any result.
 
-    python3 chip_smoke.py --only distance,csr,cand,ann
+    python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -67,11 +68,18 @@ and its times at the exact stores' shapes; csr: csr_hop_step; cand:
 rank_candidates_int8 at edge shapes and its times at a knn10m frame's
 shapes, over a 10M-row store made on the card; ann: ann_descent bit for
 bit at edge shapes and its times on the ann store, whose host build is
-kept under $CHIP_SMOKE_CACHE, default build/, for the next run), then
-stops without a result line. It also runs from an older checkout's root
-(copied there), whose distance_tile takes no row statistics and whose
-candidates pass has one route, to time that checkout's kernels at the
-same shapes.
+kept under $CHIP_SMOKE_CACHE, default build/, for the next run; pairs:
+select_topk_pairs bit for bit at edge shapes and on the pairs of a
+knn10m frame's candidates pass at B = 1, 128 and 512 over such a store,
+with its times; rescore: gather_rescore in both modes at edge shapes,
+its times at a knn1m frame's shapes, and the knn1m store's B = 512
+answers, saved under $CHIP_SMOKE_CACHE or held to the saved ones), then
+stops without a result line. Each kernel row gives the time by CUDA
+events over back-to-back calls and, for the pair select and the
+rescore, the profiler's device time alone. It also runs from an older
+checkout's root (copied there), whose distance_tile takes no row
+statistics, whose candidates pass has one route and whose rescore has
+no fused top k, to time that checkout's kernels at the same shapes.
 """
 
 from __future__ import annotations
@@ -122,6 +130,9 @@ SOURCES = {
                          "surrealdb_tpu/ops/topk.py:78"),
     "gather_rescore": ("surrealdb_tpu_torch/csrc/rank_rescore.cu",
                        "surrealdb_tpu/ops/topk.py:78"),
+    # its launches with the reference's final top k fused in
+    "gather_rescore_topk": ("surrealdb_tpu_torch/csrc/rank_rescore.cu",
+                            "surrealdb_tpu/ops/topk.py:120"),
     "csr_hop_step": ("surrealdb_tpu_torch/csrc/csr_hop.cu",
                      "surrealdb_tpu/device/csrstore.py:14"),
     "quantize_rows_int8": ("surrealdb_tpu_torch/csrc/rank_int8.cu",
@@ -233,6 +244,26 @@ def build_ann_index(cache=None):
     return out
 
 
+def port_source_hash() -> str:
+    """sha256 (16 hex digits) of the port's sources beside this script
+    (surrealdb_tpu_torch/**/*.py, .cu, .cuh, .h): which tree wrote a
+    saved answer."""
+    import hashlib
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "surrealdb_tpu_torch")
+    h = hashlib.sha256()
+    for base, dirs, files in sorted(os.walk(root)):
+        dirs.sort()
+        for name in sorted(files):
+            if name.endswith((".py", ".cu", ".cuh", ".h")):
+                full = os.path.join(base, name)
+                h.update(os.path.relpath(full, root).encode())
+                with open(full, "rb") as f:
+                    h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def bound(nbytes, ops, peak):
     """Least time (ms) the card could take: the larger of bytes over
     the HBM rate and operations over the peak rate of their type."""
@@ -245,12 +276,13 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser()
+    checks = ("distance", "csr", "cand", "ann", "pairs", "rescore")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
-                         "(distance, csr, cand, ann)")
+                         f"({', '.join(checks)})")
     args = ap.parse_args(argv)
     only = args.only.split(",") if args.only else None
-    if only and set(only) - {"distance", "csr", "cand", "ann"}:
+    if only and set(only) - set(checks):
         ap.error(f"unknown checks {only}")
 
     import torch
@@ -657,6 +689,10 @@ def main(argv=None) -> int:
         return nn_, ne, src_np, dst_np, rows, cols, starts
 
     # -- the candidates pass's and the descent's checks (also `--only`) -------
+    # what an `--only` run keeps for the next (an index built on the
+    # host, a parent checkout's answers)
+    cache_dir = os.environ.get("CHIP_SMOKE_CACHE", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
     # a parent checkout (copied there) has no candidates_plan: one route
     cand_plan = getattr(T, "candidates_plan", None)
 
@@ -723,12 +759,13 @@ def main(argv=None) -> int:
 
     def cand_path_rows(x8, arow, valid, qs, kc):
         """The candidates pass at a knn10m frame's shapes (B = 1, 128 and
-        512, inputs as int8_topk makes them): its time and bound, and at
-        B = 512 its plain version (check_pairs) and the int8 product
-        alone (torch._int_mm over 1M-row blocks). Returns the B = 512
-        pass's (pairs, counts, cap)."""
+        512, inputs as int8_topk makes them): its time and bound, its
+        plain version (check_pairs) and the int8 product alone
+        (torch._int_mm over 1M-row blocks; the queries padded with zero
+        columns to a multiple of 8, which _int_mm requires). Returns each
+        pass's {queries: (pairs, counts, cap)}."""
         n_, w_ = x8.shape
-        out = None
+        out = {}
         for c_ in (1, 128, qs.shape[0]):
             q8c, qsc, thr, cap_ = cand_inputs(x8, arow, valid, qs[:c_], kc)
             kept = []
@@ -742,18 +779,14 @@ def main(argv=None) -> int:
             bms, bby = bound(n_ * w_ + 5 * n_ + c_ * w_ + 8 * c_ + 8 * surv,
                              2 * c_ * n_ * w_, PEAK_INT8)
             shape = f"C={c_} N={n_} D={w_} cosine cap={cap_}"
-            row = dict(shape=shape, ms=ms, bound_ms=bms, bound_by=bby,
-                       survivors=surv,
-                       plan=cand_plan(c_, w_) if cand_plan else None)
-            if c_ < qs.shape[0]:
-                emit("kernel", name="rank_candidates_int8", **row)
-                continue
             plain_ms = cuda_ms(lambda: T.rank_candidates_plain(
-                x8, qs, "cosine", arow, None, valid, thr, cap_), 1, kept)
+                x8, qs[:c_], "cosine", arow, None, valid, thr, cap_), 1,
+                kept)
             pp, pn = kept[-1]
             check_pairs(pairs, counts, pp, pn, f"rank_candidates_int8 {shape}")
             del pp, pn, kept
-            q8t = q8c.t()
+            pad = -c_ % 8
+            q8t = torch.nn.functional.pad(q8c, (0, 0, 0, pad)).t()
 
             def int_mm_blocks():  # the product alone, in 1M-row blocks
                 for s0 in range(0, n_, 1 << 20):
@@ -765,18 +798,21 @@ def main(argv=None) -> int:
                 print(f"torch._int_mm refused the {c_}-query blocks: {e}",
                       file=sys.stderr)
                 lib = None
-            note("rank_candidates_int8", 0.0, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib, bound_ms=bms, bound_by=bby, shape=shape)
+            row = dict(shape=shape, ms=ms, bound_ms=bms, bound_by=bby,
+                       plain_ms=plain_ms, library_ms=lib,
+                       library_queries_padded_to=c_ + pad, survivors=surv,
+                       plan=cand_plan(c_, w_) if cand_plan else None)
+            if c_ == qs.shape[0]:
+                note("rank_candidates_int8", 0.0, ms=ms, plain_ms=plain_ms,
+                     library_ms=lib, bound_ms=bms, bound_by=bby, shape=shape)
             emit("kernel", name="rank_candidates_int8", tol=[0, 0],
-                 max_abs_err=0.0, plain_ms=plain_ms, library_ms=lib, **row)
-            out = (pairs, counts, cap_)
+                 max_abs_err=0.0, **row)
+            out[c_] = (pairs, counts, cap_)
         return out
 
-    def cand_only():
-        """`--only cand`: the edge checks, then the frame rows over a
-        10M x 768 cosine store quantised on the card from its own normal
-        rows, with the knn10m queries."""
-        cand_edge_checks()
+    def knn10m_like_store():
+        """A 10M x 768 cosine int8 store quantised on the card from its
+        own normal rows, with the knn10m queries and kc."""
         n_, d_ = KNN10M["n"], KNN10M["dim"]
         w_ = T.int8_width(d_)
         gc = torch.Generator(device=dev).manual_seed(KNN10M["seed"])
@@ -792,9 +828,79 @@ def main(argv=None) -> int:
                                           KNN10M["seed"] + 1)).to(dev)
         kc = min(n_, max(cnf.KNN_INT8_OVERSAMPLE * KNN10M["k"],
                          KNN10M["k"] + 16))
-        cand_path_rows(x8, a8, torch.ones(n_, dtype=torch.bool, device=dev),
-                       qs, kc)
-        del x8, a8, x2
+        return x8, a8, torch.ones(n_, dtype=torch.bool, device=dev), qs, kc
+
+    def cand_only():
+        """`--only cand`: the edge checks, then the frame rows over a
+        10M-row store made on the card."""
+        cand_edge_checks()
+        x8, a8, ones, qs, kc = knn10m_like_store()
+        cand_path_rows(x8, a8, ones, qs, kc)
+        del x8, a8, ones
+        torch.cuda.empty_cache()
+
+    def pairs_only():
+        """`--only pairs`: the edge checks, then the knn10m path's pairs
+        (the candidates pass of B = 1, 128 and 512 over a 10M-row store
+        made on the card)."""
+        pair_edge_checks()
+        x8, a8, ones, qs, kc = knn10m_like_store()
+        path = {}
+        for c_ in (1, 128, qs.shape[0]):
+            q8c, qsc, thr, cap_ = cand_inputs(x8, a8, ones, qs[:c_], kc)
+            path[c_] = T.rank_candidates_int8(x8, q8c, qsc, "cosine", a8,
+                                              None, ones, thr, cap_) + (cap_,)
+        del x8, a8, ones
+        torch.cuda.empty_cache()
+        pair_path_rows(path, kc)
+
+    def rescore_only():
+        """`--only rescore`: the edge checks (where this checkout has the
+        fused rescore), then the knn1m store as a VecStore on the card:
+        the rescore held to its plain versions and timed at B = 1, 128
+        and 512, and the answers of a B = 512 frame, written to
+        $CHIP_SMOKE_CACHE/knn1m_answers.npz with the writing tree's
+        source hash when that file is absent, else held to it (ids equal
+        wherever its neighbouring distances differ by more than 1e-4,
+        distances within atol 1e-4, rtol 1e-5; the line says `"against":
+        "self"` when this tree wrote the file): run it in a parent
+        checkout first."""
+        if fused_rescore is not None:
+            rescore_edge_checks()
+        n_, d_, k_ = KNN1M["n"], KNN1M["dim"], KNN1M["k"]
+        rng_ = np.random.default_rng(KNN1M["seed"])
+        xs_ = rng_.standard_normal((n_, d_), dtype=np.float32)
+        qs_np_ = rng_.standard_normal((max(KNN1M["batches"]), d_),
+                                      dtype=np.float32)
+        st_ = VecStore("rescore", xs_, np.ones(n_, np.uint8), "cosine", 3.0,
+                       cnf.device_cfg(), dev)
+        st_.ensure()
+        check(st_.rank_mode == "bf16", f"knn1m rank mode {st_.rank_mode}")
+        q_ = torch.from_numpy(qs_np_).to(dev)
+        kc_ = max(2 * k_, k_ + 16)
+        rescore_path_rows(st_.device_full, st_.device_norms, q_, {
+            c_: T.select_topk_rows(T.rank_scores_bf16(
+                st_.device_rank, q_[:c_], "cosine"), kc_)[1]
+            for c_ in KNN1M["batches"]}, k_)
+        _, (ad, ai) = st_.knn(qs_np_, k_)
+        path = os.path.join(cache_dir, "knn1m_answers.npz")
+        tree = port_source_hash()
+        if os.path.exists(path):
+            with np.load(path) as z:
+                writer = str(z["tree"]) if "tree" in z else "unknown"
+                check(np.allclose(ad, z["d"], atol=1e-4, rtol=1e-5),
+                      "knn1m distances differ from the saved answers")
+                check_ids(z["d"], z["i"], ai, "knn1m vs the saved answers")
+                same = int((ai == z["i"]).sum())
+            # answers this tree wrote itself compare nothing
+            emit("knn1m_answers", compared=path, writer=writer, tree=tree,
+                 against="self" if writer == tree else "another tree",
+                 ids_equal=same, ids=int(ai.size))
+        else:
+            os.makedirs(cache_dir, exist_ok=True)
+            np.savez(path, d=ad, i=ai, tree=np.array(tree))
+            emit("knn1m_answers", written=path, tree=tree)
+        del st_, q_
         torch.cuda.empty_cache()
 
     def check_ann_descent(only=False):
@@ -807,9 +913,8 @@ def main(argv=None) -> int:
         f64 top 10 of the recall queries."""
         # built here, when no other path is measured: the build keeps the
         # host's cores busy for tens of seconds
-        cache = os.path.join(os.environ.get("CHIP_SMOKE_CACHE", os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "build")),
-            f"ann_index_{ANN['n']}_{ANN['seed']}.npz") if only else None
+        cache = os.path.join(cache_dir, f"ann_index_{ANN['n']}_"
+                             f"{ANN['seed']}.npz") if only else None
         a = build_ann_index(cache)
         st = A.AnnStore("check", a["graph"], a["x8"], a["arow"], a["x2q"],
                         "cosine", ann_cfg, dev)
@@ -899,6 +1004,294 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         return a, plain_ids, oracle
 
+    # -- the pair select's and the rescore's checks (also `--only`) ----------
+    # a parent checkout (copied there) has no fused rescore
+    fused_rescore = getattr(T, "gather_rescore_topk_cuda", None)
+
+    def device_ms(fn, iters=20, name=None):
+        """Device time (ms) of one call, from torch.profiler: the CUDA
+        kernels whose names hold `name` (all of them when None), summed
+        over `iters` calls after a warm one; None when the profiler saw
+        no such kernel."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and (name is None or name in e.name))
+        return us / 1e3 / iters if us else None
+
+    def bits_equal(a, b):
+        """Equal bit for bit (-0.0 is not +0.0)."""
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return torch.equal(a, b)
+
+    def pair_rows(rows, cap, k, kind, gen):
+        """Packed (order key << 32 | id) rows of one kind, ids a
+        permutation in each row, and counts: row 0 past cap, rows 1, 2
+        and 3 (where there are) at k - 1, k and 0, the rest in [k, cap]."""
+        shape = (rows, cap)
+        if kind == "binade":  # distances within one binade
+            v = 0.5 + 0.5 * torch.rand(shape, generator=gen, device=dev)
+        elif kind == "signed":  # negative and positive values
+            v = torch.randn(shape, generator=gen, device=dev) * 4
+        elif kind == "equal":  # min key = max key in every row
+            v = torch.full(shape, 0.75, device=dev)
+        else:  # ties: values on a 1/64 grid, the first half of row 0 one
+            v = torch.round(torch.randn(shape, generator=gen,
+                                        device=dev) * 64) / 64
+            v[0, :cap // 2] = v[0, 0]
+        ids = torch.argsort(torch.rand(shape, generator=gen, device=dev),
+                            dim=1)
+        if kind == "dup":  # every pair of row 0 the same (key, id)
+            v = torch.rand(shape, generator=gen, device=dev)
+            v[0] = 0.25
+            ids[0] = 7
+        counts = torch.randint(k, cap + 1, (rows,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        counts[0] = cap + 5
+        for r, cnt in ((1, k - 1), (2, k), (3, 0)):
+            if r < rows:
+                counts[r] = cnt
+        return T.pack_pairs_plain(T.order_key_plain(v), ids), counts
+
+    def pair_edge_checks():
+        """select_topk_pairs bit for bit against top_k_pairs_plain: R 1 /
+        16 / 128 / 131 / 132 / 512, k 1 / 26 / 1280 / 4096 / 5000 (the
+        buffer in shared memory up to 8192 keys, then in scratch), rows
+        with ties, all-equal keys, identical pairs, one binade, negative
+        and positive values, counts 0, k - 1, k and past cap."""
+        gen = torch.Generator(device=dev).manual_seed(5)
+        n_chk = 0
+        for rows_, cap_, k_, kind in (
+                (1, 70_000, 1280, "ties"), (16, 131_072, 1280, "ties"),
+                (128, 65_536, 1280, "binade"), (131, 40_000, 26, "signed"),
+                (132, 50_000, 4096, "ties"), (512, 24_576, 1280, "binade"),
+                (512, 8192, 1280, "ties"), (512, 40_000, 26, "equal"),
+                (16, 30_000, 1, "signed"), (3, 50_000, 5000, "signed"),
+                (4, 20_000, 1280, "dup"), (16, 9000, 7000, "ties"),
+                (16, 2000, 1280, "binade")):
+            pairs_, counts_ = pair_rows(rows_, cap_, k_, kind, gen)
+            kv, ki = T.select_topk_pairs(pairs_, counts_, k_)
+            pv, pi = T.top_k_pairs_plain(pairs_, counts_, k_)
+            check(bits_equal(kv, pv) and torch.equal(ki, pi),
+                  f"select_topk_pairs R={rows_} cap={cap_} k={k_} {kind}: "
+                  "not bit-equal to the plain version")
+            n_chk += 1
+        emit("kernel", name="select_topk_pairs", tol=[0, 0],
+             edge_shapes_checked=n_chk)
+        torch.cuda.empty_cache()
+
+    def pair_path_rows(path, kc_):
+        """select_topk_pairs on the candidates pass's own pairs of a
+        knn10m frame (`path`: {queries: (pairs, counts, cap)}) at B = 1,
+        128 and 512: bit-equal to the plain version, its time (CUDA
+        events and the profiler's device time), the plain version's, and
+        torch.topk over the same keys made signed-order-preserving (the
+        sign bit flipped, entries past the count the int64 maximum,
+        prepared outside the timed call)."""
+        for c_, (pairs_, counts_, cap_) in sorted(path.items()):
+            kv, ki = T.select_topk_pairs(pairs_, counts_, kc_)
+            pv, pi = T.top_k_pairs_plain(pairs_, counts_, kc_)
+            check(bits_equal(kv, pv) and torch.equal(ki, pi),
+                  f"select_topk_pairs R={c_} cap={cap_} k={kc_} (the "
+                  "knn10m path's pairs) not bit-equal to the plain version")
+            del kv, ki, pv, pi
+            surv = int(counts_.clamp(max=cap_).sum())
+            live = (torch.arange(cap_, device=dev)[None, :]
+                    < counts_.clamp(max=cap_)[:, None])
+            signed = torch.where(live, pairs_ ^ (-(1 << 63)),
+                                 torch.iinfo(torch.int64).max)
+            fms, fby = bound(8 * surv + 4 * c_ + 8 * c_ * kc_, surv,
+                             PEAK_F32)
+            iters = 20 if c_ < 512 else 10
+            row = dict(
+                shape=f"R={c_} cap={cap_} k={kc_} ({surv} pairs)",
+                ms=cuda_ms(lambda: T.select_topk_pairs(pairs_, counts_,
+                                                       kc_), iters),
+                device_ms=device_ms(lambda: T.select_topk_pairs(
+                    pairs_, counts_, kc_), iters, "select"),
+                plain_ms=cuda_ms(lambda: T.top_k_pairs_plain(
+                    pairs_, counts_, kc_), 1),
+                library_ms=cuda_ms(lambda: torch.topk(
+                    signed, kc_, dim=1, largest=False), iters),
+                bound_ms=fms, bound_by=fby)
+            del signed, live
+            if c_ == max(path):
+                note("select_topk_pairs", 0.0, **row)
+            emit("kernel", name="select_topk_pairs", tol=[0, 0],
+                 max_abs_err=0.0, **row)
+
+    def rescore_edge_checks():
+        """gather_rescore in both modes on C 1 / 7 / 128 / 200 / 512 (a
+        query's columns over clusters of 8 to 1 blocks: at kc 26 on 132
+        SMs 4, 4, 3, 2, 1), kc 1 / 26 / RESCORE_TOPK_MAX_KC and one past it, D 8 / 24 / 37 / 768 / 772,
+        three metrics, masked rows, zero rows (dot: -0.0) and duplicate,
+        wrapped and clamped ids: the [C, kc] distances within atol 1e-4,
+        rtol 1e-5 of the plain version; the fused top k bit-equal to the
+        [C, kc] mode followed by select_topk_rows(d, k, ids=cand), and
+        its ids the plain version's where distances are apart; past the
+        largest kc, the select route (the event rescore_select_route)."""
+        gen = torch.Generator(device=dev).manual_seed(7)
+        kmax = T.RESCORE_TOPK_MAX_KC
+        n_ = 50_003
+        n_chk, err = 0, 0.0
+        for d_ in (8, 24, 37, 768, 772):
+            xs = torch.randn(n_, d_, generator=gen, device=dev)
+            xs[::97] = 0.0
+            norms_ = xs.norm(dim=1).clamp_min(1e-30)
+            valid_ = torch.rand(n_, generator=gen, device=dev) > 0.1
+            for c_ in (1, 7, 128, 200, 512):
+                qs_ = torch.randn(c_, d_, generator=gen, device=dev)
+                for kc_ in (1, 26, kmax, kmax + 1):
+                    if c_ * kc_ * d_ > 200_000_000:
+                        continue
+                    cand_ = torch.randint(-n_ - 3, n_ + 3, (c_, kc_),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32)
+                    if kc_ > 4:
+                        cand_[:, 3] = cand_[:, 1]  # ties by column
+                    for metric in ("euclidean", "cosine", "dot"):
+                        for vm in (None, valid_):
+                            what = (f"gather_rescore C={c_} kc={kc_} "
+                                    f"D={d_} {metric} "
+                                    f"masked={vm is not None}")
+                            d = T.gather_rescore_cuda(xs, qs_, cand_, metric,
+                                                      norms_, vm)
+                            pd = T.gather_rescore_plain(xs, qs_, cand_,
+                                                        metric, norms_, vm)
+                            err = max(err, max_err(d, pd, 1e-4, 1e-5, what))
+                            for k_ in sorted({1, min(10, kc_), kc_}):
+                                if kc_ > kmax:
+                                    ev0 = kernelstats.events()
+                                    fv, fi = T.gather_rescore_topk(
+                                        xs, qs_, cand_, metric, k_, norms_,
+                                        vm)
+                                    check(kernelstats.events()[
+                                        "rescore_select_route"]
+                                        == ev0["rescore_select_route"] + 1,
+                                        f"{what}: kc past the fused "
+                                        "limit must take the select route")
+                                else:
+                                    fv, fi = T.gather_rescore_topk_cuda(
+                                        xs, qs_, cand_, metric, k_, norms_,
+                                        vm)
+                                sv, si = T.select_topk_rows(d, k_, ids=cand_)
+                                check(bits_equal(fv, sv)
+                                      and torch.equal(fi, si),
+                                      f"{what} k={k_}: the fused top k is "
+                                      "not the [C, kc] mode + "
+                                      "select_topk_rows bit for bit")
+                                pv, pi = T.gather_rescore_topk_plain(
+                                    xs, qs_, cand_, metric, k_, norms_, vm)
+                                err = max(err, max_err(fv, pv, 1e-4, 1e-5,
+                                                       f"{what} k={k_}"))
+                                check_ids(pv.cpu().numpy(), pi.cpu().numpy(),
+                                          fi.cpu().numpy(),
+                                          f"{what} k={k_}")
+                            n_chk += 1
+        # -0.0 stays -0.0: a dot with a zero row
+        zc = torch.tensor([[0, 97, 5]], dtype=torch.int32, device=dev)
+        zq = torch.randn(1, 8, generator=gen, device=dev)
+        zx = torch.randn(200, 8, generator=gen, device=dev)
+        zx[0] = 0.0
+        zx[97] = 0.0
+        zv, zi = T.gather_rescore_topk_cuda(zx, zq, zc, "dot", 3)
+        zs = T.select_topk_rows(T.gather_rescore_cuda(zx, zq, zc, "dot"), 3,
+                                ids=zc)
+        check(bits_equal(zv, zs[0]) and torch.equal(zi, zs[1])
+              and bool(torch.signbit(zv[zv == 0]).all()),
+              "gather_rescore_topk: a -0.0 distance must stay -0.0")
+        emit("kernel", name="gather_rescore", tol=[1e-4, 1e-5],
+             max_abs_err=err, edge_shapes_checked=n_chk,
+             largest_fused_kc=kmax)
+        torch.cuda.empty_cache()
+        return err
+
+    def rescore_path_rows(full_, norms_, qs_, cand_by_c, kk):
+        """The rescore at a knn1m frame's shapes (C = 1, 128, 512; kc
+        candidates of the bf16 rank), each held first to its plain
+        versions: the [C, kc] distances within atol 1e-4, rtol 1e-5 of
+        gather_rescore_plain; where this checkout has the fused step,
+        its top k bit-equal to the [C, kc] mode + select_topk_rows(d, k,
+        ids=cand), within the tolerance of gather_rescore_topk_plain and
+        its ids the plain version's where distances are apart. Then the
+        [C, kc] kernel's time (CUDA events and the profiler's device
+        time), its bound and plain version; and the step that ends a
+        query chunk, this tree's fused rescore against the parent's
+        rescore + select_topk_rows, each timed on its own. Returns the
+        C = 512 row and the largest error."""
+        out, err = {}, 0.0
+        dim_ = full_.shape[1]
+        plan = getattr(T, "rescore_plan", None)
+        for c_, cand_ in sorted(cand_by_c.items()):
+            q_ = qs_[:c_]
+            kc_ = cand_.shape[1]
+            cl_ = (plan(c_, kc_, torch.cuda.get_device_properties(
+                dev).multi_processor_count) if plan else None)
+            what = (f"gather_rescore C={c_} kc={kc_} D={dim_} cosine "
+                    f"(a knn1m frame's candidates, cluster {cl_})")
+            d = T.gather_rescore_cuda(full_, q_, cand_, "cosine", norms_)
+            e_ = max_err(d, T.gather_rescore_plain(
+                full_, q_, cand_, "cosine", norms_), 1e-4, 1e-5, what)
+            if fused_rescore is not None:
+                fv, fi = fused_rescore(full_, q_, cand_, "cosine", kk,
+                                       norms_)
+                sv, si = T.select_topk_rows(d, kk, ids=cand_)
+                check(bits_equal(fv, sv) and torch.equal(fi, si),
+                      f"{what} k={kk}: the fused top k is not the [C, kc] "
+                      "mode + select_topk_rows bit for bit")
+                pv, pi = T.gather_rescore_topk_plain(
+                    full_, q_, cand_, "cosine", kk, norms_)
+                e_ = max(e_, max_err(fv, pv, 1e-4, 1e-5, f"{what} k={kk}"))
+                check_ids(pv.cpu().numpy(), pi.cpu().numpy(),
+                          fi.cpu().numpy(), f"{what} k={kk}")
+                del fv, fi, sv, si, pv, pi
+            del d
+            err = max(err, e_)
+            gms, gby = bound(4 * c_ * kc_ * dim_ + 4 * c_ * dim_
+                             + 4 * c_ * kc_ * 2, 2 * c_ * kc_ * dim_,
+                             PEAK_F32)
+            iters = 50
+            row = dict(
+                shape=f"C={c_} kc={kc_} D={dim_} cosine",
+                ms=cuda_ms(lambda: T.gather_rescore_cuda(
+                    full_, q_, cand_, "cosine", norms_), iters),
+                device_ms=device_ms(lambda: T.gather_rescore_cuda(
+                    full_, q_, cand_, "cosine", norms_), iters,
+                    "gather_rescore"),
+                plain_ms=cuda_ms(lambda: T.gather_rescore_plain(
+                    full_, q_, cand_, "cosine", norms_), 5),
+                library_ms=None, bound_ms=gms, bound_by=gby,
+                max_abs_err=e_, cluster=cl_)
+
+            def parent_step():
+                return T.select_topk_rows(T.gather_rescore_cuda(
+                    full_, q_, cand_, "cosine", norms_), kk, ids=cand_)
+
+            steps = {"rescore_then_select": parent_step}
+            if fused_rescore is not None:
+                steps["fused"] = lambda: fused_rescore(
+                    full_, q_, cand_, "cosine", kk, norms_)
+            for sname, fn in steps.items():
+                row[f"{sname}_ms"] = cuda_ms(fn, iters)
+                row[f"{sname}_device_ms"] = device_ms(fn, iters)
+            # with the final k written: the bound of the fused step
+            row["fused_bound_ms"] = bound(
+                4 * c_ * kc_ * dim_ + 4 * c_ * dim_ + 4 * c_ * kc_
+                + 8 * c_ * kk, 2 * c_ * kc_ * dim_, PEAK_F32)[0]
+            out[c_] = row
+            emit("kernel", name="gather_rescore", tol=[1e-4, 1e-5], **row)
+        return out[max(out)], err
+
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -920,6 +1313,10 @@ def main(argv=None) -> int:
             cand_only()
         if "ann" in only:
             check_ann_descent(only=True)
+        if "pairs" in only:
+            pairs_only()
+        if "rescore" in only:
+            rescore_only()
         emit("only", checks=only,
              seconds=round(time.perf_counter() - t_start, 3))
         return 0
@@ -974,32 +1371,9 @@ def main(argv=None) -> int:
                       f"ids={im is not None}")
                 n_sel += 1
     del v_, ids_, kv, ki, pv, pi
-    # select_topk_pairs: packed (order key << 32 | id) rows in shuffled
-    # order with planted ties, counts past the buffer (read up to it) and
-    # short of k (left to the caller: +inf, -1)
-    n_pairs = 0
-    for rows_, cap_, k_ in ((1, 70_000, 1280), (16, 131_072, 1280),
-                            (512, 8192, 1280), (512, 40_000, 26),
-                            (3, 50_000, 5000)):
-        keys_ = T.order_key_plain(torch.round(torch.randn(
-            rows_, cap_, generator=gd, device=dev) * 64) / 64)
-        keys_[0, :cap_ // 2] = keys_[0, 0]
-        ids_ = torch.argsort(torch.rand(rows_, cap_, generator=gd,
-                                        device=dev), dim=1)
-        pairs_ = T.pack_pairs_plain(keys_, ids_)
-        counts_ = torch.randint(k_, cap_ + 1, (rows_,), generator=gd,
-                                device=dev, dtype=torch.int32)
-        counts_[0] = cap_ + 5
-        if rows_ > 2:
-            counts_[2] = k_ - 1
-        kv, ki = T.select_topk_pairs(pairs_, counts_, k_)
-        pv, pi = T.top_k_pairs_plain(pairs_, counts_, k_)
-        check(torch.equal(ki, pi) and torch.equal(kv, pv),
-              f"select_topk_pairs R={rows_} cap={cap_} k={k_}")
-        n_pairs += 1
-    del keys_, ids_, pairs_, counts_, kv, ki, pv, pi
-    emit("kernel", name="select_topk_rows", edge_shapes_checked=n_sel,
-         pair_shapes_checked=n_pairs)
+    emit("kernel", name="select_topk_rows", edge_shapes_checked=n_sel)
+    # select_topk_pairs at its edge shapes, bit for bit
+    pair_edge_checks()
 
     # the knn1m store (also shipped to the runner below)
     n, dim = KNN1M["n"], KNN1M["dim"]
@@ -1115,32 +1489,48 @@ def main(argv=None) -> int:
          ms=kern["select_topk_rows"]["ms"])
     del score, pv, pcand
 
-    # gather_rescore at the path's shape, with a mask
+    # gather_rescore: both modes at edge shapes; at the path's shape
+    # with a mask; then its times at the kc candidates of B = 1, 128 and
+    # 512 frames
+    err = rescore_edge_checks()
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     valid[::41] = False
     tol_g = (1e-4, 1e-5)
-    err = max_err(T.gather_rescore_cuda(full, qs, cand, "cosine", norms,
-                                        valid),
-                  T.gather_rescore_plain(full, qs, cand, "cosine", norms,
-                                         valid),
-                  *tol_g, "gather_rescore cosine 512x26x768")
-    for metric in ("euclidean", "dot"):
-        e2 = max_err(T.gather_rescore_cuda(full, qs, cand, metric, norms),
-                     T.gather_rescore_plain(full, qs, cand, metric, norms),
-                     *tol_g, f"gather_rescore {metric}")
-        err = max(err, e2)
-    gms, gby = bound(4 * c * kc * dim + 4 * c * dim + 4 * c * kc * 3
-                     + c * kc, 2 * c * kc * dim, PEAK_F32)
-    note("gather_rescore", err,
-         ms=cuda_ms(lambda: T.gather_rescore_cuda(full, qs, cand, "cosine",
-                                                  norms, valid), 20),
-         plain_ms=cuda_ms(lambda: T.gather_rescore_plain(
-             full, qs, cand, "cosine", norms, valid), 20),
-         library_ms=None, bound_ms=gms, bound_by=gby,
-         shape=f"C={c} kc={kc} D={dim} cosine")
-    emit("kernel", name="gather_rescore", tol=tol_g, max_abs_err=err,
-         ms=kern["gather_rescore"]["ms"])
-    del cand, cv, valid
+    d512 = T.gather_rescore_cuda(full, qs, cand, "cosine", norms, valid)
+    err = max(err, max_err(d512, T.gather_rescore_plain(
+        full, qs, cand, "cosine", norms, valid), *tol_g,
+        "gather_rescore cosine 512x26x768 masked"))
+    fv, fi = T.gather_rescore_topk_cuda(full, qs, cand, "cosine", k, norms,
+                                        valid)
+    sv, si = T.select_topk_rows(d512, k, ids=cand)
+    check(bits_equal(fv, sv) and torch.equal(fi, si),
+          "gather_rescore_topk 512x26x768 masked: not the [C, kc] mode + "
+          "select_topk_rows bit for bit")
+    pv, pi = T.gather_rescore_topk_plain(full, qs, cand, "cosine", k, norms,
+                                         valid)
+    err = max(err, max_err(fv, pv, *tol_g, "gather_rescore_topk 512x26x768"))
+    check_ids(pv.cpu().numpy(), pi.cpu().numpy(), fi.cpu().numpy(),
+              "gather_rescore_topk 512x26x768")
+    del d512, fv, fi, sv, si, pv, pi, valid
+    cand_by_c = {c: cand}
+    for c_e in (1, 128):
+        cand_by_c[c_e] = T.select_topk_rows(
+            T.rank_scores_bf16(rank, qs[:c_e], "cosine"), kc)[1]
+    grow, gerr = rescore_path_rows(full, norms, qs, cand_by_c, k)
+    err = max(err, gerr)
+    note("gather_rescore", err, **{key: grow[key] for key in (
+        "shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")})
+    note("gather_rescore_topk", err, shape=f"C={c} kc={kc} k={k} D={dim} "
+         "cosine", ms=grow["fused_ms"], device_ms=grow["fused_device_ms"],
+         plain_ms=cuda_ms(lambda: T.gather_rescore_topk_plain(
+             full, qs, cand, "cosine", k, norms), 5),
+         library_ms=None, bound_ms=grow["fused_bound_ms"],
+         bound_by=grow["bound_by"])
+    emit("kernel", name="gather_rescore_topk", tol=tol_g, max_abs_err=err,
+         ms=kern["gather_rescore_topk"]["ms"],
+         device_ms=kern["gather_rescore_topk"]["device_ms"])
+    del cand, cv, cand_by_c
 
     nn_, ne, src_np, dst_np, rows, cols, starts = csr_checks()
     b = max(GRAPH["batches"])
@@ -1160,12 +1550,15 @@ def main(argv=None) -> int:
     oms, oby = bound(nb_ + 3 * b * nn_, nb_, PEAK_F32)
     note("mask_or_reduce", 0.0,
          ms=cuda_ms(lambda: MG.mask_or_reduce(mparts, macc), 20),
+         device_ms=device_ms(lambda: MG.mask_or_reduce(mparts, macc), 20,
+                             "mask_or_kernel"),
          plain_ms=cuda_ms(lambda: MG.mask_or_plain(mparts, pacc), 10),
          library_ms=cuda_ms(lambda: torch.stack(mparts).amax(0), 10),
          bound_ms=oms, bound_by=oby,
          shape=f"S={MESH['ndev']} B={b} n={nn_} acc")
     emit("kernel", name="mask_or_reduce", tol=[0, 0], max_abs_err=0.0,
-         ms=kern["mask_or_reduce"]["ms"])
+         ms=kern["mask_or_reduce"]["ms"],
+         device_ms=kern["mask_or_reduce"]["device_ms"])
     del mparts, macc, pacc
 
     # merge_partials_topk: partial top-k tiles with planted ties, +inf
@@ -1616,27 +2009,13 @@ def main(argv=None) -> int:
     del ss
     torch.cuda.empty_cache()
     # the candidates pass at B = 1, 128 and 512 (inputs made as the path
-    # makes them), held to its plain version at B = 512
-    pairs10, counts10, cap_p = cand_path_rows(x8_10, arow10, ones10, qs512,
-                                              kc10)
-    check(cap_p == cap10, f"candidates buffer {cap_p} != {cap10}")
-    surv = int(counts10.sum())
-    fms, fby = bound(8 * surv + 4 * c512 + 8 * c512 * kc10, surv, PEAK_F32)
-    kept = []
-    psel_ms = cuda_ms(lambda: T.select_topk_pairs(pairs10, counts10, kc10),
-                      5, kept)
-    psel_plain_ms = cuda_ms(lambda: T.top_k_pairs_plain(pairs10, counts10,
-                                                        kc10), 1, kept)
-    (kv, ki), (pv, pi) = kept
-    check(torch.equal(kv, pv) and torch.equal(ki, pi),
-          f"select_topk_pairs R={c512} cap={cap10} k={kc10}")
-    del kept, kv, ki, pv, pi
-    note("select_topk_pairs", 0.0, ms=psel_ms, plain_ms=psel_plain_ms,
-         library_ms=None, bound_ms=fms, bound_by=fby,
-         shape=f"R={c512} cap={cap10} k={kc10} ({surv} pairs)")
-    emit("kernel", name="select_topk_pairs", tol=[0, 0], max_abs_err=0.0,
-         ms=kern["select_topk_pairs"]["ms"])
-    del pairs10, counts10, q8a, qsa, thr10
+    # makes them), held to its plain version; then the final select of
+    # each pass's own pairs
+    path10 = cand_path_rows(x8_10, arow10, ones10, qs512, kc10)
+    check(path10[c512][2] == cap10,
+          f"candidates buffer {path10[c512][2]} != {cap10}")
+    pair_path_rows(path10, kc10)
+    del path10, q8a, qsa, thr10
     # the few-row select at a B = 1 frame's threshold pass
     s1_rows = T.int8_candidate_plan(n10, 1, kc10, 1 << 28)[0]
     s1 = s_k[:1, :s1_rows].contiguous()
@@ -1784,6 +2163,20 @@ def main(argv=None) -> int:
                   "knn1m distances differ from the plain pipeline")
             check_ids(pd, pi, i16[:nq], "knn1m vs the plain pipeline")
             out["recall_at_10"] = float(recall)
+            # one B=512 frame: a rank, a candidate select and one fused
+            # rescore (with the final top k) a query chunk
+            meta = {"key": key, "tag": tag, "k": k}
+            _, m0, _ = sup.call("launch_counts", {})
+            sup.call("vec_knn", meta, [qs_np])
+            _, m1, _ = sup.call("launch_counts", {})
+            per_frame = {kn: m1["launches"][kn] - m0["launches"][kn]
+                         for kn in ("rank_scores_bf16", "select_topk_rows",
+                                    "gather_rescore", "gather_rescore_topk")}
+            chunks = per_frame["rank_scores_bf16"]
+            check(chunks > 0 and all(v == chunks
+                                     for v in per_frame.values()),
+                  f"knn1m B=512 frame launches {per_frame}")
+            out["launches_per_B512_frame"] = per_frame
             return out
 
         def brute():
@@ -1988,7 +2381,9 @@ def main(argv=None) -> int:
                   "ann candidates changed after a drop and a reship")
             return out
 
-        drive("knn1m", knn1m)
+        drive("knn1m", knn1m, needs=("rank_scores_bf16", "select_topk_rows",
+                                     "gather_rescore",
+                                     "gather_rescore_topk"))
         drive("brute", brute, needs=("distance_tile", "distance_tile_tf32",
                                      "distance_tile_simt"))
         drive("graph3hop", graph3hop)

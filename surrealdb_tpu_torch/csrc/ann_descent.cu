@@ -42,9 +42,11 @@
 //   and merges them into the sorted frontier by binary search: a new
 //   entry goes after every frontier entry of equal or smaller key, a
 //   frontier entry after every new entry of smaller key.
-// Row ids are clamped to [0, n) for the gathers, as the reference's
-// gathers clamp. Float operations use round-to-nearest intrinsics, never
-// contracted, so the scores are the reference's bit for bit.
+// The gathers index rows by JAX's rule (an id in [-n, 0) wraps to
+// id + n, the rest is clamped to [0, n)); the frontier, the duplicate
+// tests and the output keep the raw ids, as the reference keeps them.
+// Float operations use round-to-nearest intrinsics, never contracted, so
+// the scores are the reference's bit for bit.
 #include "kernels.h"
 
 namespace {
@@ -80,10 +82,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
                    smem_addr(dst)),
                "l"(src), "n"(BYTES)
                : "memory");
-}
-
-__device__ __forceinline__ long long clamp_row(long long id, long long n) {
-  return id < 0 ? 0 : (id >= n ? n - 1 : id);
 }
 
 // entries of a sorted key array at or below (upper) / below (lower) k
@@ -254,13 +252,13 @@ __global__ void __launch_bounds__(DTHREADS, 4)
     // 2. their neighbour lists; the next round's likely lists into L2
     for (int t = tid; t < nnew; t += DTHREADS) {
       const int e = t / d_out, j = t - e * d_out;
-      const long long src = clamp_row(c_ids[esel[e]], n);
+      const long long src = surreal_jax_row(c_ids[esel[e]], n);
       n_ids[t] = __ldg(graph + src * d_out + j);
     }
     for (int e = tid; e < expand; e += DTHREADS) {
       const int nx = esel[expand + e];
       if (nx >= 0 && !c_exp[nx]) {
-        const int32_t* p = graph + clamp_row(c_ids[nx], n) * d_out;
+        const int32_t* p = graph + surreal_jax_row(c_ids[nx], n) * d_out;
         asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
       }
     }
@@ -289,7 +287,7 @@ __global__ void __launch_bounds__(DTHREADS, 4)
       const int cn = nnew - c0 < rb ? nnew - c0 : rb;
       for (int r = warp; r < cn; r += DTHREADS / 32) {
         if (n_exp[c0 + r]) continue;  // uniform over the warp
-        const long long id = clamp_row(n_ids[c0 + r], n);
+        const long long id = surreal_jax_row(n_ids[c0 + r], n);
         const int8_t* src = x8 + id * d;
         int8_t* dst = rows + r * d;
         for (int k = lane; k < per; k += 32)

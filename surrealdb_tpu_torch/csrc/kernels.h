@@ -71,6 +71,14 @@ inline int surreal_sm_count() {
   return c;
 }
 
+// a row index by JAX's gather rule: an id in [-n, 0) wraps to id + n,
+// then the result is clamped to [0, n - 1] (ops/topk.py jax_rows)
+__device__ __forceinline__ long long surreal_jax_row(long long id,
+                                                     long long n) {
+  if (id < 0) id += n;
+  return id < 0 ? 0 : (id >= n ? n - 1 : id);
+}
+
 __device__ __forceinline__ float surreal_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -124,18 +132,15 @@ SURREAL_API int select_topk_rows(const float* vals, long long ld,
 
 // select.cu: per row r, the k smallest of the packed pairs
 // pairs[r, 0:min(counts[r], ld)] ((order key of the value) << 32 | id),
-// ascending by (value, id): out_vals the value, out_idx the id. A row
-// with fewer than k pairs is left unwritten. scratch, blocks_per_row,
-// work and gather as for select_topk_rows.
+// ascending by (value, id): out_vals the value, out_idx the id; a row
+// with fewer than k pairs gives (+inf, -1). sb is the block's key buffer
+// (ops/topk.py pair_select_plan: a power of two >= 64 and >= k); past
+// 8192 keys it is scratch, a [rows, sb] u64 buffer (else null).
 SURREAL_API int select_topk_pairs(const unsigned long long* pairs,
                                   long long ld, const unsigned int* counts,
-                                  int rows, int k, float* out_vals,
+                                  int rows, int k, int sb, float* out_vals,
                                   int32_t* out_idx,
-                                  unsigned long long* scratch,
-                                  long long scratch_ld, int blocks_per_row,
-                                  unsigned int* work,
-                                  unsigned long long* gather,
-                                  long long gather_cap, void* stream);
+                                  unsigned long long* scratch, void* stream);
 
 // rank_rescore.cu: out[c, n] = x2[n] - 2 dot(qs_bf16[c], xs_rank[n])
 // (euclid != 0) or -dot, f32 accumulation, +inf where valid[n] == 0.
@@ -145,14 +150,19 @@ SURREAL_API int rank_scores_bf16(const void* xs_rank, const void* qs_bf16,
                                  float* out, long long n, int c, int d,
                                  int euclid, void* stream);
 
-// rank_rescore.cu: out[c, j] = exact f32 distance of qs[c] to
-// xs_full[cand[c, j]] (euclidean direct form, cosine with norms, dot),
-// +inf where valid[cand] == 0.
+// rank_rescore.cu: with k == 0, out[c, j] = exact f32 distance of
+// qs[c] to xs_full[cand[c, j]] (euclidean direct form, cosine with
+// norms, dot), +inf where valid[cand] == 0; rows indexed by JAX's rule
+// (surreal_jax_row). With 0 < k <= kc <= 2048, instead the k smallest
+// of each query's kc distances by (value, column): out_vals[c, k] the
+// distances, out_ids[c, k] cand at their columns. cluster: blocks a
+// query (1..8, ops/topk.py rescore_plan).
 SURREAL_API int gather_rescore(const float* xs_full, const float* qs,
                                const int32_t* cand, const float* norms,
                                const uint8_t* valid, float* out,
-                               long long n, int c, int kc, int d,
-                               int metric, void* stream);
+                               float* out_vals, int32_t* out_ids,
+                               long long n, int c, int kc, int d, int k,
+                               int metric, int cluster, void* stream);
 
 // rank_int8.cu: out[c, j] = score of the int8 row xs[j] (width d, any
 // multiple of 16) against query c quantised first (sq = 127 / max|q|,

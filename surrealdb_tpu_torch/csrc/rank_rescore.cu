@@ -49,13 +49,38 @@
 // width, box); these Hopper pieces are shared with rank_int8.cu
 // (hopper.cuh).
 //
-// gather_rescore -- one block per query; the query sits in shared
-// memory, each warp takes candidates in turn, reads the candidate's f32
-// row (coalesced) and reduces. Euclidean uses the direct form
-// sqrt(sum (r - q)^2) as the reference's rescore does, cosine
+// gather_rescore -- the exact f32 distance of each query to its kc
+// candidate rows, rows indexed by JAX's rule (kernels.h
+// surreal_jax_row). Euclidean uses the direct form sqrt(sum (r - q)^2)
+// as the reference's rescore does, cosine
 // 1 - r.q / max(norm_r * max(|q|, 1e-30), 1e-30), dot -r.q; a masked
-// candidate scores +inf. Bound: the C*kc*D*4 bytes of gathered rows.
+// candidate scores +inf. Two outputs from one main loop: the [C, kc]
+// distances, or (k > 0) the reference's final lax.top_k fused in: the k
+// smallest of a query's kc distances by (value, column), [C, k] values
+// (the distance itself, so -0.0 stays -0.0) and ids (cand at the column).
+// Bound on the H100: bytes, the C kc D 4 of gathered rows, which are
+// not reused (0.0127 ms at C = 512, kc = 26, D = 768).
+// Design (a memory-parallel gather):
+// - a query's columns are spread over a cluster of G blocks (G from
+//   ops/topk.py rescore_plan: several blocks a query when C is small, so
+//   a C = 1 frame still has every row in flight at once);
+// - a warp scores four rows at a time: every 16-byte piece of those rows
+//   is issued at once (cp.async.cg into the lane's own slots of shared
+//   memory, L2 only: a row is read once) before the first FMA, so the
+//   rows in flight are bounded by shared memory (64 a SM at D = 768),
+//   not by the registers that loads in flight would hold (32 a SM when
+//   the rows went to registers: 1.37x the bound at C = 512, PERF.md);
+//   the ids, norms and masks of the warp's next eight rounds are loaded
+//   together; the width is NCH float4 a lane at compile time (wider rows
+//   in segments of that), a row not 16-byte aligned (D % 4 != 0) is
+//   copied by scalars; the query's slice sits in registers;
+// - fused, every block writes its distances into the shared memory of
+//   the cluster's first block (st.shared::cluster), which after the
+//   cluster barrier sorts (order key << 32 | column) keys (sort.cuh) and
+//   writes the first k. Every block computes a column's distance with
+//   the same instructions, so both outputs agree bit for bit.
 #include "hopper.cuh"
+#include "sort.cuh"
 
 #include <cuda_bf16.h>
 
@@ -331,54 +356,298 @@ __global__ void __launch_bounds__(RTHREADS, 1)
   }
 }
 
-__global__ void gather_rescore_kernel(const float* __restrict__ xs,
-                                      const float* __restrict__ qs,
-                                      const int32_t* __restrict__ cand,
-                                      const float* __restrict__ norms,
-                                      const uint8_t* __restrict__ valid,
-                                      float* __restrict__ out, long long n,
-                                      int kc, int d, int metric) {
-  extern __shared__ float sq[];  // the query row, d floats
-  __shared__ float s_qn;
-  const long long row = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwarps = blockDim.x >> 5;
-  const float* q = qs + row * d;
-  for (int i = tid; i < d; i += blockDim.x) sq[i] = q[i];
-  __syncthreads();
-  if (warp == 0) {
-    float s = 0.f;
-    for (int i = lane; i < d; i += 32) s += sq[i] * sq[i];
-    s = surreal_warp_sum(s);
-    if (lane == 0) s_qn = fmaxf(sqrtf(s), 1e-30f);
+// gather_rescore's launch: the fused epilogue takes kc <= GR_MAX_KC
+constexpr int GR_WARPS = 4;
+constexpr int GR_THREADS = 32 * GR_WARPS;
+constexpr int GR_ROWS = 4;  // rows a warp stages at once
+constexpr int GR_MAX_CLUSTER = 8;
+constexpr int GR_MAX_KC = 2048;
+
+struct RescoreArgs {
+  const float* xs;
+  const float* qs;
+  const int32_t* cand;
+  const float* norms;
+  const uint8_t* valid;
+  float* out;        // [c, kc] (k == 0)
+  float* out_vals;   // [c, k] (k > 0)
+  int32_t* out_ids;  // [c, k]
+  long long n;
+  int kc, d, metric, k;
+};
+
+// the shared-memory float at p, in block `cta` of the cluster
+__device__ __forceinline__ void st_cluster_f32(float* p, uint32_t cta,
+                                               float v) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "st.shared::cluster.f32 [ra], %2;\n}\n" ::"r"(smem_u32(p)),
+      "r"(cta), "f"(v)
+      : "memory");
+}
+
+// a split cluster barrier: the arrival (no ordering) early, the wait
+// once this block is about to write into another block's shared memory
+// (every block of the cluster has started by then)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// a lane's piece of a row: float4 (VEC4) or float elements
+template <bool VEC4>
+struct Piece;
+template <>
+struct Piece<true> {
+  static constexpr int FLOATS = 4;
+  float4 v;
+  // piece e of a row into shared memory at dst: cp.async, L2 only
+  static __device__ __forceinline__ void stage(float* dst, const float* row,
+                                               int e) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(row + 4 * e)
+                 : "memory");
   }
-  __syncthreads();
-  for (int j = warp; j < kc; j += nwarps) {
-    const int ci = cand[row * kc + j];
-    float dist = INFINITY;
-    if (ci >= 0 && (long long)ci < n) {
-      const float* r = xs + (long long)ci * d;
-      float acc = 0.f;
-      if (metric == M_EUCLIDEAN) {
-        for (int i = lane; i < d; i += 32) {
-          const float df = r[i] - sq[i];
-          acc = fmaf(df, df, acc);
-        }
-      } else {
-        for (int i = lane; i < d; i += 32) acc = fmaf(r[i], sq[i], acc);
-      }
-      acc = surreal_warp_sum(acc);
-      if (metric == M_EUCLIDEAN) {
-        dist = sqrtf(fmaxf(acc, 0.f));
-      } else if (metric == M_COSINE) {
-        dist = 1.f - acc / fmaxf(norms[ci] * s_qn, 1e-30f);
-      } else {
-        dist = -acc;
-      }
-      if (valid != nullptr && valid[ci] == 0) dist = INFINITY;
+  __device__ __forceinline__ void staged(const float* p) {
+    v = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ void zero() { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void query(const float* q, int e) {
+    v = *reinterpret_cast<const float4*>(q + 4 * e);
+  }
+  __device__ __forceinline__ float dot(const Piece& q, float acc) const {
+    acc = fmaf(v.x, q.v.x, acc);
+    acc = fmaf(v.y, q.v.y, acc);
+    acc = fmaf(v.z, q.v.z, acc);
+    return fmaf(v.w, q.v.w, acc);
+  }
+  __device__ __forceinline__ float sqdiff(const Piece& q, float acc) const {
+    float t = v.x - q.v.x;
+    acc = fmaf(t, t, acc);
+    t = v.y - q.v.y;
+    acc = fmaf(t, t, acc);
+    t = v.z - q.v.z;
+    acc = fmaf(t, t, acc);
+    t = v.w - q.v.w;
+    return fmaf(t, t, acc);
+  }
+};
+template <>
+struct Piece<false> {
+  static constexpr int FLOATS = 1;
+  float v;
+  static __device__ __forceinline__ void stage(float* dst, const float* row,
+                                               int e) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(row + e)
+                 : "memory");
+  }
+  __device__ __forceinline__ void staged(const float* p) { v = *p; }
+  __device__ __forceinline__ void zero() { v = 0.f; }
+  __device__ __forceinline__ void query(const float* q, int e) { v = q[e]; }
+  __device__ __forceinline__ float dot(const Piece& q, float acc) const {
+    return fmaf(v, q.v, acc);
+  }
+  __device__ __forceinline__ float sqdiff(const Piece& q, float acc) const {
+    const float t = v - q.v;
+    return fmaf(t, t, acc);
+  }
+};
+
+// the bytes of the fused top k's shared memory (the kc distances, then
+// the sort buffer), where the rows' staging begins
+__host__ __device__ inline int fused_bytes(int kc, int k) {
+  if (k == 0) return 0;
+  int m = 32;
+  while (m < kc) m <<= 1;
+  return ((4 * kc + 15) & ~15) + 8 * m;
+}
+
+// grid (G, queries), clusters of G blocks along x: block `rank` of
+// query c takes the columns rank, rank + G, ...; a warp GR_ROWS of those
+// at a time, every piece of them staged at once by cp.async into the
+// warp's slots of shared memory (a lane reads back only what it copied),
+// so the rows in flight are bounded by shared memory, not by registers.
+// NCH pieces a lane cover 32 NCH pieces of a row a segment.
+template <int NCH, bool VEC4>
+__global__ void __launch_bounds__(GR_THREADS)
+    gather_rescore_kernel(const RescoreArgs a) {
+  using P = Piece<VEC4>;
+  extern __shared__ __align__(16) unsigned char gsm[];
+  float* sd = reinterpret_cast<float*>(gsm);  // fused: the kc distances
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* stage = reinterpret_cast<float*>(gsm + fused_bytes(a.kc, a.k)) +
+                 warp * GR_ROWS * 32 * NCH * P::FLOATS;
+  const int g = gridDim.x, rank = blockIdx.x;
+  const long long c = blockIdx.y;
+  const int kc = a.kc, d = a.d;
+  const int pieces = VEC4 ? d >> 2 : d;  // a row's pieces
+  const int nseg = (pieces + 32 * NCH - 1) / (32 * NCH);
+  const float* q = a.qs + c * d;
+  const int32_t* cand = a.cand + c * kc;
+  if (a.k > 0) cluster_arrive_relaxed();
+  P qv[NCH];
+  auto load_q = [&](int seg) {
+#pragma unroll
+    for (int h = 0; h < NCH; ++h) {
+      const int e = (seg * NCH + h) * 32 + lane;
+      if (e < pieces) qv[h].query(q, e);
+      else qv[h].zero();
     }
-    if (lane == 0) out[row * kc + j] = dist;
+  };
+  // |q| for cosine: every warp the same sum
+  float qn = 1.f;
+  if (a.metric == M_COSINE) {
+    float ss = 0.f;
+    for (int seg = 0; seg < nseg; ++seg) {
+      load_q(seg);
+#pragma unroll
+      for (int h = 0; h < NCH; ++h) ss = qv[h].dot(qv[h], ss);
+    }
+    qn = fmaxf(sqrtf(surreal_warp_sum(ss)), 1e-30f);
   }
+  if (nseg == 1) load_q(0);
+  if (a.k > 0) cluster_wait();
+  const int mine = (kc - rank + g - 1) / g;  // this block's columns
+  // the ids, norms and masks of the warp's next 32 / GR_ROWS rounds,
+  // one row a lane, loaded together
+  long long pid = 0;
+  float pnrm = 1.f;
+  bool pok = true;
+  for (int t0 = warp * GR_ROWS, it = 0; t0 < mine;
+       t0 += GR_WARPS * GR_ROWS, ++it) {
+    const int sl = (it % (32 / GR_ROWS)) * GR_ROWS;
+    if (sl == 0) {
+      const int tl = t0 + (lane / GR_ROWS) * GR_WARPS * GR_ROWS +
+                     lane % GR_ROWS;
+      const bool lv = tl < mine;
+      pid = lv ? surreal_jax_row(cand[rank + g * tl], a.n) : 0;
+      pnrm = a.metric == M_COSINE && lv ? a.norms[pid] : 1.f;
+      pok = a.valid == nullptr || !lv || a.valid[pid] != 0;
+    }
+    long long row[GR_ROWS];
+    float acc[GR_ROWS], nrm[GR_ROWS];
+    bool live[GR_ROWS], ok[GR_ROWS];
+#pragma unroll
+    for (int r = 0; r < GR_ROWS; ++r) {
+      live[r] = t0 + r < mine;
+      row[r] = __shfl_sync(0xffffffffu, pid, sl + r);
+      nrm[r] = __shfl_sync(0xffffffffu, pnrm, sl + r);
+      ok[r] = __shfl_sync(0xffffffffu, (int)pok, sl + r) != 0;
+      acc[r] = 0.f;
+    }
+    for (int seg = 0; seg < nseg; ++seg) {
+      if (nseg > 1) load_q(seg);
+#pragma unroll
+      for (int r = 0; r < GR_ROWS; ++r) {
+        const float* rp = a.xs + row[r] * d;
+#pragma unroll
+        for (int h = 0; h < NCH; ++h) {
+          const int e = (seg * NCH + h) * 32 + lane;
+          if (live[r] && e < pieces)
+            P::stage(stage + ((r * NCH + h) * 32 + lane) * P::FLOATS, rp, e);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+      for (int r = 0; r < GR_ROWS; ++r) {
+#pragma unroll
+        for (int h = 0; h < NCH; ++h) {
+          const int e = (seg * NCH + h) * 32 + lane;
+          P x;
+          if (live[r] && e < pieces)
+            x.staged(stage + ((r * NCH + h) * 32 + lane) * P::FLOATS);
+          else
+            x.zero();
+          acc[r] = a.metric == M_EUCLIDEAN ? x.sqdiff(qv[h], acc[r])
+                                           : x.dot(qv[h], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < GR_ROWS; ++r) {
+      const float s = surreal_warp_sum(acc[r]);
+      if (!live[r] || lane != 0) continue;
+      float dist;
+      if (a.metric == M_EUCLIDEAN)
+        dist = sqrtf(fmaxf(s, 0.f));
+      else if (a.metric == M_COSINE)
+        dist = 1.f - s / fmaxf(nrm[r] * qn, 1e-30f);
+      else
+        dist = -s;
+      if (!ok[r]) dist = INFINITY;
+      const int col = rank + g * (t0 + r);
+      if (a.k == 0) a.out[c * kc + col] = dist;
+      else st_cluster_f32(sd + col, 0u, dist);
+    }
+  }
+  if (a.k == 0) return;
+  // fused: the cluster's first block holds all kc distances
+  cluster_sync();
+  if (rank != 0) return;
+  const int m0 = kc < 32 ? 32 : kc;
+  int m = 32;
+  while (m < m0) m <<= 1;
+  unsigned long long* buf =
+      reinterpret_cast<unsigned long long*>(gsm + ((4 * kc + 15) & ~15));
+  for (int j = threadIdx.x; j < m; j += GR_THREADS)
+    buf[j] = j < kc ? ((unsigned long long)order_key(sd[j]) << 32) |
+                          (unsigned int)j
+                    : ~0ull;
+  __syncthreads();
+  block_sort(buf, m);
+  for (int i = threadIdx.x; i < a.k; i += GR_THREADS) {
+    const int col = (int)(unsigned int)buf[i];
+    a.out_vals[c * a.k + i] = sd[col];
+    a.out_ids[c * a.k + i] = cand[col];
+  }
+}
+
+template <int NCH, bool VEC4>
+cudaError_t launch_rescore(const RescoreArgs& a, int c, int g,
+                           cudaStream_t st) {
+  const int smem = fused_bytes(a.kc, a.k) +
+                   GR_WARPS * GR_ROWS * 32 * NCH * Piece<VEC4>::FLOATS * 4;
+  static SurrealSmemDone done;
+  cudaError_t err =
+      surreal_smem_limit(gather_rescore_kernel<NCH, VEC4>, smem, &done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)g;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(GR_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // grid.y holds at most 65535 queries a launch
+  for (int c0 = 0; c0 < c; c0 += 65535) {
+    const int cn = c - c0 < 65535 ? c - c0 : 65535;
+    RescoreArgs p = a;
+    p.qs += (long long)c0 * a.d;
+    p.cand += (long long)c0 * a.kc;
+    if (a.k == 0) p.out += (long long)c0 * a.kc;
+    else {
+      p.out_vals += (long long)c0 * a.k;
+      p.out_ids += (long long)c0 * a.k;
+    }
+    cfg.gridDim = dim3((unsigned)g, (unsigned)cn);
+    void* args[] = {&p};
+    err = cudaLaunchKernelExC(
+        &cfg, (const void*)gather_rescore_kernel<NCH, VEC4>, args);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
 }
 
 template <int WGM>
@@ -429,15 +698,40 @@ SURREAL_API int rank_scores_bf16(const void* xs_rank, const void* qs_bf16,
 SURREAL_API int gather_rescore(const float* xs_full, const float* qs,
                                const int32_t* cand, const float* norms,
                                const uint8_t* valid, float* out,
-                               long long n, int c, int kc, int d,
-                               int metric, void* stream) {
+                               float* out_vals, int32_t* out_ids,
+                               long long n, int c, int kc, int d, int k,
+                               int metric, int cluster, void* stream) {
   if (c <= 0 || kc <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > 12288 ||
+  if (n <= 0 || d <= 0 || d > 12288 || cluster < 1 ||
+      cluster > GR_MAX_CLUSTER ||
       (metric != M_EUCLIDEAN && metric != M_COSINE && metric != M_DOT) ||
-      (metric == M_COSINE && norms == nullptr))
+      (metric == M_COSINE && norms == nullptr) || k < 0 ||
+      (k == 0 && out == nullptr) ||
+      (k > 0 && (k > kc || kc > GR_MAX_KC || out_vals == nullptr ||
+                 out_ids == nullptr)))
     return (int)cudaErrorInvalidValue;
-  gather_rescore_kernel<<<(unsigned)c, 256, (size_t)d * sizeof(float),
-                          static_cast<cudaStream_t>(stream)>>>(
-      xs_full, qs, cand, norms, valid, out, n, kc, d, metric);
-  return (int)cudaGetLastError();
+  const RescoreArgs a{xs_full, qs, cand, norms, valid, out, out_vals,
+                      out_ids, n, kc, d, metric, k};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte rows: float4 pieces, NCH of them a lane for rows up to
+  // 1024 wide (wider: segments of 1024); else scalar pieces
+  const bool vec4 = d % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(xs_full) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(qs) & 15) == 0;
+  cudaError_t err;
+  if (!vec4) {
+    err = launch_rescore<8, false>(a, c, cluster, st);
+  } else {
+    switch ((d / 4 + 31) / 32) {
+      case 1: err = launch_rescore<1, true>(a, c, cluster, st); break;
+      case 2: err = launch_rescore<2, true>(a, c, cluster, st); break;
+      case 3: err = launch_rescore<3, true>(a, c, cluster, st); break;
+      case 4: err = launch_rescore<4, true>(a, c, cluster, st); break;
+      case 5: err = launch_rescore<5, true>(a, c, cluster, st); break;
+      case 6: err = launch_rescore<6, true>(a, c, cluster, st); break;
+      case 7: err = launch_rescore<7, true>(a, c, cluster, st); break;
+      default: err = launch_rescore<8, true>(a, c, cluster, st); break;
+    }
+  }
+  return (int)err;
 }

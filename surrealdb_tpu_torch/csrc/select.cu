@@ -39,9 +39,35 @@
 // back to one block over the whole row. Both paths sort the same keys,
 // so they give the same (value, index) output bit for bit.
 //
-// Bound on the H100: bytes, one read of the [rows, n] f32 input (or of
-// the pairs' [0, count) prefixes); the usual case reads it twice.
-#include "kernels.h"
+// Bound on the H100: bytes, one read of the [rows, n] f32 input; the
+// usual case reads it twice.
+//
+// select_topk_pairs has its own kernel (select_pairs_kernel), one block
+// of 256 threads a row at every row count, a key buffer sized to k (a
+// power of two >= 1.25 k: 2048 keys, 16 KB, at knn10m's k = 1280, so
+// four rows fit an SM and a 512-row frame takes one wave). Its rows
+// (~24k survivors of the int8 candidates pass at B = 512) hold values
+// within a binade or two, which a fixed top digit would not separate.
+// Bound: bytes, one read of the pairs' [0, count) prefixes (0.031 ms at
+// 512 x 24k). So the design reads a row once in the usual case:
+// 1. a sample of 4096 keys in 16 chunks spread over the row gives the
+//    first range [lo, hi] and a guess g, the sample's key at the share of
+//    sqrt(k buffer) keys (a histogram of 256 bins kept per warp, so only
+//    a warp's lanes contend for a bin);
+// 2. one read with 16-byte streaming loads appends every key <= g to the
+//    buffer (a warp's keys of a step placed by ballots, one shared atomic
+//    a warp and step);
+// 3. when k <= appended <= buffer (every row of a knn10m frame in the
+//    runs measured, PERF.md) those keys hold the k smallest: a bucket
+//    sort finishes (a histogram of the keys over their own range, a
+//    scatter into the buckets, each key ranked within its bucket; a
+//    bucket of more than 32 keys sends them to sort.cuh's bitonic sort);
+// 4. else levels of 2048-bin histograms narrow the range that holds the
+//    k-th key, one read each (lanes of one bin add once, through
+//    __match_any_sync, so ties do not serialise a warp; a bin of one key
+//    value that overflows the buffer ends with that key repeated), then
+//    one more read gathers the keys up to it.
+#include "sort.cuh"
 
 namespace {
 
@@ -65,12 +91,6 @@ __device__ __forceinline__ int level_width(int lv) {
 
 __device__ __forceinline__ int level_offset(int lv) {
   return lv == 0 ? 0 : (lv == 1 ? 2048 : 4096);
-}
-
-__device__ __forceinline__ uint32_t order_key(float f) {
-  if (f == 0.0f) f = 0.0f;  // -0.0 -> +0.0
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 __device__ __forceinline__ float key_value(uint32_t k) {
@@ -225,16 +245,6 @@ struct FloatOut {
   }
 };
 
-// output of a pair row: the value from its order key, the pair's id
-struct PairOut {
-  float* ov;
-  int32_t* oi;
-  __device__ __forceinline__ void operator()(int i, u64 key) const {
-    ov[i] = key_value((uint32_t)(key >> 32));
-    oi[i] = (int32_t)(uint32_t)key;
-  }
-};
-
 // one block: the k smallest keys of row[0:n] (k <= n), sorted, to out.
 // sbuf holds `cap` keys (a power of two >= k); hist 2048 shared bins.
 template <typename Row, typename Out>
@@ -308,20 +318,8 @@ __device__ void block_select(const Row& row, long long n, int k, u64* sbuf,
   }
 }
 
-// the length of row r: n for a value row; count[r] (at most ld) for a
-// pair row
-__device__ __forceinline__ long long row_len(const unsigned int* counts,
-                                             long long ld, long long n,
-                                             long long r) {
-  if (counts == nullptr) return n;
-  const long long c = counts[r];
-  return c < ld ? c : ld;
-}
-
-template <bool PAIRS>
 __global__ void __launch_bounds__(1024)
-    select_rows_kernel(const void* __restrict__ in, long long ld,
-                       const unsigned int* __restrict__ counts,
+    select_rows_kernel(const float* __restrict__ in, long long ld,
                        const int32_t* __restrict__ ids, long long ids_ld,
                        long long n, int k, float* __restrict__ out_vals,
                        int32_t* __restrict__ out_idx,
@@ -332,17 +330,10 @@ __global__ void __launch_bounds__(1024)
   const bool large = k > SURREAL_SELECT_MAX_K;
   u64* sbuf = large ? scratch + r * scratch_ld : smem;
   const long long cap = large ? scratch_ld : CAP;
-  const long long len = row_len(counts, ld, n, r);
-  if (len < k) return;  // a pair row short of k: the caller's to serve
-  if constexpr (PAIRS) {
-    block_select(KeyRow{static_cast<const u64*>(in) + r * ld}, len, k,
-                 sbuf, cap, hist, PairOut{out_vals + r * k, out_idx + r * k});
-  } else {
-    const float* v = static_cast<const float*>(in) + r * ld;
-    block_select(FloatRow{v}, len, k, sbuf, cap, hist,
-                 FloatOut{v, ids != nullptr ? ids + r * ids_ld : nullptr,
-                          out_vals + r * k, out_idx + r * k});
-  }
+  const float* v = in + r * ld;
+  block_select(FloatRow{v}, n, k, sbuf, cap, hist,
+               FloatOut{v, ids != nullptr ? ids + r * ids_ld : nullptr,
+                        out_vals + r * k, out_idx + r * k});
 }
 
 // -- few rows: G blocks a row ---------------------------------------------
@@ -412,17 +403,13 @@ __device__ void hist_slice(const Row& row, long long lo, long long hi,
 }
 
 // digit lv of every row's slices into the row's workspace histogram
-template <bool PAIRS>
 __global__ void __launch_bounds__(MB_THREADS)
-    select_hist_kernel(const void* __restrict__ in, long long ld,
-                       const unsigned int* __restrict__ counts, long long n,
-                       int k, unsigned int* __restrict__ work,
+    select_hist_kernel(const float* __restrict__ in, long long ld,
+                       long long n, int k, unsigned int* __restrict__ work,
                        long long gcap, int lv) {
   __shared__ unsigned int sh[NBINS];
   __shared__ Walk s_w;
   const long long r = blockIdx.y;
-  const long long len = row_len(counts, ld, n, r);
-  if (len < k) return;
   unsigned int* ws = work + r * WS_U32;
   u64 prefix = 0ull, hmask = 0ull;
   int shift = 64 - level_width(0);
@@ -435,13 +422,9 @@ __global__ void __launch_bounds__(MB_THREADS)
     shift = s_w.shift - level_width(lv);
   }
   long long lo, hi;
-  slice(len, &lo, &hi);
-  if constexpr (PAIRS)
-    hist_slice(KeyRow{static_cast<const u64*>(in) + r * ld}, lo, hi, lv,
-               prefix, hmask, shift, sh, ws);
-  else
-    hist_slice(FloatRow{static_cast<const float*>(in) + r * ld}, lo, hi, lv,
-               prefix, hmask, shift, sh, ws);
+  slice(n, &lo, &hi);
+  hist_slice(FloatRow{in + r * ld}, lo, hi, lv, prefix, hmask, shift, sh,
+             ws);
 }
 
 // keys at or below the digit's bin (a value digit: shift >= 32)
@@ -468,38 +451,28 @@ __device__ void gather_slice(const Row& row, long long lo, long long hi,
 }
 
 // every key at or below the found bin into the row's gather buffer
-template <bool PAIRS>
 __global__ void __launch_bounds__(MB_THREADS)
-    select_gather_kernel(const void* __restrict__ in, long long ld,
-                         const unsigned int* __restrict__ counts,
+    select_gather_kernel(const float* __restrict__ in, long long ld,
                          long long n, int k, unsigned int* __restrict__ work,
                          u64* __restrict__ gather, long long gcap) {
   __shared__ Walk s_w;
   const long long r = blockIdx.y;
-  const long long len = row_len(counts, ld, n, r);
-  if (len < k) return;
   unsigned int* ws = work + r * WS_U32;
   if (threadIdx.x < 32)
     walk_levels(ws, (unsigned int)k, KEY_LEVELS, gcap, &s_w);
   __syncthreads();
   if (s_w.stop < 0) return;  // ties overflow: the finish reads the row
   long long lo, hi;
-  slice(len, &lo, &hi);
+  slice(n, &lo, &hi);
   const u64 top = s_w.prefix >> s_w.shift;
-  if constexpr (PAIRS)
-    gather_slice(KeyRow{static_cast<const u64*>(in) + r * ld}, lo, hi, top,
-                 s_w.shift, ws + WS_COUNT, gather + r * gcap, gcap);
-  else
-    gather_slice(FloatRow{static_cast<const float*>(in) + r * ld}, lo, hi,
-                 top, s_w.shift, ws + WS_COUNT, gather + r * gcap, gcap);
+  gather_slice(FloatRow{in + r * ld}, lo, hi, top, s_w.shift, ws + WS_COUNT,
+               gather + r * gcap, gcap);
 }
 
 // one block a row: the k smallest of the gathered keys (or, where ties
 // overflowed the gather buffer, of the whole row)
-template <bool PAIRS>
 __global__ void __launch_bounds__(1024)
-    select_finish_kernel(const void* __restrict__ in, long long ld,
-                         const unsigned int* __restrict__ counts,
+    select_finish_kernel(const float* __restrict__ in, long long ld,
                          const int32_t* __restrict__ ids, long long ids_ld,
                          long long n, int k, float* __restrict__ out_vals,
                          int32_t* __restrict__ out_idx,
@@ -510,8 +483,6 @@ __global__ void __launch_bounds__(1024)
   __shared__ Walk s_w;
   unsigned int* hist = reinterpret_cast<unsigned int*>(smem + CAP);
   const long long r = blockIdx.x;
-  const long long len = row_len(counts, ld, n, r);
-  if (len < k) return;
   if (threadIdx.x < 32)
     walk_levels(work + r * WS_U32, (unsigned int)k, KEY_LEVELS, gcap, &s_w);
   __syncthreads();
@@ -519,27 +490,17 @@ __global__ void __launch_bounds__(1024)
   u64* sbuf = large ? scratch + r * scratch_ld : smem;
   const long long cap = large ? scratch_ld : CAP;
   const KeyRow gathered{gather + r * gcap};
-  if constexpr (PAIRS) {
-    const PairOut out{out_vals + r * k, out_idx + r * k};
-    if (s_w.stop >= 0)
-      block_select(gathered, (long long)s_w.le, k, sbuf, cap, hist, out);
-    else
-      block_select(KeyRow{static_cast<const u64*>(in) + r * ld}, len, k,
-                   sbuf, cap, hist, out);
-  } else {
-    const float* v = static_cast<const float*>(in) + r * ld;
-    const FloatOut out{v, ids != nullptr ? ids + r * ids_ld : nullptr,
-                       out_vals + r * k, out_idx + r * k};
-    if (s_w.stop >= 0)
-      block_select(gathered, (long long)s_w.le, k, sbuf, cap, hist, out);
-    else
-      block_select(FloatRow{v}, len, k, sbuf, cap, hist, out);
-  }
+  const float* v = in + r * ld;
+  const FloatOut out{v, ids != nullptr ? ids + r * ids_ld : nullptr,
+                     out_vals + r * k, out_idx + r * k};
+  if (s_w.stop >= 0)
+    block_select(gathered, (long long)s_w.le, k, sbuf, cap, hist, out);
+  else
+    block_select(FloatRow{v}, n, k, sbuf, cap, hist, out);
 }
 
-template <bool PAIRS>
-int launch_select(const void* in, long long ld, const unsigned int* counts,
-                  const int32_t* ids, long long ids_ld, int rows, long long n,
+int launch_select(const float* in, long long ld, const int32_t* ids,
+                  long long ids_ld, int rows, long long n,
                   int k, float* out_vals, int32_t* out_idx, u64* scratch,
                   long long scratch_ld, int blocks_per_row,
                   unsigned int* work, u64* gather, long long gather_cap,
@@ -555,13 +516,11 @@ int launch_select(const void* in, long long ld, const unsigned int* counts,
     long long t = ((n + 31) / 32) * 32;
     if (t < 64) t = 64;
     if (t > 1024) t = 1024;
-    cudaError_t err = surreal_smem_limit(select_rows_kernel<PAIRS>,
-                                         SMEM_BYTES, &done_rows);
+    cudaError_t err =
+        surreal_smem_limit(select_rows_kernel, SMEM_BYTES, &done_rows);
     if (err != cudaSuccess) return (int)err;
-    select_rows_kernel<PAIRS><<<(unsigned)rows, (unsigned)t, SMEM_BYTES,
-                                st>>>(in, ld, counts, ids, ids_ld, n, k,
-                                      out_vals, out_idx, scratch,
-                                      scratch_ld);
+    select_rows_kernel<<<(unsigned)rows, (unsigned)t, SMEM_BYTES, st>>>(
+        in, ld, ids, ids_ld, n, k, out_vals, out_idx, scratch, scratch_ld);
     return (int)cudaGetLastError();
   }
   if (work == nullptr || gather == nullptr || gather_cap < k ||
@@ -572,22 +531,490 @@ int launch_select(const void* in, long long ld, const unsigned int* counts,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)blocks_per_row, (unsigned)rows);
   for (int lv = 0; lv < KEY_LEVELS; ++lv) {
-    select_hist_kernel<PAIRS><<<grid, MB_THREADS, 0, st>>>(
-        in, ld, counts, n, k, work, gather_cap, lv);
+    select_hist_kernel<<<grid, MB_THREADS, 0, st>>>(in, ld, n, k, work,
+                                                    gather_cap, lv);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  select_gather_kernel<PAIRS><<<grid, MB_THREADS, 0, st>>>(
-      in, ld, counts, n, k, work, gather, gather_cap);
+  select_gather_kernel<<<grid, MB_THREADS, 0, st>>>(in, ld, n, k, work,
+                                                    gather, gather_cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = surreal_smem_limit(select_finish_kernel<PAIRS>, SMEM_BYTES,
-                           &done_finish);
+  err = surreal_smem_limit(select_finish_kernel, SMEM_BYTES, &done_finish);
   if (err != cudaSuccess) return (int)err;
-  select_finish_kernel<PAIRS><<<(unsigned)rows, 1024, SMEM_BYTES, st>>>(
-      in, ld, counts, ids, ids_ld, n, k, out_vals, out_idx, scratch,
-      scratch_ld, work, gather, gather_cap);
+  select_finish_kernel<<<(unsigned)rows, 1024, SMEM_BYTES, st>>>(
+      in, ld, ids, ids_ld, n, k, out_vals, out_idx, scratch, scratch_ld,
+      work, gather, gather_cap);
   return (int)cudaGetLastError();
+}
+
+// -- select_topk_pairs: one block a row, sized to the row -------------------
+
+constexpr int PT = 256;          // threads a pair block
+constexpr int PNB = 2048;        // histogram bins
+constexpr int PSAMPLE = 4096;    // keys sampled at most
+constexpr int PCHUNKS = 16;      // in this many contiguous chunks
+constexpr int PBUCKET = 8 * PT;  // at most this many keys bucket-sorted
+constexpr int PBUF_SMEM = 8192;  // larger buffers live in device scratch
+constexpr u64 NONE64 = ~0ull;
+
+// 16 bytes read once: a streaming load (evict-first in L1 and L2)
+__device__ __forceinline__ ulonglong2 ld_stream(const u64* p) {
+  ulonglong2 v;
+  asm("ld.global.cs.v2.u64 {%0, %1}, [%2];\n"
+      : "=l"(v.x), "=l"(v.y)
+      : "l"(p));
+  return v;
+}
+
+// f(x[2U], in[2U]) over row[0:len), 2U keys a thread a call, U 16-byte
+// loads in flight; every thread of the block calls f the same number of
+// times (`in` is false past the row), so f may use warp votes
+template <int U, typename F>
+__device__ __forceinline__ void pair_scan(const u64* row, long long len,
+                                          F f) {
+  const int tid = threadIdx.x;
+  u64 x[2 * U];
+  bool in[2 * U];
+  long long a = (reinterpret_cast<uintptr_t>(row) & 15) ? 1 : 0;
+  if (a > len) a = len;
+  // the odd ends (a misaligned first key, a last key alone) first
+  const bool tail = ((len - a) & 1) != 0;
+  if (a || tail) {
+#pragma unroll
+    for (int u = 0; u < 2 * U; ++u) {
+      x[u] = NONE64;
+      in[u] = false;
+    }
+    if (tid == 0 && a) {
+      x[0] = row[0];
+      in[0] = true;
+    }
+    if (tid == 1 && tail) {
+      x[0] = row[len - 1];
+      in[0] = true;
+    }
+    f(x, in);
+  }
+  const u64* body = row + a;
+  const long long n2 = (len - a) >> 1;
+  for (long long j0 = 0; j0 < n2; j0 += (long long)U * PT) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long j = j0 + u * PT + tid;
+      const ulonglong2 v =
+          j < n2 ? ld_stream(body + 2 * j) : make_ulonglong2(NONE64, NONE64);
+      x[2 * u] = v.x;
+      x[2 * u + 1] = v.y;
+      in[2 * u] = in[2 * u + 1] = j < n2;
+    }
+    f(x, in);
+  }
+}
+
+// the bin width (2^shift keys) that cuts [lo, hi] into at most PNB bins
+__device__ __forceinline__ int range_shift(u64 lo, u64 hi) {
+  const u64 span = hi - lo;
+  const int bits = span ? 64 - __clzll((long long)span) : 0;
+  return bits > 11 ? bits - 11 : 0;
+}
+
+// the last key of bin b of [lo, hi]
+__device__ __forceinline__ u64 bin_top(u64 lo, u64 hi, int shift,
+                                       unsigned int b) {
+  const u64 off = ((u64)(b + 1) << shift) - 1;  // mod 2^64: b + 1 = 2^11
+  return off > hi - lo ? hi : lo + off;
+}
+
+// one key into a histogram of [lo, hi] (lanes with one bin add once, so
+// a bin shared by many keys does not serialise the warp) or into the
+// thread's count of keys below lo
+__device__ __forceinline__ void hist_key(u64 x, bool in, u64 lo, u64 hi,
+                                         int shift, unsigned int* hist,
+                                         unsigned int* below) {
+  const bool inr = in && x >= lo && x <= hi;
+  *below += (in && x < lo) ? 1u : 0u;
+  const unsigned int bin = inr ? (unsigned int)((x - lo) >> shift) : ~0u;
+  const unsigned int peers = __match_any_sync(FULL, bin);
+  if (inr && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(&hist[bin], (unsigned int)__popc(peers));
+}
+
+// the warp's taken keys of one scan step to buf[count...]: one atomic a
+// warp and step (positions past cap are counted, not stored)
+template <int M>
+__device__ __forceinline__ void append(const u64 (&x)[M],
+                                       const bool (&take)[M], u64* buf,
+                                       int cap, unsigned int* count) {
+  const int lane = threadIdx.x & 31;
+  const unsigned int below_me = (1u << lane) - 1u;
+  unsigned int ball[M], total = 0;
+#pragma unroll
+  for (int u = 0; u < M; ++u) {
+    ball[u] = __ballot_sync(FULL, take[u]);
+    total += __popc(ball[u]);
+  }
+  if (total == 0u) return;
+  unsigned int base = 0;
+  if (lane == 0) base = atomicAdd(count, total);
+  base = __shfl_sync(FULL, base, 0);
+#pragma unroll
+  for (int u = 0; u < M; ++u) {
+    if (take[u]) {
+      const unsigned int pos = base + __popc(ball[u] & below_me);
+      if (pos < (unsigned int)cap) buf[pos] = x[u];
+    }
+    base += __popc(ball[u]);
+  }
+}
+
+// the u64 minimum and maximum over the block (red: 2 PT / 32 entries)
+__device__ __forceinline__ void block_min_max(u64* lo, u64* hi, u64* red) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const u64 a = __shfl_xor_sync(FULL, *lo, o);
+    const u64 b = __shfl_xor_sync(FULL, *hi, o);
+    *lo = a < *lo ? a : *lo;
+    *hi = b > *hi ? b : *hi;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = *lo;
+    red[PT / 32 + warp] = *hi;
+  }
+  __syncthreads();
+  for (int w = 0; w < PT / 32; ++w) {
+    *lo = red[w] < *lo ? red[w] : *lo;
+    *hi = red[PT / 32 + w] > *hi ? red[PT / 32 + w] : *hi;
+  }
+  __syncthreads();
+}
+
+// the exclusive scan of PNB bins, PNB / PT consecutive ones a thread:
+// the count before the thread's first bin (its counts to c), and in
+// *big the block's largest bin (scan: 2 PT / 32 u32; syncs once)
+constexpr int BPT = PNB / PT;
+__device__ __forceinline__ unsigned int block_scan_bins(
+    const unsigned int* hist, unsigned int (&c)[BPT], unsigned int* scan,
+    unsigned int* big) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned int sum = 0, mx = 0;
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) {
+    c[i] = hist[tid * BPT + i];
+    mx = c[i] > mx ? c[i] : mx;
+    sum += c[i];
+  }
+  unsigned int inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned int t = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += t;
+  }
+  mx = __reduce_max_sync(FULL, mx);
+  if (lane == 31) scan[warp] = inc;
+  if (lane == 0) scan[PT / 32 + warp] = mx;
+  __syncthreads();
+  unsigned int run = inc - sum;
+  for (int w = 0; w < PT / 32; ++w) {
+    if (w < warp) run += scan[w];
+    mx = scan[PT / 32 + w] > mx ? scan[PT / 32 + w] : mx;
+  }
+  *big = mx;
+  return run;
+}
+
+// the bin of hist[0:PNB] holding the need-th key (1-based) and the keys
+// before it, to *bin / *before (as find_bin_warp: the last bin when the
+// bins hold fewer); every thread calls it, a __syncthreads must follow
+__device__ __forceinline__ void find_bin_block(const unsigned int* hist,
+                                               unsigned int need,
+                                               unsigned int* bin,
+                                               unsigned int* before,
+                                               unsigned int* scan) {
+  unsigned int c[BPT], big;
+  unsigned int run = block_scan_bins(hist, c, scan, &big);
+  const int tid = threadIdx.x;
+  unsigned int sum = 0;
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) sum += c[i];
+  if (run < need && need <= run + sum) {
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      if (run + c[i] >= need) {
+        *bin = (unsigned int)(tid * BPT + i);
+        *before = run;
+        break;
+      }
+      run += c[i];
+    }
+  } else if (tid == PT - 1 && run + sum < need) {
+    *bin = PNB - 1;
+    *before = run + sum - c[BPT - 1];
+  }
+}
+
+// buf[0:got] (got <= PBUCKET, distinct or not) ascending: a histogram of
+// the keys over their own range, its exclusive scan, a scatter into the
+// buckets (the keys held in registers meanwhile), then each key's rank
+// within its bucket (keys equal to it count by their slot); a bucket of
+// more than 32 keys (ties packed tight) sends the whole buffer to the
+// bitonic sort instead
+__device__ void bucket_sort(u64* buf, int got, unsigned int* hist, u64* red,
+                            unsigned int* scan) {
+  const int tid = threadIdx.x;
+  constexpr int PER = PBUCKET / PT;
+  u64 v[PER];
+  u64 lo = NONE64, hi = 0;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = u * PT + tid;
+    v[u] = i < got ? buf[i] : NONE64;
+    if (i < got) {
+      lo = v[u] < lo ? v[u] : lo;
+      hi = v[u] > hi ? v[u] : hi;
+    }
+  }
+  for (int i = tid; i < PNB; i += PT) hist[i] = 0u;
+  block_min_max(&lo, &hi, red);  // syncs: hist is zero after it
+  const int shift = range_shift(lo, hi);
+  unsigned int bin[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    bin[u] = (unsigned int)((v[u] - lo) >> shift);
+    if (u * PT + tid < got) atomicAdd(&hist[bin[u]], 1u);
+  }
+  __syncthreads();
+  unsigned int c[BPT], big;
+  unsigned int run = block_scan_bins(hist, c, scan, &big);
+  if (big > 32u) {  // tied keys packed tight: sort it all
+    int m = 32;
+    while (m < got) m <<= 1;
+    for (int i = got + tid; i < m; i += PT) buf[i] = NONE64;
+    __syncthreads();
+    block_sort(buf, m);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) {
+    hist[tid * BPT + i] = run;  // the bucket's start, then its cursor
+    run += c[i];
+  }
+  __syncthreads();
+  unsigned int slot[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    if (u * PT + tid < got) {
+      slot[u] = atomicAdd(&hist[bin[u]], 1u);
+      buf[slot[u]] = v[u];
+    }
+  }
+  __syncthreads();
+  // hist[b] is now the end of bucket b (the start of b + 1)
+  unsigned int pos[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    if (u * PT + tid < got) {
+      const unsigned int s0 = bin[u] ? hist[bin[u] - 1] : 0u, e = hist[bin[u]];
+      unsigned int r = s0;
+      for (unsigned int q = s0; q < e; ++q) {
+        const u64 o = buf[q];
+        r += (o < v[u] || (o == v[u] && q < slot[u])) ? 1u : 0u;
+      }
+      pos[u] = r;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PER; ++u)
+    if (u * PT + tid < got) buf[pos[u]] = v[u];
+  __syncthreads();
+}
+
+// per row r: the k smallest of pairs[r, 0:min(counts[r], ld)] ascending
+// by (value, id), or (+inf, -1) when the row holds fewer than k. The
+// buffer holds sb keys (a power of two >= 64 and >= k): the dynamic
+// shared memory, or this row's slice of scratch when sb > PBUF_SMEM;
+// then PNB u32 bins.
+__global__ void __launch_bounds__(PT, 4)
+    select_pairs_kernel(const u64* __restrict__ pairs, long long ld,
+                        const unsigned int* __restrict__ counts, int k,
+                        int sb, float* __restrict__ out_vals,
+                        int32_t* __restrict__ out_idx,
+                        u64* __restrict__ scratch) {
+  extern __shared__ __align__(16) u64 psm[];
+  __shared__ u64 s_red[2 * (PT / 32)];
+  __shared__ unsigned int s_scan[2 * (PT / 32)];
+  __shared__ unsigned int s_cnt, s_below, s_bin, s_before;
+  const int tid = threadIdx.x;
+  const long long r = blockIdx.x;
+  const long long cnt = counts[r];
+  const long long len = cnt < ld ? cnt : ld;
+  float* ov = out_vals + r * k;
+  int32_t* oi = out_idx + r * k;
+  if (len < k) {
+    for (int i = tid; i < k; i += PT) {
+      ov[i] = INFINITY;
+      oi[i] = -1;
+    }
+    return;
+  }
+  const bool in_smem = sb <= PBUF_SMEM;
+  u64* buf = in_smem ? psm : scratch + r * sb;
+  unsigned int* hist =
+      reinterpret_cast<unsigned int*>(in_smem ? psm + sb : psm);
+  const u64* row = pairs + r * ld;
+  // buf[0:got] (any order) sorted; out: its first k, then `fill`
+  auto finish = [&](int got, u64 fill) {
+    if (got <= PBUCKET) {
+      bucket_sort(buf, got, hist, s_red, s_scan);
+    } else {
+      int m = 32;
+      while (m < got) m <<= 1;
+      for (int i = got + tid; i < m; i += PT) buf[i] = NONE64;
+      __syncthreads();
+      block_sort(buf, m);
+    }
+    for (int i = tid; i < k; i += PT) {
+      const u64 key = i < got ? buf[i] : fill;
+      ov[i] = key_value((uint32_t)(key >> 32));
+      oi[i] = (int32_t)(uint32_t)key;
+    }
+  };
+  if (len <= sb) {  // the whole row fits the buffer
+    for (long long i = tid; i < len; i += PT) buf[i] = row[i];
+    __syncthreads();
+    finish((int)len, NONE64);
+    return;
+  }
+  // 1. a sample of ns keys in PCHUNKS chunks spread over the row: its
+  // range [lo, hi] is the first level's, and its key at the share of
+  // sqrt(k sb) keys (the middle, in ratio, of k..sb) the guess g, from a
+  // histogram of PT bins kept per warp (a warp's lanes are all that
+  // contend for a bin)
+  const int ns = len >= PSAMPLE ? PSAMPLE : (int)(len / PCHUNKS) * PCHUNKS;
+  const int chunk = ns / PCHUNKS;
+  const long long stride = len / PCHUNKS;
+  u64 lo = NONE64, hi = 0;
+  int sshift;
+  {
+    u64 v[PSAMPLE / PT];
+#pragma unroll
+    for (int u = 0; u < PSAMPLE / PT; ++u) {
+      const int i = u * PT + tid;
+      v[u] = i < ns ? row[(long long)(i / chunk) * stride + i % chunk]
+                    : NONE64;
+      if (i < ns) {
+        lo = v[u] < lo ? v[u] : lo;
+        hi = v[u] > hi ? v[u] : hi;
+      }
+    }
+    for (int i = tid; i < PNB; i += PT) hist[i] = 0u;
+    block_min_max(&lo, &hi, s_red);
+    sshift = range_shift(lo, hi) + 3;  // PT = PNB / 8 bins
+    unsigned int* wh = hist + (tid >> 5) * PT;
+#pragma unroll
+    for (int u = 0; u < PSAMPLE / PT; ++u)
+      if (u * PT + tid < ns)
+        atomicAdd(&wh[(unsigned int)((v[u] - lo) >> sshift)], 1u);
+  }
+  __syncthreads();
+  long long j = (long long)ceil(sqrt((double)k * sb) * ns / (double)len);
+  j = j < 1 ? 1 : (j > ns ? ns : j);
+  {
+    // bin tid over the warps, its exclusive scan, the bin of the j-th
+    unsigned int c = 0;
+    for (int w = 0; w < PT / 32; ++w) c += hist[w * PT + tid];
+    unsigned int inc = c;
+    const int lane = tid & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned int t = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc += t;
+    }
+    if (lane == 31) s_scan[tid >> 5] = inc;
+    if (tid == 0) s_cnt = 0u;
+    __syncthreads();
+    unsigned int run = inc - c;
+    for (int w = 0; w < (tid >> 5); ++w) run += s_scan[w];
+    if (run < (unsigned int)j && (unsigned int)j <= run + c) s_bin = tid;
+  }
+  __syncthreads();
+  int shift = range_shift(lo, hi);
+  const u64 g = bin_top(lo, hi, sshift, s_bin);
+  // 2. one read of the row: every key <= g appended to the buffer
+  pair_scan<8>(row, len, [&](const u64 (&x)[16], const bool (&in)[16]) {
+    bool take[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) take[u] = in[u] && x[u] <= g;
+    append(x, take, buf, sb, &s_cnt);
+  });
+  __syncthreads();
+  const unsigned int got = s_cnt;
+  if (got >= (unsigned int)k && got <= (unsigned int)sb) {
+    finish((int)got, NONE64);
+    return;
+  }
+  // 3. the guess missed: levels of histograms, each one more read, the
+  // first over the sample's range [lo, hi]: the bin holding the k-th key.
+  // Once the keys up to it fit the buffer, one more read gathers them (a
+  // bin of one key value that does not fit: the keys below it, then that
+  // key repeated); else that bin's range is the next level
+  for (;;) {
+    for (int i = tid; i < PNB; i += PT) hist[i] = 0u;
+    if (tid == 0) s_below = 0u;
+    __syncthreads();
+    unsigned int below = 0;
+    pair_scan<4>(row, len, [&](const u64 (&x)[8], const bool (&in)[8]) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        hist_key(x[u], in[u], lo, hi, shift, hist, &below);
+    });
+    below = __reduce_add_sync(FULL, below);
+    if ((tid & 31) == 0) atomicAdd(&s_below, below);
+    __syncthreads();
+    const unsigned int below_t = s_below;
+    u64 nlo, nhi;
+    if (below_t >= (unsigned int)k) {  // below the range (lo > 0)
+      nlo = 0;
+      nhi = lo - 1;
+    } else {
+      find_bin_block(hist, (unsigned int)k - below_t, &s_bin, &s_before,
+                     s_scan);
+      __syncthreads();
+      const unsigned int b = s_bin;
+      const unsigned int lt = below_t + s_before;  // keys below the bin
+      const unsigned int le = lt + hist[b];
+      if (le < (unsigned int)k) {  // above the range (hi < NONE64)
+        nlo = hi + 1;
+        nhi = NONE64;
+      } else {
+        nlo = lo + ((u64)b << shift);
+        nhi = bin_top(lo, hi, shift, b);
+        if (le <= (unsigned int)sb || nlo == nhi) {
+          const bool strict = le > (unsigned int)sb;
+          __syncthreads();
+          if (tid == 0) s_cnt = 0u;
+          __syncthreads();
+          pair_scan<4>(row, len, [&](const u64 (&x)[8],
+                                     const bool (&in)[8]) {
+            bool take[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              take[u] = in[u] && (strict ? x[u] < nlo : x[u] <= nhi);
+            append(x, take, buf, sb, &s_cnt);
+          });
+          __syncthreads();
+          finish(strict ? (int)lt : (int)le, nlo);
+          return;
+        }
+      }
+    }
+    __syncthreads();  // every thread has read the histogram
+    lo = nlo;
+    hi = nhi;
+    shift = range_shift(lo, hi);
+  }
 }
 
 }  // namespace
@@ -604,27 +1031,27 @@ SURREAL_API int select_topk_rows(const float* vals, long long ld,
   if (rows <= 0) return (int)cudaSuccess;
   if (k < 1 || (long long)k > n || n > 0x7FFFFFFFLL || ld < n)
     return (int)cudaErrorInvalidValue;
-  return launch_select<false>(vals, ld, nullptr, ids, ids_ld, rows, n, k,
-                              out_vals, out_idx, scratch, scratch_ld,
-                              blocks_per_row, work, gather, gather_cap,
-                              static_cast<cudaStream_t>(stream));
+  return launch_select(vals, ld, ids, ids_ld, rows, n, k, out_vals, out_idx,
+                       scratch, scratch_ld, blocks_per_row, work, gather,
+                       gather_cap, static_cast<cudaStream_t>(stream));
 }
 
 SURREAL_API int select_topk_pairs(const unsigned long long* pairs,
                                   long long ld, const unsigned int* counts,
-                                  int rows, int k, float* out_vals,
+                                  int rows, int k, int sb, float* out_vals,
                                   int32_t* out_idx,
-                                  unsigned long long* scratch,
-                                  long long scratch_ld, int blocks_per_row,
-                                  unsigned int* work,
-                                  unsigned long long* gather,
-                                  long long gather_cap, void* stream) {
+                                  unsigned long long* scratch, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
   if (k < 1 || counts == nullptr || ld < k || ld > 0x7FFFFFFFLL ||
-      (reinterpret_cast<uintptr_t>(pairs) & 7) != 0)
+      (reinterpret_cast<uintptr_t>(pairs) & 7) != 0 || sb < 64 ||
+      (sb & (sb - 1)) != 0 || sb < k || (sb > PBUF_SMEM && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch_select<true>(pairs, ld, counts, nullptr, 0, rows, ld, k,
-                             out_vals, out_idx, scratch, scratch_ld,
-                             blocks_per_row, work, gather, gather_cap,
-                             static_cast<cudaStream_t>(stream));
+  const int smem = (sb <= PBUF_SMEM ? sb * 8 : 0) + PNB * 4;
+  static SurrealSmemDone done;
+  const cudaError_t err = surreal_smem_limit(select_pairs_kernel, smem, &done);
+  if (err != cudaSuccess) return (int)err;
+  select_pairs_kernel<<<(unsigned)rows, PT, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      pairs, ld, counts, k, sb, out_vals, out_idx, scratch);
+  return (int)cudaGetLastError();
 }

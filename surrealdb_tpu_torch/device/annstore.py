@@ -44,6 +44,7 @@ def ann_descent_plain(graph, x8, arow, x2q, qs, init_ids, init_dist,
     from surrealdb_tpu_torch.ops.topk import (
         _full,
         _pad_to,
+        jax_rows,
         quantize_queries_plain,
     )
 
@@ -60,7 +61,7 @@ def ann_descent_plain(graph, x8, arow, x2q, qs, init_ids, init_dist,
     inf = torch.tensor(float("inf"), device=ids.device)
 
     def score_rows(nb):
-        nbc = nb.clamp(0, n - 1)
+        nbc = jax_rows(nb, n)
         dots = torch.einsum("bcd,bd->bc", x8[nbc].to(torch.float64), q8)
         dots = dots.to(torch.float32) * (arow[nbc] * inv_sq[:, None])
         if metric == EUCLIDEAN:
@@ -71,7 +72,7 @@ def ann_descent_plain(graph, x8, arow, x2q, qs, init_ids, init_dist,
         key = torch.where(expanded, inf, dist)
         esel = torch.sort(key, dim=1, stable=True).indices[:, :expand]
         expanded[rows_ix, esel] = True
-        src = torch.gather(ids, 1, esel).clamp(0, n - 1)
+        src = jax_rows(torch.gather(ids, 1, esel), n)
         nb = graph[src].reshape(b, expand * d_out).to(torch.int64)
         dup = (nb[:, :, None] == ids[:, None, :]).any(dim=2)
         inner = torch.tril(nb[:, :, None] == nb[:, None, :],

@@ -27,16 +27,20 @@ _SEEN_MAX = 4096
 
 # distance_tile counts every launch, and each of its two routes
 # (distance_tile_tf32: tensor cores; distance_tile_simt: CUDA cores) its
-# own
+# own; gather_rescore every launch, and gather_rescore_topk those with
+# the final top k fused in
 KERNELS = ("distance_tile", "distance_tile_tf32", "distance_tile_simt",
            "distance_row_stats", "select_topk_rows", "rank_scores_bf16",
-           "gather_rescore", "csr_hop_step", "quantize_rows_int8",
+           "gather_rescore", "gather_rescore_topk", "csr_hop_step",
+           "quantize_rows_int8",
            "rank_scores_int8", "rank_candidates_int8", "select_topk_pairs",
            "ann_descent", "merge_partials_topk", "mask_or_reduce")
 LAUNCHES = {name: 0 for name in KERNELS}
 # path events that are not launches: int8 store queries whose
-# candidates overflowed their buffer and took the exact chunked path
-EVENTS = {"int8_overflow_rows": 0}
+# candidates overflowed their buffer and took the exact chunked path;
+# bf16 store query chunks whose kc is past the fused rescore's limit
+# (ops/topk.py RESCORE_TOPK_MAX_KC: the [C, kc] rescore, then a select)
+EVENTS = {"int8_overflow_rows": 0, "rescore_select_route": 0}
 
 
 def note_compile(kernel: str):

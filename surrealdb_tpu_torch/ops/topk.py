@@ -146,6 +146,21 @@ def pack_pairs_plain(keys, ids):
     return (signed << 32) | ids.to(torch.int64)
 
 
+# the pair select (csrc/select.cu select_pairs_kernel, one block a row)
+# keeps its buffer in shared memory up to PAIR_SMEM_KEYS keys (PBUF_SMEM
+# there), else in a [rows, buffer] device scratch the wrapper allocates
+PAIR_SMEM_KEYS = 8192
+
+
+def pair_select_plan(k: int):
+    """(buffer keys, scratch keys a row) of select_topk_pairs for k: the
+    buffer holds the keys a row's block sorts (its k smallest and the
+    rest of a guess or of a histogram bin), a power of two of at least
+    1.25 k and 64 keys; scratch only past PAIR_SMEM_KEYS."""
+    buf = max(64, 1 << (k + k // 4 - 1).bit_length())
+    return buf, (0 if buf <= PAIR_SMEM_KEYS else buf)
+
+
 def top_k_pairs_plain(pairs, counts, k: int):
     """Plain version of select_topk_pairs: per row the k smallest of
     pairs[r, :min(counts[r], cap)] by (value, id) -> (values [R, k] f32,
@@ -170,7 +185,8 @@ def top_k_pairs_plain(pairs, counts, k: int):
 def select_topk_pairs(pairs, counts, k: int):
     """Launch csrc/select.cu select_topk_pairs on CUDA pairs [R, cap]
     (int64 holding the u64 (order key << 32 | id)) with counts [R];
-    rows with fewer than k pairs give (+inf, -1)."""
+    rows with fewer than k pairs give (+inf, -1), written by the
+    kernel."""
     from surrealdb_tpu_torch.device import compile_cache
 
     if not (pairs.is_cuda and counts.is_cuda) or pairs.dim() != 2:
@@ -180,18 +196,21 @@ def select_topk_pairs(pairs, counts, k: int):
         raise ValueError(f"select_topk_pairs: k={k} outside 1..{cap}")
     pairs = pairs.contiguous()
     counts = counts.to(torch.int32).contiguous()
-    out_v = torch.full((rows, k), float("inf"), dtype=torch.float32,
-                       device=pairs.device)
-    out_i = torch.full((rows, k), -1, dtype=torch.int32, device=pairs.device)
+    out_v = torch.empty((rows, k), dtype=torch.float32, device=pairs.device)
+    out_i = torch.empty((rows, k), dtype=torch.int32, device=pairs.device)
     if rows == 0:
         return out_v, out_i
-    tail, _keep = _select_buffers(rows, cap, k, pairs.device)
+    buf, scratch_keys = pair_select_plan(k)
+    scratch = (torch.empty((rows, scratch_keys), dtype=torch.int64,
+                           device=pairs.device) if scratch_keys else None)
     fn = compile_cache.declare(
         compile_cache.library("select.cu"), "select_topk_pairs",
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + _SELECT_TAIL)
-    err = fn(pairs.data_ptr(), cap, counts.data_ptr(), rows, k,
-             out_v.data_ptr(), out_i.data_ptr(), *tail, _stream(pairs))
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(pairs.data_ptr(), cap, counts.data_ptr(), rows, k, buf,
+             out_v.data_ptr(), out_i.data_ptr(), _ptr(scratch),
+             _stream(pairs))
     compile_cache.check(err, "select_topk_pairs")
     kernelstats.note_launch("select_topk_pairs")
     return out_v, out_i
@@ -305,10 +324,20 @@ def rank_scores(xs_rank, qs, metric: str, x2=None, valid=None):
     return rank_scores_plain(xs_rank, qs, metric, x2, valid)
 
 
+def jax_rows(ids, n: int):
+    """Row indices by JAX's gather rule: an id in [-n, 0) wraps to
+    id + n, then every id is clamped to [0, n - 1] (csrc/kernels.h
+    surreal_jax_row)."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+
+
 def gather_rescore_plain(xs_full, qs, cand, metric: str, norms=None,
                          valid=None):
-    """Plain version: gather [C, kc, D] rows, exact f32 distances."""
-    rows = xs_full[cand.long()]
+    """Plain version: gather [C, kc, D] rows (JAX's index rule), exact
+    f32 distances."""
+    rows_ix = jax_rows(cand, xs_full.shape[0])
+    rows = xs_full[rows_ix]
     if metric == EUCLIDEAN:
         diff = rows - qs[:, None, :]
         d = torch.sqrt(torch.clamp((diff * diff).sum(-1), min=0.0))
@@ -316,19 +345,48 @@ def gather_rescore_plain(xs_full, qs, cand, metric: str, norms=None,
         dd = torch.einsum("bkd,bd->bk", rows, qs)
         if metric == COSINE:
             qn = torch.clamp(torch.linalg.norm(qs, dim=-1), min=1e-30)
-            d = 1.0 - dd / torch.clamp(norms[cand.long()] * qn[:, None],
+            d = 1.0 - dd / torch.clamp(norms[rows_ix] * qn[:, None],
                                        min=1e-30)
         else:
             d = -dd
     if valid is not None:
-        d = torch.where(valid.to(torch.bool)[cand.long()], d,
+        d = torch.where(valid.to(torch.bool)[rows_ix], d,
                         torch.full_like(d, float("inf")))
     return d
 
 
-def gather_rescore_cuda(xs_full, qs, cand, metric: str, norms=None,
-                        valid=None):
-    """Launch csrc/rank_rescore.cu gather_rescore -> [C, kc] f32."""
+def gather_rescore_topk_plain(xs_full, qs, cand, metric: str, k: int,
+                              norms=None, valid=None):
+    """Plain version of the fused rescore: the [C, kc] distances, then
+    their k smallest by (value, column), ids through cand -> (values
+    [C, k] f32, ids [C, k] int32)."""
+    return top_k_smallest_plain(
+        gather_rescore_plain(xs_full, qs, cand, metric, norms, valid), k,
+        ids=cand)
+
+
+# gather_rescore's launch (csrc/rank_rescore.cu): four warps a block,
+# four rows staged in shared memory a warp; a query's columns over a
+# cluster of up to RESCORE_MAX_CLUSTER blocks; the fused top k takes kc
+# up to RESCORE_TOPK_MAX_KC (a larger kc goes to the [C, kc] output and
+# select_topk_rows). The kernel's entry refuses more of either
+# (GR_MAX_CLUSTER, GR_MAX_KC there).
+RESCORE_MAX_CLUSTER = 8
+RESCORE_BLOCK_ROWS = 8
+RESCORE_TOPK_MAX_KC = 2048
+
+
+def rescore_plan(c: int, kc: int, sms: int) -> int:
+    """Blocks a query of gather_rescore for c queries of kc candidates
+    on a card of `sms` SMs: about two blocks an SM over the queries, at
+    most RESCORE_MAX_CLUSTER, each with at least RESCORE_BLOCK_ROWS
+    columns (two for each of its warps)."""
+    return max(1, min(RESCORE_MAX_CLUSTER, -(-2 * sms // max(c, 1)),
+                      -(-kc // RESCORE_BLOCK_ROWS)))
+
+
+def _gather_rescore_launch(xs_full, qs, cand, metric: str, k: int, norms,
+                           valid):
     from surrealdb_tpu_torch.device import compile_cache
 
     if not (xs_full.is_cuda and qs.is_cuda and cand.is_cuda):
@@ -344,19 +402,42 @@ def gather_rescore_cuda(xs_full, qs, cand, metric: str, norms=None,
         norms = norms.to(torch.float32).contiguous()
     if valid is not None:
         valid = valid.to(torch.uint8).contiguous()
-    out = torch.empty((c, kc), dtype=torch.float32, device=qs.device)
+    dev = qs.device
+    out = vals = ids = None
+    if k:
+        vals = torch.empty((c, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((c, k), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((c, kc), dtype=torch.float32, device=dev)
     fn = compile_cache.declare(
         compile_cache.library("rank_rescore.cu"), "gather_rescore",
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
     err = fn(xs_full.data_ptr(), qs.data_ptr(), cand.data_ptr(),
              norms.data_ptr() if metric == COSINE else None, _ptr(valid),
-             out.data_ptr(), n, c, kc, dim, METRIC_CODE[metric],
-             _stream(qs))
+             _ptr(out), _ptr(vals), _ptr(ids), n, c, kc, dim, k,
+             METRIC_CODE[metric],
+             rescore_plan(c, kc, _sm_count(dev.index or 0)), _stream(qs))
     compile_cache.check(err, "gather_rescore")
     kernelstats.note_launch("gather_rescore")
+    if k:
+        kernelstats.note_launch("gather_rescore_topk")
+        return vals, ids
     return out
+
+
+def gather_rescore_cuda(xs_full, qs, cand, metric: str, norms=None,
+                        valid=None):
+    """Launch csrc/rank_rescore.cu gather_rescore -> [C, kc] f32."""
+    return _gather_rescore_launch(xs_full, qs, cand, metric, 0, norms, valid)
+
+
+def gather_rescore_topk_cuda(xs_full, qs, cand, metric: str, k: int,
+                             norms=None, valid=None):
+    """Launch csrc/rank_rescore.cu gather_rescore with the final top k
+    fused in (kc <= RESCORE_TOPK_MAX_KC) -> (values [C, k] f32, ids
+    [C, k] int32)."""
+    return _gather_rescore_launch(xs_full, qs, cand, metric, k, norms, valid)
 
 
 def gather_rescore(xs_full, qs, cand, metric: str, norms=None, valid=None):
@@ -365,13 +446,31 @@ def gather_rescore(xs_full, qs, cand, metric: str, norms=None, valid=None):
     return gather_rescore_plain(xs_full, qs, cand, metric, norms, valid)
 
 
+def gather_rescore_topk(xs_full, qs, cand, metric: str, k: int, norms=None,
+                        valid=None):
+    """The exact rescore of the candidates and its k best by (distance,
+    column): one launch up to RESCORE_TOPK_MAX_KC candidates, past it
+    the [C, kc] rescore and select_topk_rows (counted as the event
+    rescore_select_route)."""
+    if cand.shape[1] > RESCORE_TOPK_MAX_KC:
+        kernelstats.note_event("rescore_select_route")
+        return top_k_smallest(
+            gather_rescore(xs_full, qs, cand, metric, norms, valid), k,
+            ids=cand)
+    if xs_full.is_cuda:
+        return gather_rescore_topk_cuda(xs_full, qs, cand, metric, k, norms,
+                                        valid)
+    return gather_rescore_topk_plain(xs_full, qs, cand, metric, k, norms,
+                                     valid)
+
+
 def knn_rank_rescore(xs_rank, xs_full, qs_r, k: int, kc: int,
                      metric: str = EUCLIDEAN, x2=None, norms=None,
                      valid=None):
     """Two-stage KNN for euclidean/cosine/dot. Per query chunk of
     `qs_r` ([R, C, D] f32): bf16 rank scores over the whole store, the
-    exact kc best candidates, their exact f32 rescore, the exact top k
-    of those. Returns (dists [R, C, k] f32, ids [R, C, k] int32).
+    exact kc best candidates, their exact f32 rescore with the exact top
+    k of those in the same launch (`gather_rescore_topk`). Returns (dists [R, C, k] f32, ids [R, C, k] int32).
     `x2` f32 row norms^2 (euclidean), `norms` f32 row norms (cosine)."""
     n = xs_rank.shape[0]
     dev = qs_r.device
@@ -384,8 +483,8 @@ def knn_rank_rescore(xs_rank, xs_full, qs_r, k: int, kc: int,
         score = rank_scores(xs_rank, qs, metric, x2, valid)
         _, cand = top_k_smallest(score, kc)
         del score
-        d = gather_rescore(xs_full, qs, cand, metric, norms, valid)
-        dk, ik = top_k_smallest(d, k, ids=cand)
+        dk, ik = gather_rescore_topk(xs_full, qs, cand, metric, k, norms,
+                                     valid)
         d_parts.append(dk)
         i_parts.append(ik)
     return torch.stack(d_parts), torch.stack(i_parts)

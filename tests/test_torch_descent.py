@@ -6,7 +6,9 @@ is held to bit for bit) against the reference's `_descent_scored` on the
 same inputs, over frontier widths W 16 / 64 / 128, expansions E 1 / 2 /
 4 and 0 / 1 / 24 iterations, both metrics, on a graph whose lists repeat
 ids and hold ids past the last row (both sides clamp those in their
-gathers). The seed is each side's probe. Ids must be equal wherever the
+gathers); and on a graph whose lists hold ids -1, -N and -(N + 3)
+(JAX's gathers wrap an id in [-N, 0) to id + N and clamp the rest, and
+so does the port). The seed is each side's probe. Ids must be equal wherever the
 reference's scores separate neighbours by more than rtol=1e-5, and the
 scores agree within rtol=1e-5 (the reference's XLA product and
 dequantisation may differ from an IEEE round of each operation by an
@@ -52,12 +54,25 @@ def _store(metric):
     return _STORES[metric]
 
 
-@pytest.mark.parametrize("iters", [0, 1, 24])
-@pytest.mark.parametrize("expand", [1, 2, 4])
-@pytest.mark.parametrize("width", [16, 64, 128])
-@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
-def test_descent_plain_matches_reference(metric, width, expand, iters):
-    ann, graph, qs = _store(metric)
+_NEG_STORES: dict = {}
+
+
+def _neg_store(metric):
+    """`_store`'s rows and queries with a graph whose lists hold ids -1,
+    -N and -(N + 3), and repeat ids (cached per metric)."""
+    if metric not in _NEG_STORES:
+        ann, _, qs = _store(metric)
+        graph = ann.graph.copy()
+        graph[::5, 1] = -1
+        graph[::7, 3] = -N
+        graph[::6, 2] = -(N + 3)
+        graph[::4, 5] = graph[::4, 4]
+        _NEG_STORES[metric] = (ann, graph, qs)
+    return _NEG_STORES[metric]
+
+
+def _descend_both(ann, graph, qs, metric, width, expand, iters, trace=None):
+    """(reference ids, dists), (port ids, dists) of one descent."""
     kc = min(40, width)
     cfg = {"width": width, "iters": max(iters, 1), "expand": expand}
     ref = RefAnnStore("k", graph, ann.x8, ann.arow, ann.x2, metric, cfg)
@@ -71,10 +86,41 @@ def test_descent_plain_matches_reference(metric, width, expand, iters):
     ids0, d0 = pann.probe_seed(dv, q, metric, width)
     got_i, got_d = pann.ann_descent_plain(dv["graph"], dv["x8"], dv["arow"],
                                           dv["x2q"], q, ids0, d0, metric,
-                                          iters, expand, kc)
-    assert got_i.shape == (B, kc) and got_i.dtype == torch.int32
+                                          iters, expand, kc, trace=trace)
+    return (rid, rd), (got_i, got_d)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 24])
+@pytest.mark.parametrize("expand", [1, 2, 4])
+@pytest.mark.parametrize("width", [16, 64, 128])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_descent_plain_matches_reference(metric, width, expand, iters):
+    ann, graph, qs = _store(metric)
+    (rid, rd), (got_i, got_d) = _descend_both(ann, graph, qs, metric, width,
+                                              expand, iters)
+    assert got_i.shape == (B, min(40, width)) and got_i.dtype == torch.int32
     np.testing.assert_allclose(got_d.numpy(), rd, rtol=RTOL, atol=0)
     assert_ids_match(rd, rid, got_i.numpy())
+
+
+@pytest.mark.parametrize("iters", [1, 24])
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("width", [16, 64])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_descent_plain_matches_reference_negative_ids(metric, width, expand,
+                                                      iters):
+    """Negative graph ids: scored and expanded as rows id + N (or row 0
+    past -N), kept raw in the frontier and the answer, as the
+    reference keeps them."""
+    ann, graph, qs = _neg_store(metric)
+    trace = {}
+    (rid, rd), (got_i, got_d) = _descend_both(ann, graph, qs, metric, width,
+                                              expand, iters, trace)
+    np.testing.assert_allclose(got_d.numpy(), rd, rtol=RTOL, atol=0)
+    assert_ids_match(rd, rid, got_i.numpy())
+    if iters == 24:  # the walk reached the negative ids
+        scored = torch.cat(trace["scored"])
+        assert {-1, -N, -(N + 3)} <= set(scored.tolist())
 
 
 def test_descent_seed_sorted_stably_gives_the_same_answer():
