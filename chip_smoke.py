@@ -40,7 +40,20 @@ exits non-zero):
               recall@10, ids equal to the plain descent and unchanged after
               a drop and a reship). Each path runs with the runner's
               launch counts set to 0 just before it and read just after;
-5. mesh    -- after that runner has shut down, runners started with
+5. supervisor -- after that runner has shut down, a supervisor in mode
+              auto (5 s dispatch window, probes every 0.5 s, promotion
+              after 2) starts a runner and ships the knn1m store in
+              parts: 8 threads' 64-query vec_knn frames equal the
+              sequential answers (frames/s printed for both); a 50 ms
+              query budget on a SIGSTOPped runner unwinds in under 0.2 s
+              and leaves it serving; a SIGSTOP with no budget is a wedge
+              (the call raises after the window, the runner is killed,
+              the state degrades and comes back ready); a SIGKILL under
+              the 8-thread load gives each frame its answer or
+              DeviceUnavailable, the state degrades and recovers, the
+              store ships again and answers as before (recovery_s,
+              reship_s, wedge_detect_s, budget_unwind_s);
+6. mesh    -- after those runners have shut down, runners started with
               `--mesh-devices 4` (four logical devices: shard s on
               cuda:(s % device_count), all four on one card when there is
               one, so the times measure partition and merge, not
@@ -60,7 +73,7 @@ It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside it, it exits non-zero before printing any result.
 
-    python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore
+    python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore,supervisor
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -73,8 +86,9 @@ select_topk_pairs bit for bit at edge shapes and on the pairs of a
 knn10m frame's candidates pass at B = 1, 128 and 512 over such a store,
 with its times; rescore: gather_rescore in both modes at edge shapes,
 its times at a knn1m frame's shapes, and the knn1m store's B = 512
-answers, saved under $CHIP_SMOKE_CACHE or held to the saved ones), then
-stops without a result line. Each kernel row gives the time by CUDA
+answers, saved under $CHIP_SMOKE_CACHE or held to the saved ones;
+supervisor: phase 5 alone, over knn1m's rows made here), then stops
+without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
 checkout's root (copied there), whose distance_tile takes no row
@@ -113,6 +127,11 @@ KNN10M = dict(n=10_000_000, dim=768, seed=31, batches=(1, 128, 512), k=10,
 # graph is built here by the port's numpy builder on the host
 ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
            batches=(1, 128, 512), k=10, recall_q=16)
+
+# the supervisor phase: a runner in mode auto over the knn1m store,
+# `threads` clients of `frame`-query vec_knn frames, `rounds` frames each
+SUP = dict(threads=8, frame=64, rounds=8, window_s=5.0, probe_s=0.5,
+           promote=2, budget_s=0.05, unwind_limit_s=0.2, kill_after_s=0.5)
 
 SOURCES = {
     "distance_tile": ("surrealdb_tpu_torch/csrc/distance.cu",
@@ -276,7 +295,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser()
-    checks = ("distance", "csr", "cand", "ann", "pairs", "rescore")
+    checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
+              "supervisor")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -305,6 +325,10 @@ def main(argv=None) -> int:
     from surrealdb_tpu_torch.ops import merge as MG
     from surrealdb_tpu_torch.ops import topk as T
 
+    # the runner phases time frames with no warm-up frames queued
+    # beside them: only the supervisor phase keeps the serving prewarm
+    prewarm = cnf.DEVICE_PREWARM_BUCKETS, cnf.DEVICE_PREWARM_HOPS
+    cnf.DEVICE_PREWARM_BUCKETS = cnf.DEVICE_PREWARM_HOPS = ""
     # the plain versions are the references: full f32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1284,6 +1308,10 @@ def main(argv=None) -> int:
             for sname, fn in steps.items():
                 row[f"{sname}_ms"] = cuda_ms(fn, iters)
                 row[f"{sname}_device_ms"] = device_ms(fn, iters)
+            if fused_rescore is not None:  # the fused step's plain version
+                row["fused_plain_ms"] = cuda_ms(
+                    lambda: T.gather_rescore_topk_plain(
+                        full_, q_, cand_, "cosine", kk, norms_), 5)
             # with the final k written: the bound of the fused step
             row["fused_bound_ms"] = bound(
                 4 * c_ * kc_ * dim_ + 4 * c_ * dim_ + 4 * c_ * kc_
@@ -1291,6 +1319,236 @@ def main(argv=None) -> int:
             out[c_] = row
             emit("kernel", name="gather_rescore", tol=[1e-4, 1e-5], **row)
         return out[max(out)], err
+
+    # -- the supervisor's serving half (also `--only`) --------------------------
+    def supervisor_phase(xs_, qs_, counts=None):
+        """A supervised runner (mode auto) over the knn1m store: frames
+        from 8 threads at once against one at a time, a query budget on
+        a stopped runner, a wedge, and a SIGKILL under the 8-thread
+        load, each with its recovery. `counts` receives the launch
+        counts read from each runner before it is stopped or killed."""
+        import signal
+        import threading
+
+        from surrealdb_tpu_torch.device import supervisor as SV
+
+        key, tag, kk = "vec/b/b/tbl/ix", [1, 0], KNN1M["k"]
+        meta = {"key": key, "tag": tag, "k": kk}
+        nt, fb, rounds = SUP["threads"], SUP["frame"], SUP["rounds"]
+        qsets = [qs_[i * fb:(i + 1) * fb] for i in range(nt)]
+        loads, got = [], {}
+
+        def loader():
+            loads.append(key)
+            return ("vec_load", {"metric": "cosine", "mink_p": 3.0,
+                                 "cfg": cnf.device_cfg()},
+                    [xs_, np.ones(xs_.shape[0], np.uint8)])
+
+        def matches(bufs, i):
+            d, ids = bufs
+            return (np.array_equal(ids, want[i][1])
+                    and np.allclose(d, want[i][0], atol=1e-4, rtol=1e-5))
+
+        def answers(what):
+            for i, q in enumerate(qsets):
+                check(matches(sup.call("vec_knn", meta, [q])[2], i),
+                      f"supervisor {what}: frame {i} differs from the "
+                      "answers before")
+
+        def read_counts():
+            _, m, _ = sup.call("launch_counts", {"reset": True})
+            for kname, v in m["launches"].items():
+                got[kname] = got.get(kname, 0) + v
+
+        def wait_state(state, timeout):
+            end = time.perf_counter() + timeout
+            while sup.state != state and time.perf_counter() < end:
+                time.sleep(0.001)
+            return sup.state == state
+
+        def gone(pid, timeout=10.0):
+            end = time.perf_counter() + timeout
+            while time.perf_counter() < end:
+                try:
+                    os.kill(pid, 0)
+                except ProcessLookupError:
+                    return True
+                time.sleep(0.01)
+            return False
+
+        def stopped_call():
+            """One frame to a stopped runner: (raised, seconds)."""
+            t0 = time.perf_counter()
+            try:
+                sup.call("vec_knn", meta, [qsets[0]])
+            except SV.DeviceUnavailable:
+                return True, time.perf_counter() - t0
+            return False, time.perf_counter() - t0
+
+        # the serving defaults warm each shipped store (the runner
+        # phases above run without)
+        cnf.DEVICE_PREWARM_BUCKETS, cnf.DEVICE_PREWARM_HOPS = prewarm
+        sup = DeviceSupervisor(
+            "auto", device="cuda", dispatch_timeout_s=SUP["window_s"],
+            probe_interval_s=SUP["probe_s"],
+            promote_successes=SUP["promote"])
+        out = {"rows": xs_.shape[0], "dim": xs_.shape[1], "threads": nt,
+               "frame_queries": fb, "window_s": SUP["window_s"],
+               "probe_interval_s": SUP["probe_s"],
+               "promote_successes": SUP["promote"]}
+        try:
+            t0 = time.perf_counter()
+            sup.ensure_started()
+            check(sup.wait_ready(sup.init_timeout_s)
+                  and sup.platform == "cuda",
+                  f"supervisor: no runner on cuda: {sup.status()}")
+            out["start_s"] = time.perf_counter() - t0
+            out["init_s"] = sup.ready_meta["init_s"]
+            sup.call("launch_counts", {"reset": True})
+            t0 = time.perf_counter()
+            sup.ensure_loaded(key, tag, loader)
+            out["load_s"] = time.perf_counter() - t0
+            want = [sup.call("vec_knn", meta, [q])[2] for q in qsets]
+            for d, ids in want:
+                check(d.shape == ids.shape == (fb, kk)
+                      and np.isfinite(d).all()
+                      and ((ids >= 0) & (ids < xs_.shape[0])).all(),
+                      "supervisor: vec_knn result shape/values")
+            # 8 x rounds frames one at a time, then from 8 threads
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                answers("sequential")
+            seq_s = time.perf_counter() - t0
+            errors = []
+
+            def client(i):
+                try:
+                    for _ in range(rounds):
+                        if not matches(sup.call("vec_knn", meta,
+                                                [qsets[i]])[2], i):
+                            errors.append(f"thread {i}: wrong answer")
+                except Exception as e:  # collected, then checked
+                    errors.append(f"thread {i}: {e!r}")
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(nt)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            conc_s = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"supervisor concurrency: {errors[:3]}")
+            out["sequential_frames_s"] = nt * rounds / seq_s
+            out["concurrent_frames_s"] = nt * rounds / conc_s
+            # a query's budget on a stopped runner: the call unwinds,
+            # the runner stays; its late reply is dropped by seq
+            pid = sup.runner_pid()
+            os.kill(pid, signal.SIGSTOP)
+            try:
+                SV.bind_serving(remaining=lambda: SUP["budget_s"])
+                raised, out["budget_unwind_s"] = stopped_call()
+            finally:
+                SV.bind_serving()
+                os.kill(pid, signal.SIGCONT)
+            check(raised and out["budget_unwind_s"] < SUP["unwind_limit_s"]
+                  and sup.state == "ready" and sup.runner_pid() == pid,
+                  f"supervisor budget: raised {raised} after "
+                  f"{out['budget_unwind_s']} s, {sup.status()}")
+            answers("after the orphaned frame")
+            read_counts()
+            # a wedge: stopped, no budget; the full window kills it
+            timeouts0 = sup.counters["device_dispatch_timeouts"]
+            os.kill(pid, signal.SIGSTOP)
+            raised, out["wedge_detect_s"] = stopped_call()
+            t_wedge = time.perf_counter()
+            out["dispatch_timeouts"] = [
+                timeouts0, sup.counters["device_dispatch_timeouts"]]
+            check(raised and sup.state == "degraded"
+                  and out["dispatch_timeouts"][1] == timeouts0 + 1
+                  and SUP["window_s"] <= out["wedge_detect_s"]
+                  < SUP["window_s"] + 1.0,
+                  f"supervisor wedge: raised {raised} after "
+                  f"{out['wedge_detect_s']} s, {sup.status()}")
+            check(gone(pid), "supervisor: the wedged runner lives on")
+            check(wait_state("ready", 300),
+                  f"supervisor: no recovery after the wedge "
+                  f"{sup.status()}")
+            out["wedge_recovery_s"] = time.perf_counter() - t_wedge
+            check(sup.counters["device_restarts"] >= 1,
+                  "supervisor: no restart counted after the wedge")
+            t0 = time.perf_counter()
+            sup.ensure_loaded(key, tag, loader)
+            out["wedge_reship_s"] = time.perf_counter() - t0
+            check(len(loads) == 2, "supervisor: no reship after the wedge")
+            answers("after the wedge")
+            read_counts()
+            # SIGKILL under the 8-thread load: each frame answers right
+            # or raises DeviceUnavailable, nothing else
+            outcomes = [[] for _ in range(nt)]
+            deadline = time.perf_counter() + 120
+
+            def loaded(i):
+                while time.perf_counter() < deadline:
+                    try:
+                        bufs = sup.call("vec_knn", meta, [qsets[i]])[2]
+                    except SV.DeviceUnavailable:
+                        outcomes[i].append("unavailable")
+                        return
+                    except Exception as e:  # collected, then checked
+                        outcomes[i].append(f"error {e!r}")
+                        return
+                    outcomes[i].append("ok" if matches(bufs, i)
+                                       else "wrong")
+
+            threads = [threading.Thread(target=loaded, args=(i,))
+                       for i in range(nt)]
+            for t in threads:
+                t.start()
+            time.sleep(SUP["kill_after_s"])
+            pid = sup.runner_pid()
+            t_kill = time.perf_counter()
+            os.kill(pid, signal.SIGKILL)
+            seen_degraded = wait_state("degraded", 10)
+            for t in threads:
+                t.join(timeout=130)
+            bad = [o for per in outcomes for o in per
+                   if o not in ("ok", "unavailable")]
+            check(not any(t.is_alive() for t in threads) and not bad
+                  and all(per and per[-1] == "unavailable"
+                          for per in outcomes),
+                  f"supervisor kill under load: {bad[:3]}")
+            check(seen_degraded, "supervisor: never degraded after a kill")
+            check(wait_state("ready", 300),
+                  f"supervisor: no recovery after the kill "
+                  f"{sup.status()}")
+            out["recovery_s"] = time.perf_counter() - t_kill
+            out["respawn_init_s"] = sup.ready_meta["init_s"]
+            t0 = time.perf_counter()
+            sup.ensure_loaded(key, tag, loader)
+            out["reship_s"] = time.perf_counter() - t0
+            check(len(loads) == 3, "supervisor: no reship after the kill")
+            answers("after the kill")
+            read_counts()
+            out["frames_ok_before_kill"] = sum(
+                per.count("ok") for per in outcomes)
+            out["spawns"] = sup.counters["device_spawns"]
+            out["restarts"] = sup.counters["device_restarts"]
+            out["state"] = sup.state
+        finally:
+            sup.shutdown()
+            SV.bind_serving()
+            cnf.DEVICE_PREWARM_BUCKETS = cnf.DEVICE_PREWARM_HOPS = ""
+        for kname in ("rank_scores_bf16", "select_topk_rows",
+                      "gather_rescore", "gather_rescore_topk"):
+            check(got.get(kname, 0) > 0,
+                  f"supervisor: kernel {kname} was not launched")
+        if counts is not None:
+            for kname, v in got.items():
+                counts[kname] += v
+        emit("supervisor", **out, launches=got)
+        return out
 
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
@@ -1317,6 +1575,13 @@ def main(argv=None) -> int:
             pairs_only()
         if "rescore" in only:
             rescore_only()
+        if "supervisor" in only:
+            rng = np.random.default_rng(KNN1M["seed"])  # knn1m's rows
+            xs_np = rng.standard_normal((KNN1M["n"], KNN1M["dim"]),
+                                        dtype=np.float32)
+            supervisor_phase(xs_np, rng.standard_normal(
+                (max(KNN1M["batches"]), KNN1M["dim"]), dtype=np.float32))
+            xs_np = None
         emit("only", checks=only,
              seconds=round(time.perf_counter() - t_start, 3))
         return 0
@@ -2089,7 +2354,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 4. the runner as a server ----------------------------------------------
-    sup = DeviceSupervisor(device="cuda")
+    sup = DeviceSupervisor("auto", device="cuda")
     try:
         ready = sup.start()
         check(ready["platform"] == "cuda", f"runner platform {ready}")
@@ -2408,20 +2673,26 @@ def main(argv=None) -> int:
     finally:
         sup.shutdown()
 
-    # -- 5. the mesh: runners with four logical devices -------------------------
-    # started after the first runner has shut down, so the two runners'
-    # stores never share the card; each sets SURREAL_DEVICE_MESH before
-    # it is spawned (the runner reads its environment)
-    ndev = MESH["ndev"]
-    cards = DM.physical_devices(DM.device_list(ndev, "cuda"))
     t0 = time.perf_counter()
     xs_np = np.random.default_rng(KNN1M["seed"]).standard_normal(
         (n, dim), dtype=np.float32)  # the knn1m rows, same generator
     gen_s = time.perf_counter() - t0
 
+    # -- 5. the supervisor: degrade, re-probe, pipelined dispatch, budgets -----
+    # its runners start after the first runner has shut down and are gone
+    # before the mesh runners start: one large runner holds the card
+    supervisor_phase(xs_np, qs_np, launches)
+
+    # -- 6. the mesh: runners with four logical devices -------------------------
+    # started after the supervisor's runners have shut down, so no two
+    # runners' stores share the card; each sets SURREAL_DEVICE_MESH
+    # before it is spawned (the runner reads its environment)
+    ndev = MESH["ndev"]
+    cards = DM.physical_devices(DM.device_list(ndev, "cuda"))
+
     def mesh_runner(mode):
         os.environ["SURREAL_DEVICE_MESH"] = mode
-        runner = DeviceSupervisor(device="cuda", mesh_devices=ndev)
+        runner = DeviceSupervisor("auto", device="cuda", mesh_devices=ndev)
         ready = runner.start()
         check(ready["mesh"] == {"mode": mode, "n_devices": ndev,
                                 "mesh_shape": [ndev], "axis": "mesh"}

@@ -1,6 +1,6 @@
-"""Environment-variable knobs the device runner reads: the KNN and
-DEVICE settings of the reference package's `cnf.py`, with the same
-SURREAL_* names and defaults."""
+"""Environment-variable knobs the device runner and its supervisor
+read: the KNN and DEVICE settings of the reference package's `cnf.py`,
+with the same SURREAL_* names and defaults."""
 
 from __future__ import annotations
 
@@ -60,7 +60,12 @@ KNN_ANN_REFINE = env_int("SURREAL_KNN_ANN_REFINE", -1)
 # int8 quantization clip quantile (1.0 = the exact per-row max)
 KNN_ANN_CLIP_Q = env_float("SURREAL_KNN_ANN_CLIP_Q", 1.0)
 
-# -- device runner ------------------------------------------------------------
+# -- device runner and its supervisor ------------------------------------------
+# off: host paths only. auto (default): supervised runner subprocess,
+# degrade-and-recover. require: device failures surface as errors
+# instead of degrading. inline: ops run in-process (debug/tests,
+# forfeits fault isolation).
+DEVICE_MODE = env_str("SURREAL_DEVICE", "auto")
 # mesh execution (device/mesh.py): row-shard vec/ANN/CSR blocks across
 # the runner's device list with a partial top-k per shard and an exact
 # merge. auto (default): shard only when a store's single-device share
@@ -76,6 +81,15 @@ BACKEND_INIT_TIMEOUT_S = env_float("SURREAL_BACKEND_INIT_TIMEOUT_S", 240.0)
 DEVICE_DISPATCH_TIMEOUT_S = env_float("SURREAL_DEVICE_DISPATCH_TIMEOUT_S",
                                       10.0)
 DEVICE_LOAD_TIMEOUT_S = env_float("SURREAL_DEVICE_LOAD_TIMEOUT_S", 120.0)
+# degraded-state background re-probe cadence + promotion hysteresis
+# (consecutive healthy probes required before traffic returns)
+DEVICE_PROBE_INTERVAL_S = env_float("SURREAL_DEVICE_PROBE_INTERVAL_S", 5.0)
+DEVICE_PROMOTE_SUCCESSES = env_int("SURREAL_DEVICE_PROMOTE_SUCCESSES", 2)
+# query-bucket ladder warmed right after a vector or ANN store ships,
+# and the hop depths after a CSR graph ships ("" disables)
+DEVICE_PREWARM_BUCKETS = env_str("SURREAL_DEVICE_PREWARM_BUCKETS",
+                                 "1,8,64")
+DEVICE_PREWARM_HOPS = env_str("SURREAL_DEVICE_PREWARM_HOPS", "1,2,3")
 
 
 def device_cfg() -> dict:

@@ -8,13 +8,20 @@ this process while the supervisor's init watchdog decides.
 
 Protocol (device/proto.py frames, the reference runner's):
   runner -> supervisor on boot:  ("ready", {platform, device_count,
-                                            compile_cache, mesh})
+                                            compile_cache, mesh, init_s})
                                  or ("init_error", {error})
   supervisor -> runner:          (op, {seq, ...}, bufs)
   runner -> supervisor:          ("ok"|"stale"|"err", {seq, ...}, bufs)
 
+The CUDA context of every card in the device list is made before the
+ready frame, as the reference's `jax.devices()` makes its backend:
+`init_s` splits the boot into `import` (torch and the op table),
+`kernels` (the build, or the load from the build cache) and `context`.
+
 The loop is single-threaded and crash-only: the serving side rebuilds
-every store from its own data after a restart.
+every store from its own data after a restart. An op that raises, even
+a `BaseException` such as `SystemExit`, is answered `err` and the loop
+serves on.
 
 `--mesh-devices N` gives the runner a device list of N logical devices
 (device/mesh.py): shard s on `cuda:(s % device_count)`, or every shard
@@ -33,6 +40,7 @@ from __future__ import annotations
 import argparse
 import signal
 import socket
+import time
 import traceback
 
 
@@ -42,9 +50,14 @@ def serve(sock, device: str = "cuda", mesh_devices=None) -> None:
     from surrealdb_tpu_torch.device import proto
 
     try:
+        t0 = time.perf_counter()
         from surrealdb_tpu_torch.device.handlers import DeviceHost
 
+        t1 = time.perf_counter()
         host = DeviceHost(device, mesh_devices)
+        t2 = time.perf_counter()
+        _make_contexts(host.devices)
+        t3 = time.perf_counter()
         from surrealdb_tpu_torch.device import compile_cache
         from surrealdb_tpu_torch.device import mesh as devmesh
 
@@ -53,6 +66,8 @@ def serve(sock, device: str = "cuda", mesh_devices=None) -> None:
             "device_count": host.device_count(),
             "compile_cache": compile_cache.status(),
             "mesh": devmesh.describe(host.device_count()),
+            "init_s": {"import": t1 - t0, "kernels": t2 - t1,
+                       "context": t3 - t2},
         }
     except BaseException as e:  # init failed: report, then die
         try:
@@ -87,7 +102,7 @@ def serve(sock, device: str = "cuda", mesh_devices=None) -> None:
             proto.send_msg(sock, tag, out_meta, out_bufs)
         except ConnectionError:
             return
-        except Exception as e:
+        except BaseException as e:
             reply = {"seq": seq,
                      "error": f"{e.__class__.__name__}: {e}"[:500],
                      "trace": traceback.format_exc(limit=6)[-2000:]}
@@ -98,6 +113,16 @@ def serve(sock, device: str = "cuda", mesh_devices=None) -> None:
                 proto.send_msg(sock, "err", reply)
             except OSError:
                 return
+
+
+def _make_contexts(devices) -> None:
+    """Create the CUDA context of each card in the device list (an
+    allocation and a synchronize); nothing on the CPU."""
+    import torch
+
+    for dev in {d for d in devices if d.type == "cuda"}:
+        torch.empty(1, device=dev)
+        torch.cuda.synchronize(dev)
 
 
 def main(fd: int, device: str = "cuda", mesh_devices=None) -> None:

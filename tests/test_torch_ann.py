@@ -284,7 +284,7 @@ def test_supervisor_ships_ann_in_parts():
     qs = xs[20:26]
     search = {"key": "ann/k", "tag": [1, 0, 0], "kc": 40}
     want = inline.handle("ann_search", dict(search), [qs])[2][0]
-    sup = DeviceSupervisor(device="cpu", init_timeout_s=120)
+    sup = DeviceSupervisor("auto", device="cpu", init_timeout_s=120)
     sup.LOAD_PART_BYTES = 100_000  # force the multipart ship
     loader = (lambda: ("ann_load", {"metric": "cosine", "cfg": CFG}, bufs))
     try:

@@ -256,7 +256,7 @@ def test_host_from_snapshot_answers_like_the_reference(hosts):
 
 def test_runner_subprocess_answers_like_the_inline_host():
     inline = port_handlers.DeviceHost("cpu")
-    sup = DeviceSupervisor(device="cpu", init_timeout_s=120)
+    sup = DeviceSupervisor("auto", device="cpu", init_timeout_s=120)
     sup.LOAD_PART_BYTES = 20_000  # force a multipart ship
     try:
         ready = sup.start()
@@ -325,7 +325,7 @@ def test_cuda_is_the_default_device():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_handlers.DeviceHost()
-    sup = DeviceSupervisor(init_timeout_s=120)
+    sup = DeviceSupervisor("auto", init_timeout_s=120)
     from surrealdb_tpu_torch.device.supervisor import DeviceUnavailable
 
     with pytest.raises(DeviceUnavailable, match="CUDA is not available"):

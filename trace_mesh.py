@@ -210,6 +210,9 @@ def main() -> int:
 
     if args.sample_per_kc is not None:
         topk.INT8_SAMPLE_PER_KC = args.sample_per_kc
+    # the runner's frames are timed with no warm-up frames queued beside
+    # them: no prewarm ladder after a ship
+    cnf.DEVICE_PREWARM_BUCKETS = cnf.DEVICE_PREWARM_HOPS = ""
     os.makedirs(OUT, exist_ok=True)
     card = card_line()
     compile_cache.ensure_built()
@@ -282,7 +285,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
             if name != "knn10m" and args.sample_per_kc is None:
-                runner = DeviceSupervisor(device="cuda", mesh_devices=ndev)
+                runner = DeviceSupervisor("auto", device="cuda",
+                                           mesh_devices=ndev)
                 runner.start()
                 try:
                     runner.ensure_loaded(key, [1, 0], lambda: (
