@@ -21,7 +21,16 @@ exits non-zero):
               with duplicated rows, tombstones and a sorted store whose
               small buffer forces the overflow path, and for all 512
               queries over the 10M store to the chunked path; its S, cap,
-              overflow count and survivor counts are printed;
+              overflow count and survivor counts are printed. Then
+              knn_rank_approx (4 batches of 128 knn1m queries over the
+              bf16 store, k = 26, ids as its plain version's wherever
+              neighbouring rank scores differ by more than 1e-3), ONNX
+              (tests/test_ml.py's three graphs and a 768-wide MLP head at
+              B = 4096 on the card against run_graph on the CPU, atol
+              1e-5, rtol 1e-4; nvidia-smi's compute mode) and the
+              entry points (entry()'s fn against the plain path on the
+              card, dryrun_multichip(4): its MULTICHIP line, four stages
+              on cuda), their launches counted as the path's;
 4. runner  -- spawns `python -m surrealdb_tpu_torch.device.runner` (CUDA)
               through the port's supervisor client and sends it frames:
               knn1m (1M x 768 cosine rows, bf16 rank + f32 rescore store,
@@ -52,7 +61,11 @@ exits non-zero):
               the 8-thread load gives each frame its answer or
               DeviceUnavailable, the state degrades and recovers, the
               store ships again and answers as before (recovery_s,
-              reship_s, wedge_detect_s, budget_unwind_s);
+              reship_s, wedge_detect_s, budget_unwind_s); before the
+              budget check, 32 threads' single-query vec_knn payloads
+              through a DeviceBatcher (one frame of the concatenated
+              queries a dispatch) equal the sequential frames, with an
+              average batch above 1 (queries/s of both printed);
 6. mesh    -- after those runners have shut down, runners started with
               `--mesh-devices 4` (four logical devices: shard s on
               cuda:(s % device_count), all four on one card when there is
@@ -67,13 +80,19 @@ exits non-zero):
               recall@10 >= 0.95 after an exact rescore), mesh_ann (the ann
               index in 4 slices; ids equal to `search_seq`, also after a
               drop and a reship; recall@10 printed) and mesh_graph3hop
-              (the graph in 4 edge slices; masks bit-equal to graph3hop's).
+              (the graph in 4 edge slices; masks bit-equal to graph3hop's);
+7. hier    -- in this process, knn1m's store over multihost_mesh (2 hosts
+              x 2 logical devices): sharded_rank_rescore_hier at B in
+              1/128/512, ids as the single-level mesh's over the same
+              four shards, recall@10 1.0, three merge_partials_topk a
+              query chunk (one a host, one across the hosts).
 
 It then prints the card line again, one JSON line {"kernels": [...]}
 and, last, {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside it, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore,supervisor
+    python3 chip_smoke.py --only hier,approx,entry,onnx,batcher
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -87,7 +106,9 @@ knn10m frame's candidates pass at B = 1, 128 and 512 over such a store,
 with its times; rescore: gather_rescore in both modes at edge shapes,
 its times at a knn1m frame's shapes, and the knn1m store's B = 512
 answers, saved under $CHIP_SMOKE_CACHE or held to the saved ones;
-supervisor: phase 5 alone, over knn1m's rows made here), then stops
+supervisor: phase 5 alone, over knn1m's rows made here; hier,
+approx, entry, onnx: those checks over knn1m's rows made here; batcher:
+the batcher check over a supervised runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
@@ -101,6 +122,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -171,6 +193,12 @@ SOURCES = {
 }
 # the mesh phases: four logical devices, shards of the stores above
 MESH = dict(ndev=4, int8_budget=512 << 20)
+# the two-level mesh check: knn1m's rows over MESH's devices in 2 hosts
+HIER = dict(hosts=2)
+# knn_rank_approx: 4 batches of 128 of knn1m's queries, k = 26
+APPROX = dict(batches=4, queries=128, k=26)
+# the batcher check: 32 threads, 8 single-query submissions each
+BATCH = dict(threads=32, rounds=8)
 # int8 rows wider than the 2048 columns a query tile holds at once
 WIDE = dict(n=200_000, dim=3072, c=16)
 # a mesh_exact shard (knn1m's rows over four devices) and the one-device
@@ -196,6 +224,13 @@ def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -291,12 +326,113 @@ def bound(nbytes, ops, peak):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def _pb_varint(n):
+    out = b""
+    while True:
+        byte = n & 0x7F
+        n >>= 7
+        if n:
+            out += bytes([byte | 0x80])
+        else:
+            return out + bytes([byte])
+
+
+def _pb_field(fno, wt, payload):
+    return _pb_varint((fno << 3) | wt) + (
+        _pb_varint(len(payload)) + payload if wt == 2 else payload)
+
+
+def _pb_model(nodes, weights, inp, out):
+    """An ONNX ModelProto: nodes (op, inputs, outputs, attrs: ints,
+    floats or int lists), float32 initializers, one input and output."""
+    graph = b""
+    for op, ins, outs, attrs in nodes:
+        msg = b"".join(_pb_field(1, 2, i.encode()) for i in ins)
+        msg += b"".join(_pb_field(2, 2, o.encode()) for o in outs)
+        msg += _pb_field(4, 2, op.encode())
+        for name, val in attrs.items():
+            a = _pb_field(1, 2, name.encode())
+            if isinstance(val, float):
+                a += _pb_field(2, 5, struct.pack("<f", val))
+            elif isinstance(val, int):
+                a += _pb_field(3, 0, _pb_varint(val))
+            else:
+                a += _pb_field(8, 2, b"".join(_pb_varint(int(x))
+                                              for x in val))
+            msg += _pb_field(5, 2, a)
+        graph += _pb_field(1, 2, msg)
+    for name, arr in weights.items():
+        t = b"".join(_pb_field(1, 0, _pb_varint(d)) for d in arr.shape)
+        t += _pb_field(2, 0, _pb_varint(1))  # float32
+        t += _pb_field(8, 2, name.encode())
+        t += _pb_field(9, 2, arr.astype("<f4").tobytes())
+        graph += _pb_field(5, 2, t)
+    graph += _pb_field(11, 2, _pb_field(1, 2, inp.encode()))
+    graph += _pb_field(12, 2, _pb_field(1, 2, out.encode()))
+    return _pb_field(7, 2, graph)
+
+
+def onnx_graphs() -> dict:
+    """name -> (model bytes, feed): the three graphs of tests/test_ml.py
+    (the linear model, conv + BN + relu + max pool, average pool +
+    transpose + gather) and a 768-wide MLP head at B = 4096."""
+    lin = _pb_model([("MatMul", ["x", "w"], ["xw"], {}),
+                     ("Add", ["xw", "b"], ["y"], {})],
+                    {"w": np.array([[2.0], [3.0]], np.float32),
+                     "b": np.array([1.0], np.float32)}, "x", "y")
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(1, 2, 6, 6)).astype(np.float32)
+    w = rng.normal(size=(3, 2, 3, 3)).astype(np.float32)
+    bias = rng.normal(size=(3,)).astype(np.float32)
+    scale = rng.normal(size=(3,)).astype(np.float32) + 1.5
+    bmean = rng.normal(size=(3,)).astype(np.float32)
+    bvar = np.abs(rng.normal(size=(3,))).astype(np.float32) + 0.5
+    conv = _pb_model(
+        [("Conv", ["x", "w", "cb"], ["c"], {"strides": [1, 1],
+                                             "pads": [1, 1, 1, 1],
+                                             "kernel_shape": [3, 3]}),
+         ("BatchNormalization", ["c", "scale", "bbias", "bmean", "bvar"],
+          ["bn"], {"epsilon": 1e-5}),
+         ("Relu", ["bn"], ["r"], {}),
+         ("MaxPool", ["r"], ["y"], {"kernel_shape": [2, 2],
+                                    "strides": [2, 2]})],
+        {"w": w, "cb": bias, "scale": scale, "bbias": bias * 0 + 0.25,
+         "bmean": bmean, "bvar": bvar}, "x", "y")
+    x2 = np.random.default_rng(6).normal(size=(1, 2, 4, 4)).astype(
+        np.float32)
+    gather = _pb_model(
+        [("AveragePool", ["x"], ["p"], {"kernel_shape": [2, 2],
+                                        "strides": [2, 2]}),
+         ("Transpose", ["p"], ["t"], {"perm": [0, 2, 3, 1]}),
+         ("Gather", ["t", "gidx"], ["y"], {"axis": 3})],
+        {"gidx": np.array([1], np.float32)}, "x", "y")
+    rng = np.random.default_rng(7)
+    head = _pb_model(
+        [("Gemm", ["x", "w1", "b1"], ["h"], {}),
+         ("Relu", ["h"], ["r"], {}),
+         ("Gemm", ["r", "w2", "b2"], ["z"], {}),
+         ("Softmax", ["z"], ["y"], {})],
+        {"w1": (rng.normal(size=(768, 1024)) / np.sqrt(768)).astype(
+            np.float32),
+         "b1": (0.1 * rng.normal(size=(1024,))).astype(np.float32),
+         "w2": (rng.normal(size=(1024, 10)) / np.sqrt(1024)).astype(
+             np.float32),
+         "b2": (0.1 * rng.normal(size=(10,))).astype(np.float32)}, "x", "y")
+    return {
+        "linear": (lin, {"x": np.array([1.0, 1.0], np.float32)}),
+        "conv_bn_pool": (conv, {"x": x}),
+        "gather_transpose_avgpool": (gather, {"x": x2}),
+        "mlp_head_768": (head, {"x": rng.normal(size=(4096, 768)).astype(
+            np.float32)}),
+    }
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
-              "supervisor")
+              "supervisor", "hier", "approx", "entry", "onnx", "batcher")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -1442,6 +1578,8 @@ def main(argv=None) -> int:
                   f"supervisor concurrency: {errors[:3]}")
             out["sequential_frames_s"] = nt * rounds / seq_s
             out["concurrent_frames_s"] = nt * rounds / conc_s
+            # single-query riders coalesced by the cross-query batcher
+            out.update(batcher_check(sup, meta, qs_))
             # a query's budget on a stopped runner: the call unwinds,
             # the runner stays; its late reply is dropped by seq
             pid = sup.runner_pid()
@@ -1550,6 +1688,285 @@ def main(argv=None) -> int:
         emit("supervisor", **out, launches=got)
         return out
 
+    # -- this slice's modules: the two-level mesh, knn_rank_approx, the
+    # entry points, ONNX and the cross-query batcher (also `--only`) ----------
+    def knn1m_device():
+        """knn1m's rows and queries (the same generator as phase 3) on
+        the card: (full, norms, rank, qs)."""
+        rng_ = np.random.default_rng(KNN1M["seed"])
+        xs_ = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
+                                   dtype=np.float32)
+        qs_ = rng_.standard_normal((max(KNN1M["batches"]), KNN1M["dim"]),
+                                   dtype=np.float32)
+        full_ = torch.from_numpy(xs_).to(dev)
+        del xs_
+        norms_ = torch.cat([
+            torch.linalg.norm(full_[s:s + 65536].double(), dim=1)
+            for s in range(0, KNN1M["n"], 65536)]).float().clamp_min(1e-30)
+        return (full_, norms_, (full_ / norms_[:, None]).to(torch.bfloat16),
+                torch.from_numpy(qs_).to(dev))
+
+    def knn1m_oracle(full_, norms_, qs_, nq=16):
+        """The exact f64 top k of knn1m's first `nq` queries."""
+        q64 = qs_[:nq].double()
+        sims = torch.cat([
+            (full_[s:s + 65536].double() @ q64.T)
+            / norms_[s:s + 65536, None].double()
+            for s in range(0, full_.shape[0], 65536)])
+        return torch.topk(sims, KNN1M["k"], dim=0).indices.T.cpu().numpy()
+
+    def in_process(fn, counts=None):
+        """Drive `fn` with this process's launch counts set to 0 just
+        before and read just after; they go into `counts`."""
+        kernelstats.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = kernelstats.launches()
+        if counts is not None:
+            for kname, v in got.items():
+                counts[kname] += v
+        return out, {kname: v for kname, v in got.items() if v}
+
+    def check_ids_past(ref_d, ref_i, got_i, what, atol, rtol=0.0):
+        """check_ids for got_i's columns, ref_* holding one column more:
+        the last kept column is checked against the next one too."""
+        ref_i = np.asarray(ref_i)
+        got_i = np.concatenate([np.asarray(got_i), ref_i[:, -1:]], axis=1)
+        check_ids(ref_d, ref_i, got_i, what, atol, rtol)
+
+    def hier_check(full_, norms_, rank_, qs_, oracle, counts=None):
+        """knn1m's store over multihost_mesh(4 logical devices, 2 hosts):
+        at every frame size, ids equal the single-level mesh's over the
+        same four shards wherever its neighbouring distances differ by
+        more than 1e-4, distances within atol 1e-4, rtol 1e-5; recall@10
+        1.0 on the 16 oracle queries; hosts + 1 merges a query chunk."""
+        from surrealdb_tpu_torch.parallel import mesh as PM
+
+        t_0 = time.perf_counter()
+        devs = DM.device_list(MESH["ndev"], "cuda")
+        hmesh = PM.multihost_mesh(devs, hosts=HIER["hosts"])
+        flat = PM.default_mesh(devs)
+        shards = (PM.shard_rows_hier(hmesh, rank_),
+                  PM.shard_rows_hier(hmesh, full_))
+        nsh = PM.shard_vec_hier(hmesh, norms_)
+        k_ = KNN1M["k"]
+        kc_ = max(2 * k_, k_ + 16)
+
+        def hier(q):
+            return PM.sharded_rank_rescore_hier(hmesh, *shards, q, k_, kc_,
+                                                "cosine", None, nsh)
+
+        def single(q):
+            return PM.sharded_rank_rescore(flat, *shards, q, k_, kc_,
+                                           "cosine", None, nsh)
+
+        out = {"rows": full_.shape[0], "dim": full_.shape[1],
+               "hosts": len(hmesh), "devices_per_host": len(hmesh[0]),
+               "physical_cards": DM.physical_devices(devs), "k": k_,
+               "kc": kc_}
+        err = 0.0
+        for bsz in KNN1M["batches"]:
+            q = qs_[:bsz]
+            (hd, hi), per = in_process(lambda: hier(q), counts)
+            check(per.get("merge_partials_topk") == len(hmesh) + 1
+                  and per.get("rank_scores_bf16") == MESH["ndev"],
+                  f"hier B={bsz} launches {per}")
+            sd, si = single(q)
+            err = max(err, max_err(hd, sd, 1e-4, 1e-5,
+                                   f"hier B={bsz} vs the single level"))
+            check_ids(sd.cpu().numpy(), si.cpu().numpy(), hi.cpu().numpy(),
+                      f"hier B={bsz} vs the single level")
+            out[f"B{bsz}_ms"] = cuda_ms(lambda: hier(q), 5)
+            out[f"B{bsz}_single_level_ms"] = cuda_ms(lambda: single(q), 5)
+            out[f"B{bsz}_launches"] = per
+        got = hi[:oracle.shape[0]].cpu().numpy()
+        recall = np.mean([len(set(a) & set(b)) / k_
+                          for a, b in zip(oracle, got)])
+        check(recall == 1.0, f"hier recall@10 {recall} < 1.0")
+        emit("hier", **out, recall_at_10=float(recall), max_abs_err=err,
+             seconds=round(time.perf_counter() - t_0, 3))
+
+    def approx_check(rank_, qs_, counts=None):
+        """knn_rank_approx over knn1m's bf16 store, qs_r [4, 128, 768],
+        k = 26: ids equal its plain version's on the card wherever
+        neighbouring rank scores differ by more than 1e-3."""
+        t_0 = time.perf_counter()
+        r_, b_, k_ = APPROX["batches"], APPROX["queries"], APPROX["k"]
+        qs_r = qs_[:r_ * b_].reshape(r_, b_, qs_.shape[1])
+        ids, per = in_process(
+            lambda: T.knn_rank_approx(rank_, qs_r, k_, "cosine"), counts)
+        check(ids.shape == (r_, b_, k_) and ids.dtype == torch.int32
+              and per.get("rank_scores_bf16") == r_
+              and per.get("select_topk_rows") == r_,
+              f"approx: shape {tuple(ids.shape)}, launches {per}")
+        for r in range(r_):
+            pv, pi = T.top_k_smallest_plain(
+                T.rank_scores_plain(rank_, qs_r[r], "cosine"), k_ + 1)
+            check_ids_past(pv.cpu().numpy(), pi.cpu().numpy(),
+                           ids[r].cpu().numpy(), f"approx batch {r}", 1e-3,
+                           1e-5)
+        del pv, pi
+        emit("approx", shape=f"R={r_} B={b_} N={rank_.shape[0]} "
+             f"D={rank_.shape[1]} k={k_} cosine",
+             ms=cuda_ms(lambda: T.knn_rank_approx(rank_, qs_r, k_,
+                                                  "cosine"), 5),
+             plain_ms=cuda_ms(lambda: [T.top_k_smallest_plain(
+                 T.rank_scores_plain(rank_, qs_r[r], "cosine"), k_)
+                 for r in range(r_)], 2),
+             launches=per, seconds=round(time.perf_counter() - t_0, 3))
+
+    def entry_check(counts=None):
+        """The entry points on the card: entry()'s fn against the
+        plain path on the card, then dryrun_multichip(4): four stages,
+        platform cuda, four shards, the real card count."""
+        import contextlib
+        import io
+
+        from surrealdb_tpu_torch import entry as E
+
+        t_0 = time.perf_counter()
+        fn, (exs, eqs) = E.entry()
+        guard_s = time.perf_counter() - t_0
+        check(exs.is_cuda and eqs.is_cuda, "entry(): inputs not on the card")
+        (ed, ei), per = in_process(lambda: fn(exs, eqs), counts)
+        check(per.get("distance_tile", 0) >= 1
+              and per.get("select_topk_rows", 0) >= 1,
+              f"entry fn launches {per}")
+        pv, pi = T.top_k_smallest_plain(
+            D.distance_matrix_plain(exs, eqs, "cosine"), 11)
+        err = max_err(ed, pv[:, :10], 1e-4, 1e-5, "entry fn")
+        check_ids_past(pv.cpu().numpy(), pi.cpu().numpy(), ei.cpu().numpy(),
+                       "entry fn", 1e-4)
+        out = {"guard_s": guard_s, "ms": cuda_ms(lambda: fn(exs, eqs), 20),
+               "plain_ms": cuda_ms(lambda: T.top_k_smallest_plain(
+                   D.distance_matrix_plain(exs, eqs, "cosine"), 10), 20),
+               "max_abs_err": err, "launches": per}
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                _, dper = in_process(
+                    lambda: E.dryrun_multichip(MESH["ndev"]), counts)
+        finally:
+            print(buf.getvalue(), end="", flush=True)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("MULTICHIP: ")]
+        check(len(lines) == 1, f"dryrun printed {len(lines)} MULTICHIP lines")
+        st_ = json.loads(lines[0][len("MULTICHIP: "):])
+        cards = DM.physical_devices(DM.device_list(MESH["ndev"], "cuda"))
+        check(st_["stages"] == ["sharded_rank_rescore", "graph_hop",
+                                "device_mesh_store", "hier_mesh"]
+              and st_["platform"] == "cuda"
+              and st_["n_devices_used"] == MESH["ndev"]
+              and st_["physical_cards"] == cards
+              and st_["sharded_kernel_ran"] and not st_["fallback_reason"],
+              f"dryrun_multichip: {st_}")
+        check(dper.get("csr_hop_step", 0) >= 1
+              and dper.get("merge_partials_topk", 0) >= 1
+              and dper.get("rank_scores_bf16", 0) >= 1,
+              f"dryrun launches {dper}")
+        emit("entry", **out, multichip=st_, dryrun_launches=dper,
+             seconds=round(time.perf_counter() - t_0, 3))
+
+    def onnx_check():
+        """The three graphs of tests/test_ml.py and a 768-wide MLP head
+        (Gemm 768->1024, Relu, Gemm 1024->10, Softmax) at B = 4096: run
+        on the card against run_graph on the CPU, atol 1e-5, rtol 1e-4."""
+        from surrealdb_tpu_torch.ml import onnx as O
+
+        t_0 = time.perf_counter()
+        out = {"compute_mode": compute_mode()}
+        for name, (model, feed) in onnx_graphs().items():
+            g_ = O.OnnxGraph.parse(model)
+            got = O.run_graph(g_, feed)
+            want = O.run_graph(g_, feed, device="cpu")
+            check(len(got) == len(want) == 1 and got[0].is_cuda,
+                  f"onnx {name}: outputs")
+            err = max_err(got[0].cpu(), want[0], 1e-5, 1e-4, f"onnx {name}")
+            out[name] = {"ms": cuda_ms(lambda: O.run_graph(g_, feed), 10),
+                         "shape": list(got[0].shape), "max_abs_err": err}
+        emit("onnx", **out, seconds=round(time.perf_counter() - t_0, 3))
+
+    def batcher_check(sup_, meta_, qs_):
+        """32 threads each submit single-query vec_knn payloads through a
+        DeviceBatcher whose dispatch is one frame of the concatenated
+        queries: each answer equals the query's own frame (ids wherever
+        its neighbouring distances differ by more than 1e-4, distances
+        within atol 1e-4, rtol 1e-5), and the average batch exceeds 1."""
+        import threading
+
+        from surrealdb_tpu_torch.device import batcher as BT
+
+        t_0 = time.perf_counter()
+        nt, rounds = BATCH["threads"], BATCH["rounds"]
+        qsingle = qs_[:nt * rounds]
+        t0 = time.perf_counter()
+        seq = [sup_.call("vec_knn", meta_, [q[None]])[2] for q in qsingle]
+        seq_s = time.perf_counter() - t0
+
+        def dispatch(payloads):
+            d_, i_ = sup_.call("vec_knn", meta_, [np.stack(payloads)])[2]
+            return [(d_[j], i_[j]) for j in range(len(payloads))]
+
+        b_ = BT.DeviceBatcher(dispatch=dispatch)
+        before = BT.BATCH_STATS.to_dict()
+        got, errors = [None] * len(qsingle), []
+
+        def client(t):
+            try:
+                for r in range(rounds):
+                    got[r * nt + t] = b_.submit(qsingle[r * nt + t])
+            except Exception as e:  # collected, then checked
+                errors.append(f"thread {t}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(nt)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        bat_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"batcher: {errors[:3]}")
+        after = BT.BATCH_STATS.to_dict()
+        disp = after["dispatches"] - before["dispatches"]
+        avg = (after["riders"] - before["riders"]) / max(disp, 1)
+        ref_d = np.concatenate([s[0] for s in seq])
+        check(np.allclose(np.stack([g_[0] for g_ in got]), ref_d, atol=1e-4,
+                          rtol=1e-5), "batcher: distances differ from the "
+              "sequential frames")
+        check_ids(ref_d, np.concatenate([s[1] for s in seq]),
+                  np.stack([g_[1] for g_ in got]), "batcher vs sequential")
+        check(avg > 1, f"batcher: average batch {avg}")
+        check(sup_.status()["batching"] == after, "status()['batching']")
+        return {"batcher_threads": nt, "batcher_queries": len(qsingle),
+                "single_frames_qps": len(qsingle) / seq_s,
+                "batched_qps": len(qsingle) / bat_s,
+                "batch_avg": avg, "batch_max": after["max"],
+                "batch_dispatches": disp,
+                "batcher_seconds": round(time.perf_counter() - t_0, 3)}
+
+    def batcher_only():
+        """`--only batcher`: a supervisor in mode auto over knn1m's rows,
+        the batcher check, shut down."""
+        rng_ = np.random.default_rng(KNN1M["seed"])
+        xs_ = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
+                                   dtype=np.float32)
+        qs_ = rng_.standard_normal((max(KNN1M["batches"]), KNN1M["dim"]),
+                                   dtype=np.float32)
+        key, tag = "vec/b/b/tbl/ix", [1, 0]
+        sup_ = DeviceSupervisor("auto", device="cuda")
+        try:
+            sup_.start()
+            sup_.ensure_loaded(key, tag, lambda: (
+                "vec_load", {"metric": "cosine", "mink_p": 3.0,
+                             "cfg": cnf.device_cfg()},
+                [xs_, np.ones(xs_.shape[0], np.uint8)]))
+            emit("batcher", **batcher_check(
+                sup_, {"key": key, "tag": tag, "k": KNN1M["k"]}, qs_))
+        finally:
+            sup_.shutdown()
+
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -1575,6 +1992,21 @@ def main(argv=None) -> int:
             pairs_only()
         if "rescore" in only:
             rescore_only()
+        if "hier" in only or "approx" in only:
+            full_o, norms_o, rank_o, qs_o = knn1m_device()
+            if "approx" in only:
+                approx_check(rank_o, qs_o)
+            if "hier" in only:
+                hier_check(full_o, norms_o, rank_o, qs_o,
+                           knn1m_oracle(full_o, norms_o, qs_o))
+            del full_o, norms_o, rank_o, qs_o
+            torch.cuda.empty_cache()
+        if "onnx" in only:
+            onnx_check()
+        if "entry" in only:
+            entry_check()
+        if "batcher" in only:
+            batcher_only()
         if "supervisor" in only:
             rng = np.random.default_rng(KNN1M["seed"])  # knn1m's rows
             xs_np = rng.standard_normal((KNN1M["n"], KNN1M["dim"]),
@@ -1587,6 +2019,9 @@ def main(argv=None) -> int:
         return 0
 
     # -- 3. kernels against their plain versions ---------------------------------
+    # the launch counts of the main path's runs (the runners' and this
+    # process's), set to 0 just before each path and read just after
+    launches = {name: 0 for name in kernelstats.KERNELS}
     g = torch.Generator(device="cpu").manual_seed(0)
 
     # distance_tile: nine metrics at ragged shapes on both routes (the
@@ -1737,6 +2172,9 @@ def main(argv=None) -> int:
                                                           "cosine"), 3),
              library_ms=cuda_ms(lambda: torch.mm(qeb, rank.T), 10),
              bound_ms=bms, bound_by=bby, library_bound_ms=mmb)
+
+    # knn_rank_approx over the same store: a rank and a select a batch
+    approx_check(rank, qs, launches)
 
     # select_topk_rows at the path's candidate stage: kc of 1M per query
     cv, cand = T.select_topk_rows(score, kc)
@@ -2353,13 +2791,17 @@ def main(argv=None) -> int:
     del xw, w8, wa, w2, wq, wv, wq8t
     torch.cuda.empty_cache()
 
+    # ONNX graphs on the card against the CPU, then the entry
+    # points (whose guard spawns and stops a runner of its own)
+    onnx_check()
+    entry_check(launches)
+
     # -- 4. the runner as a server ----------------------------------------------
     sup = DeviceSupervisor("auto", device="cuda")
     try:
         ready = sup.start()
         check(ready["platform"] == "cuda", f"runner platform {ready}")
         emit("runner", ready=ready, pid=sup.runner_pid())
-        launches = {name: 0 for name in kernelstats.KERNELS}
         # the answers of the one-device paths the mesh phases repeat
         single = {}
 
@@ -2405,12 +2847,7 @@ def main(argv=None) -> int:
                 out[f"B{bsz}_qps"] = bsz / ms * 1e3
             # recall@10 of the first 16 queries against an exact f64 oracle
             nq = 16
-            q64 = qs[:nq].double()
-            sims = torch.cat([
-                (full[s:s + 65536].double() @ q64.T)
-                / norms[s:s + 65536, None].double()
-                for s in range(0, n, 65536)])
-            oracle = torch.topk(sims, k, dim=0).indices.T.cpu().numpy()
+            oracle = knn1m_oracle(full, norms, qs, nq)
             got = results[max(KNN1M["batches"])][1][:nq]
             recall = np.mean([len(set(a) & set(b)) / k
                               for a, b in zip(oracle, got)])
@@ -2957,6 +3394,15 @@ def main(argv=None) -> int:
             os.environ.pop("SURREAL_DEVICE_MESH", None)
         else:
             os.environ["SURREAL_DEVICE_MESH"] = saved_mode
+    # -- 7. the two-level (dcn x data) mesh over knn1m's store, in process ----
+    # (its card copies were dropped before knn10m: made again from the
+    # host rows)
+    full = torch.from_numpy(xs_np).to(dev)
+    rank = (full / norms[:, None]).to(torch.bfloat16)
+    hier_check(full, norms, rank, qs, single["knn1m_oracle"], launches)
+    del full, rank
+    torch.cuda.empty_cache()
+
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the path")
         kern[name]["launches"] = count

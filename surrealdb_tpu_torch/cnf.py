@@ -1,6 +1,6 @@
-"""Environment-variable knobs the device runner and its supervisor
-read: the KNN and DEVICE settings of the reference package's `cnf.py`,
-with the same SURREAL_* names and defaults."""
+"""Environment-variable knobs the device runner, its supervisor and the
+cross-query batcher read: the KNN and DEVICE settings of the reference
+package's `cnf.py`, with the same SURREAL_* names and defaults."""
 
 from __future__ import annotations
 
@@ -90,6 +90,13 @@ DEVICE_PROMOTE_SUCCESSES = env_int("SURREAL_DEVICE_PROMOTE_SUCCESSES", 2)
 DEVICE_PREWARM_BUCKETS = env_str("SURREAL_DEVICE_PREWARM_BUCKETS",
                                  "1,8,64")
 DEVICE_PREWARM_HOPS = env_str("SURREAL_DEVICE_PREWARM_HOPS", "1,2,3")
+# cross-query batcher dispatch pipelining (device/batcher.py): up to
+# PIPELINE dispatches in flight at once; the overlapped one launches
+# only once PIPELINE_MIN riders are queued, so light traffic keeps the
+# strict one-batch-at-a-time coalescing
+DEVICE_BATCH_PIPELINE = env_int("SURREAL_DEVICE_BATCH_PIPELINE", 2)
+DEVICE_BATCH_PIPELINE_MIN = env_int("SURREAL_DEVICE_BATCH_PIPELINE_MIN",
+                                    32)
 
 
 def device_cfg() -> dict:

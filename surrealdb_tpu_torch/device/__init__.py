@@ -12,6 +12,8 @@
   paths and re-promotes after a streak of healthy probes. Modes
   `off`/`auto`/`require`/`inline`; a process-wide singleton
   (`get_supervisor`/`set_supervisor`/`reset_supervisor`).
+- `batcher.py`: `DeviceBatcher`, the cross-query batcher (concurrent
+  riders coalesce into one dispatch) and its `BATCH_STATS`.
 
 Crash-only: the runner holds nothing the serving process can't rebuild,
 so recovery is "kill it and re-ship". Importing this package imports no
@@ -27,6 +29,8 @@ from surrealdb_tpu_torch.device.supervisor import (
     DeviceRequired,
     DeviceSupervisor,
     DeviceUnavailable,
+    QueryCancelled,
+    QueryTimeout,
     attach_telemetry,
     bind_serving,
     get_supervisor,
@@ -40,6 +44,8 @@ __all__ = [
     "DeviceRequired",
     "DeviceSupervisor",
     "DeviceUnavailable",
+    "QueryCancelled",
+    "QueryTimeout",
     "attach_telemetry",
     "bind_serving",
     "get_supervisor",

@@ -79,21 +79,36 @@ class DeviceRequired(Exception):
     fail loudly instead of answering from a host path."""
 
 
+class QueryTimeout(Exception):
+    """The calling query ran past its budget while waiting on the device
+    (a parked batcher rider)."""
+
+
+class QueryCancelled(Exception):
+    """The calling query was cancelled while waiting on the device."""
+
+
 # -- the serving stack's seam ------------------------------------------------
 
-_SERVING: dict = {"remaining": None, "cancelled": None, "stage_record": None}
+_SERVING: dict = {"remaining": None, "cancelled": None, "stage_record": None,
+                  "current": None}
 
 
 def bind_serving(remaining: Optional[Callable[[], Optional[float]]] = None,
                  cancelled: Optional[Callable[[], bool]] = None,
-                 stage_record: Optional[Callable[[str, int], None]] = None):
+                 stage_record: Optional[Callable[[str, int], None]] = None,
+                 current: Optional[Callable[[], object]] = None):
     """Plug the serving stack in: `remaining()` gives the calling
     query's remaining budget in seconds (None: unbounded),
-    `cancelled()` whether it was cancelled, and `stage_record(name,
-    ns)` times each dispatch as the `device_rpc` stage. Each one left
-    None takes its default: no budget, never cancelled, no timer."""
+    `cancelled()` whether it was cancelled, `stage_record(name, ns)`
+    times each dispatch as the `device_rpc` stage, and `current()` gives
+    the calling query's handle (None: none), which the batcher wakes
+    through `handle.cancel.add_waker(fn)` / `remove_waker(fn)` and marks
+    with `mark_cancelled()` / `mark_timed_out()`. Each one left None
+    takes its default: no budget, never cancelled, no timer, no
+    handle."""
     _SERVING.update(remaining=remaining, cancelled=cancelled,
-                    stage_record=stage_record)
+                    stage_record=stage_record, current=current)
 
 
 def _query_remaining() -> Optional[float]:
@@ -104,6 +119,11 @@ def _query_remaining() -> Optional[float]:
 def _query_cancelled() -> bool:
     fn = _SERVING["cancelled"]
     return False if fn is None else bool(fn())
+
+
+def _query_current():
+    fn = _SERVING["current"]
+    return None if fn is None else fn()
 
 
 def _stage_record(name: str, ns: int):
@@ -467,8 +487,8 @@ class DeviceSupervisor:
     # -- introspection -------------------------------------------------------
 
     def status(self) -> dict:
-        """The reference's status keys, less `batching` (the serving
-        stack's batcher reports that)."""
+        """The reference's status keys; `batching` is the process's
+        cross-query batcher accounting (device/batcher.py)."""
         host = self._inline_host
         if self.mode == "inline" and host is not None \
                 and self.mesh_info is None:
@@ -498,6 +518,9 @@ class DeviceSupervisor:
             out["compile_cache_dir"] = self.compile_cache_info
         if self.mesh_info is not None:
             out["mesh"] = dict(self.mesh_info)
+        from surrealdb_tpu_torch.device.batcher import BATCH_STATS
+
+        out["batching"] = BATCH_STATS.to_dict()
         if self.mode == "inline" and host is not None:
             out["vec_blocks"] = len(host.vec)
             out["csr_blocks"] = len(host.csr)
@@ -964,6 +987,24 @@ def attach_telemetry(telemetry):
         telemetry.register_gauge(
             name, lambda n=name: get_supervisor().counters.get(n, 0)
         )
+    # cross-query batching efficiency (device/batcher.py): dispatch-size
+    # last/avg/max say whether concurrency is actually coalescing
+    from surrealdb_tpu_torch.device.batcher import BATCH_STATS
+
+    telemetry.register_gauge(
+        "device_batch_size_last", lambda: BATCH_STATS.last
+    )
+    telemetry.register_gauge(
+        "device_batch_size_max", lambda: BATCH_STATS.max
+    )
+    telemetry.register_gauge(
+        "device_batch_size_avg",
+        lambda: round(BATCH_STATS.riders / max(BATCH_STATS.dispatches, 1),
+                      2),
+    )
+    telemetry.register_gauge(
+        "device_batch_dispatches", lambda: BATCH_STATS.dispatches
+    )
     # kernel library accounting: a miss is a build paid by a runner
     telemetry.register_gauge(
         "device_compile_cache_hits",

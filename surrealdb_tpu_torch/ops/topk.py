@@ -324,6 +324,25 @@ def rank_scores(xs_rank, qs, metric: str, x2=None, valid=None):
     return rank_scores_plain(xs_rank, qs, metric, x2, valid)
 
 
+def knn_rank_approx(xs, qs_r, k: int, metric: str = EUCLIDEAN, x2=None,
+                    valid=None):
+    """Candidate ranking alone over R query batches in one call: per
+    batch of `qs_r` ([R, B, D] f32) the bf16 rank scores over the whole
+    store `xs` ([N, D] bfloat16; normalised rows for cosine) and their
+    exact k best -> ids [R, B, k] int32. The reference selects with
+    `approx_max_k`, which is exact off the TPU; the port selects
+    exactly everywhere. `x2` f32 row norms^2 (euclidean)."""
+    n = xs.shape[0]
+    if x2 is None and metric == EUCLIDEAN:
+        x2 = torch.zeros((n,), dtype=torch.float32, device=xs.device)
+    out = []
+    for qs in qs_r.to(torch.float32):
+        score = rank_scores(xs, qs, metric, x2, valid)
+        out.append(top_k_smallest(score, k)[1])
+        del score
+    return torch.stack(out)
+
+
 def jax_rows(ids, n: int):
     """Row indices by JAX's gather rule: an id in [-n, 0) wraps to
     id + n, then every id is clamped to [0, n - 1] (csrc/kernels.h

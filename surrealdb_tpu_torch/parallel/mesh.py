@@ -1,5 +1,6 @@
-"""Row-sharded KNN over a list of devices (the reference's
-`parallel/mesh.py`, without its two-level dcn x data mesh).
+"""Row-sharded KNN over a list of devices, and over a host-major list
+of device lists (the reference's `parallel/mesh.py`, its 1-D data mesh
+and its two-level dcn x data mesh).
 
 The legacy self-sharded vector store (device/vecstore.py on a runner
 with several devices) cuts its rows into one contiguous shard per
@@ -17,11 +18,19 @@ The reference pads N up to a multiple of the device count (zero rows,
 masked); here a shard holds only its real rows, and the padding rows
 exist only as the merge's padding columns, (+inf, global id past N)
 where they would surface.
+
+The two-level mesh (`multihost_mesh`) is `hosts` lists of devices, one
+per host. Its shards are the flat host-major list's `row_slices`, so a
+row's global id is (host * ndata + data) * nloc + local, as the
+reference's. Each shard runs the single-level shard body; each host
+merges its shards' tiles on its first device (the reference's ICI
+stage), and the hosts' [B, k] winners merge on the first host's
+(the DCN stage). The two stages are kept apart: one merge of every
+shard's tile gives the same set but may order ties otherwise.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from surrealdb_tpu_torch.device.vecstore import to_device
@@ -59,9 +68,17 @@ class Shards:
         return [s * self.nloc for s in range(len(self.mesh))]
 
 
-def shard_rows(mesh: list, arr: np.ndarray, dtype=None) -> Shards:
-    """Place a host [N, ...] array row-sharded over the device list."""
-    return Shards([to_device(arr[lo:hi], d, dtype)
+def _place(arr, lo: int, hi: int, device, dtype):
+    if isinstance(arr, torch.Tensor):
+        return arr[lo:hi].to(device=device, dtype=dtype or arr.dtype)
+    return to_device(arr[lo:hi], device, dtype)
+
+
+def shard_rows(mesh: list, arr, dtype=None) -> Shards:
+    """Place a [N, ...] array (host numpy, or a tensor: a shard on the
+    tensor's own device is a view of it) row-sharded over the device
+    list."""
+    return Shards([_place(arr, lo, hi, d, dtype)
                    for d, (lo, hi) in zip(mesh, row_slices(len(arr),
                                                            len(mesh)))],
                   mesh, len(arr))
@@ -71,8 +88,7 @@ def _part(shards: Shards, s: int):
     return None if shards is None else shards.parts[s]
 
 
-def _merge(mesh, d_parts, i_parts, bases, w, k):
-    dev0 = mesh[0]
+def _merge(dev0, d_parts, i_parts, bases, w, k):
     with M.on(dev0):
         return M.merge_partials(M.gather_to(d_parts, dev0),
                                 M.gather_to(i_parts, dev0), bases, w, k)
@@ -108,27 +124,20 @@ def sharded_knn(mesh: list, xs: Shards, qs, valid: Shards, k: int,
                 d, i = top_k_smallest(d, min(k_l, rows.shape[0]))
         d_parts.append(d)
         i_parts.append(i)
-    return _merge(mesh, d_parts, i_parts, xs.bases(), k_l,
+    return _merge(mesh[0], d_parts, i_parts, xs.bases(), k_l,
                   min(k, len(mesh) * k_l))
 
 
-def sharded_rank_rescore(mesh: list, xs_rank: Shards, xs_full: Shards, qs,
-                         k: int, kc: int, metric: str = EUCLIDEAN,
-                         x2: Shards = None, norms: Shards = None,
-                         valid: Shards = None):
-    """Two-stage sharded KNN for euclidean/cosine/dot: per shard the bf16
-    rank scores, their exact kc best, the exact f32 rescore of those
-    candidates from the shard's own rows; then the exact merge of the
-    [B, kc] tiles. Returns (dists [B, k'] f32, ids [B, k'] int32) on
-    the first device, k' = min(k, kc * ndev) with kc clamped to the
-    shard rows."""
+def _rank_rescore_parts(mesh: list, xs_rank: Shards, xs_full: Shards, qs,
+                        kc: int, metric: str, x2, norms, valid):
+    """Per shard of the flat device list: the bf16 rank scores, their
+    exact kc best, the exact f32 rescore of those candidates from the
+    shard's own rows -> ([B, kc] dists, [B, kc] local ids) per shard (an
+    empty shard's on the first device)."""
     from surrealdb_tpu_torch.ops.topk import (
         gather_rescore, rank_scores, top_k_smallest,
     )
 
-    qs = torch.as_tensor(qs, dtype=torch.float32)
-    kc = min(kc, xs_rank.nloc)
-    k = min(k, kc * len(mesh))
     d_parts, i_parts = [], []
     for s, dev in enumerate(mesh):
         rank = xs_rank.parts[s]
@@ -150,4 +159,83 @@ def sharded_rank_rescore(mesh: list, xs_rank: Shards, xs_full: Shards, qs,
                 d = gather_rescore(xs_full.parts[s], q, cand, metric, n_s, v)
         d_parts.append(d)
         i_parts.append(cand)
-    return _merge(mesh, d_parts, i_parts, xs_rank.bases(), kc, k)
+    return d_parts, i_parts
+
+
+def sharded_rank_rescore(mesh: list, xs_rank: Shards, xs_full: Shards, qs,
+                         k: int, kc: int, metric: str = EUCLIDEAN,
+                         x2: Shards = None, norms: Shards = None,
+                         valid: Shards = None):
+    """Two-stage sharded KNN for euclidean/cosine/dot: per shard the bf16
+    rank scores, their exact kc best, the exact f32 rescore of those
+    candidates from the shard's own rows; then the exact merge of the
+    [B, kc] tiles. Returns (dists [B, k'] f32, ids [B, k'] int32) on
+    the first device, k' = min(k, kc * ndev) with kc clamped to the
+    shard rows."""
+    qs = torch.as_tensor(qs, dtype=torch.float32)
+    kc = min(kc, xs_rank.nloc)
+    k = min(k, kc * len(mesh))
+    d_parts, i_parts = _rank_rescore_parts(mesh, xs_rank, xs_full, qs, kc,
+                                           metric, x2, norms, valid)
+    return _merge(mesh[0], d_parts, i_parts, xs_rank.bases(), kc, k)
+
+
+# -- the two-level (dcn x data) mesh ------------------------------------------
+
+def multihost_mesh(devices, hosts: int = None) -> list:
+    """`hosts` groups of len(devices) // hosts devices, host-major (the
+    reference's (dcn, data) mesh over simulated hosts: one process
+    drives every group). `hosts` None or <= 1: one group."""
+    devices = default_mesh(devices)
+    if hosts is None or hosts <= 1:
+        return [devices]
+    if len(devices) % hosts:
+        raise ValueError(
+            f"{len(devices)} devices do not split into {hosts} hosts"
+        )
+    per = len(devices) // hosts
+    return [devices[h * per:(h + 1) * per] for h in range(hosts)]
+
+
+def _flat(mesh: list) -> list:
+    return [d for host in mesh for d in host]
+
+
+def shard_rows_hier(mesh: list, arr, dtype=None) -> Shards:
+    """Row-shard a host [N, ...] array over both levels (host-major)."""
+    return shard_rows(_flat(mesh), arr, dtype)
+
+
+def shard_vec_hier(mesh: list, arr, dtype=None) -> Shards:
+    """Place a host [N] per-row array sharded to match shard_rows_hier
+    (a shard holds only real rows: the reference's pad and fill have
+    nothing to fill)."""
+    return shard_rows(_flat(mesh), arr, dtype)
+
+
+def sharded_rank_rescore_hier(mesh: list, xs_rank: Shards, xs_full: Shards,
+                              qs, k: int, kc: int, metric: str = EUCLIDEAN,
+                              x2: Shards = None, norms: Shards = None,
+                              valid: Shards = None):
+    """Two-stage sharded KNN over a two-level mesh: the shard body of
+    `sharded_rank_rescore` on every device, then `merge_partials_topk`
+    over each host's shards (data order, to min(k, kc * ndata)) and over
+    the hosts' winners (host order, to k). Returns (dists [B, k'] f32,
+    ids [B, k'] int32) on the first host's first device, k' = min(k,
+    kc * ndata) with kc clamped to the shard rows."""
+    flat = _flat(mesh)
+    ndata = len(mesh[0])
+    qs = torch.as_tensor(qs, dtype=torch.float32)
+    kc = min(kc, xs_rank.nloc)
+    k = min(k, kc * ndata)
+    d_parts, i_parts = _rank_rescore_parts(flat, xs_rank, xs_full, qs, kc,
+                                           metric, x2, norms, valid)
+    bases = xs_rank.bases()
+    host_d, host_i = [], []
+    for h, host in enumerate(mesh):
+        sl = slice(h * ndata, (h + 1) * ndata)
+        d, i = _merge(host[0], d_parts[sl], i_parts[sl], bases[sl], kc, k)
+        host_d.append(d)
+        host_i.append(i)
+    # the hosts' ids are global already
+    return _merge(mesh[0][0], host_d, host_i, [0] * len(mesh), k, k)

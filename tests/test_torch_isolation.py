@@ -44,7 +44,9 @@ def test_import_initialises_nothing():
         "surrealdb_tpu_torch.device.handlers, "
         "surrealdb_tpu_torch.device.supervisor, "
         "surrealdb_tpu_torch.device.runner, surrealdb_tpu_torch.carry, "
-        "surrealdb_tpu_torch.ops.topk\n"
+        "surrealdb_tpu_torch.ops.topk, surrealdb_tpu_torch.entry, "
+        "surrealdb_tpu_torch.ml.onnx, surrealdb_tpu_torch.device.batcher, "
+        "surrealdb_tpu_torch.parallel.mesh\n"
         "import torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'surrealdb_tpu')]\n"

@@ -559,9 +559,9 @@ def test_shutdown_stops_the_prewarm_ladder(unbound, monkeypatch):
 
 def test_status_has_the_reference_keys(unbound):
     ref = refsup.DeviceSupervisor(mode="off")
-    want_off = set(ref.status()) - {"batching"}
+    want_off = set(ref.status())
     ref.compile_cache_info, ref.mesh_info = {}, {}
-    want = set(ref.status()) - {"batching"}
+    want = set(ref.status())
     assert set(S.DeviceSupervisor("off").status()) == want_off
     sup, ready = _start()
     try:
@@ -597,10 +597,17 @@ def test_singleton_and_telemetry(unbound):
         sup.counters["device_restarts"] = 3
         sup.state = "degraded"
         read = {name: fn() for name, fn in hub.gauges.items()}
+        from surrealdb_tpu_torch.device.batcher import BATCH_STATS as bs
+
         assert read == {
             "device_degraded": 1, "device_restarts": 3,
             "device_dispatch_timeouts": 0, "device_fallbacks": 0,
             "device_host_routed": 0, "device_oom_refusals": 0,
+            "device_batch_size_last": bs.last,
+            "device_batch_size_max": bs.max,
+            "device_batch_size_avg": round(
+                bs.riders / max(bs.dispatches, 1), 2),
+            "device_batch_dispatches": bs.dispatches,
             "device_compile_cache_hits": 0,
             "device_compile_cache_misses": 0,
         }
