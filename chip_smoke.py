@@ -49,6 +49,22 @@ exits non-zero):
               recall@10, ids equal to the plain descent and unchanged after
               a drop and a reship). Each path runs with the runner's
               launch counts set to 0 just before it and read just after;
+   engine  -- (4b, on that runner, its supervisor in mode require) the
+              index engines (idx/vector.py, graph/csr.py) over the
+              port's own KV store: knn10m's rows seeded into an engine
+              over the resident int8 store (B 1/512, the f64 host
+              rescore split from the frame, recall@10), knn1m's rows
+              ingested through the KV as bench.py's _bulk_vectors writes
+              them (sync, the ship, B 1/128/512 equal to the frames of
+              the same store, 32 threads x 8 knn calls through the
+              coalescer, recall@10), an exact store (20k x 128,
+              manhattan and pearson, against the host ladder), the ann
+              rows with KNN_ANN_MODE=auto (ensure_ann, B 1/512, recall,
+              then overwrites, deletes and appends through the write
+              path held to a brute rescore) and the graph (the CSR from
+              the `~` keys at 20k / 200k and seeded arrays at 1M / 10M,
+              multi_hop at B 1 and 8 riders bit-equal to the numpy
+              hops); no fallback and no host routing may occur;
 5. supervisor -- after that runner has shut down, a supervisor in mode
               auto (5 s dispatch window, probes every 0.5 s, promotion
               after 2) starts a runner and ships the knn1m store in
@@ -93,6 +109,7 @@ package beside it, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore,supervisor
     python3 chip_smoke.py --only hier,approx,entry,onnx,batcher
+    python3 chip_smoke.py --only engine
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -108,7 +125,9 @@ its times at a knn1m frame's shapes, and the knn1m store's B = 512
 answers, saved under $CHIP_SMOKE_CACHE or held to the saved ones;
 supervisor: phase 5 alone, over knn1m's rows made here; hier,
 approx, entry, onnx: those checks over knn1m's rows made here; batcher:
-the batcher check over a supervised runner of its own), then stops
+the batcher check over a supervised runner of its own; engine: phase
+4b over rows made here and a runner of its own, which ships the knn10m
+rows itself), then stops
 without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
@@ -266,6 +285,17 @@ def clustered_rows(n, dim, nc, std, seed, chunk=1_000_000):
     return xs, rng
 
 
+def ann_rows():
+    """The ann cell's rows and queries: clustered rows, queries near
+    rows of them."""
+    xs, rng = clustered_rows(ANN["n"], ANN["dim"], ANN["n"] // 100,
+                             ANN["std"], ANN["seed"])
+    qi = rng.integers(0, ANN["n"], max(ANN["batches"]))
+    qs = xs[qi] + ANN["noise"] * rng.normal(
+        size=(len(qi), ANN["dim"])).astype(np.float32)
+    return xs, qs
+
+
 def build_ann_index(cache=None):
     """The ann phase's store, built on the host as the serving side
     builds it: clustered rows, queries near them, the port's CAGRA
@@ -278,11 +308,7 @@ def build_ann_index(cache=None):
         with np.load(cache) as z:
             return dict({k: z[k] for k in z.files}, gen_s=0.0, build_s=0.0)
     t0 = time.perf_counter()
-    xs, rng = clustered_rows(ANN["n"], ANN["dim"], ANN["n"] // 100,
-                             ANN["std"], ANN["seed"])
-    qi = rng.integers(0, ANN["n"], max(ANN["batches"]))
-    qs = xs[qi] + ANN["noise"] * rng.normal(
-        size=(len(qi), ANN["dim"])).astype(np.float32)
+    xs, qs = ann_rows()
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x2, norms = cagra.row_stats(xs)
@@ -432,7 +458,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
-              "supervisor", "hier", "approx", "entry", "onnx", "batcher")
+              "supervisor", "hier", "approx", "entry", "onnx", "batcher",
+              "engine")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -1967,6 +1994,604 @@ def main(argv=None) -> int:
         finally:
             sup_.shutdown()
 
+    # -- the index engines (also `--only engine`) -------------------------------
+    def cosine_oracle(xs_, qs_, kk, step=1 << 19):
+        """The exact f64 cosine top kk of qs_ over the host rows xs_,
+        streamed through the card in blocks."""
+        qn = torch.from_numpy(np.ascontiguousarray(qs_)).to(dev).double()
+        qn = qn / qn.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        tv_, ti_ = [], []
+        for s0 in range(0, xs_.shape[0], step):
+            b64 = torch.from_numpy(xs_[s0:s0 + step]).to(dev).double()
+            sims = (b64 @ qn.T) / b64.norm(dim=1).clamp_min(1e-30)[:, None]
+            v_, i_ = torch.topk(sims, min(kk, sims.shape[0]), dim=0)
+            tv_.append(v_)
+            ti_.append(i_ + s0)
+            del b64, sims
+        _, sel_ = torch.topk(torch.cat(tv_), kk, dim=0)
+        return torch.gather(torch.cat(ti_), 0, sel_).T.cpu().numpy()
+
+    def engine_phase(sup_, data, counts=None):
+        """The index engines over the port's own KV store, under `sup_` (a
+        supervisor in mode require over a runner on the card): knn1m
+        (1M x 768 cosine rows ingested through the KV as bench.py's
+        _bulk_vectors writes them, sync, knn_batch at B 1/128/512 against
+        the runner frames of the same store, 32 threads x 8 knn calls
+        through the coalescer, recall@10), knn10m (the engine's host
+        arrays seeded with the 10M rows as bench.py does, the int8
+        store's candidates rescored in f64 here, recall@10), exact (a
+        20k x 128 store with manhattan and pearson: the exact store),
+        ann (250k clustered rows, KNN_ANN_MODE=auto: ensure_ann, the
+        descent + exact re-rank, recall@10, then rows overwritten,
+        deleted and appended through vector_index_update and the answers
+        held to a brute rescore of the remaining rows) and graph (a CSR
+        built from the `~` keys at 20k nodes / 200k edges, and the 1M /
+        10M graph seeded as arrays: multi_hop with hops 3 at B 1 and 8
+        concurrent riders, masks bit-equal to the numpy multi-hop).
+        No fallback may hide the card: device_fallbacks and
+        device_host_routed stay 0, the ANN numpy descent is never taken.
+        `data["knn10m_store"]`, when set, is the (key, tag) of a resident
+        store of those 10M rows (shipped by the runner path with the
+        engine's own vec_load payload)."""
+        import threading
+
+        from surrealdb_tpu_torch import key as K
+        from surrealdb_tpu_torch import resource
+        from surrealdb_tpu_torch.device import batcher as BT
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.graph import csr as G
+        from surrealdb_tpu_torch.idx import vector as V
+        from surrealdb_tpu_torch.kvs.api import serialize
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+        from surrealdb_tpu_torch.val import RecordId
+
+        t_0 = time.perf_counter()
+        k_ = KNN1M["k"]
+        knobs = ("KNN_ANN_MODE", "KNN_SEG_MODE", "KNN_HOST_BATCH")
+        saved = {name: getattr(cnf, name) for name in knobs}
+        # segmented ANN is not ported; the default router sends a cuda
+        # platform's dispatches to the card
+        cnf.KNN_SEG_MODE, cnf.KNN_HOST_BATCH = "off", "auto"
+        # the 30 GB knn10m arrays must not be evicted mid-run: the node
+        # budget is the host's limit (the default is half of it)
+        old_acct = resource.set_accountant(
+            resource.MemoryAccountant(resource.host_limit_bytes()))
+        old_sup = SV.set_supervisor(sup_)
+        rpc = {"ns": 0, "calls": 0}
+
+        def rec(name, ns):
+            if name == "device_rpc":
+                rpc["ns"] += ns
+                rpc["calls"] += 1
+
+        SV.bind_serving(stage_record=rec)
+        out_all = {}
+
+        def path(name, fn, needs):
+            """Run one engine path with the runner's launch counts set to
+            0 just before it and read just after."""
+            sup_.call("launch_counts", {"reset": True})
+            out = fn()
+            _, m, _ = sup_.call("launch_counts", {})
+            if counts is not None:
+                for kname, v in m["launches"].items():
+                    counts[kname] += v
+            for kname in needs:
+                check(m["launches"][kname] > 0,
+                      f"engine {name}: kernel {kname} was not launched")
+            emit(f"engine_{name}", **out,
+                 launches={kn: v for kn, v in m["launches"].items() if v},
+                 events=m["events"])
+            out_all[name] = out
+
+        def timed(fn, iters):
+            """ms a call of fn and of its runner frames (device_rpc)."""
+            fn()
+            rpc["ns"] = rpc["calls"] = 0
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                res = fn()
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+            return res, ms, rpc["ns"] / 1e6 / iters, rpc["calls"] / iters
+
+        def ids_of(res):
+            return np.array([[r.id for r, _d in row] for row in res])
+
+        def dists_of(res):
+            return np.array([[d for _r, d in row] for row in res])
+
+        def kv_ingest(ds, tb, xs_):
+            """bench.py's _bulk_vectors through the port's KV: a record
+            and an `he` key a row, then `vn`, in one transaction."""
+            t = ds.transaction(write=True)
+            try:
+                for i in range(xs_.shape[0]):
+                    t.set(K.record("b", "b", tb, i),
+                          serialize({"id": RecordId(tb, i)}))
+                    t.set_val(K.ix_state("b", "b", tb, "ix", b"he",
+                                         K.enc_value(i)), xs_[i].tobytes())
+                t.set_val(K.ix_state("b", "b", tb, "ix", b"vn"),
+                          xs_.shape[0])
+                t.commit()
+            except BaseException:
+                t.cancel()
+                raise
+
+        def recall(got_ids, oracle):
+            return float(np.mean([len(set(a.tolist()) & set(b.tolist()))
+                                  / oracle.shape[1]
+                                  for a, b in zip(got_ids, oracle)]))
+
+        def drop(ix):
+            sup_.call("vec_drop", {"key": ix._dev_key})
+            sup_.forget(ix._dev_key)
+
+        def cos_params(dim_):
+            return {"dimension": dim_, "distance": "cosine",
+                    "vector_type": "f32"}
+
+        def knn10m_path():
+            xs_, q_ = data["xs10"], data["q10"]
+            n_ = xs_.shape[0]
+            cnf.KNN_ANN_MODE = "off"
+            t0 = time.perf_counter()
+            ix = V.TpuVectorIndex("b", "b", "tbl10m", "ix",
+                                  cos_params(xs_.shape[1]))
+            ix.vecs = xs_
+            ix.valid = np.ones(n_, dtype=bool)
+            ix.rids = [RecordId("tbl10m", i) for i in range(n_)]
+            ix.version = 1
+            out = {"rows": n_, "dim": xs_.shape[1],
+                   "seed_s": time.perf_counter() - t0}
+            if data.get("knn10m_store"):
+                ix._dev_key, tag = data["knn10m_store"]
+                check(list(tag) == [ix.version, ix._dev_epoch],
+                      f"knn10m store tag {tag}")
+                out["store"] = "resident (the runner path's vec_load)"
+            t0 = time.perf_counter()
+            ix.knn_batch(q_[:1], k_)
+            out["first_call_s"] = time.perf_counter() - t0
+            check(ix.rank_mode == "int8", f"knn10m rank mode {ix.rank_mode}")
+            kc_ = min(n_, max(cnf.KNN_INT8_OVERSAMPLE * k_, k_ + 16))
+            tag = [ix.version, ix._dev_epoch]
+            for bsz in (1, 512):
+                res, ms, rpc_ms, calls = timed(
+                    lambda: ix.knn_batch(q_[:bsz], k_), 2)
+                check(calls == 1, f"knn10m B={bsz}: {calls} frames a call")
+                out[f"B{bsz}_ms"] = ms
+                out[f"B{bsz}_qps"] = bsz / ms * 1e3
+                out[f"B{bsz}_frame_ms"] = rpc_ms
+                out[f"B{bsz}_host_ms"] = ms - rpc_ms
+                out[f"B{bsz}_host_share"] = (ms - rpc_ms) / ms
+            # the runner frame's candidates rescored here in f64 (an
+            # independent formula): ids equal wherever distances are apart
+            t, m, (cand,) = sup_.call("vec_knn", {"key": ix._dev_key,
+                                                   "tag": tag, "k": k_},
+                                      [q_])
+            check(t == "ok" and m["mode"] == "cand" and m["kc"] == kc_,
+                  f"knn10m frame {t} {m}")
+            nchk = 32
+            ref_d, ref_i = [], []
+            for qi in range(nchk):
+                rows_ = xs_[cand[qi]].astype(np.float64)
+                qv = q_[qi].astype(np.float64)
+                d_ = 1.0 - rows_ @ qv / np.maximum(
+                    np.linalg.norm(rows_, axis=1) * np.linalg.norm(qv),
+                    1e-300)
+                o_ = np.argsort(d_, kind="stable")[:k_ + 1]
+                ref_d.append(d_[o_])
+                ref_i.append(cand[qi][o_])
+            got = res[:nchk]
+            check(np.allclose(dists_of(got), np.array(ref_d)[:, :k_],
+                              atol=1e-6, rtol=0),
+                  "knn10m distances differ from the frame's f64 rescore")
+            check_ids_past(np.array(ref_d), np.array(ref_i), ids_of(got),
+                           "knn10m engine vs the frame's rescore", 1e-6)
+            oracle = data.get("oracle10")
+            if oracle is None:
+                oracle = cosine_oracle(xs_, q_[:KNN10M["recall_q"]], k_)
+            out["recall_at_10"] = recall(ids_of(res[:len(oracle)]), oracle)
+            check(out["recall_at_10"] >= 0.95,
+                  f"knn10m engine recall@10 {out['recall_at_10']} < 0.95")
+            out["kc"] = kc_
+            drop(ix)
+            return out
+
+        def knn1m_path():
+            xs_, q_ = data["xs1m"], data["qs1m"]
+            n_ = xs_.shape[0]
+            cnf.KNN_ANN_MODE = "off"
+            ds = Datastore()
+            t0 = time.perf_counter()
+            kv_ingest(ds, "tbl", xs_)
+            out = {"rows": n_, "dim": xs_.shape[1],
+                   "ingest_s": time.perf_counter() - t0}
+            ctx = ds.context("b", "b")
+            ix = V.get_vector_index(ctx, "tbl", "ix", cos_params(xs_.shape[1]))
+            t0 = time.perf_counter()
+            ix.sync(ctx)
+            out["sync_s"] = time.perf_counter() - t0
+            check(len(ix.rids) == n_ and np.array_equal(ix.vecs[-1], xs_[-1]),
+                  "knn1m engine rows after the first sync")
+            t0 = time.perf_counter()
+            ix.knn_batch(q_[:1], k_)
+            out["first_call_s"] = time.perf_counter() - t0  # the ship
+            check(ix.rank_mode == "bf16", f"knn1m rank mode {ix.rank_mode}")
+            tag = [ix.version, ix._dev_epoch]
+            meta = {"key": ix._dev_key, "tag": tag, "k": k_}
+            for bsz in KNN1M["batches"]:
+                res, ms, rpc_ms, calls = timed(
+                    lambda: ix.knn_batch(q_[:bsz], k_), 5)
+                check(calls == 1, f"knn1m B={bsz}: {calls} frames a call")
+                t1 = time.perf_counter()
+                for _ in range(5):
+                    _, _, (fd, fi) = sup_.call("vec_knn", meta, [q_[:bsz]])
+                frame_ms = (time.perf_counter() - t1) * 1e3 / 5
+                # the engine's answers are the frame's, row for row
+                check(np.array_equal(dists_of(res), fd.astype(np.float64)),
+                      f"knn1m B={bsz}: distances differ from the frame's")
+                check_ids(fd, fi, ids_of(res), f"knn1m engine B={bsz}")
+                # the engine's tax: its call less the runner frame inside
+                # it (`device_rpc`); beside it a bare frame's ms
+                out[f"B{bsz}_ms"] = ms
+                out[f"B{bsz}_qps"] = bsz / ms * 1e3
+                out[f"B{bsz}_rpc_ms"] = rpc_ms
+                out[f"B{bsz}_tax_ms"] = ms - rpc_ms
+                out[f"B{bsz}_frame_ms"] = frame_ms
+                if bsz == max(KNN1M["batches"]):
+                    full_d, full_i = fd, fi
+            # 32 threads x 8 single-query knn calls through the coalescer
+            nt, rounds = BATCH["threads"], BATCH["rounds"]
+            got, errors = [None] * (nt * rounds), []
+
+            def client(t):
+                try:
+                    c_ = ds.context("b", "b")
+                    for r in range(rounds):
+                        i = r * nt + t
+                        got[i] = ix.knn(q_[i].tolist(), k_, c_)
+                except Exception as e:  # collected, then checked
+                    errors.append(f"thread {t}: {e!r}")
+
+            before = BT.BATCH_STATS.to_dict()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(nt)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            co_s = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"knn1m coalescer: {errors[:3]}")
+            after = BT.BATCH_STATS.to_dict()
+            disp = after["dispatches"] - before["dispatches"]
+            nq_ = nt * rounds
+            check(np.allclose(dists_of(got), full_d[:nq_], atol=1e-4,
+                              rtol=1e-5), "knn1m coalesced distances")
+            check_ids(full_d[:nq_], full_i[:nq_], ids_of(got),
+                      "knn1m coalesced knn vs the B=512 frame")
+            out.update(coalesced_queries=nq_, coalesced_qps=nq_ / co_s,
+                       coalesced_dispatches=disp,
+                       coalesced_batch_avg=(after["riders"]
+                                            - before["riders"]) / max(disp, 1))
+            oracle = data.get("oracle1m")
+            if oracle is None:
+                oracle = cosine_oracle(xs_, q_[:16], k_)
+            out["recall_at_10"] = recall(full_i[:len(oracle)], oracle)
+            check(out["recall_at_10"] >= 0.99,
+                  f"knn1m engine recall@10 {out['recall_at_10']} < 0.99")
+            drop(ix)
+            ctx.txn.cancel()
+            return out
+
+        def exact_path():
+            rng_ = np.random.default_rng(BRUTE["seed"])
+            xs_ = rng_.standard_normal((BRUTE["n"], BRUTE["dim"]),
+                                       dtype=np.float32)
+            q_ = rng_.standard_normal((128, BRUTE["dim"]), dtype=np.float32)
+            out = {"rows": BRUTE["n"], "dim": BRUTE["dim"]}
+            ds = Datastore()
+            kv_ingest(ds, "ex", xs_)
+            for metric in ("manhattan", "pearson"):
+                ctx = ds.context("b", "b")
+                ix = V.TpuVectorIndex("b", "b", "ex", "ix", {
+                    "dimension": BRUTE["dim"], "distance": metric,
+                    "vector_type": "f32"})
+                ix.sync(ctx)
+                for bsz in (1, 128):
+                    res, ms, _, _ = timed(lambda: ix.knn_batch(q_[:bsz], k_),
+                                          5)
+                    check(ix.rank_mode is None, f"exact store {ix.rank_mode}")
+                    host = ix._host_knn_multi(q_[:bsz], k_ + 1)
+                    hd = dists_of(host)
+                    check(np.allclose(dists_of(res), hd[:, :k_], atol=1e-4,
+                                      rtol=1e-5),
+                          f"exact {metric} B={bsz}: distances vs the host")
+                    check_ids_past(hd, ids_of(host), ids_of(res),
+                                   f"exact {metric} B={bsz} vs the host",
+                                   1e-4, 1e-5)
+                    out[f"{metric}_B{bsz}_ms"] = ms
+                drop(ix)
+                ctx.txn.cancel()
+            return out
+
+        def ann_path():
+            xs_, q_ = data["ann_xs"], data["ann_qs"]
+            n_, dim_ = xs_.shape
+            cnf.KNN_ANN_MODE = "auto"
+            ds = Datastore()
+            t0 = time.perf_counter()
+            kv_ingest(ds, "ann", xs_)
+            out = {"rows": n_, "dim": dim_,
+                   "ingest_s": time.perf_counter() - t0}
+            ctx = ds.context("b", "b")
+            params = cos_params(dim_)
+            ix = V.get_vector_index(ctx, "ann", "ix", params)
+            t0 = time.perf_counter()
+            ix.sync(ctx)  # past KNN_ANN_MIN_ROWS: a background build starts
+            out["sync_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            check(ix.ensure_ann(), "ensure_ann: no ready graph")
+            out["ensure_ann_s"] = time.perf_counter() - t0
+            out["build_s"] = ix._ann.build_s
+            if data.get("ann_graph") is not None:
+                check(np.array_equal(ix._ann.graph, data["ann_graph"]),
+                      "the engine's graph differs from the ann path's build")
+                out["graph_equal_ann_path"] = True
+            check(ix.ann_plan(k_) == {"ann": "graph"}, "ann plan")
+            for bsz in (1, 512):
+                res, ms, rpc_ms, calls = timed(
+                    lambda: ix.knn_batch(q_[:bsz], k_), 5)
+                check(calls == 1, f"ann B={bsz}: {calls} frames a call")
+                out[f"B{bsz}_ms"] = ms
+                out[f"B{bsz}_qps"] = bsz / ms * 1e3
+                out[f"B{bsz}_frame_ms"] = rpc_ms
+            oracle = data.get("ann_oracle")
+            if oracle is None:
+                oracle = cosine_oracle(xs_, q_[:ANN["recall_q"]], k_)
+            out["recall_at_10"] = recall(ids_of(res[:len(oracle)]), oracle)
+            check(out["recall_at_10"] >= 0.95,
+                  f"ann engine recall@10 {out['recall_at_10']} < 0.95")
+            # overwrite, delete and append through the write path: rows
+            # set to queries 0..63 (each must rank first), the first
+            # answers of queries 64..127 deleted, 100 rows appended as
+            # copies of queries 128..227
+            first = ids_of(res)[:, 0]
+            rng_ = np.random.default_rng(ANN["seed"] + 1)
+            over = rng_.choice(n_, 64, replace=False)
+            dels = sorted(set(first[64:128].tolist()) - set(over.tolist()))
+            wctx = ds.context("b", "b", write=True)
+            for j, r in enumerate(over):
+                V.vector_index_update("ix", params, RecordId("ann", int(r)),
+                                      xs_[r].tolist(), q_[j].tolist(), wctx)
+            for r in dels:
+                V.vector_index_update("ix", params, RecordId("ann", int(r)),
+                                      xs_[r].tolist(), None, wctx)
+            for j in range(100):
+                V.vector_index_update("ix", params, RecordId("ann", n_ + j),
+                                      None, q_[128 + j].tolist(), wctx)
+            wctx.txn.commit()
+            rctx = ds.context("b", "b")
+            t0 = time.perf_counter()
+            ix.sync(rctx)
+            out["oplog_sync_s"] = time.perf_counter() - t0
+            check(ix._ann is not None and len(ix._ann_dirty) == len(over)
+                  and len(ix.rids) == n_ + 100
+                  and int((~ix.valid).sum()) == len(dels),
+                  "ann engine state after the op log")
+            nq_ = 256
+            res = ix.knn_batch(q_[:nq_], k_)
+            got_i = ids_of(res)
+            check(all(got_i[j, 0] == over[j] for j in range(64)),
+                  "an overwritten row is not its query's first answer")
+            check(all(got_i[128 + j, 0] == n_ + j for j in range(100)),
+                  "an appended row is not its query's first answer")
+            check(not set(dels) & set(got_i.ravel().tolist()),
+                  "a deleted row was answered")
+            # every answer against a brute rescore of the remaining rows:
+            # their exact distances, in order, and recall@10 against the
+            # f64 top 10 of every valid row
+            valid_ids = np.nonzero(ix.valid)[0]
+            brute = valid_ids[cosine_oracle(ix.vecs[valid_ids], q_[:nq_],
+                                            k_)]
+            exact_d = True
+            for qi in range(nq_):
+                d_ = ix._host_distances(q_[qi], xs=ix.vecs[got_i[qi]])
+                exact_d &= bool(np.array_equal(d_, dists_of(res[qi:qi + 1])[0])
+                                and np.all(np.diff(d_) >= 0))
+            out["merge_recall_at_10"] = recall(got_i, brute)
+            check(exact_d, "ann answers' distances are not the exact ones")
+            check(out["merge_recall_at_10"] >= 0.95,
+                  f"ann merge recall@10 {out['merge_recall_at_10']}")
+            out.update(overwritten=len(over), deleted=len(dels), appended=100,
+                       dirty_rows=len(ix._ann_dirty),
+                       host_descents=ix.ann_host_descents,
+                       full_rebuilds=ix.ann_full_rebuilds)
+            check(ix.ann_host_descents == 0,
+                  f"the ANN numpy descent ran {ix.ann_host_descents} times")
+            sup_.call("ann_drop", {"key": ix._ann_dev_key})
+            sup_.forget(ix._ann_dev_key)
+            rctx.txn.cancel()
+            ctx.txn.cancel()
+            return out
+
+        def hops(g, label, out, riders):
+            """multi_hop at B = 1 and `riders` concurrent riders, both
+            modes, masks bit-equal to the numpy multi-hop."""
+            n_ = g.n_nodes()
+
+            def want_ids(s, union):
+                mask = np.zeros(n_, bool)
+                mask[g.node_index[K.enc_value(s)]] = True
+                w = g._host_multi_hop(mask, GRAPH["hops"], union)
+                return [g.node_ids[i] for i in np.nonzero(w)[0]]
+
+            for union in (False, True):
+                mode = "union" if union else "frontier"
+                s0 = g.node_ids[0]
+                g.multi_hop([s0], GRAPH["hops"], mode)  # warm (and ship)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    got = g.multi_hop([s0], GRAPH["hops"], mode)
+                out[f"{label}_B1_{mode}_ms"] = (time.perf_counter()
+                                                - t0) * 1e3 / 3
+                check(got == want_ids(s0, union),
+                      f"graph {label} B=1 {mode}: not the numpy multi-hop")
+                res, errs = [None] * riders, []
+                gate = threading.Barrier(riders)
+
+                def rider(i):
+                    try:
+                        gate.wait()
+                        res[i] = g.multi_hop([g.node_ids[i]], GRAPH["hops"],
+                                             mode)
+                    except Exception as e:  # collected, then checked
+                        errs.append(repr(e))
+
+                before = BT.BATCH_STATS.to_dict()
+                threads = [threading.Thread(target=rider, args=(i,))
+                           for i in range(riders)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                out[f"{label}_B{riders}_{mode}_ms"] = (time.perf_counter()
+                                                       - t0) * 1e3
+                after = BT.BATCH_STATS.to_dict()
+                check(not errs, f"graph {label} riders: {errs[:3]}")
+                out[f"{label}_B{riders}_{mode}_dispatches"] = (
+                    after["dispatches"] - before["dispatches"])
+                for i in range(riders):
+                    check(res[i] == want_ids(g.node_ids[i], union),
+                          f"graph {label} rider {i} {mode}: not the numpy "
+                          f"multi-hop")
+                out[f"{label}_B1_{mode}_reached"] = len(got)
+
+        def graph_path():
+            out = {}
+            # the reference's quick size through the KV: the four `~`
+            # keys an edge, as bench.py writes them
+            nq_, eq_ = 20_000, 200_000
+            rng_ = np.random.default_rng(GRAPH["seed"])
+            src_, dst_ = (rng_.integers(0, nq_, eq_) for _ in range(2))
+            ds = Datastore()
+            t0 = time.perf_counter()
+            t = ds.transaction(write=True)
+            for i in range(nq_):
+                t.set(K.record("b", "b", "person", i),
+                      serialize({"id": RecordId("person", i)}))
+            for e in range(eq_):
+                s, d = int(src_[e]), int(dst_[e])
+                t.set(K.record("b", "b", "knows", e), serialize({
+                    "id": RecordId("knows", e),
+                    "in": RecordId("person", s),
+                    "out": RecordId("person", d)}))
+                t.set(K.graph("b", "b", "person", s, K.DIR_OUT, "knows", e),
+                      b"")
+                t.set(K.graph("b", "b", "knows", e, K.DIR_IN, "person", s),
+                      b"")
+                t.set(K.graph("b", "b", "knows", e, K.DIR_OUT, "person", d),
+                      b"")
+                t.set(K.graph("b", "b", "person", d, K.DIR_IN, "knows", e),
+                      b"")
+            t.commit()
+            out["quick_ingest_s"] = time.perf_counter() - t0
+            ctx = ds.context("b", "b")
+            t0 = time.perf_counter()
+            g = G.get_csr(ds, ctx, "person", "knows", "out")
+            out["quick_build_s"] = time.perf_counter() - t0
+            check(len(g.rows) == eq_ and g.n_nodes() <= nq_,
+                  f"quick CSR: {len(g.rows)} edges, {g.n_nodes()} nodes")
+            ids_ = np.asarray(g.node_ids)
+            check(sorted(zip(ids_[g.rows].tolist(), ids_[g.cols].tolist()))
+                  == sorted(zip(src_.tolist(), dst_.tolist())),
+                  "quick CSR edges differ from the written ones")
+            out.update(quick_nodes=g.n_nodes(), quick_edges=len(g.rows))
+            hops(g, "quick", out, GRAPH["batches"][-1])
+            ctx.txn.cancel()
+            del ds, g
+            # the BASELINE size, arrays seeded directly (its KV ingest is
+            # 50M Python writes)
+            src_np_, dst_np_ = data["src"], data["dst"]
+            n_ = GRAPH["nodes"]
+            t0 = time.perf_counter()
+            g = G.CsrGraph("b", "b", "person", "knows", "out")
+            g.node_ids = list(range(n_))
+            g.node_index = {K.enc_value(i): i for i in range(n_)}
+            g.rows, g.cols = src_np_, dst_np_
+            g.edge_ids = []
+            g._built, g.version = True, 0
+            out["full_seed_s"] = time.perf_counter() - t0
+            out.update(full_nodes=n_, full_edges=len(src_np_))
+            hops(g, "full", out, GRAPH["batches"][-1])
+            sup_.call("csr_drop", {"key": g._dev_key})
+            return out
+
+        try:
+            if data.get("xs10") is not None:
+                path("knn10m", knn10m_path, (
+                    "rank_scores_int8", "rank_candidates_int8",
+                    "select_topk_rows", "select_topk_pairs")
+                    + (() if data.get("knn10m_store")
+                       else ("quantize_rows_int8",)))
+                data["xs10"] = None
+            path("knn1m", knn1m_path, ("rank_scores_bf16", "select_topk_rows",
+                                       "gather_rescore",
+                                       "gather_rescore_topk"))
+            path("exact", exact_path, ("distance_tile", "distance_tile_simt",
+                                       "distance_tile_tf32",
+                                       "distance_row_stats",
+                                       "select_topk_rows"))
+            path("ann", ann_path, ("ann_descent", "rank_scores_int8",
+                                   "select_topk_rows"))
+            path("graph", graph_path, ("csr_hop_step",))
+            ctr = dict(sup_.counters)
+            check(ctr["device_fallbacks"] == 0
+                  and ctr["device_host_routed"] == 0,
+                  f"a fallback hid the card: {ctr}")
+            check(sup_.mode == "require", f"supervisor mode {sup_.mode}")
+            emit("engine", mode=sup_.mode, counters=ctr,
+                 paths=sorted(out_all),
+                 seconds=round(time.perf_counter() - t_0, 3))
+        finally:
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            resource.set_accountant(old_acct)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
+        return out_all
+
+    def engine_only():
+        """`--only engine`: the engine phase over rows made here (the
+        knn10m rows shipped by the engine itself), under a supervisor in
+        mode require of its own."""
+        rng_ = np.random.default_rng(KNN1M["seed"])
+        xs1 = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
+                                   dtype=np.float32)
+        qs1 = rng_.standard_normal((max(KNN1M["batches"]), KNN1M["dim"]),
+                                   dtype=np.float32)
+        axs, aqs = ann_rows()
+        grng = np.random.default_rng(GRAPH["seed"])
+        src_ = grng.integers(0, GRAPH["nodes"],
+                             size=GRAPH["edges"]).astype(np.int32)
+        dst_ = grng.integers(0, GRAPH["nodes"],
+                             size=GRAPH["edges"]).astype(np.int32)
+        data = {"xs1m": xs1, "qs1m": qs1, "ann_xs": axs, "ann_qs": aqs,
+                "src": src_, "dst": dst_,
+                "xs10": normal_rows(KNN10M["n"], KNN10M["dim"],
+                                    KNN10M["seed"]),
+                "q10": normal_rows(max(KNN10M["batches"]), KNN10M["dim"],
+                                   KNN10M["seed"] + 1)}
+        del xs1, axs
+        sup_ = DeviceSupervisor("require", device="cuda")
+        try:
+            sup_.start()
+            engine_phase(sup_, data)
+        finally:
+            sup_.shutdown()
+
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -2007,6 +2632,8 @@ def main(argv=None) -> int:
             entry_check()
         if "batcher" in only:
             batcher_only()
+        if "engine" in only:
+            engine_only()
         if "supervisor" in only:
             rng = np.random.default_rng(KNN1M["seed"])  # knn1m's rows
             xs_np = rng.standard_normal((KNN1M["n"], KNN1M["dim"]),
@@ -2797,7 +3424,9 @@ def main(argv=None) -> int:
     entry_check(launches)
 
     # -- 4. the runner as a server ----------------------------------------------
-    sup = DeviceSupervisor("auto", device="cuda")
+    # mode require: the engine phase (4b) runs over this runner, and no
+    # failure may degrade to a host path
+    sup = DeviceSupervisor("require", device="cuda")
     try:
         ready = sup.start()
         check(ready["platform"] == "cuda", f"runner platform {ready}")
@@ -3011,8 +3640,7 @@ def main(argv=None) -> int:
             check(recall >= 0.95, f"knn10m recall@10 {recall} < 0.95")
             out["recall_at_10"] = recall
             out["kc"] = kc10
-            sup.call("vec_drop", {"key": key})
-            sup.forget(key)
+            # the store stays for the engine phase (4b), which drops it
             return out
 
         def ann_phase():
@@ -3096,7 +3724,6 @@ def main(argv=None) -> int:
         drive("knn10m", knn10m, needs=(
             "quantize_rows_int8", "rank_scores_int8", "rank_candidates_int8",
             "select_topk_rows", "select_topk_pairs"))
-        xs10 = None
         ann, ann_plain, ann_oracle = check_ann_descent()
         drive("ann", ann_phase)
         _, stat, _ = sup.call("status", {})
@@ -3107,13 +3734,24 @@ def main(argv=None) -> int:
              csr_blocks=stat["csr_blocks"], ann_blocks=stat["ann_blocks"],
              ann_bytes=stat["ann_bytes"],
              compile_cache=stat["compile_cache"])
+
+        # -- 4b. the index engines over this runner --------------------------
+        t0 = time.perf_counter()
+        xs_np = np.random.default_rng(KNN1M["seed"]).standard_normal(
+            (n, dim), dtype=np.float32)  # the knn1m rows, same generator
+        gen_s = time.perf_counter() - t0
+        data = {"xs1m": xs_np, "qs1m": qs_np,
+                "oracle1m": single["knn1m_oracle"], "xs10": xs10, "q10": q10,
+                "oracle10": oracle10,
+                "knn10m_store": ("vec/b/b/tbl10m/ix", [1, 0]),
+                "ann_xs": ann["xs"], "ann_qs": ann["qs"],
+                "ann_oracle": ann_oracle, "ann_graph": ann["graph"],
+                "src": src_np, "dst": dst_np}
+        xs10 = None  # the engine drops its rows after its knn10m path
+        engine_phase(sup, data, launches)
+        del data
     finally:
         sup.shutdown()
-
-    t0 = time.perf_counter()
-    xs_np = np.random.default_rng(KNN1M["seed"]).standard_normal(
-        (n, dim), dtype=np.float32)  # the knn1m rows, same generator
-    gen_s = time.perf_counter() - t0
 
     # -- 5. the supervisor: degrade, re-probe, pipelined dispatch, budgets -----
     # its runners start after the first runner has shut down and are gone

@@ -1,4 +1,10 @@
-"""Carry device state across into the port.
+"""Carry state across into the port.
+
+`datastore_from_items(items)` puts (key, value) byte pairs, the
+committed state of a reference datastore's KV store, into a port
+`Datastore`: the port's index engines then read exactly the bytes the
+reference's read (records, `he` vectors, the pickled `hl` op log, `vn`,
+the `~` graph keys).
 
 `host_from_snapshot(snapshot, device)` builds a torch `DeviceHost` from
 plain numpy state, the same arrays a reference runner's stores hold:
@@ -17,6 +23,17 @@ import numpy as np
 from surrealdb_tpu_torch.device.csrstore import CsrStore
 from surrealdb_tpu_torch.device.handlers import DeviceHost
 from surrealdb_tpu_torch.device.vecstore import VecStore
+from surrealdb_tpu_torch.kvs.ds import Datastore
+
+
+def datastore_from_items(items) -> Datastore:
+    """A memory `Datastore` holding `items`, an iterable of (key bytes,
+    value bytes) pairs, as committed state."""
+    ds = Datastore("memory")
+    vs = ds.backend.vs
+    for k, v in items:
+        vs.seed(bytes(k), bytes(v))
+    return ds
 
 
 def host_from_snapshot(snapshot: dict, device="cuda") -> DeviceHost:

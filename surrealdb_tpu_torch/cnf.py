@@ -1,6 +1,7 @@
-"""Environment-variable knobs the device runner, its supervisor and the
-cross-query batcher read: the KNN and DEVICE settings of the reference
-package's `cnf.py`, with the same SURREAL_* names and defaults."""
+"""Environment-variable knobs the index engines, the device runner, its
+supervisor and the cross-query batcher read: the KNN, DEVICE and decode
+cache settings of the reference package's `cnf.py`, with the same
+SURREAL_* names and defaults."""
 
 from __future__ import annotations
 
@@ -25,6 +26,14 @@ def env_str(name: str, default: str) -> str:
     return os.environ.get(name, "") or default
 
 
+# -- KNN engine routing (idx/vector.py) ---------------------------------------
+# stores below this many rows take the exact numpy host ladder
+KNN_DEVICE_MIN_ROWS = env_int("SURREAL_KNN_DEVICE_MIN_ROWS", 2048)
+# auto: dispatch to the runner unless its platform is the host's CPU
+# (then the batched BLAS host path scores); device: always dispatch
+# while the device serves; host: always score on the host
+KNN_HOST_BATCH = env_str("SURREAL_KNN_HOST_BATCH", "auto")
+
 # -- KNN kernel selection (shipped per store in the vec_load `cfg`) ----------
 KNN_BLOCK_ROWS = env_int("SURREAL_KNN_BLOCK_ROWS", 262144)
 # query rows per ranking step
@@ -38,6 +47,18 @@ KNN_HBM_BUDGET_BYTES = env_int("SURREAL_KNN_HBM_BUDGET_BYTES", 12 << 30)
 KNN_INT8_OVERSAMPLE = env_int("SURREAL_KNN_INT8_OVERSAMPLE", 128)
 
 # -- quantized graph-ANN index (idx/cagra.py, device/annstore.py) ------------
+# auto: stores at or above KNN_ANN_MIN_ROWS with a product metric build a
+# graph in the background and route <|k|> searches through the int8
+# descent + exact re-rank once it is ready; off: never; force: any store
+# above a small floor
+KNN_ANN_MODE = env_str("SURREAL_KNN_ANN", "auto")
+KNN_ANN_MIN_ROWS = env_int("SURREAL_KNN_ANN_MIN_ROWS", 200_000)
+# k above which a search keeps brute force
+KNN_ANN_MAX_K = env_int("SURREAL_KNN_ANN_MAX_K", 64)
+# appended + overwritten + deleted rows past this fraction of the store
+# make the graph stale: a rebuild is scheduled (the rows it cannot see
+# are brute-ranked and merged meanwhile)
+KNN_ANN_TAIL_FRAC = env_float("SURREAL_KNN_ANN_TAIL_FRAC", 0.25)
 # fixed out-degree of the search graph ([N, D_out] int32)
 KNN_ANN_DEGREE = env_int("SURREAL_KNN_ANN_DEGREE", 32)
 # greedy-descent frontier width; rounded up to a power of two by the
@@ -59,6 +80,15 @@ KNN_ANN_TREES = env_int("SURREAL_KNN_ANN_TREES", 2)
 KNN_ANN_REFINE = env_int("SURREAL_KNN_ANN_REFINE", -1)
 # int8 quantization clip quantile (1.0 = the exact per-row max)
 KNN_ANN_CLIP_Q = env_float("SURREAL_KNN_ANN_CLIP_Q", 1.0)
+
+# -- segmented ANN (the reference's idx/segments.py, not ported) --------------
+# auto: engage past KNN_SEG_MIN_ROWS; off: never; force: at a tiny floor.
+# Where it would engage, the port's engine raises NotPorted.
+KNN_SEG_MODE = env_str("SURREAL_KNN_SEG", "auto")
+KNN_SEG_MIN_ROWS = env_int("SURREAL_KNN_SEG_MIN_ROWS", 400_000)
+
+# content-keyed value-decode cache of kvs/api.py (bytes); 0 disables
+DECODE_CACHE_BYTES = env_int("SURREAL_DECODE_CACHE_BYTES", 256 << 20)
 
 # -- device runner and its supervisor ------------------------------------------
 # off: host paths only. auto (default): supervised runner subprocess,

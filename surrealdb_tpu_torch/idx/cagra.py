@@ -1,6 +1,6 @@
 """CAGRA-style quantized graph-ANN index: the host-side construction
-(the reference package's `idx/cagra.py`, trimmed to what the port's
-runner, its tests and chip_smoke.py need).
+and the numpy half of the search (the reference package's
+`idx/cagra.py` without the persisted artifacts).
 
 - `build_graph`: fixed-out-degree flat search graph `[N, D_out]` int32.
   A kNN-graph init (random-projection partition trees, exact kNN inside
@@ -11,12 +11,20 @@ runner, its tests and chip_smoke.py need).
   cosine quantizes the pre-normalized rows.
 - `entry_ids` / `probe_count`: the strided routing probe the device
   descent (`device/annstore.py`) scores to seed its frontier.
+- `descend`: the fixed-iteration batched greedy descent in numpy, the
+  index engine's fallback when the device cannot serve; with
+  `int8_score_fn` it walks the landscape the device kernel walks.
+- `AnnIndex` / `build_index`: one built index (graph, int8 rows,
+  scales, dequantized squared norms) stamped with the engine's
+  (version, epoch), as the engine ships it to the runner.
 
 Pure numpy, the same arrays byte for byte as the reference's builder
 for the same inputs and seed.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -79,6 +87,11 @@ def quantize_int8(xs: np.ndarray, metric: str = "euclidean",
         ).astype(np.int8)
         arow[s:s + step] = m / 127.0
     return x8, arow
+
+
+def dequantize(x8: np.ndarray, arow: np.ndarray) -> np.ndarray:
+    """Round-trip helper (tests): the f32 rows the int8 store encodes."""
+    return x8.astype(np.float32) * arow[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -308,3 +321,174 @@ def probe_count(n: int, width: int) -> int:
     a fraction of n (large stores: a constant per-cluster miss rate)."""
     return min(n, max(4 * width, cnf.KNN_ANN_PROBE,
                       int(n * cnf.KNN_ANN_PROBE_FRAC)))
+
+
+def descend(graph: np.ndarray, n: int, score_fn, batch: int,
+            width: int, iters: int, expand: int, kc: int,
+            probe_fn=None) -> np.ndarray:
+    """Fixed-iteration batched greedy graph descent. `score_fn(ids)`
+    maps an int64 id array [B, C] to f32 scores (lower = closer; any
+    monotone transform of the metric works — the exact re-rank
+    restores true distances). `probe_fn(ids [P]) -> [B, P]` scores the
+    shared routing probe with ONE gemm — without it the probe would
+    gather a [B, P, D] block (hundreds of MB at 1M×768). Returns
+    candidate ids [B, kc], unique per row, best-first."""
+    W = max(width, kc)
+    probe = entry_ids(n, probe_count(n, W))
+    if probe_fn is not None:
+        pd = probe_fn(probe).astype(np.float32, copy=False)
+    else:
+        pd = score_fn(
+            np.broadcast_to(probe[None, :], (batch, len(probe)))
+        ).astype(np.float32, copy=False)
+    sel0 = np.argpartition(pd, W - 1, axis=1)[:, :W]
+    ids = probe[sel0]
+    dist = np.take_along_axis(pd, sel0, 1).copy()
+    expanded = np.zeros((batch, W), bool)
+    for _it in range(iters):
+        key = np.where(expanded, np.inf, dist)
+        sel = np.argpartition(key, expand - 1, axis=1)[:, :expand]
+        if not np.isfinite(
+            np.take_along_axis(key, sel, 1)
+        ).any():
+            break  # every frontier slot expanded: converged
+        np.put_along_axis(expanded, sel, True, axis=1)
+        src = np.take_along_axis(ids, sel, 1)          # [B, E]
+        nb = graph[src].reshape(batch, -1).astype(np.int64)  # [B, E*D]
+        # drop duplicates: vs the current list, and inside nb itself
+        dup = (nb[:, :, None] == ids[:, None, :]).any(axis=2)
+        eq = nb[:, :, None] == nb[:, None, :]
+        inner = (np.tril(eq, k=-1)).any(axis=2)
+        nd = score_fn(nb).astype(np.float32, copy=False)
+        nd = np.where(dup | inner, np.inf, nd)
+        mi = np.concatenate([ids, nb], axis=1)
+        md = np.concatenate([dist, nd], axis=1)
+        me = np.concatenate([expanded, dup | inner], axis=1)
+        keep = np.argpartition(md, W - 1, axis=1)[:, :W]
+        ids = np.take_along_axis(mi, keep, 1)
+        dist = np.take_along_axis(md, keep, 1)
+        expanded = np.take_along_axis(me, keep, 1)
+    order = np.argsort(dist, axis=1, kind="stable")[:, :kc]
+    return np.take_along_axis(ids, order, 1)
+
+
+# ---------------------------------------------------------------------------
+# built artifact
+# ---------------------------------------------------------------------------
+
+
+class AnnIndex:
+    """One built CAGRA index over a snapshot of the host rows: the flat
+    graph + the int8 ranking arrays the device store ships, plus the
+    (version, epoch) the snapshot was taken at — the device cache tag,
+    so crash/reship and prewarm ride the existing block protocol."""
+
+    __slots__ = ("metric", "graph", "x8", "arow", "x2", "d_out",
+                 "built_n", "built_version", "built_epoch", "build_s",
+                 "inv_norms")
+
+    def __init__(self, metric, graph, x8, arow, x2, inv_norms,
+                 built_n, built_version, built_epoch, build_s):
+        self.metric = metric
+        self.graph = graph
+        self.x8 = x8
+        self.arow = arow
+        self.x2 = x2
+        self.inv_norms = inv_norms
+        self.d_out = int(graph.shape[1]) if graph.ndim == 2 else 0
+        self.built_n = int(built_n)
+        self.built_version = int(built_version)
+        self.built_epoch = int(built_epoch)
+        self.build_s = float(build_s)
+
+    def nbytes(self) -> int:
+        return int(self.graph.nbytes + self.x8.nbytes + self.arow.nbytes
+                   + self.x2.nbytes)
+
+
+def build_index(xs: np.ndarray, metric: str, version: int, epoch: int,
+                seed: int = 7, **kw) -> AnnIndex:
+    """Snapshot build: graph + int8 arrays from the f32/f64 host rows.
+    `version`/`epoch` stamp the snapshot for the device cache tag."""
+    t0 = time.perf_counter()
+    n = xs.shape[0]
+    x2, norms = row_stats(xs)
+    graph = build_graph(xs, metric, seed=seed, x2=x2, norms=norms, **kw)
+    from surrealdb_tpu_torch import resource
+
+    resource.throttle("ann_build")  # before the int8 store allocates
+    x8, arow = quantize_int8(xs, metric, norms=norms)
+    if metric == "euclidean":
+        # squared norms of the DEQUANTIZED rows: the int8 descent
+        # (host mirror and device kernel alike) scores x2q - 2·q·x̂,
+        # which is only monotone-consistent against x̂ = x8·arow.
+        # Blockwise — never an [N, D] f32 copy of the int8 store.
+        x2q = np.empty(n, np.float32)
+        step = max(1, (64 << 20) // max(xs.shape[1] * 4, 1))
+        for s in range(0, n, step):
+            blk = x8[s:s + step].astype(np.float32)
+            x2q[s:s + step] = (blk * blk).sum(axis=1)
+        x2q *= arow * arow
+    else:
+        x2q = np.zeros(n, np.float32)
+    inv_norms = (1.0 / np.maximum(norms, 1e-30)).astype(np.float32)
+    return AnnIndex(
+        metric, graph, x8, arow, x2q,
+        inv_norms, n, version, epoch, time.perf_counter() - t0,
+    )
+
+
+def host_score_fn(xs: np.ndarray, metric: str, qs: np.ndarray,
+                  x2: np.ndarray = None, inv_norms: np.ndarray = None):
+    """Descent scoring against the full-precision host rows (the
+    degraded/CPU path — strictly better than the int8 scores the device
+    uses, same monotone-score contract). Returns (score_fn, probe_fn):
+    per-candidate gather scoring and one-gemm probe scoring."""
+    qs32 = np.ascontiguousarray(qs, np.float32)
+
+    def fn(ids):
+        rows = xs[ids].astype(np.float32, copy=False)  # [B, C, D]
+        dots = np.einsum("bcd,bd->bc", rows, qs32)
+        if metric == "euclidean":
+            return x2[ids] - 2.0 * dots
+        if metric == "cosine":
+            return -(dots * inv_norms[ids])
+        return -dots
+
+    def probe(ids):
+        rows = xs[ids].astype(np.float32, copy=False)  # [P, D]
+        dots = qs32 @ rows.T                           # [B, P]
+        if metric == "euclidean":
+            return x2[ids][None, :] - 2.0 * dots
+        if metric == "cosine":
+            return -(dots * inv_norms[ids][None, :])
+        return -dots
+
+    return fn, probe
+
+
+def int8_score_fn(ann: "AnnIndex", qs: np.ndarray):
+    """Descent scoring against the DEQUANTIZED int8 ranking rows — the
+    numpy mirror of the device kernel's scoring (same rows, f32 query,
+    no query quantization), used by the degraded/CPU ANN path so host
+    and device descents walk the same landscape. Returns
+    (score_fn, probe_fn)."""
+    qs32 = np.ascontiguousarray(qs, np.float32)
+    x8, arow, x2q = ann.x8, ann.arow, ann.x2
+    metric = ann.metric
+
+    def fn(ids):
+        rows = x8[ids].astype(np.float32)              # [B, C, D]
+        dots = np.einsum("bcd,bd->bc", rows, qs32) * arow[ids]
+        if metric == "euclidean":
+            return x2q[ids] - 2.0 * dots
+        return -dots  # cosine quantized pre-normalized rows; dot raw
+
+    def probe(ids):
+        rows = x8[ids].astype(np.float32)              # [P, D]
+        dots = (qs32 @ rows.T) * arow[ids][None, :]    # [B, P]
+        if metric == "euclidean":
+            return x2q[ids][None, :] - 2.0 * dots
+        return -dots
+
+    return fn, probe

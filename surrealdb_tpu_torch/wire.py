@@ -1,17 +1,28 @@
-"""CBOR codec for device frame headers (RFC 8949 subset).
+"""CBOR codec for device frame headers and stored values (RFC 8949
+subset).
 
-A trimmed copy of the reference package's `wire.py` encoder/decoder,
-limited to what a device frame header carries: None, bool, int, f64
-float, str, bytes, list and dict, plus half/single floats on decode.
-For those types the encoding is byte-identical to the reference, so a
-port runner and a reference supervisor (or the reverse) understand each
-other's frames. SurrealQL value tags (record ids, datetimes, ...) never
-ride a device header; a tagged item decodes to its inner value.
+A trimmed copy of the reference package's `wire.py` encoder/decoder.
+Device frame headers carry None, bool, int, f64 float, str, bytes, list
+and dict, plus half/single floats on decode; a tagged item in a header
+decodes to its inner value. Stored values (`encode_value` /
+`decode_value`, the `0x01` storage encoding of `kvs/api.py`) add the
+SurrealDB value tags the index engines hold: NONE(6), RecordId(8) and
+string-decimal(10); tuples are refused there as the reference refuses
+them (the caller falls back to pickle), and any other value tag raises
+`NotPorted`. For all of these the bytes equal the reference's.
 """
 
 from __future__ import annotations
 
 import struct
+from decimal import Decimal
+
+from surrealdb_tpu_torch.err import NotPorted
+from surrealdb_tpu_torch.val import NONE, RecordId
+
+TAG_NONE = 6
+TAG_RECORDID = 8
+TAG_STRING_DECIMAL = 10
 
 
 class CborError(ValueError):
@@ -35,7 +46,11 @@ def _head(out: bytearray, major: int, arg: int):
         out += arg.to_bytes(8, "big")
 
 
-def _encode(v, out: bytearray):
+def _encode(v, out: bytearray, values: bool = False):
+    if v is NONE:
+        _head(out, 6, TAG_NONE)
+        out.append(0xF6)  # null
+        return
     if v is None:
         out.append(0xF6)
         return
@@ -52,6 +67,10 @@ def _encode(v, out: bytearray):
         out.append(0xFB)
         out += struct.pack(">d", v)
         return
+    if isinstance(v, Decimal):
+        _head(out, 6, TAG_STRING_DECIMAL)
+        _encode(str(v), out)
+        return
     if isinstance(v, str):
         b = v.encode("utf-8")
         _head(out, 3, len(b))
@@ -61,23 +80,36 @@ def _encode(v, out: bytearray):
         _head(out, 2, len(v))
         out += bytes(v)
         return
-    if isinstance(v, (list, tuple)):
+    if isinstance(v, RecordId):
+        _head(out, 6, TAG_RECORDID)
+        _encode([v.tb, v.id], out, values)
+        return
+    if isinstance(v, list) or (isinstance(v, tuple) and not values):
         _head(out, 4, len(v))
         for x in v:
-            _encode(x, out)
+            _encode(x, out, values)
         return
     if isinstance(v, dict):
         _head(out, 5, len(v))
         for k, x in v.items():
-            _encode(str(k), out)
-            _encode(x, out)
+            _encode(str(k), out, values)
+            _encode(x, out, values)
         return
     raise CborError(f"Cannot encode value of type {type(v).__name__} as CBOR")
 
 
 def encode(v) -> bytes:
+    """A device frame header (tuples encode as arrays)."""
     out = bytearray()
     _encode(v, out)
+    return bytes(out)
+
+
+def encode_value(v) -> bytes:
+    """A stored value, byte-identical to the reference's `wire.encode`
+    (which refuses tuples: its storage layer pickles those)."""
+    out = bytearray()
+    _encode(v, out, values=True)
     return bytes(out)
 
 
@@ -93,9 +125,10 @@ def _half_to_float(h: int) -> float:
 
 
 class _Dec:
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, values: bool = False):
         self.b = data
         self.i = 0
+        self.values = values
 
     def u8(self):
         if self.i >= len(self.b):
@@ -144,14 +177,18 @@ class _Dec:
                 out[k if isinstance(k, str) else str(k)] = self.value()
             return out
         if major == 6:
-            self.arg(info)  # value tags never ride a frame header
-            return self.value()
+            tag = self.arg(info)
+            if self.values:
+                return self._tagged(tag, self.value())
+            return self.value()  # value tags never ride a frame header
         if info == 20:
             return False
         if info == 21:
             return True
-        if info in (22, 23):
+        if info == 22:
             return None
+        if info == 23:
+            return NONE if self.values else None  # undefined
         if info == 25:
             return _half_to_float(int.from_bytes(self.take(2), "big"))
         if info == 26:
@@ -161,8 +198,35 @@ class _Dec:
         raise CborError(f"unsupported CBOR simple value {info}")
 
 
+    @staticmethod
+    def _tagged(tag, v):
+        if tag == TAG_NONE:
+            return NONE
+        if tag == TAG_RECORDID:
+            if isinstance(v, list) and len(v) == 2:
+                return RecordId(v[0], v[1])
+            if isinstance(v, str) and ":" in v:
+                tb, idv = v.split(":", 1)
+                return RecordId(tb, idv)
+            raise CborError("invalid CBOR record id")
+        if tag == TAG_STRING_DECIMAL:
+            return Decimal(v)
+        raise NotPorted(f"CBOR value tag {tag} is not ported")
+
+
 def decode(data: bytes):
+    """A device frame header."""
     d = _Dec(data)
+    v = d.value()
+    if d.i != len(data):
+        raise CborError("trailing bytes after CBOR value")
+    return v
+
+
+def decode_value(data: bytes):
+    """A stored value (the reference's `wire.decode` over the ported
+    value types)."""
+    d = _Dec(data, values=True)
     v = d.value()
     if d.i != len(data):
         raise CborError("trailing bytes after CBOR value")

@@ -61,3 +61,23 @@ def test_import_initialises_nothing():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "isolated" in out.stdout
+
+
+def test_engines_import_no_torch():
+    """The index engines run in the serving process: importing them (and
+    the KV layer under them) loads neither torch nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import surrealdb_tpu_torch.idx.vector, surrealdb_tpu_torch.graph.csr, "
+        "surrealdb_tpu_torch.kvs.ds, surrealdb_tpu_torch.kvs.mem, "
+        "surrealdb_tpu_torch.resource, surrealdb_tpu_torch.telemetry\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'surrealdb_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('no torch')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no torch" in out.stdout
