@@ -2047,11 +2047,11 @@ def main(argv=None) -> int:
 
         t_0 = time.perf_counter()
         k_ = KNN1M["k"]
-        knobs = ("KNN_ANN_MODE", "KNN_SEG_MODE", "KNN_HOST_BATCH")
+        knobs = ("KNN_ANN_MODE", "KNN_HOST_BATCH")
         saved = {name: getattr(cnf, name) for name in knobs}
-        # segmented ANN is not ported; the default router sends a cuda
-        # platform's dispatches to the card
-        cnf.KNN_SEG_MODE, cnf.KNN_HOST_BATCH = "off", "auto"
+        # the default router sends a cuda platform's dispatches to the
+        # card (segmented ANN, not ported, is off by default)
+        cnf.KNN_HOST_BATCH = "auto"
         # the 30 GB knn10m arrays must not be evicted mid-run: the node
         # budget is the host's limit (the default is half of it)
         old_acct = resource.set_accountant(
@@ -2390,16 +2390,22 @@ def main(argv=None) -> int:
             check(not set(dels) & set(got_i.ravel().tolist()),
                   "a deleted row was answered")
             # every answer against a brute rescore of the remaining rows:
-            # their exact distances, in order, and recall@10 against the
+            # their distances against an f64 cosine computed here (an
+            # independent formula), in order, and recall@10 against the
             # f64 top 10 of every valid row
             valid_ids = np.nonzero(ix.valid)[0]
             brute = valid_ids[cosine_oracle(ix.vecs[valid_ids], q_[:nq_],
                                             k_)]
             exact_d = True
             for qi in range(nq_):
-                d_ = ix._host_distances(q_[qi], xs=ix.vecs[got_i[qi]])
-                exact_d &= bool(np.array_equal(d_, dists_of(res[qi:qi + 1])[0])
-                                and np.all(np.diff(d_) >= 0))
+                rows_ = ix.vecs[got_i[qi]].astype(np.float64)
+                qv = q_[qi].astype(np.float64)
+                d_ = 1.0 - rows_ @ qv / np.maximum(
+                    np.linalg.norm(rows_, axis=1) * np.linalg.norm(qv),
+                    1e-300)
+                got_d = dists_of(res[qi:qi + 1])[0]
+                exact_d &= bool(np.allclose(got_d, d_, atol=1e-6, rtol=0)
+                                and np.all(np.diff(got_d) >= 0))
             out["merge_recall_at_10"] = recall(got_i, brute)
             check(exact_d, "ann answers' distances are not the exact ones")
             check(out["merge_recall_at_10"] >= 0.95,

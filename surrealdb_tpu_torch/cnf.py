@@ -1,7 +1,7 @@
 """Environment-variable knobs the index engines, the device runner, its
-supervisor and the cross-query batcher read: the KNN, DEVICE and decode
-cache settings of the reference package's `cnf.py`, with the same
-SURREAL_* names and defaults."""
+supervisor and the cross-query batcher read: the KNN and DEVICE
+settings of the reference package's `cnf.py`, with the same SURREAL_*
+names and defaults (but for `SURREAL_KNN_SEG`, below)."""
 
 from __future__ import annotations
 
@@ -82,13 +82,10 @@ KNN_ANN_REFINE = env_int("SURREAL_KNN_ANN_REFINE", -1)
 KNN_ANN_CLIP_Q = env_float("SURREAL_KNN_ANN_CLIP_Q", 1.0)
 
 # -- segmented ANN (the reference's idx/segments.py, not ported) --------------
-# auto: engage past KNN_SEG_MIN_ROWS; off: never; force: at a tiny floor.
-# Where it would engage, the port's engine raises NotPorted.
-KNN_SEG_MODE = env_str("SURREAL_KNN_SEG", "auto")
-KNN_SEG_MIN_ROWS = env_int("SURREAL_KNN_SEG_MIN_ROWS", 400_000)
-
-# content-keyed value-decode cache of kvs/api.py (bytes); 0 disables
-DECODE_CACHE_BYTES = env_int("SURREAL_DECODE_CACHE_BYTES", 256 << 20)
+# off (the port's default; the reference's is auto): the whole-store
+# paths serve every store. auto (past 400k rows) or force (past 16):
+# where segments would engage, the port's engine raises NotPorted.
+KNN_SEG_MODE = env_str("SURREAL_KNN_SEG", "off")
 
 # -- device runner and its supervisor ------------------------------------------
 # off: host paths only. auto (default): supervised runner subprocess,

@@ -22,7 +22,7 @@ are numpy, byte for byte the reference's (its degrade and small-store
 paths, and the conformance oracle's).
 
 Not ported, and raising `NotPorted` where they would engage: segmented
-ANN (`idx/segments.py`, on by default past `KNN_SEG_MIN_ROWS`), a
+ANN (`idx/segments.py`: `SURREAL_KNN_SEG`, off by default here), a
 `cond` predicate on `knn`, the sharded router (`idx/shardvec.py`) and
 the persisted ANN artifacts (the engine never has a `snapshot_dir`).
 """
@@ -45,6 +45,8 @@ from surrealdb_tpu_torch.val import NONE, RecordId
 
 # device-search threshold: below this, numpy on host beats dispatch overhead
 DEVICE_MIN_ROWS = cnf.KNN_DEVICE_MIN_ROWS
+# the reference's segment floor (SURREAL_KNN_SEG_MIN_ROWS) under auto
+SEG_MIN_ROWS = 400_000
 
 
 def _vec_dtype(params) -> type:
@@ -525,8 +527,8 @@ class TpuVectorIndex:
 
     def _seg_engaged(self) -> bool:
         """The reference's segment policy (`SegmentedAnn.engaged`): a
-        store past `KNN_SEG_MIN_ROWS` (16 rows under `force`) with the
-        ANN path on and a product metric is served by sealed segments.
+        store past `SEG_MIN_ROWS` (16 rows under `force`) with the ANN
+        path on and a product metric is served by sealed segments.
         That path is not ported: where it would engage this raises."""
         mode = str(cnf.KNN_SEG_MODE).lower()
         if mode == "off":
@@ -536,7 +538,7 @@ class TpuVectorIndex:
         ):
             return False
         n = len(self.rids)
-        floor = 16 if mode == "force" else int(cnf.KNN_SEG_MIN_ROWS)
+        floor = 16 if mode == "force" else SEG_MIN_ROWS
         if n < floor:
             return False
         raise NotPorted(
@@ -769,7 +771,7 @@ class TpuVectorIndex:
         quantized descent only decides which kc candidates get
         considered (the AQR-style multi-stage re-rank)."""
         from surrealdb_tpu_torch.device import (
-            DeviceOpError, DeviceUnavailable,
+            DeviceOpError, DeviceUnavailable, get_supervisor,
         )
         from surrealdb_tpu_torch.idx import cagra
 
@@ -782,7 +784,8 @@ class TpuVectorIndex:
             try:
                 cand = self._ann_device_search(ann, qs32, kc)
             except (DeviceUnavailable, DeviceOpError):
-                cand = None  # degrade to the numpy descent below
+                # degrade to the numpy descent below
+                get_supervisor().note_fallback()
         if cand is None:
             self.ann_host_descents += 1
             cfg = cnf.ann_search_cfg()

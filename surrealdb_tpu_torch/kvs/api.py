@@ -2,7 +2,7 @@
 `kvs/api.py`, trimmed to the operations the index engines call).
 
 Storage encoding: header byte 0x01 = the CBOR value encoding
-(`wire.encode_value`); header 0x00 = pickle (protocol 5) for what CBOR
+(`wire.encode`); header 0x00 = pickle (protocol 5) for what CBOR
 refuses, such as the op-log tuples `("set", id, bytes)` of a vector
 index; headerless pickle (0x80...) also reads. `serialize` falls back
 exactly where the reference's does, so both write the same bytes.
@@ -22,10 +22,9 @@ from __future__ import annotations
 
 import io
 import pickle
-import threading
 from typing import Iterator, Optional
 
-from surrealdb_tpu_torch import cnf
+from surrealdb_tpu_torch import wire
 from surrealdb_tpu_torch.err import SdbError
 
 
@@ -74,61 +73,15 @@ class Backend:
 
 
 def serialize(v) -> bytes:
-    from surrealdb_tpu_torch import wire
-
     try:
-        return b"\x01" + wire.encode_value(v)
+        return b"\x01" + wire.encode(v)
     except (SdbError, ValueError, KeyError, TypeError):
         return b"\x00" + pickle.dumps(v, protocol=5)
 
 
-_dec_cache: dict = {}  # raw bytes -> pristine decoded value
-_dec_cache_bytes = 0
-_dec_cache_lock = threading.Lock()
-_DEC_MISS = object()  # a stored NULL decodes to None
-
-
-def _copy_value(v):
-    """Deep copy of a decoded value (lists and dicts; the rest are
-    immutable)."""
-    if type(v) is list:
-        return [_copy_value(x) if isinstance(x, (list, dict)) else x
-                for x in v]
-    if type(v) is dict:
-        return {k: _copy_value(x) if isinstance(x, (list, dict)) else x
-                for k, x in v.items()}
-    return v
-
-
-def _decode_cached(b: bytes):
-    """Decode a 0x01 value through the content-keyed decode cache
-    (`SURREAL_DECODE_CACHE_BYTES`, charged at 8x the encoded size):
-    returns (value, shared); a shared value must not be mutated."""
-    global _dec_cache_bytes
-    v = _dec_cache.get(b, _DEC_MISS)
-    if v is not _DEC_MISS:
-        return v, True
-    from surrealdb_tpu_torch import wire
-
-    v = wire.decode_value(b[1:])
-    cap = cnf.DECODE_CACHE_BYTES
-    if cap and len(b) <= (1 << 20):
-        charge = len(b) * 8
-        with _dec_cache_lock:
-            if b not in _dec_cache:
-                if _dec_cache_bytes + charge > cap:
-                    _dec_cache.clear()
-                    _dec_cache_bytes = 0
-                _dec_cache[bytes(b)] = v
-                _dec_cache_bytes += charge
-        return v, True
-    return v, False
-
-
 def deserialize(b: bytes):
     if b[:1] == b"\x01":
-        v, shared = _decode_cached(b)
-        return _copy_value(v) if shared else v
+        return wire.decode_value(b[1:])
     if b[:1] == b"\x00":
         return _restricted_loads(b[1:])
     return _restricted_loads(b)

@@ -98,30 +98,24 @@ class VersionedStore:
             self.chains[key] = [(0, val)]
 
     # -- commit ------------------------------------------------------------
-    def commit(self, writes: dict, snap: int, pre_apply=None,
-               release: bool = True) -> int:
-        """Validate + apply a writeset. Returns the new version.
+    def commit(self, writes: dict, snap: int) -> int:
+        """Validate + apply a writeset, releasing the committer's
+        snapshot. Returns the new version.
 
         Raises SdbError(CONFLICT_MSG) when any written key was committed by
-        another transaction after `snap`. `pre_apply` (e.g. a WAL append)
-        runs under the store lock after validation passes, so durability and
-        visibility stay atomic. With `release`, the committer's own snapshot
-        is dropped inside the SAME lock acquisition — validating first is
-        essential: if the snapshot were released before validation, a
-        concurrent delete could prune a conflicting chain away entirely and
-        the conflict would be missed.
+        another transaction after `snap`. The snapshot is dropped inside
+        the SAME lock acquisition as the validation, and after it: if the
+        snapshot were released before validation, a concurrent delete
+        could prune a conflicting chain away entirely and the conflict
+        would be missed.
         """
         with self.lock:
             for k in writes:
                 chain = self.chains.get(k)
                 if chain is not None and chain[-1][0] > snap:
-                    if release:
-                        self._release_locked(snap)
+                    self._release_locked(snap)
                     raise SdbError(CONFLICT_MSG)
-            if release:
-                self._release_locked(snap)
-            if pre_apply is not None:
-                pre_apply()
+            self._release_locked(snap)
             self.version += 1
             ver = self.version
             min_active = self.active[0] if self.active else ver

@@ -26,12 +26,11 @@ from typing import Optional
 from surrealdb_tpu_torch import cnf
 
 # Eviction priority, first kind evicted first, ordered by rebuild cost
-# (the reference's order; the kinds no ported module registers stay so
-# the two agree): per-epoch rank stats are a trivial recompute, ANN
-# graphs rebuild in the background while brute force serves, vector
-# host arrays rebuild from a KV range scan on the next sync.
-EVICT_ORDER = ("rank_stats", "ft", "col", "csr", "oplog", "ann", "vec",
-               "push")
+# (the reference's order, over the kinds the port registers): per-epoch
+# rank stats are a trivial recompute, ANN graphs rebuild in the
+# background while brute force serves, vector host arrays rebuild from
+# a KV range scan on the next sync.
+EVICT_ORDER = ("rank_stats", "ann", "vec")
 
 
 def host_limit_bytes() -> int:

@@ -4,12 +4,13 @@ subset).
 A trimmed copy of the reference package's `wire.py` encoder/decoder.
 Device frame headers carry None, bool, int, f64 float, str, bytes, list
 and dict, plus half/single floats on decode; a tagged item in a header
-decodes to its inner value. Stored values (`encode_value` /
-`decode_value`, the `0x01` storage encoding of `kvs/api.py`) add the
-SurrealDB value tags the index engines hold: NONE(6), RecordId(8) and
-string-decimal(10); tuples are refused there as the reference refuses
-them (the caller falls back to pickle), and any other value tag raises
-`NotPorted`. For all of these the bytes equal the reference's.
+decodes to its inner value. Stored values (`encode` / `decode_value`,
+the `0x01` storage encoding of `kvs/api.py`) add the SurrealDB value
+tags the index engines hold: NONE(6), RecordId(8) and
+string-decimal(10); any other value tag raises `NotPorted`. Tuples are
+refused in both, as the reference refuses them (the storage layer
+falls back to pickle). For all of these the bytes equal the
+reference's.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def _head(out: bytearray, major: int, arg: int):
         out += arg.to_bytes(8, "big")
 
 
-def _encode(v, out: bytearray, values: bool = False):
+def _encode(v, out: bytearray):
     if v is NONE:
         _head(out, 6, TAG_NONE)
         out.append(0xF6)  # null
@@ -82,34 +83,28 @@ def _encode(v, out: bytearray, values: bool = False):
         return
     if isinstance(v, RecordId):
         _head(out, 6, TAG_RECORDID)
-        _encode([v.tb, v.id], out, values)
+        _encode([v.tb, v.id], out)
         return
-    if isinstance(v, list) or (isinstance(v, tuple) and not values):
+    if isinstance(v, list):
         _head(out, 4, len(v))
         for x in v:
-            _encode(x, out, values)
+            _encode(x, out)
         return
     if isinstance(v, dict):
         _head(out, 5, len(v))
         for k, x in v.items():
-            _encode(str(k), out, values)
-            _encode(x, out, values)
+            _encode(str(k), out)
+            _encode(x, out)
         return
     raise CborError(f"Cannot encode value of type {type(v).__name__} as CBOR")
 
 
 def encode(v) -> bytes:
-    """A device frame header (tuples encode as arrays)."""
+    """A device frame header or a stored value, byte-identical to the
+    reference's `wire.encode`. Tuples are refused, as the reference
+    refuses them: its storage layer pickles those."""
     out = bytearray()
     _encode(v, out)
-    return bytes(out)
-
-
-def encode_value(v) -> bytes:
-    """A stored value, byte-identical to the reference's `wire.encode`
-    (which refuses tuples: its storage layer pickles those)."""
-    out = bytearray()
-    _encode(v, out, values=True)
     return bytes(out)
 
 

@@ -23,8 +23,10 @@ from surrealdb_tpu.val import RecordId as RefRid
 from surrealdb_tpu_torch import cnf as pcnf
 from surrealdb_tpu_torch import key as PK
 from surrealdb_tpu_torch.carry import datastore_from_items
+from surrealdb_tpu_torch.device import DeviceOpError
 from surrealdb_tpu_torch.device import supervisor as portsup
 from surrealdb_tpu_torch.err import NotPorted
+from surrealdb_tpu_torch.idx import vector
 from surrealdb_tpu_torch.idx.vector import TpuVectorIndex as PortIndex
 from surrealdb_tpu_torch.idx.vector import get_vector_index
 from surrealdb_tpu_torch.kvs.api import serialize
@@ -309,12 +311,24 @@ def test_ann_overlay_matches_reference(sups, monkeypatch):
     p.same_state()
     assert p.port._ann is not None and len(p.port._ann_dirty) > 0
     _route(monkeypatch, "host")
-    assert _pairs(p.port.knn_batch(qs, 10)) == _pairs(p.ref.knn_batch(qs, 10))
+    host = _pairs(p.ref.knn_batch(qs, 10))
+    assert _pairs(p.port.knn_batch(qs, 10)) == host
     assert p.port.ann_host_descents == 1
     _route(monkeypatch, "device")
     _assert_close(_pairs(p.ref.knn_batch(qs, 10)),
                   _pairs(p.port.knn_batch(qs, 10)), rtol=RTOL, atol=0.0)
     assert p.port.ann_host_descents == 1
+    # a descent the runner rejects degrades to the numpy descent and
+    # counts as a device fallback
+    st = portsup.get_supervisor().counters
+    assert st["device_fallbacks"] == 0
+
+    def rejected(*_a):
+        raise DeviceOpError("rejected")
+
+    monkeypatch.setattr(p.port, "_ann_device_search", rejected)
+    assert _pairs(p.port.knn_batch(qs, 10)) == host
+    assert p.port.ann_host_descents == 2 and st["device_fallbacks"] == 1
 
 
 def test_coalesced_knn_equals_batched(sups, monkeypatch):
@@ -354,7 +368,7 @@ def test_paths_left_out_raise(sups, monkeypatch):
         p.port.knn(xs[0].tolist(), 3, pc, cond=object())
     monkeypatch.setattr(pcnf, "KNN_SEG_MODE", "auto")
     monkeypatch.setattr(pcnf, "KNN_ANN_MODE", "auto")
-    monkeypatch.setattr(pcnf, "KNN_SEG_MIN_ROWS", 100)
+    monkeypatch.setattr(vector, "SEG_MIN_ROWS", 100)
     with pytest.raises(NotPorted):
         p.port.ensure_ann()
     p.ops(adds=[(300, xs[0])])
