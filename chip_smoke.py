@@ -65,6 +65,21 @@ exits non-zero):
               the `~` keys at 20k / 200k and seeded arrays at 1M / 10M,
               multi_hop at B 1 and 8 riders bit-equal to the numpy
               hops); no fallback and no host routing may occur;
+   segments -- (4c, on that runner, mode require) segmented ANN
+              (idx/segments.py) at bench.py's knn_churn configuration
+              (CHURN: 1M x 768 clustered euclidean rows written through
+              the KV op log, KNN_SEG_MODE=force with 131,072-row seals,
+              8 rounds of +32,768 / -8,192 rows, each with a k=1 probe
+              of the last committed row and 12 k=10 knn calls, recall@10
+              >= 0.95 against an f64 oracle on the card every 4th round
+              and at the end, no whole-store rebuild, every segment
+              ready after drain); every ready segment's runner block
+              (its own key) answering B 1 / 512 with the ids of the
+              plain descent on the card, knn_batch at B=512 against the
+              oracle; and the ann rows in a file:// datastore whose
+              graph reloads after a restart with no build (reload_s
+              beside build_s, the arrays and the B=512 ids equal); no
+              fallback, host routing or numpy descent may occur;
 5. supervisor -- after that runner has shut down, a supervisor in mode
               auto (5 s dispatch window, probes every 0.5 s, promotion
               after 2) starts a runner and ships the knn1m store in
@@ -110,6 +125,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore,supervisor
     python3 chip_smoke.py --only hier,approx,entry,onnx,batcher
     python3 chip_smoke.py --only engine
+    python3 chip_smoke.py --only segments
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -127,7 +143,7 @@ supervisor: phase 5 alone, over knn1m's rows made here; hier,
 approx, entry, onnx: those checks over knn1m's rows made here; batcher:
 the batcher check over a supervised runner of its own; engine: phase
 4b over rows made here and a runner of its own, which ships the knn10m
-rows itself), then stops
+rows itself; segments: phase 4c over a runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
@@ -168,6 +184,15 @@ KNN10M = dict(n=10_000_000, dim=768, seed=31, batches=(1, 128, 512), k=10,
 # graph is built here by the port's numpy builder on the host
 ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
            batches=(1, 128, 512), k=10, recall_q=16)
+
+# bench.py:540 bench_knn_churn (quick=False): clustered rows (n0 // 200
+# centres, sigma 0.15) through the KV op log, segments sealed every
+# `seal` rows, `rounds` rounds of +add / -dele rows and nq k=10 queries.
+# n0 is cut from 1M to 500k (still past the 400k segment floor) for the
+# time limit: at 1M the phase took about 480 s beside the rest's 420-460
+# (PERF.md section 4)
+CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=8,
+             add=32_768, dele=8_192, nq=12)
 
 # the supervisor phase: a runner in mode auto over the knn1m store,
 # `threads` clients of `frame`-query vec_knn frames, `rounds` frames each
@@ -459,7 +484,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
-              "engine")
+              "engine", "segments")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -2050,7 +2075,8 @@ def main(argv=None) -> int:
         knobs = ("KNN_ANN_MODE", "KNN_HOST_BATCH")
         saved = {name: getattr(cnf, name) for name in knobs}
         # the default router sends a cuda platform's dispatches to the
-        # card (segmented ANN, not ported, is off by default)
+        # card (segments stay out of these paths: knn1m and knn10m run
+        # with KNN_ANN_MODE off, the ann rows are below the segment floor)
         cnf.KNN_HOST_BATCH = "auto"
         # the 30 GB knn10m arrays must not be evicted mid-run: the node
         # budget is the host's limit (the default is half of it)
@@ -2598,6 +2624,488 @@ def main(argv=None) -> int:
         finally:
             sup_.shutdown()
 
+    # -- segmented ANN and the persisted artifacts (also `--only segments`) ---
+    def euclid_oracle(xs_, qs_, kk, step=1 << 18):
+        """The exact f64 euclidean top kk of qs_ over the host rows xs_
+        (indices into xs_), streamed through the card in blocks."""
+        q64 = torch.from_numpy(np.ascontiguousarray(qs_)).to(dev).double()
+        q2 = (q64 * q64).sum(dim=1)
+        tv_, ti_ = [], []
+        for s0 in range(0, xs_.shape[0], step):
+            b64 = torch.from_numpy(xs_[s0:s0 + step]).to(dev).double()
+            d_ = (b64 * b64).sum(dim=1)[:, None] - 2.0 * (b64 @ q64.T) \
+                + q2[None, :]
+            v_, i_ = torch.topk(d_, min(kk, d_.shape[0]), dim=0,
+                                largest=False)
+            tv_.append(v_)
+            ti_.append(i_ + s0)
+            del b64, d_
+        _, sel_ = torch.topk(torch.cat(tv_), kk, dim=0, largest=False)
+        return torch.gather(torch.cat(ti_), 0, sel_).T.cpu().numpy()
+
+    def segments_phase(sup_, counts=None):
+        """Segmented ANN (idx/segments.py) and the persisted artifacts
+        under `sup_` (a supervisor in mode require over a runner on the
+        card): (a) churn at bench.py:540 bench_knn_churn's full
+        configuration through the port's KV (CHURN), (b) every ready
+        segment's descent held to its plain version, knn_batch at B=512
+        against the f64 oracle, (c) a file:// datastore's graph reloaded
+        after a restart (the ann rows). No fallback may hide the card:
+        device_fallbacks, device_host_routed and ann_host_descents stay
+        where they were."""
+        import shutil
+
+        from surrealdb_tpu_torch import key as K
+        from surrealdb_tpu_torch import resource
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.idx import cagra as CG
+        from surrealdb_tpu_torch.idx import vector as V
+        from surrealdb_tpu_torch.kvs.api import serialize
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+        from surrealdb_tpu_torch.val import RecordId
+
+        t_0 = time.perf_counter()
+        knobs = ("KNN_SEG_MODE", "KNN_SEG_ROWS", "KNN_ANN_MODE",
+                 "KNN_HOST_BATCH")
+        saved = {name: getattr(cnf, name) for name in knobs}
+        cnf.KNN_HOST_BATCH = "auto"
+        old_acct = resource.set_accountant(
+            resource.MemoryAccountant(resource.host_limit_bytes()))
+        old_sup = SV.set_supervisor(sup_)
+        ctr0 = dict(sup_.counters)
+        out_all = {}
+
+        def path(name, fn, needs):
+            """One path with the runner's launch counts set to 0 just
+            before it and read just after."""
+            sup_.call("launch_counts", {"reset": True})
+            out = fn()
+            _, m, _ = sup_.call("launch_counts", {})
+            if counts is not None:
+                for kname, v in m["launches"].items():
+                    counts[kname] += v
+            for kname in needs:
+                check(m["launches"][kname] > 0,
+                      f"segments {name}: kernel {kname} was not launched")
+            out["launches"] = {kn: v for kn, v in m["launches"].items() if v}
+            emit(f"segments_{name}", **out, events=m["events"])
+            out_all[name] = out
+
+        def pct(vals, p):
+            vals = sorted(vals)
+            return vals[min(int(p * (len(vals) - 1)), len(vals) - 1)]
+
+        def ids_of(res):
+            return np.array([[r.id for r, _d in row] for row in res])
+
+        def recall(got_ids, oracle):
+            return float(np.mean([len(set(a.tolist()) & set(b.tolist()))
+                                  / oracle.shape[1]
+                                  for a, b in zip(got_ids, oracle)]))
+
+        C = CHURN
+        n0, dim = C["n0"], C["dim"]
+        total = n0 + C["rounds"] * C["add"]
+        rng = np.random.default_rng(C["seed"])
+        nc = max(n0 // 200, 64)
+        centers = rng.normal(size=(nc, dim)).astype(np.float32)
+        xs_all = np.empty((total, dim), np.float32)
+        live = np.zeros(total, bool)
+
+        def mkvecs(count, out=None):
+            """bench.py's mkvecs (the same draws), filled in chunks."""
+            idx = rng.integers(0, nc, count)
+            out = np.empty((count, dim), np.float32) if out is None else out
+            for s0 in range(0, count, 1 << 17):
+                e0 = min(s0 + (1 << 17), count)
+                out[s0:e0] = (centers[idx[s0:e0]] + 0.15 * rng.normal(
+                    size=(e0 - s0, dim))).astype(np.float32)
+            return out
+
+        params = {"dimension": dim, "distance": "euclidean",
+                  "vector_type": "f32"}
+        state = {"ver": 0}
+
+        def churn_ops(ds, add_ids, dels):
+            """bench.py's _churn_ops through the port's KV: a record,
+            `he` and an `hl` entry a row, deletes, then `vn`."""
+            ver = state["ver"]
+            t = ds.transaction(write=True)
+            try:
+                for i in add_ids:
+                    i = int(i)
+                    raw = xs_all[i].tobytes()
+                    t.set(K.record("b", "b", "tbl", i),
+                          serialize({"id": RecordId("tbl", i)}))
+                    t.set_val(K.ix_state("b", "b", "tbl", "ix", b"he",
+                                         K.enc_value(i)), raw)
+                    ver += 1
+                    t.set_val(K.ix_state("b", "b", "tbl", "ix", b"hl",
+                                         K.enc_u64(ver)), ("set", i, raw))
+                for i in dels:
+                    i = int(i)
+                    t.delete(K.record("b", "b", "tbl", i))
+                    t.delete(K.ix_state("b", "b", "tbl", "ix", b"he",
+                                        K.enc_value(i)))
+                    ver += 1
+                    t.set_val(K.ix_state("b", "b", "tbl", "ix", b"hl",
+                                         K.enc_u64(ver)), ("del", i, None))
+                t.set_val(K.ix_state("b", "b", "tbl", "ix", b"vn"), ver)
+                t.commit()
+            except BaseException:
+                t.cancel()
+                raise
+            state["ver"] = ver
+            live[np.asarray(add_ids, np.int64)] = True
+            live[np.asarray(dels, np.int64)] = False
+
+        ds = Datastore()
+        seg_ix = {}
+
+        def churn_path():
+            cnf.KNN_SEG_MODE, cnf.KNN_SEG_ROWS = "force", C["seal"]
+            cnf.KNN_ANN_MODE = "force"
+            t0 = time.perf_counter()
+            mkvecs(n0, xs_all[:n0])
+            out = {"rows": n0, "dim": dim, "centres": nc,
+                   "seal_rows": C["seal"], "gen_s": time.perf_counter() - t0}
+            t0 = time.perf_counter()
+            churn_ops(ds, range(n0), [])
+            out["ingest_s"] = time.perf_counter() - t0
+            ctx = ds.context("b", "b")
+            ix = V.get_vector_index(ctx, "tbl", "ix", params)
+            seg_ix["ix"] = ix
+            hd0 = ix.ann_host_descents
+            t0 = time.perf_counter()
+            ix.knn(mkvecs(1)[0].tolist(), 10, ctx)  # sync, engage, seal
+            out["first_sync_s"] = time.perf_counter() - t0
+            check(len(ix.rids) == n0 and ix._segs is not None
+                  and ix._segs.active(), "churn: the first seal")
+            t0 = time.perf_counter()
+            check(ix.ensure_ann(), "churn: the first seal did not drain")
+            out["first_build_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ix.knn(xs_all[0].tolist(), 10, ctx)  # ships the 1M segment
+            out["first_ship_s"] = time.perf_counter() - t0
+            ctx.txn.cancel()
+            nid = n0
+            lat_ms, ingest_ms, recalls = [], [], []
+            for r in range(C["rounds"]):
+                add_ids = np.arange(nid, nid + C["add"])
+                mkvecs(C["add"], xs_all[nid:nid + C["add"]])
+                nid += C["add"]
+                pool = np.flatnonzero(live)
+                dels = rng.choice(pool, size=min(C["dele"], len(pool) - 1),
+                                  replace=False)
+                churn_ops(ds, add_ids, dels)
+                ctx = ds.context("b", "b")
+                probe_id = int(add_ids[-1])
+                t0 = time.perf_counter()
+                got = ix.knn(xs_all[probe_id].tolist(), 1, ctx)
+                ingest_ms.append((time.perf_counter() - t0) * 1e3)
+                check([rid.id for rid, _d in got] == [probe_id],
+                      f"churn round {r}: the committed row is not "
+                      f"searchable ({got})")
+                round_lat = []
+                for qv in mkvecs(C["nq"]):
+                    t0 = time.perf_counter()
+                    ix.knn(qv.tolist(), 10, ctx)
+                    round_lat.append((time.perf_counter() - t0) * 1e3)
+                lat_ms.append(round_lat)
+                if r % 4 == 3 or r == C["rounds"] - 1:
+                    qr = mkvecs(8)
+                    got_i = np.array([[rid.id for rid, _d in
+                                       ix.knn(q.tolist(), 10, ctx)]
+                                      for q in qr])
+                    live_ids = np.flatnonzero(live)
+                    oracle = live_ids[euclid_oracle(xs_all[live_ids], qr,
+                                                    10)]
+                    recalls.append(recall(got_i, oracle))
+                    check(recalls[-1] >= 0.95,
+                          f"churn round {r}: recall@10 {recalls[-1]}")
+                ctx.txn.cancel()
+            segs = ix._segs
+            t0 = time.perf_counter()
+            check(segs.drain(), "churn: segments not all ready after drain")
+            out["final_drain_s"] = time.perf_counter() - t0
+            st = segs.status()
+            check(all(s["state"] == "ready" for s in st["spans"]),
+                  f"churn: spans {st['spans']}")
+            check(ix.ann_full_rebuilds == 0 and st["stats"][
+                "ann_full_rebuilds"] == 0,
+                  f"churn: {ix.ann_full_rebuilds} whole-store rebuilds")
+            check(ix.ann_host_descents == hd0,
+                  f"churn: {ix.ann_host_descents - hd0} numpy descents")
+
+            def third(frac0, frac1):
+                return [x for rl in lat_ms[int(len(lat_ms) * frac0):
+                                           max(int(len(lat_ms) * frac1), 1)]
+                        for x in rl] or [0.0]
+
+            all_lat = [x for rl in lat_ms for x in rl]
+            first, last = third(0.0, 1 / 3), third(2 / 3, 1.0)
+            out.update(
+                rounds=C["rounds"], add=C["add"], dele=C["dele"],
+                rows_end=int(live.sum()), recalls=recalls,
+                recall_at_10_min=min(recalls),
+                p50_ms=pct(all_lat, 0.5), p99_ms=pct(all_lat, 0.99),
+                p50_ms_first_third=pct(first, 0.5),
+                p99_ms_first_third=pct(first, 0.99),
+                p50_ms_last_third=pct(last, 0.5),
+                p99_ms_last_third=pct(last, 0.99),
+                ingest_to_searchable_ms=ingest_ms,
+                ingest_to_searchable_ms_p95=pct(ingest_ms, 0.95),
+                ingest_to_searchable_ms_max=max(ingest_ms),
+                segments=st["segments"], ready=st["ready"],
+                tail_rows=st["tail_rows"], seg_counters=st["stats"],
+                spans=[{**s, "build_s": seg.graph[0].build_s}
+                       for s, seg in zip(st["spans"], segs.segs)],
+                ann_full_rebuilds=ix.ann_full_rebuilds,
+                residency=ix.residency())
+            return out
+
+        def descent_path():
+            """(b) each ready segment's candidates from the runner (its own
+            block) at B 1 / 512 equal to the plain descent on the card
+            over the same arrays, at the engine's kc for that segment;
+            knn_batch at B=512 equal to those candidates re-ranked here
+            in f64 and merged (exact over the spans), and its recall@10
+            against the f64 oracle, split by segment; the numpy
+            descent's overlap with the card's beside it."""
+            ix = seg_ix["ix"]
+            qs_ = mkvecs(512)
+            q64 = qs_.astype(np.float64)
+            k_ = 10
+            segs = list(ix._segs.segs)
+            check(all(s.state == "ready" for s in segs)
+                  and ix._segs.status()["tail_rows"] == 0
+                  and not ix._ann_dirty, "descent: the drained set")
+            valid = ix.valid
+            out = {"segments": []}
+            lists = []
+            for seg in segs:
+                ann, row_map = seg.graph
+                m = ann.built_n
+                # the engine's kc for this segment (_graph_span)
+                live_graph = int(np.count_nonzero(
+                    valid[row_map] if row_map is not None
+                    else valid[seg.lo:seg.lo + m]))
+                density = max(live_graph, 1) / max(m, 1)
+                factor = min(int(np.ceil(1.0 / max(density, 1.0 / 64))), 64)
+                kc = min(m, max(cnf.KNN_ANN_OVERSAMPLE * k_ * factor, 32))
+                st_ = A.AnnStore("seg-check", ann.graph, ann.x8, ann.arow,
+                                 ann.x2, ann.metric, cnf.ann_search_cfg(),
+                                 dev)
+                dv = st_._ensure()
+                width, iters, expand, kc_ = st_._clamped(kc)
+                row = {"lo": seg.lo, "hi": seg.hi, "graph_rows": m,
+                       "live_graph": live_graph, "identity": row_map is None,
+                       "kc": kc_, "width": width}
+                tag = [int(seg.seq), int(seg.lo), int(seg.hi)]
+                # a segment sealed late in the churn is first shipped here
+                t0 = time.perf_counter()
+                ix._ann_device_search(ann, qs_[:1], kc, dev_key=seg.dev_key,
+                                      tag=tag)
+                row["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+                for b in (1, 512):
+                    t0 = time.perf_counter()
+                    cand = ix._ann_device_search(ann, qs_[:b], kc,
+                                                 dev_key=seg.dev_key,
+                                                 tag=tag)
+                    row[f"B{b}_frame_ms"] = (time.perf_counter() - t0) * 1e3
+                    qa = torch.from_numpy(qs_[:b]).to(dev)
+                    pscore = T.rank_scores_int8_plain(
+                        dv["x8p"], qa, ann.metric, dv["arowp"], dv["x2qp"],
+                        probe_order=True)
+                    pd0, psel = T.top_k_smallest_plain(pscore, width)
+                    pi, _pd = A.ann_descent_plain(
+                        dv["graph"], dv["x8"], dv["arow"], dv["x2q"], qa,
+                        dv["probe_ids"][psel.long()], pd0, ann.metric,
+                        iters, expand, kc_)
+                    pi = pi.cpu().numpy()
+                    check(np.array_equal(cand, pi),
+                          f"segment [{seg.lo}, {seg.hi}) B={b}: ids differ "
+                          f"from the plain descent")
+                    del pscore, pd0, psel
+                row["ids_equal_plain"] = True
+                # the f64 re-rank of the plain candidates (row ids of the
+                # span, tombstones masked), the segment's own top k
+                seg_lists = []
+                for i in range(len(qs_)):
+                    ids = pi[i].astype(np.int64)
+                    ids = ids[(ids >= 0) & (ids < m)]
+                    ids = np.unique(row_map[ids] if row_map is not None
+                                    else ids + seg.lo)
+                    diff = xs_all[ids].astype(np.float64) - q64[i]
+                    d_ = np.sqrt(np.add.reduce(diff * diff, axis=-1))
+                    d_ = np.where(valid[ids], d_, np.inf)
+                    o_ = np.argsort(d_, kind="stable")[:k_]
+                    seg_lists.append([(int(ids[j]), float(d_[j]))
+                                      for j in o_ if np.isfinite(d_[j])])
+                check(all(len(sl) == k_ for sl in seg_lists),
+                      f"segment [{seg.lo}, {seg.hi}) underfilled")
+                lists.append(seg_lists)
+                span_live = seg.lo + np.flatnonzero(valid[seg.lo:seg.hi])
+                soracle = span_live[euclid_oracle(xs_all[span_live], qs_,
+                                                  k_)]
+                row["segment_recall_at_10"] = recall(
+                    np.array([[r for r, _d in sl] for sl in seg_lists]),
+                    soracle)
+                # the numpy descent (the engine's host fallback) scores
+                # f32 queries against the dequantised rows: the card
+                # quantises the queries too, so only the overlap is shown
+                cfg = cnf.ann_search_cfg()
+                w_ = min(max(cfg["width"], kc), m)
+                fn, probe_fn = CG.int8_score_fn(ann, qs_)
+                host = CG.descend(ann.graph, m, fn, len(qs_), w_,
+                                  cfg["iters"], min(cfg["expand"], w_), kc,
+                                  probe_fn=probe_fn)
+                row["numpy_descent_overlap"] = float(np.mean([
+                    len(set(a.tolist()) & set(b_.tolist())) / kc_
+                    for a, b_ in zip(pi, host)]))
+                out["segments"].append(row)
+                del st_, dv
+                torch.cuda.empty_cache()
+            with ix.rw.read():
+                t0 = time.perf_counter()
+                res = ix.knn_batch(qs_, k_)
+                out["B512_ms"] = (time.perf_counter() - t0) * 1e3
+            want = []
+            for i in range(len(qs_)):
+                merged = sorted((p for sl in lists for p in sl[i]),
+                                key=lambda p: p[1])[:k_]
+                want.append(merged)
+            got_i, want_i = ids_of(res), np.array([[r for r, _d in w]
+                                                   for w in want])
+            check(np.array_equal(got_i, want_i)
+                  and np.allclose([[d for _r, d in row] for row in res],
+                                  [[d for _r, d in w] for w in want],
+                                  rtol=0, atol=1e-12),
+                  "knn_batch B=512 differs from the segments' plain "
+                  "candidates re-ranked and merged")
+            out["B512_equal_plain_merge"] = True
+            live_ids = np.flatnonzero(live)
+            oracle = live_ids[euclid_oracle(xs_all[live_ids], qs_, k_)]
+            out["B512_recall_at_10"] = recall(got_i, oracle)
+            check(out["B512_recall_at_10"] >= 0.95,
+                  f"segments B=512 recall@10 {out['B512_recall_at_10']}")
+            return out
+
+        def restart_path():
+            """(c) the ann cell's rows in a file:// datastore: build and
+            save, close, reopen, reload with no build; the arrays and
+            the B=512 ids equal across the restart."""
+            cnf.KNN_SEG_MODE = saved["KNN_SEG_MODE"]
+            cnf.KNN_ANN_MODE = "auto"
+            xs_, q_ = ann_rows()
+            n_, dim_ = xs_.shape
+            check(n_ < cnf.KNN_SEG_MIN_ROWS, "restart rows past the floor")
+            base = os.path.join(cache_dir, "seg_restart", str(os.getpid()))
+            shutil.rmtree(base, ignore_errors=True)
+            rp = {"dimension": dim_, "distance": "cosine",
+                  "vector_type": "f32"}
+            out = {"rows": n_, "dim": dim_}
+            try:
+                ds1 = Datastore(f"file://{base}")
+                t0 = time.perf_counter()
+                t = ds1.transaction(write=True)
+                for i in range(n_):
+                    t.set(K.record("b", "b", "ann", i),
+                          serialize({"id": RecordId("ann", i)}))
+                    t.set_val(K.ix_state("b", "b", "ann", "ix", b"he",
+                                         K.enc_value(i)), xs_[i].tobytes())
+                t.set_val(K.ix_state("b", "b", "ann", "ix", b"vn"), n_)
+                t.commit()
+                out["ingest_s"] = time.perf_counter() - t0
+
+                def open_sync(ds_):
+                    # the sync schedules no background build (ANN off
+                    # for it): ensure_ann's time is the build or the
+                    # reload alone
+                    cnf.KNN_ANN_MODE = "off"
+                    c_ = ds_.context("b", "b")
+                    ix_ = V.get_vector_index(c_, "ann", "ix", rp)
+                    ix_.sync(c_)
+                    c_.txn.cancel()
+                    cnf.KNN_ANN_MODE = "auto"
+                    check(ix_.snapshot_dir == ds_.ann_snapshot_dir,
+                          "the engine's snapshot_dir")
+                    return ix_
+
+                ix1 = open_sync(ds1)
+                t0 = time.perf_counter()
+                check(ix1.ensure_ann(), "restart: no graph before")
+                out["ensure_s"] = time.perf_counter() - t0
+                out["build_s"] = ix1._ann.build_s
+                check((ix1.ann_builds, ix1.ann_reloads) == (1, 0),
+                      "restart: the first open must build")
+                built = ix1._ann
+                before = ix1.knn_batch(q_[:512], 10)
+                out["artifact_bytes"] = os.path.getsize(
+                    ix1._ann_snap_path())
+                t0 = time.perf_counter()
+                ds1.close()
+                out["close_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ds2 = Datastore(f"file://{base}")
+                out["reopen_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ix2 = open_sync(ds2)
+                out["sync_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                check(ix2.ensure_ann(), "restart: no graph after")
+                out["reload_s"] = time.perf_counter() - t0
+                check((ix2.ann_builds, ix2.ann_reloads) == (0, 1),
+                      f"restart: {ix2.ann_builds} builds after the reopen")
+                for name in ("graph", "x8", "arow", "x2", "inv_norms"):
+                    check(np.array_equal(getattr(ix2._ann, name),
+                                         getattr(built, name)),
+                          f"restart: reloaded {name} differs")
+                after = ix2.knn_batch(q_[:512], 10)
+                check(np.array_equal(ids_of(after), ids_of(before)),
+                      "restart: ids differ across the restart")
+                out["ids_equal_across_restart"] = True
+                sup_.call("ann_drop", {"key": ix1._ann_dev_key})
+                sup_.call("ann_drop", {"key": ix2._ann_dev_key})
+                ds2.close()
+            finally:
+                shutil.rmtree(base, ignore_errors=True)
+            return out
+
+        try:
+            path("churn", churn_path, ("ann_descent", "rank_scores_int8",
+                                       "select_topk_rows"))
+            path("descent", descent_path, ("ann_descent",))
+            for seg in seg_ix["ix"]._segs.segs:
+                sup_.call("ann_drop", {"key": seg.dev_key})
+            ds.close()
+            seg_ix.clear()
+            path("restart", restart_path, ("ann_descent",))
+            ctr = dict(sup_.counters)
+            for name in ("device_fallbacks", "device_host_routed"):
+                check(ctr[name] == ctr0[name],
+                      f"segments: {name} moved {ctr0[name]} -> {ctr[name]}")
+            check(sup_.mode == "require", f"supervisor mode {sup_.mode}")
+            emit("segments", mode=sup_.mode, counters=ctr,
+                 paths=sorted(out_all),
+                 seconds=time.perf_counter() - t_0)
+        finally:
+            SV.set_supervisor(old_sup)
+            resource.set_accountant(old_acct)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
+        return out_all
+
+    def segments_only():
+        """`--only segments`: the segments phase under a supervisor in
+        mode require of its own."""
+        sup_ = DeviceSupervisor("require", device="cuda")
+        try:
+            sup_.start()
+            segments_phase(sup_)
+        finally:
+            sup_.shutdown()
+
     # -- 1. card ----------------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -2640,6 +3148,8 @@ def main(argv=None) -> int:
             batcher_only()
         if "engine" in only:
             engine_only()
+        if "segments" in only:
+            segments_only()
         if "supervisor" in only:
             rng = np.random.default_rng(KNN1M["seed"])  # knn1m's rows
             xs_np = rng.standard_normal((KNN1M["n"], KNN1M["dim"]),
@@ -3756,6 +4266,8 @@ def main(argv=None) -> int:
         xs10 = None  # the engine drops its rows after its knn10m path
         engine_phase(sup, data, launches)
         del data
+        # -- 4c. segmented ANN and the persisted artifacts, same runner ---
+        segments_phase(sup, launches)
     finally:
         sup.shutdown()
 

@@ -1,7 +1,7 @@
 """Environment-variable knobs the index engines, the device runner, its
 supervisor and the cross-query batcher read: the KNN and DEVICE
 settings of the reference package's `cnf.py`, with the same SURREAL_*
-names and defaults (but for `SURREAL_KNN_SEG`, below)."""
+names and defaults."""
 
 from __future__ import annotations
 
@@ -81,11 +81,30 @@ KNN_ANN_REFINE = env_int("SURREAL_KNN_ANN_REFINE", -1)
 # int8 quantization clip quantile (1.0 = the exact per-row max)
 KNN_ANN_CLIP_Q = env_float("SURREAL_KNN_ANN_CLIP_Q", 1.0)
 
-# -- segmented ANN (the reference's idx/segments.py, not ported) --------------
-# off (the port's default; the reference's is auto): the whole-store
-# paths serve every store. auto (past 400k rows) or force (past 16):
-# where segments would engage, the port's engine raises NotPorted.
-KNN_SEG_MODE = env_str("SURREAL_KNN_SEG", "off")
+# -- segmented ANN (idx/segments.py) -----------------------------------------
+# sealed-segment serving for continuous ingest: writes land in an exact
+# mutable tail, a seal policy freezes it into a segment, background jobs
+# build each segment's own CAGRA graph and tier-merge small segments into
+# larger ones, so the whole-store rebuild (KNN_ANN_TAIL_FRAC) never runs.
+# auto: engage once the store crosses KNN_SEG_MIN_ROWS (smaller stores
+# keep the whole-store graph); off: never; force: past 16 rows
+KNN_SEG_MODE = env_str("SURREAL_KNN_SEG", "auto")
+KNN_SEG_MIN_ROWS = env_int("SURREAL_KNN_SEG_MIN_ROWS", 400_000)
+# seal policy for the mutable tail: row count, byte size, or age (0
+# disables the age seal; it is checked at sync cadence, no timers)
+KNN_SEG_ROWS = env_int("SURREAL_KNN_SEG_ROWS", 131_072)
+KNN_SEG_BYTES = env_int("SURREAL_KNN_SEG_BYTES", 512 << 20)
+KNN_SEG_AGE_S = env_float("SURREAL_KNN_SEG_AGE_S", 0.0)
+# tiered merges: FANOUT adjacent segments of one size tier (tier t covers
+# [SEG_ROWS * FANOUT^t, SEG_ROWS * FANOUT^(t+1)) rows) compact into one
+KNN_SEG_FANOUT = env_int("SURREAL_KNN_SEG_FANOUT", 4)
+# a segment's dead + overwritten fraction past which its own graph is
+# rebuilt (its dead rows compacted out)
+KNN_SEG_TOMB_FRAC = env_float("SURREAL_KNN_SEG_TOMB_FRAC", 0.5)
+
+# -- the file-backed KV engine (kvs/file.py) -----------------------------------
+# committed WAL batches between snapshot compactions
+WAL_COMPACT_BATCHES = env_int("SURREAL_WAL_COMPACT_BATCHES", 4096)
 
 # -- device runner and its supervisor ------------------------------------------
 # off: host paths only. auto (default): supervised runner subprocess,

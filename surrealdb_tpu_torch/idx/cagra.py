@@ -1,6 +1,6 @@
-"""CAGRA-style quantized graph-ANN index: the host-side construction
-and the numpy half of the search (the reference package's
-`idx/cagra.py` without the persisted artifacts).
+"""CAGRA-style quantized graph-ANN index: the host-side construction,
+the numpy half of the search and the persisted artifacts (the reference
+package's `idx/cagra.py`).
 
 - `build_graph`: fixed-out-degree flat search graph `[N, D_out]` int32.
   A kNN-graph init (random-projection partition trees, exact kNN inside
@@ -17,6 +17,11 @@ and the numpy half of the search (the reference package's
 - `AnnIndex` / `build_index`: one built index (graph, int8 rows,
   scales, dequantized squared norms) stamped with the engine's
   (version, epoch), as the engine ships it to the runner.
+- `save_index` / `load_index`: one built index as an `SKVANN01` file
+  (an 8-byte magic, then `>I` length + `>I` CRC32 frames: a JSON header
+  with sorted keys, then one frame per array), byte-equal to the
+  reference's file for the same index and header, so either package
+  reads the other's. Any corruption raises ValueError.
 
 Pure numpy, the same arrays byte for byte as the reference's builder
 for the same inputs and seed.
@@ -492,3 +497,115 @@ def int8_score_fn(ann: "AnnIndex", qs: np.ndarray):
         return -dots
 
     return fn, probe
+
+
+# ---------------------------------------------------------------------------
+# persisted build artifacts
+# ---------------------------------------------------------------------------
+# A graph build is recomputation of state the KV rows already imply, so
+# it persists beside a disk-backed datastore and a restart reloads it.
+# The frame length is packed as `>I`, as the reference packs it: an
+# array past 4 GiB raises struct.error (not an OSError) on save.
+
+_SNAP_MAGIC = b"SKVANN01"
+_SNAP_ARRAYS = ("graph", "x8", "arow", "x2", "inv_norms")
+
+
+def _write_frame(f, body: bytes):
+    import struct
+    import zlib
+
+    f.write(struct.pack(">I", len(body)))
+    f.write(struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+    f.write(body)
+
+
+def _read_frame(f) -> bytes:
+    import struct
+    import zlib
+
+    hdr = f.read(8)
+    if len(hdr) != 8:
+        raise ValueError("ann snapshot: truncated frame header")
+    (n,) = struct.unpack(">I", hdr[:4])
+    (crc,) = struct.unpack(">I", hdr[4:])
+    body = f.read(n)
+    if len(body) != n:
+        raise ValueError("ann snapshot: torn frame")
+    if zlib.crc32(body) & 0xFFFFFFFF != crc:
+        raise ValueError("ann snapshot: crc mismatch")
+    return body
+
+
+def save_index(ann: AnnIndex, path: str, extra: dict = None):
+    """Persist a built index atomically (tmp + rename). `extra` lands in
+    the header frame: the engine stamps the row-identity digest there so
+    a reload can prove the row NUMBERING still matches."""
+    import json
+    import os
+
+    meta = {
+        "metric": ann.metric,
+        "built_n": ann.built_n,
+        "built_version": ann.built_version,
+        "built_epoch": ann.built_epoch,
+        "build_s": ann.build_s,
+        "arrays": {
+            name: [getattr(ann, name).dtype.str,
+                   list(getattr(ann, name).shape)]
+            for name in _SNAP_ARRAYS
+        },
+    }
+    if extra:
+        meta.update(extra)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(_SNAP_MAGIC)
+            _write_frame(f, json.dumps(meta, sort_keys=True).encode())
+            for name in _SNAP_ARRAYS:
+                _write_frame(
+                    f, np.ascontiguousarray(getattr(ann, name)).tobytes()
+                )
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def load_index(path: str) -> tuple[AnnIndex, dict]:
+    """Load a persisted index -> (AnnIndex, header meta). Raises
+    OSError when absent or unreadable and ValueError on any corruption:
+    the caller decides between silence (no snapshot) and warn + rebuild
+    (a corrupt one)."""
+    import json
+
+    with open(path, "rb") as f:
+        if f.read(len(_SNAP_MAGIC)) != _SNAP_MAGIC:
+            raise ValueError("ann snapshot: bad magic")
+        meta = json.loads(_read_frame(f).decode())
+        arrays = {}
+        for name in _SNAP_ARRAYS:
+            try:
+                dt, shape = meta["arrays"][name]
+            except (KeyError, TypeError, ValueError):
+                raise ValueError(f"ann snapshot: header missing {name}")
+            body = _read_frame(f)
+            arr = np.frombuffer(body, dtype=np.dtype(dt))
+            want = 1
+            for s in shape:
+                want *= int(s)
+            if arr.size != want:
+                raise ValueError(f"ann snapshot: {name} size mismatch")
+            arrays[name] = arr.reshape([int(s) for s in shape])
+    return AnnIndex(
+        meta["metric"], arrays["graph"], arrays["x8"], arrays["arow"],
+        arrays["x2"], arrays["inv_norms"], meta["built_n"],
+        meta["built_version"], meta["built_epoch"],
+        meta.get("build_s", 0.0),
+    ), meta

@@ -10,21 +10,24 @@ whenever their (version, epoch) tag changes.
 
 Search: stores below `KNN_DEVICE_MIN_ROWS` take the exact numpy ladder;
 the rest ride the cross-query batcher (`_Coalescer`) into `knn_batch`,
-which routes to the device runner (bf16 rank + f32 rescore, or the int8
-store's candidates rescored here exactly in f64), the batched BLAS host
-path, or, for a store with a built CAGRA graph, the int8 descent plus
-an exact re-rank of its candidates merged with the rows the graph
-cannot see.
+which routes to the segment fan-out (`idx/segments.py`, once a store
+past `KNN_SEG_MIN_ROWS` has sealed a segment), the device runner (bf16
+rank + f32 rescore, or the int8 store's candidates rescored here
+exactly in f64), the batched BLAS host path, or, for a store with a
+built CAGRA graph, the int8 descent plus an exact re-rank of its
+candidates merged with the rows the graph cannot see. With a
+`snapshot_dir` (a file-backed datastore's `.ann-cache`), a built graph
+persists as an `SKVANN01` artifact and a restart reloads it instead of
+rebuilding.
 
 This module imports neither torch nor CUDA: the card is reached through
 the port's supervisor (`device/supervisor.py`) only, and the host paths
 are numpy, byte for byte the reference's (its degrade and small-store
 paths, and the conformance oracle's).
 
-Not ported, and raising `NotPorted` where they would engage: segmented
-ANN (`idx/segments.py`: `SURREAL_KNN_SEG`, off by default here), a
-`cond` predicate on `knn`, the sharded router (`idx/shardvec.py`) and
-the persisted ANN artifacts (the engine never has a `snapshot_dir`).
+Not ported, and raising `NotPorted` where they would engage: a `cond`
+predicate on `knn` and the sharded router (`idx/shardvec.py` holds only
+`merge_topk`).
 """
 
 from __future__ import annotations
@@ -39,14 +42,13 @@ from surrealdb_tpu_torch import key as K
 from surrealdb_tpu_torch import resource
 from surrealdb_tpu_torch.device.batcher import DeviceBatcher
 from surrealdb_tpu_torch.err import NotPorted, SdbError
+from surrealdb_tpu_torch.idx import segments
 from surrealdb_tpu_torch.kvs.api import deserialize
 from surrealdb_tpu_torch.utils.rwlock import RWLock
 from surrealdb_tpu_torch.val import NONE, RecordId
 
 # device-search threshold: below this, numpy on host beats dispatch overhead
 DEVICE_MIN_ROWS = cnf.KNN_DEVICE_MIN_ROWS
-# the reference's segment floor (SURREAL_KNN_SEG_MIN_ROWS) under auto
-SEG_MIN_ROWS = 400_000
 
 
 def _vec_dtype(params) -> type:
@@ -227,6 +229,10 @@ class TpuVectorIndex:
         self._dev_key = f"vec/{uuid.uuid4().hex[:16]}"
         self._dev_epoch = 0
         self.rank_mode = None  # last runner-reported ranking mode
+        # widest mesh the runner reported serving this engine's blocks
+        # on (device/mesh.py; 1 or 0 = single-device stores)
+        self._dev_mesh = 0
+        self._dev_mesh_ann = 0
         # per-epoch host scoring stats (row norms / squared norms) for
         # the batched BLAS host path; rebuilt lazily after cache sync
         self._host_stats = None
@@ -251,10 +257,22 @@ class TpuVectorIndex:
         self._ann_seq = 0          # device block tag for shipped builds
         self._ann_lock = threading.Lock()
         self._ann_dev_key = f"ann/{uuid.uuid4().hex[:16]}"
-        # whole-index ANN rebuilds this engine scheduled (graph drift)
+        # segmented LSM-style serving (idx/segments.py): created on
+        # first touch once the store crosses the segmentation floor;
+        # None until then (smaller stores keep the whole-store graph)
+        self._segs = None
+        # where built graphs persist (get_vector_index sets it from a
+        # file-backed datastore's ann_snapshot_dir); None: never saved
+        self.snapshot_dir = None
+        # whole-index ANN rebuilds this engine scheduled (graph drift);
+        # a module aggregate lives in idx/segments.py
         self.ann_full_rebuilds = 0
+        # whole-store graphs this engine built, and reloaded from a
+        # persisted artifact instead
+        self.ann_builds = 0
+        self.ann_reloads = 0
         # ANN searches answered by the numpy descent (the device could
-        # not serve, or routing chose the host)
+        # not serve, or routing chose the host), whole-store or segment
         self.ann_host_descents = 0
         self.coalescer = _Coalescer(self)
         # queries in flight on this engine (between sync and the end of
@@ -345,6 +363,8 @@ class TpuVectorIndex:
                     self._ann_gen += 1
                     if self._ann_state == "ready":
                         self._ann_state = "idle"
+                if self._segs is not None:
+                    self._segs.reset()
 
     # -- cache sync ---------------------------------------------------------
     def sync(self, ctx):
@@ -503,7 +523,8 @@ class TpuVectorIndex:
         self.valid = np.ones(len(rids), dtype=bool)
         self._drop_device()
         # a repack remaps row ids: the ANN snapshot (graph ids, dirty
-        # rows, any build in flight) is void — discard and re-trigger
+        # rows, any build in flight) is void — discard and re-trigger;
+        # the segment table (spans of the old numbering) dies with it
         with self._ann_lock:
             self._ann = None
             self._ann_dirty = {}
@@ -512,6 +533,8 @@ class TpuVectorIndex:
             self._ann_gen += 1
             if self._ann_state == "ready":
                 self._ann_state = "idle"
+        if self._segs is not None:
+            self._segs.reset()
 
     def _rebuild(self, ctx):
         ns, db, tb, ix = self.key
@@ -523,33 +546,59 @@ class TpuVectorIndex:
             end = K.ix_state(ns, db, tb, ix, b"hl", K.enc_u64(ver)) + b"\x00"
             ctx.txn.delete_range(beg, end)
 
-    # -- segmented ANN (the reference's idx/segments.py: not ported) -------
+    def residency(self) -> dict:
+        """Index-serving residency (rows, bytes, the ANN state and, on a
+        segmented engine, its segments and mutable tail)."""
+        out = {
+            "rows": int(self.valid.sum()) if len(self.valid) else 0,
+            "bytes": int(self.vecs.nbytes),
+            "version": int(self.version),
+            "ann": self._ann_state,
+        }
+        ann = self._ann
+        if ann is not None:
+            out["ann_bytes"] = ann.nbytes()
+        mesh_nd = max(int(self._dev_mesh), int(self._dev_mesh_ann))
+        if mesh_nd > 1:
+            # devices this engine's runner blocks actually served on
+            # (device/mesh.py row-sharding); absent = single-device
+            out["device_sharded"] = mesh_nd
+        segs = self._segs
+        if segs is not None and segs.active():
+            st = segs.status()
+            out["ann"] = "segmented"
+            out["segments"] = st["segments"]
+            out["segments_ready"] = st["ready"]
+            out["tail_rows"] = st["tail_rows"]
+        return out
+
+    # -- segmented LSM-style serving (idx/segments.py) ----------------------
+
+    def _segments(self):
+        """The segment coordinator, created on first touch."""
+        if self._segs is None:
+            with self.lock:
+                if self._segs is None:
+                    self._segs = segments.SegmentedAnn(self)
+        return self._segs
 
     def _seg_engaged(self) -> bool:
-        """The reference's segment policy (`SegmentedAnn.engaged`): a
-        store past `SEG_MIN_ROWS` (16 rows under `force`) with the ANN
-        path on and a product metric is served by sealed segments.
-        That path is not ported: where it would engage this raises."""
-        mode = str(cnf.KNN_SEG_MODE).lower()
-        if mode == "off":
+        """True when segmented serving governs this engine (mode +
+        metric + size gates, idx/segments.py policy)."""
+        segs = self._segs
+        if segs is not None:
+            return segs.engaged()
+        if str(cnf.KNN_SEG_MODE).lower() == "off":
             return False
-        if cnf.KNN_ANN_MODE == "off" or self.metric not in (
-            "euclidean", "cosine", "dot"
-        ):
-            return False
-        n = len(self.rids)
-        floor = 16 if mode == "force" else SEG_MIN_ROWS
-        if n < floor:
-            return False
-        raise NotPorted(
-            f"segmented ANN (idx/segments.py) would serve this "
-            f"{n}-row store (SURREAL_KNN_SEG={mode}) and is not ported; "
-            f"set SURREAL_KNN_SEG=off")
+        return self._segments().engaged()
 
     def _maybe_maintain(self):
-        """Post-sync index maintenance: the whole-store graph schedule
-        (segmented engines are not ported)."""
-        self._seg_engaged()
+        """Post-sync index maintenance: segmented engines seal / build
+        / merge in the background (idx/segments.py); everything else
+        keeps the whole-store graph schedule."""
+        if self._seg_engaged():
+            self._segments().maybe_maintain()
+            return
         self._maybe_build_ann()
 
     # -- quantized graph-ANN overlay (idx/cagra.py) -------------------------
@@ -591,17 +640,22 @@ class TpuVectorIndex:
                 return
             self._ann_state = "building"
         if ann is not None:
-            # drift past KNN_ANN_TAIL_FRAC re-derives the whole graph
+            # drift past KNN_ANN_TAIL_FRAC re-derives the WHOLE graph:
+            # the treadmill the segmented path exists to remove, counted
+            # so a churn run can hold it at 0 there
             self.ann_full_rebuilds += 1
+            segments.count("ann_full_rebuilds")
         threading.Thread(target=self._build_ann, daemon=True,
                          name="ann-build").start()
 
     def ensure_ann(self) -> bool:
         """Synchronous build entry (benchmarks, tests): returns True
-        when a ready, non-stale graph serves searches of this store."""
+        when a ready, non-stale graph (or, on a segmented engine, a
+        fully built segment set) serves searches of this store."""
         import time as _time
 
-        self._seg_engaged()
+        if self._seg_engaged():
+            return self._segments().drain()
         floor = self._ann_floor()
         n = len(self.rids)
         if floor is None or n < floor:
@@ -614,6 +668,7 @@ class TpuVectorIndex:
                 if self._ann_state != "building":
                     if ann is not None:
                         self.ann_full_rebuilds += 1
+                        segments.count("ann_full_rebuilds")
                     self._ann_state = "building"
                     break
             _time.sleep(0.05)  # a background build is running: wait
@@ -632,7 +687,12 @@ class TpuVectorIndex:
         are brute-merged at query time — a torn snapshot can never
         surface a wrong distance, only a slightly worse candidate set.
         A full repack bumps `_ann_gen`; a build that raced one is
-        discarded."""
+        discarded.
+
+        With a `snapshot_dir`, a persisted artifact whose mutation stamp
+        (the `vn` version) AND row-identity digest match the current
+        snapshot loads instead of the build (`ann_reloads`); a fresh
+        build (`ann_builds`) persists on the way out."""
         from surrealdb_tpu_torch.idx import cagra
 
         with self.rw.read():
@@ -642,12 +702,18 @@ class TpuVectorIndex:
             version, epoch = self.version, self._dev_epoch
             mut_cut = self._ann_mut
             dead0 = self._ann_dead
-        try:
-            ann = cagra.build_index(xs, self.metric, version, epoch)
-        except Exception:
-            with self._ann_lock:
-                self._ann_state = "idle"
-            return
+        ann = self._load_ann_snapshot(xs, rids, version)
+        loaded = ann is not None
+        if ann is None:
+            try:
+                ann = cagra.build_index(xs, self.metric, version, epoch)
+            except Exception:
+                with self._ann_lock:
+                    self._ann_state = "idle"
+                return
+            self.ann_builds += 1
+        else:
+            self.ann_reloads += 1
         installed = False
         with self._ann_lock:
             if self._ann_gen != gen:
@@ -675,6 +741,95 @@ class TpuVectorIndex:
             # pressure NOW with a fresh poll — the gated hot-path
             # checkpoint could reuse a stale low reading
             resource.checkpoint(fresh=True)
+        if installed and not loaded:
+            self._save_ann_snapshot(ann, xs, rids)
+
+    # -- persisted build artifacts ------------------------------------------
+
+    def _ann_snap_path(self):
+        if not self.snapshot_dir:
+            return None
+        import hashlib
+        import os
+
+        ns, db, tb, ix = self.key
+        # filename: readable stem + a collision-proof tag (names may
+        # contain bytes a filesystem rejects); the "" is the
+        # reference's label of an unsharded engine, so both packages
+        # name the same file
+        ident = repr((ns, db, tb, ix, ""))
+        tag = hashlib.sha256(ident.encode()).hexdigest()[:16]
+        stem = "".join(
+            c if c.isalnum() else "_" for c in f"{ns}.{db}.{tb}.{ix}"
+        )[:48]
+        return os.path.join(self.snapshot_dir, f"{stem}-{tag}.annsnap")
+
+    @staticmethod
+    def _row_digest(rids, n: int) -> str:
+        """Row-identity digest over the first `n` rows IN ORDER: graph
+        node ids are row numbers, so a reloaded artifact is only valid
+        when the numbering — not just the row set — matches."""
+        import hashlib
+
+        h = hashlib.sha256()
+        for r in rids[:n]:
+            h.update(K.enc_value(r.id))
+            h.update(b";")
+        return h.hexdigest()
+
+    def _load_ann_snapshot(self, xs, rids, version):
+        path = self._ann_snap_path()
+        if path is None or not len(xs):
+            return None
+        import os
+        import sys
+
+        from surrealdb_tpu_torch.idx import cagra
+
+        try:
+            ann, meta = cagra.load_index(path)
+        except OSError:
+            return None  # no snapshot (or unreadable dir): just build
+        except Exception as e:
+            # corrupt/torn snapshot: warn + rebuild, NEVER serve it
+            print(
+                f"[surrealdb-tpu] ann snapshot {path} rejected "
+                f"({e}); rebuilding from rows",
+                file=sys.stderr, flush=True,
+            )
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            return None
+        if (ann.metric != self.metric
+                or ann.built_n != len(xs)
+                or ann.built_version != int(version)
+                or meta.get("dim") != int(xs.shape[1])
+                or meta.get("rows") != self._row_digest(rids, len(xs))):
+            return None  # stale stamp: rows changed since the save
+        return ann
+
+    def _save_ann_snapshot(self, ann, xs, rids):
+        path = self._ann_snap_path()
+        if path is None:
+            return
+        import os
+        import sys
+
+        from surrealdb_tpu_torch.idx import cagra
+
+        try:
+            os.makedirs(self.snapshot_dir, exist_ok=True)
+            cagra.save_index(ann, path, extra={
+                "dim": int(xs.shape[1]),
+                "rows": self._row_digest(rids, ann.built_n),
+            })
+        except OSError as e:
+            print(
+                f"[surrealdb-tpu] ann snapshot save failed ({path}): "
+                f"{e}", file=sys.stderr, flush=True,
+            )
 
     def _ann_route(self, k: int):
         """The ready AnnIndex when a k-NN search of `k` should ride the
@@ -685,24 +840,53 @@ class TpuVectorIndex:
             return None
         return self._ann
 
+    def _seg_route(self, k: int):
+        """The segment coordinator when a k-NN search of `k` should fan
+        over sealed segments, else None. Same k gate as the graph
+        route; exact-only segment sets still fan out (each span scans
+        exactly — the merge stays byte-identical to brute)."""
+        if k > cnf.KNN_ANN_MAX_K:
+            return None
+        segs = self._segs
+        if segs is not None and segs.active():
+            return segs
+        return None
+
     def ann_plan(self, k: int):
         """EXPLAIN surface: how a k-NN of `k` over this engine is
-        served: None (brute scan) or {"ann": "graph"}."""
+        served: None (brute scan), {"ann": "graph"} (the whole-store
+        graph), or {"ann": "segmented", ...} with the segment fan-out
+        shape."""
+        segs = self._seg_route(k)
+        if segs is not None:
+            st = segs.status()
+            return {
+                "ann": "segmented",
+                "segments": st["segments"],
+                "ready": st["ready"],
+                "tail_rows": st["tail_rows"],
+            }
         if self._ann_route(k) is not None:
             return {"ann": "graph"}
         return None
 
-    def _ann_device_search(self, ann, qs32: np.ndarray, kc: int):
+    def _ann_device_search(self, ann, qs32: np.ndarray, kc: int,
+                           dev_key=None, tag=None):
         """Descent candidates from the runner's AnnStore blocks; ships
         the build snapshot on first use / after a runner restart via
         the same (key, tag) protocol as the vector blocks: a crash or
-        a drop re-ships, and the post-ship prewarm applies unchanged."""
+        a drop re-ships, and the post-ship prewarm applies unchanged.
+        Segmented engines pass a per-SEGMENT `dev_key`/`tag`
+        (idx/segments.py), so every sealed segment is a runner block
+        of its own. The mesh width the runner served on is recorded."""
         from surrealdb_tpu_torch.device import get_supervisor
 
         sup = get_supervisor()
-        dev_key = self._ann_dev_key
-        tag = [int(self._ann_seq), int(ann.built_version),
-               int(ann.built_epoch)]
+        if dev_key is None:
+            dev_key = self._ann_dev_key
+        if tag is None:
+            tag = [int(self._ann_seq), int(ann.built_version),
+                   int(ann.built_epoch)]
 
         def loader():
             return "ann_load", {
@@ -717,7 +901,7 @@ class TpuVectorIndex:
 
         for _attempt in (0, 1):
             sup.ensure_loaded(dev_key, tag, loader)
-            t, _meta, bufs = sup.call(
+            t, meta, bufs = sup.call(
                 "ann_search",
                 {"key": dev_key, "tag": tag, "kc": int(kc)},
                 [qs32],
@@ -728,6 +912,9 @@ class TpuVectorIndex:
             break
         else:
             raise sup.unavailable("ann cache thrashing")
+        nd = int(meta.get("mesh_ndev", 1) or 1)
+        if nd > self._dev_mesh_ann:
+            self._dev_mesh_ann = nd
         return bufs[0]
 
     def _ann_extra_topk(self, ann, qvs, k: int, n: int):
@@ -914,6 +1101,9 @@ class TpuVectorIndex:
         batcher's per-rider degrade ladder (the ANN path degrades
         internally to its numpy descent instead — falling back to a
         brute scan would forfeit the graph's 10× at the worst moment)."""
+        segs = self._seg_route(k)
+        if segs is not None:
+            return segs.knn_batch(qvs, k)
         ann = self._ann_route(k)
         if ann is not None:
             return self._ann_knn_batch(ann, qvs, k)
@@ -1087,6 +1277,9 @@ class TpuVectorIndex:
             # fail loudly), DeviceUnavailable (degrade to host) in auto
             raise sup.unavailable("vec cache thrashing")
         self.rank_mode = meta.get("rank_mode")
+        nd = int(meta.get("mesh_ndev", 1) or 1)
+        if nd > self._dev_mesh:
+            self._dev_mesh = nd
         if meta.get("mode") == "cand":
             # int8 ranking candidates: exact host rescore from the
             # full-precision rows (kc rows per query — tiny next to the
@@ -1172,5 +1365,6 @@ def get_vector_index(ctx, tb: str, ix: str, params: dict):
     eng = ctx.ds.vector_indexes.get(key)
     if eng is None:
         eng = TpuVectorIndex(ns, db, tb, ix, params)
+        eng.snapshot_dir = getattr(ctx.ds, "ann_snapshot_dir", None)
         ctx.ds.vector_indexes[key] = eng
     return eng

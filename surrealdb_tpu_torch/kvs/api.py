@@ -66,6 +66,9 @@ class Backend:
     def transaction(self, write: bool) -> BackendTx:
         raise NotImplementedError
 
+    def close(self) -> None:
+        pass
+
 
 # ---------------------------------------------------------------------------
 # Value (de)serialization

@@ -2,16 +2,21 @@
 (the reference package's `kvs/ds.py` `Datastore` and `exec/context.py`
 `Ctx`, trimmed to the engines' needs).
 
-A `Datastore` holds the in-memory MVCC backend, the process-atomic
-`lock` the vector write path allocates versions under, and the engine
-caches: `vector_indexes` ((ns, db, tb, ix) -> TpuVectorIndex),
-`graph_engine` ((ns, db, node_tb, edge_tb, dir) -> CsrGraph) and
-`graph_versions` ((ns, db, tb) -> write counter). The SQL stack (parser,
-executor, planner, catalog) is not ported.
+A `Datastore` holds its storage backend (`memory`: the in-memory MVCC
+store; `file://path` or `skv://path`: the same store over a WAL and a
+snapshot in that directory), the process-atomic `lock` the vector write
+path allocates versions under, and the engine caches: `vector_indexes`
+((ns, db, tb, ix) -> TpuVectorIndex), `graph_engine` ((ns, db, node_tb,
+edge_tb, dir) -> CsrGraph) and `graph_versions` ((ns, db, tb) -> write
+counter). A file-backed store keeps its engines' persisted ANN graphs
+in `ann_snapshot_dir` (`<store>/.ann-cache`), so a restart reloads them
+instead of rebuilding. The SQL stack (parser, executor, planner,
+catalog) is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 from surrealdb_tpu_torch.err import NotPorted, SdbError
@@ -27,19 +32,41 @@ class Session:
 
 
 class Datastore:
-    """An embedded datastore over one storage backend (`memory`)."""
+    """An embedded datastore over one storage backend: `memory` or a
+    directory (`file://path`, `skv://path`)."""
 
     def __init__(self, path: str = "memory"):
-        if path not in ("memory", "mem://"):
-            raise NotPorted(f"datastore path {path!r} is not ported "
-                            f"(only 'memory')")
-        from surrealdb_tpu_torch.kvs.mem import MemBackend
+        # persisted ANN artifacts (idx/cagra.py save_index): only a
+        # disk-backed store has a place for them
+        self.ann_snapshot_dir = None
+        if path in ("memory", "mem://"):
+            from surrealdb_tpu_torch.kvs.mem import MemBackend
 
-        self.backend = MemBackend()
+            self.backend = MemBackend()
+        elif path.startswith("file://") or path.startswith("skv://"):
+            from surrealdb_tpu_torch.kvs.file import FileBackend
+
+            store = path.split("://", 1)[1]
+            self.backend = FileBackend(store)
+            base = store if os.path.isdir(store) \
+                else os.path.dirname(os.path.abspath(store))
+            # beside the data: a restart reloads a graph build in seconds
+            self.ann_snapshot_dir = os.path.join(base, ".ann-cache")
+        else:
+            raise NotPorted(f"datastore path {path!r} is not ported "
+                            f"(only 'memory', 'file://' and 'skv://')")
         self.lock = threading.RLock()
         self.vector_indexes: dict = {}
         self.graph_engine = None
         self.graph_versions: dict = {}
+
+    def close(self):
+        """Stop the engines' segment maintenance workers, then close the
+        backend (a file store compacts its WAL into the snapshot)."""
+        for eng in list(self.vector_indexes.values()):
+            if eng._segs is not None:
+                eng._segs.close()
+        self.backend.close()
 
     def transaction(self, write: bool = True) -> Transaction:
         return Transaction(self.backend.transaction(write), write)

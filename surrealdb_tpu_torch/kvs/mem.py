@@ -90,6 +90,17 @@ class VersionedStore:
                     break
             return out
 
+    def latest_items(self):
+        """(key, value) pairs of the newest committed state (the file
+        engine's snapshot); tombstoned keys are skipped."""
+        with self.lock:
+            out = []
+            for k, chain in self.chains.items():
+                v = chain[-1][1]
+                if v is not None:
+                    out.append((k, v))
+            return out
+
     def seed(self, key: bytes, val: Optional[bytes]) -> None:
         """Load-path write at version 0 (no snapshots exist yet)."""
         if val is None:
@@ -98,16 +109,19 @@ class VersionedStore:
             self.chains[key] = [(0, val)]
 
     # -- commit ------------------------------------------------------------
-    def commit(self, writes: dict, snap: int) -> int:
+    def commit(self, writes: dict, snap: int, pre_apply=None) -> int:
         """Validate + apply a writeset, releasing the committer's
         snapshot. Returns the new version.
 
         Raises SdbError(CONFLICT_MSG) when any written key was committed by
-        another transaction after `snap`. The snapshot is dropped inside
-        the SAME lock acquisition as the validation, and after it: if the
-        snapshot were released before validation, a concurrent delete
-        could prune a conflicting chain away entirely and the conflict
-        would be missed.
+        another transaction after `snap`. `pre_apply` (the file engine's
+        WAL append) runs under the store lock after validation passes and
+        before the writes become visible, so durability and visibility
+        stay atomic; if it raises, nothing is applied. The snapshot is
+        dropped inside the SAME lock acquisition as the validation, and
+        after it: if the snapshot were released before validation, a
+        concurrent delete could prune a conflicting chain away entirely
+        and the conflict would be missed.
         """
         with self.lock:
             for k in writes:
@@ -116,6 +130,8 @@ class VersionedStore:
                     self._release_locked(snap)
                     raise SdbError(CONFLICT_MSG)
             self._release_locked(snap)
+            if pre_apply is not None:
+                pre_apply()
             self.version += 1
             ver = self.version
             min_active = self.active[0] if self.active else ver

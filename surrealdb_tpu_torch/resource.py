@@ -68,7 +68,7 @@ class Account:
     checkpoint site that holds none of the owner's locks."""
 
     __slots__ = ("kind", "label", "_size_fn", "_evict_fn", "_owner_ref",
-                 "last_touch", "evictions", "__weakref__")
+                 "last_touch", "closed", "evictions", "__weakref__")
 
     def __init__(self, kind: str, label: str, size_fn, evict=None,
                  owner=None):
@@ -80,9 +80,12 @@ class Account:
         self._owner_ref = (weakref.ref(owner) if owner is not None
                            else None)
         self.last_touch = 0
+        self.closed = False
         self.evictions = 0
 
     def alive(self) -> bool:
+        if self.closed:
+            return False
         return self._owner_ref is None or self._owner_ref() is not None
 
     def bytes(self) -> int:
@@ -109,6 +112,11 @@ class Account:
             return False
         self.evictions += 1
         return True
+
+    def close(self):
+        """The holder is gone (a retired segment): the accountant drops
+        the account at its next poll."""
+        self.closed = True
 
 
 

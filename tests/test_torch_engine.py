@@ -26,7 +26,6 @@ from surrealdb_tpu_torch.carry import datastore_from_items
 from surrealdb_tpu_torch.device import DeviceOpError
 from surrealdb_tpu_torch.device import supervisor as portsup
 from surrealdb_tpu_torch.err import NotPorted
-from surrealdb_tpu_torch.idx import vector
 from surrealdb_tpu_torch.idx.vector import TpuVectorIndex as PortIndex
 from surrealdb_tpu_torch.idx.vector import get_vector_index
 from surrealdb_tpu_torch.kvs.api import serialize
@@ -366,14 +365,26 @@ def test_paths_left_out_raise(sups, monkeypatch):
     rc, pc = p.ctxs()
     with pytest.raises(NotPorted):
         p.port.knn(xs[0].tolist(), 3, pc, cond=object())
+    # segmented ANN is ported: `auto` past the floor engages segments,
+    # and ensure_ann() drains them (the first seal's graph built)
     monkeypatch.setattr(pcnf, "KNN_SEG_MODE", "auto")
     monkeypatch.setattr(pcnf, "KNN_ANN_MODE", "auto")
-    monkeypatch.setattr(vector, "SEG_MIN_ROWS", 100)
-    with pytest.raises(NotPorted):
-        p.port.ensure_ann()
-    p.ops(adds=[(300, xs[0])])
-    with pytest.raises(NotPorted):
-        p.port.sync(pc)
+    monkeypatch.setattr(pcnf, "KNN_SEG_MIN_ROWS", 100)
+    monkeypatch.setattr(pcnf, "KNN_SEG_ROWS", 128)
+    try:
+        assert p.port._seg_engaged()
+        assert p.port.ensure_ann()
+        st = p.port._segments().status()
+        assert (st["segments"], st["ready"], st["tail_rows"]) == (1, 1, 0)
+        p.ops(adds=[(300, xs[0])])
+        _rc, pc2 = p.ctxs()
+        p.port.sync(pc2)
+        assert p.port.ann_plan(3) == {"ann": "segmented", "segments": 1,
+                                      "ready": 1, "tail_rows": 1}
+        assert p.port.ensure_ann()
+        pc2.txn.cancel()
+    finally:
+        p.port._segments().close()
     eng = get_vector_index(pc, "t", "ix", p.params)
     assert get_vector_index(pc, "t", "ix", p.params) is eng
     assert p.pds.vector_indexes[("b", "b", "t", "ix")] is eng
