@@ -64,12 +64,31 @@ exits non-zero):
               path held to a brute rescore) and the graph (the CSR from
               the `~` keys at 20k / 200k and seeded arrays at 1M / 10M,
               multi_hop at B 1 and 8 riders bit-equal to the numpy
-              hops); no fallback and no host routing may occur;
+              hops); no fallback and no host routing may occur; the
+              tables and indexes are defined through the port's SQL
+              before the KV ingest;
+   sql     -- (4b', on that runner, mode require) SurrealQL through
+              the port's Datastore.execute over the engine's
+              datastores: knn10m `<|10|>` at 128 clients (recall@10 of
+              8 queries >= 0.95), knn1m `<|10,40|>` as bench.py drives
+              it (sql_knn_qps, p50, p99, index_engine_qps of the same
+              engine and their ratio, recall@10 of 16 queries >= 0.99,
+              vector::distance::knn() and a `cond` query held to the f64
+              oracle, CREATE / UPDATE / DELETE each seen by the next k=1
+              probe), ann `<|10,40|>` (recall@10 >= 0.95, no numpy
+              descent), brute (BRUTE's rows with emb inline: the
+              vector::similarity::cosine ORDER BY ... LIMIT scan, on the
+              host as in the reference, and `<|10,COSINE|>` on the card,
+              both held to the f64 oracle) and graph (bench.py's 3-hop
+              chain over the engine's 20k-node graph, equal to a numpy
+              bag hop, on the host); each path prints its stage split
+              (parse, plan, device_rpc, the rest) on its `sql_*` line;
+              no fallback and no host routing may occur;
    segments -- (4c, on that runner, mode require) segmented ANN
               (idx/segments.py) at bench.py's knn_churn configuration
-              (CHURN: 1M x 768 clustered euclidean rows written through
+              (CHURN: 500k x 768 clustered euclidean rows written through
               the KV op log, KNN_SEG_MODE=force with 131,072-row seals,
-              8 rounds of +32,768 / -8,192 rows, each with a k=1 probe
+              4 rounds of +32,768 / -8,192 rows, each with a k=1 probe
               of the last committed row and 12 k=10 knn calls, recall@10
               >= 0.95 against an f64 oracle on the card every 4th round
               and at the end, no whole-store rebuild, every segment
@@ -125,6 +144,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only distance,csr,cand,ann,pairs,rescore,supervisor
     python3 chip_smoke.py --only hier,approx,entry,onnx,batcher
     python3 chip_smoke.py --only engine
+    python3 chip_smoke.py --only sql
     python3 chip_smoke.py --only segments
 
 runs the card and build phases and only the named checks of the
@@ -143,7 +163,7 @@ supervisor: phase 5 alone, over knn1m's rows made here; hier,
 approx, entry, onnx: those checks over knn1m's rows made here; batcher:
 the batcher check over a supervised runner of its own; engine: phase
 4b over rows made here and a runner of its own, which ships the knn10m
-rows itself; segments: phase 4c over a runner of its own), then stops
+rows itself; sql: the same, then phase 4b' over its datastores; segments: phase 4c over a runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
@@ -174,6 +194,8 @@ PEAK_INT8 = 1979e12
 PEAK_TF32 = 495e12
 
 KNN1M = dict(n=1_000_000, dim=768, seed=13, batches=(1, 128, 512), k=10)
+# the sql phase's timed queries a path (bench.py's counts)
+SQL = dict(knn1m=2048, knn10m=1024, ann=256)
 BRUTE = dict(n=20_000, dim=128, seed=17, k=10)
 GRAPH = dict(nodes=1_000_000, edges=10_000_000, seed=19, batches=(1, 8),
              hops=3)
@@ -188,10 +210,11 @@ ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
 # bench.py:540 bench_knn_churn (quick=False): clustered rows (n0 // 200
 # centres, sigma 0.15) through the KV op log, segments sealed every
 # `seal` rows, `rounds` rounds of +add / -dele rows and nq k=10 queries.
-# n0 is cut from 1M to 500k (still past the 400k segment floor) for the
-# time limit: at 1M the phase took about 480 s beside the rest's 420-460
-# (PERF.md section 4)
-CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=8,
+# Cut for the time limit (PERF.md section 4): n0 from 1M to 500k (still
+# past the 400k segment floor; at 1M the phase took about 480 s), and
+# the rounds from 8 to 4 (one 131k segment sealed by the rounds instead
+# of two; the whole script took 940-1091 s with 8 beside the sql phase)
+CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=4,
              add=32_768, dele=8_192, nq=12)
 
 # the supervisor phase: a runner in mode auto over the knn1m store,
@@ -369,6 +392,16 @@ def port_source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def hnsw_def(tb, params):
+    """The catalog definition of index `ix` on `tb`'s `emb` column (an
+    engine's caller without a catalog of its own)."""
+    from surrealdb_tpu_torch.catalog import IndexDef
+    from surrealdb_tpu_torch.expr.ast import Idiom, PField
+
+    return IndexDef("ix", tb, [Idiom([PField("emb")])], ["emb"],
+                    hnsw=params)
+
+
 def bound(nbytes, ops, peak):
     """Least time (ms) the card could take: the larger of bytes over
     the HBM rate and operations over the peak rate of their type."""
@@ -484,7 +517,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
-              "engine", "segments")
+              "engine", "sql", "segments")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -2064,11 +2097,12 @@ def main(argv=None) -> int:
         from surrealdb_tpu_torch import resource
         from surrealdb_tpu_torch.device import batcher as BT
         from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.exec.document import get_indexes
         from surrealdb_tpu_torch.graph import csr as G
         from surrealdb_tpu_torch.idx import vector as V
         from surrealdb_tpu_torch.kvs.api import serialize
         from surrealdb_tpu_torch.kvs.ds import Datastore
-        from surrealdb_tpu_torch.val import RecordId
+        from surrealdb_tpu_torch.val import NONE, RecordId
 
         t_0 = time.perf_counter()
         k_ = KNN1M["k"]
@@ -2156,6 +2190,20 @@ def main(argv=None) -> int:
             return {"dimension": dim_, "distance": "cosine",
                     "vector_type": "f32"}
 
+        def sql_catalog(ds, tb, dim_):
+            """The table and its HNSW index through the port's SQL (as
+            bench.py defines them before its KV ingest)."""
+            ds.query(f"DEFINE TABLE {tb}; DEFINE INDEX ix ON {tb} FIELDS "
+                     f"emb HNSW DIMENSION {dim_} DIST COSINE TYPE F32",
+                     ns="b", db="b")
+
+        def index_of(ds, ctx, tb):
+            """The engine of `tb`'s index, through the catalog."""
+            return V.get_vector_index(get_indexes(tb, ctx)[0], ctx)
+
+        # the datastores the sql phase queries next (None: no sql phase)
+        keep = data.get("sql")
+
         def knn10m_path():
             xs_, q_ = data["xs10"], data["q10"]
             n_ = xs_.shape[0]
@@ -2163,6 +2211,15 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             ix = V.TpuVectorIndex("b", "b", "tbl10m", "ix",
                                   cos_params(xs_.shape[1]))
+            if keep is not None:
+                # the seeded engine behind a catalog of the port's SQL:
+                # `vn` at the engine's version, so a query's sync keeps it
+                ds = Datastore()
+                sql_catalog(ds, "tbl10m", xs_.shape[1])
+                t = ds.transaction(write=True)
+                t.set_val(K.ix_state("b", "b", "tbl10m", "ix", b"vn"), 1)
+                t.commit()
+                ds.vector_indexes[("b", "b", "tbl10m", "ix")] = ix
             ix.vecs = xs_
             ix.valid = np.ones(n_, dtype=bool)
             ix.rids = [RecordId("tbl10m", i) for i in range(n_)]
@@ -2220,7 +2277,12 @@ def main(argv=None) -> int:
             check(out["recall_at_10"] >= 0.95,
                   f"knn10m engine recall@10 {out['recall_at_10']} < 0.95")
             out["kc"] = kc_
-            drop(ix)
+            if keep is not None:
+                # the resident store serves the sql phase, which drops it
+                keep["knn10m"] = {"ds": ds, "ix": ix, "qs": q_,
+                                  "oracle": oracle}
+            else:
+                drop(ix)
             return out
 
         def knn1m_path():
@@ -2228,12 +2290,13 @@ def main(argv=None) -> int:
             n_ = xs_.shape[0]
             cnf.KNN_ANN_MODE = "off"
             ds = Datastore()
+            sql_catalog(ds, "tbl", xs_.shape[1])
             t0 = time.perf_counter()
             kv_ingest(ds, "tbl", xs_)
             out = {"rows": n_, "dim": xs_.shape[1],
                    "ingest_s": time.perf_counter() - t0}
             ctx = ds.context("b", "b")
-            ix = V.get_vector_index(ctx, "tbl", "ix", cos_params(xs_.shape[1]))
+            ix = index_of(ds, ctx, "tbl")
             t0 = time.perf_counter()
             ix.sync(ctx)
             out["sync_s"] = time.perf_counter() - t0
@@ -2309,6 +2372,8 @@ def main(argv=None) -> int:
                   f"knn1m engine recall@10 {out['recall_at_10']} < 0.99")
             drop(ix)
             ctx.txn.cancel()
+            if keep is not None:
+                keep["knn1m"] = {"ds": ds, "xs": xs_, "qs": q_}
             return out
 
         def exact_path():
@@ -2347,13 +2412,14 @@ def main(argv=None) -> int:
             n_, dim_ = xs_.shape
             cnf.KNN_ANN_MODE = "auto"
             ds = Datastore()
+            sql_catalog(ds, "ann", dim_)
             t0 = time.perf_counter()
             kv_ingest(ds, "ann", xs_)
             out = {"rows": n_, "dim": dim_,
                    "ingest_s": time.perf_counter() - t0}
             ctx = ds.context("b", "b")
-            params = cos_params(dim_)
-            ix = V.get_vector_index(ctx, "ann", "ix", params)
+            idef = get_indexes("ann", ctx)[0]
+            ix = V.get_vector_index(idef, ctx)
             t0 = time.perf_counter()
             ix.sync(ctx)  # past KNN_ANN_MIN_ROWS: a background build starts
             out["sync_s"] = time.perf_counter() - t0
@@ -2389,14 +2455,15 @@ def main(argv=None) -> int:
             dels = sorted(set(first[64:128].tolist()) - set(over.tolist()))
             wctx = ds.context("b", "b", write=True)
             for j, r in enumerate(over):
-                V.vector_index_update("ix", params, RecordId("ann", int(r)),
-                                      xs_[r].tolist(), q_[j].tolist(), wctx)
+                V.vector_index_update(idef, RecordId("ann", int(r)),
+                                      {"emb": xs_[r].tolist()},
+                                      {"emb": q_[j].tolist()}, wctx)
             for r in dels:
-                V.vector_index_update("ix", params, RecordId("ann", int(r)),
-                                      xs_[r].tolist(), None, wctx)
+                V.vector_index_update(idef, RecordId("ann", int(r)),
+                                      {"emb": xs_[r].tolist()}, NONE, wctx)
             for j in range(100):
-                V.vector_index_update("ix", params, RecordId("ann", n_ + j),
-                                      None, q_[128 + j].tolist(), wctx)
+                V.vector_index_update(idef, RecordId("ann", n_ + j), NONE,
+                                      {"emb": q_[128 + j].tolist()}, wctx)
             wctx.txn.commit()
             rctx = ds.context("b", "b")
             t0 = time.perf_counter()
@@ -2446,6 +2513,8 @@ def main(argv=None) -> int:
             sup_.forget(ix._ann_dev_key)
             rctx.txn.cancel()
             ctx.txn.cancel()
+            if keep is not None:
+                keep["ann"] = {"ds": ds, "ix": ix, "qs": q_}
             return out
 
         def hops(g, label, out, riders):
@@ -2509,6 +2578,8 @@ def main(argv=None) -> int:
             rng_ = np.random.default_rng(GRAPH["seed"])
             src_, dst_ = (rng_.integers(0, nq_, eq_) for _ in range(2))
             ds = Datastore()
+            ds.query("DEFINE TABLE person; DEFINE TABLE knows TYPE RELATION",
+                     ns="b", db="b")
             t0 = time.perf_counter()
             t = ds.transaction(write=True)
             for i in range(nq_):
@@ -2543,6 +2614,8 @@ def main(argv=None) -> int:
             out.update(quick_nodes=g.n_nodes(), quick_edges=len(g.rows))
             hops(g, "quick", out, GRAPH["batches"][-1])
             ctx.txn.cancel()
+            if keep is not None:
+                keep["graph"] = {"ds": ds, "src": src_, "dst": dst_}
             del ds, g
             # the BASELINE size, arrays seeded directly (its KV ingest is
             # 50M Python writes)
@@ -2595,10 +2668,11 @@ def main(argv=None) -> int:
                 setattr(cnf, name, v)
         return out_all
 
-    def engine_only():
+    def engine_only(with_sql=False):
         """`--only engine`: the engine phase over rows made here (the
         knn10m rows shipped by the engine itself), under a supervisor in
-        mode require of its own."""
+        mode require of its own; `--only sql`: the same, then the sql
+        phase over the engine's datastores."""
         rng_ = np.random.default_rng(KNN1M["seed"])
         xs1 = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
                                    dtype=np.float32)
@@ -2617,12 +2691,364 @@ def main(argv=None) -> int:
                 "q10": normal_rows(max(KNN10M["batches"]), KNN10M["dim"],
                                    KNN10M["seed"] + 1)}
         del xs1, axs
+        if with_sql:
+            data["sql"] = {}
         sup_ = DeviceSupervisor("require", device="cuda")
         try:
             sup_.start()
             engine_phase(sup_, data)
+            if with_sql:
+                sql_phase(sup_, data["sql"])
         finally:
             sup_.shutdown()
+
+    # -- the SurrealQL stack over the engine phase's datastores (also
+    # `--only sql`) -------------------------------------------------------
+    def cosine_top(xs_, qs_, kk, step=1 << 19):
+        """(f64 cosine distances, row ids) of the exact top kk of qs_
+        over the host rows xs_, streamed through the card in blocks."""
+        qn = torch.from_numpy(np.ascontiguousarray(qs_)).to(dev).double()
+        qn = qn / qn.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        tv_, ti_ = [], []
+        for s0 in range(0, xs_.shape[0], step):
+            b64 = torch.from_numpy(xs_[s0:s0 + step]).to(dev).double()
+            sims = (b64 @ qn.T) / b64.norm(dim=1).clamp_min(1e-30)[:, None]
+            v_, i_ = torch.topk(sims, min(kk, sims.shape[0]), dim=0)
+            tv_.append(v_)
+            ti_.append(i_ + s0)
+            del b64, sims
+        v_, sel_ = torch.topk(torch.cat(tv_), kk, dim=0)
+        ids = torch.gather(torch.cat(ti_), 0, sel_)
+        return (1.0 - v_).T.cpu().numpy(), ids.T.cpu().numpy()
+
+    def sql_phase(sup_, sq, counts=None):
+        """SurrealQL through the port's `Datastore.execute` over the
+        engine phase's datastores (`sq`), under `sup_` (mode require):
+        knn1m (`<|10,40|>` as bench.py drives it: 3 queries, 128 at 128
+        clients, then SQL["knn1m"] at 128 clients; index_engine_qps of
+        the same engine as bench.py measures it; recall@10 of 16 queries
+        and the `vector::distance::knn()` distances against the f64
+        oracle; a `cond` query held to the oracle over the rows it keeps;
+        CREATE, UPDATE and DELETE each seen by the next k=1 probe),
+        knn10m (the resident int8 store, `<|10|>` at 128 clients,
+        recall@10 of 8 queries), ann (`<|10,40|>` over the graph-ANN
+        store, recall@10 of 16 queries against the f64 top 10 of the
+        rows left after the engine's writes, no numpy descent), brute
+        (BRUTE's rows with `emb` inline in a table with no index: the
+        `vector::similarity::cosine` ORDER BY ... LIMIT scan and
+        `<|10,COSINE|>`, both held to the f64 oracle) and graph (the
+        engine's 20k-node graph: the 3-hop chain of bench.py equal to a
+        numpy bag hop; it runs on the host, as the reference's). Each
+        path prints its stage split (parse, plan less device_rpc,
+        device_rpc, the rest of a query's latency) from `telemetry`."""
+        from surrealdb_tpu_torch import key as K
+        from surrealdb_tpu_torch import telemetry as TEL
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.kvs.api import serialize
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+        from surrealdb_tpu_torch.val import RecordId
+
+        t_0 = time.perf_counter()
+        k_ = KNN1M["k"]
+        knobs = ("KNN_ANN_MODE", "KNN_HOST_BATCH")
+        saved = {name: getattr(cnf, name) for name in knobs}
+        cnf.KNN_HOST_BATCH = "auto"
+        old_sup = SV.set_supervisor(sup_)
+        # nothing bound: the datastore binds its own serving stack (the
+        # query budget, cancellation and the device_rpc stage)
+        SV.bind_serving()
+        out_all = {}
+
+        def stages():
+            return {name: (st.count, st.total_ns)
+                    for name, st in list(TEL._STAGES.items())}
+
+        def drive(ds, sql, qs_, iters, threads, check_rows=True):
+            """`iters` queries from `threads` clients (bench.py's
+            _run_queries): (qps, per-query latencies in ms)."""
+            ql = [q.tolist() for q in qs_]
+            lat = np.zeros(iters)
+
+            def one(i):
+                t0 = time.perf_counter()
+                rows = ds.query_one(sql, ns="b", db="b",
+                                    vars={"q": ql[i % len(ql)]})
+                lat[i] = (time.perf_counter() - t0) * 1e3
+                if check_rows:
+                    check(rows, f"sql: no results for {sql}")
+
+            t0 = time.perf_counter()
+            if threads <= 1:
+                for i in range(iters):
+                    one(i)
+            else:
+                with ThreadPoolExecutor(threads) as ex:
+                    list(ex.map(one, range(iters)))
+            return iters / (time.perf_counter() - t0), lat
+
+        def measured(ds, sql, qs_, iters, threads):
+            """qps, p50, p99 and the stage split of `iters` queries."""
+            before = stages()
+            qps, lat = drive(ds, sql, qs_, iters, threads)
+            after = stages()
+
+            def per(name):
+                c0, n0 = before.get(name, (0, 0))
+                return (after.get(name, (0, 0))[1] - n0) / 1e6 / iters
+
+            mean = float(lat.mean())
+            return {"queries": iters, "clients": threads, "qps": qps,
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "mean_ms": mean,
+                    "stages_ms": {
+                        "parse": per("parse"),
+                        "plan": per("plan") - per("device_rpc"),
+                        "device_rpc": per("device_rpc"),
+                        "rest": mean - per("parse") - per("plan")}}
+
+        def path(name, fn, needs):
+            """One SQL path with the runner's launch counts set to 0
+            just before it and read just after."""
+            sup_.call("launch_counts", {"reset": True})
+            out = fn()
+            _, m, _ = sup_.call("launch_counts", {})
+            if counts is not None:
+                for kname, v in m["launches"].items():
+                    counts[kname] += v
+            for kname in needs:
+                check(m["launches"][kname] > 0,
+                      f"sql {name}: kernel {kname} was not launched")
+            emit(f"sql_{name}", **out,
+                 launches={kn: v for kn, v in m["launches"].items() if v},
+                 events=m["events"])
+            out_all[name] = out
+
+        def ids(rows):
+            return [r["id"].id for r in rows]
+
+        def recall(got, oracle):
+            return float(np.mean([len(set(a) & set(b.tolist())) / len(b)
+                                  for a, b in zip(got, oracle)]))
+
+        def knn1m():
+            d = sq["knn1m"]
+            ds, xs_, q_ = d["ds"], d["xs"], d["qs"]
+            cnf.KNN_ANN_MODE = "off"
+            ix = ds.vector_indexes[("b", "b", "tbl", "ix")]
+            q64 = q_[:64]
+            sql = "SELECT id FROM tbl WHERE emb <|10,40|> $q"
+            t0 = time.perf_counter()
+            drive(ds, sql, q64, 3, 1)  # the ship
+            warm_s = time.perf_counter() - t0
+            drive(ds, sql, q64, 128, 128)  # warm batched shapes
+            out = measured(ds, sql, q64, SQL["knn1m"], 128)
+            out["warm_s"] = warm_s
+            out["sql_knn_qps"] = out.pop("qps")
+            # bench.py's _index_engine_qps: one knn_batch of 64 x 64
+            big = np.repeat(q64, 64, axis=0)
+            ix.knn_batch(big, k_)
+            t0 = time.perf_counter()
+            ix.knn_batch(big, k_)
+            out["index_engine_qps"] = len(big) / (time.perf_counter() - t0)
+            out["sql_over_engine"] = (out["sql_knn_qps"]
+                                      / out["index_engine_qps"])
+            # recall@10 and vector::distance::knn() against the f64 oracle
+            nq_ = 16
+            od, oi = cosine_top(xs_, q_[:nq_], k_ + 1)
+            got, dist_err = [], 0.0
+            for qi in range(nq_):
+                rows = ds.query_one(
+                    "SELECT id, vector::distance::knn() AS d FROM tbl "
+                    "WHERE emb <|10,40|> $q", ns="b", db="b",
+                    vars={"q": q_[qi].tolist()})
+                got.append(ids(rows))
+                rx = xs_[ids(rows)].astype(np.float64)
+                qv = q_[qi].astype(np.float64)
+                d64 = 1.0 - rx @ qv / np.maximum(
+                    np.linalg.norm(rx, axis=1) * np.linalg.norm(qv), 1e-300)
+                dist_err = max(dist_err, float(np.abs(
+                    np.array([r["d"] for r in rows]) - d64).max()))
+            out["recall_at_10"] = recall(got, oi[:, :k_])
+            out["knn_fn_max_abs_err"] = dist_err
+            check(out["recall_at_10"] >= 0.99,
+                  f"sql knn1m recall@10 {out['recall_at_10']} < 0.99")
+            check(dist_err <= 1e-4,
+                  f"sql knn1m vector::distance::knn() error {dist_err}")
+            # a KNN operator ANDed with a predicate: the oracle over the
+            # rows the predicate keeps
+            half = xs_.shape[0] // 2
+            cd, ci = cosine_top(xs_[half:], q_[:4], k_ + 1)
+            got_c = []
+            t0 = time.perf_counter()
+            for qi in range(4):
+                rows = ds.query_one(
+                    f"SELECT id FROM tbl WHERE emb <|10|> $q AND "
+                    f"id >= tbl:{half}", ns="b", db="b",
+                    vars={"q": q_[qi].tolist()})
+                got_c.append(ids(rows))
+            out["cond_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+            check(all(len(g) == k_ for g in got_c), "sql cond: short answer")
+            check_ids_past(cd, ci + half, np.array(got_c),
+                           "sql cond vs oracle", 1e-4)
+            # three writes, each seen by the next k=1 probe
+            rid = xs_.shape[0] + 1
+            probe = "SELECT id FROM tbl WHERE emb <|1|> $q"
+            v1, v2 = q_[-1].tolist(), q_[-2].tolist()
+            writes = [
+                ("create", f"CREATE tbl:{rid} SET emb = $q", v1, v1, True),
+                ("update", f"UPDATE tbl:{rid} SET emb = $q", v2, v2, True),
+                ("delete", f"DELETE tbl:{rid}", v2, v2, False)]
+            for wname, wsql, wv, pv, present in writes:
+                t0 = time.perf_counter()
+                ds.query(wsql, ns="b", db="b", vars={"q": wv})
+                first = ids(ds.query_one(probe, ns="b", db="b",
+                                         vars={"q": pv}))
+                out[f"{wname}_probe_ms"] = (time.perf_counter() - t0) * 1e3
+                check((first == [rid]) == present,
+                      f"sql {wname}: the probe answered {first}")
+            out["writes_seen"] = len(writes)
+            return out
+
+        def knn10m():
+            d = sq.pop("knn10m")
+            ds, ix, q_, oracle = d["ds"], d["ix"], d["qs"], d["oracle"]
+            cnf.KNN_ANN_MODE = "off"
+            sql = "SELECT id FROM tbl10m WHERE emb <|10|> $q"
+            q64 = q_[:64]
+            drive(ds, sql, q64, 2, 1)
+            drive(ds, sql, q64, 128, 128)
+            out = measured(ds, sql, q64, SQL["knn10m"], 128)
+            out["sql_knn_qps"] = out.pop("qps")
+            nq_ = min(8, len(oracle))
+            got = [ids(ds.query_one(sql, ns="b", db="b",
+                                    vars={"q": q_[qi].tolist()}))
+                   for qi in range(nq_)]
+            out["recall_at_10"] = recall(got, oracle[:nq_])
+            check(out["recall_at_10"] >= 0.95,
+                  f"sql knn10m recall@10 {out['recall_at_10']} < 0.95")
+            check(ix.rank_mode == "int8", f"knn10m rank mode {ix.rank_mode}")
+            sup_.call("vec_drop", {"key": ix._dev_key})
+            sup_.forget(ix._dev_key)
+            return out
+
+        def ann():
+            d = sq["ann"]
+            ds, ix, q_ = d["ds"], d["ix"], d["qs"]
+            cnf.KNN_ANN_MODE = "auto"
+            hd0 = ix.ann_host_descents
+            sql = "SELECT id FROM ann WHERE emb <|10,40|> $q"
+            q64 = q_[:64]
+            drive(ds, sql, q64, 2, 1)
+            out = measured(ds, sql, q64, SQL["ann"], 64)
+            nq_ = 16
+            valid = np.nonzero(ix.valid)[0]
+            _od, oi = cosine_top(ix.vecs[valid], q_[:nq_], k_)
+            got = [ids(ds.query_one(sql, ns="b", db="b",
+                                    vars={"q": q_[qi].tolist()}))
+                   for qi in range(nq_)]
+            # row i of the engine holds record id i (the appended rows
+            # follow the first n)
+            out["recall_at_10"] = recall(got, valid[oi])
+            out["host_descents"] = ix.ann_host_descents - hd0
+            check(out["recall_at_10"] >= 0.95,
+                  f"sql ann recall@10 {out['recall_at_10']} < 0.95")
+            check(ix.ann_host_descents == hd0,
+                  "sql ann: the numpy descent ran")
+            sup_.call("ann_drop", {"key": ix._ann_dev_key})
+            sup_.forget(ix._ann_dev_key)
+            return out
+
+        def brute():
+            rng_ = np.random.default_rng(BRUTE["seed"])
+            xs_ = rng_.normal(size=(BRUTE["n"], BRUTE["dim"])).astype(
+                np.float32)
+            q_ = rng_.normal(size=(8, BRUTE["dim"])).astype(np.float32)
+            ds = Datastore()
+            ds.query("DEFINE TABLE tbl", ns="b", db="b")
+            t = ds.transaction(write=True)
+            for i in range(xs_.shape[0]):
+                t.set(K.record("b", "b", "tbl", i), serialize(
+                    {"id": RecordId("tbl", i), "emb": xs_[i].tolist()}))
+            t.commit()
+            od, oi = cosine_top(xs_, q_, k_ + 1)
+            out = {"rows": BRUTE["n"], "dim": BRUTE["dim"]}
+            forms = {
+                "order_by": ("SELECT id, vector::similarity::cosine(emb, $q) "
+                             "AS s FROM tbl ORDER BY s DESC LIMIT 10", "s",
+                             lambda s: 1.0 - s, 1e-9),
+                "knn_cosine": ("SELECT id, vector::distance::knn() AS d "
+                               "FROM tbl WHERE emb <|10,COSINE|> $q", "d",
+                               lambda d: d, 1e-4)}
+            for fname, (sql, col, to_d, tol) in forms.items():
+                drive(ds, sql, q_, 2, 1)
+                res = [ds.query_one(sql, ns="b", db="b",
+                                    vars={"q": q.tolist()}) for q in q_]
+                got_d = np.array([[to_d(r[col]) for r in rows]
+                                  for rows in res])
+                err = float(np.abs(got_d - od[:, :k_]).max())
+                check(err <= tol, f"sql brute {fname}: distance error {err}")
+                check_ids_past(od, oi, np.array([ids(r) for r in res]),
+                               f"sql brute {fname} vs oracle", 1e-4)
+                m = measured(ds, sql, q_, 32, 1)
+                out[fname] = {"max_abs_err": err, "qps": m["qps"],
+                              "p50_ms": m["p50_ms"],
+                              "stages_ms": m["stages_ms"]}
+            out["order_by_runs_on"] = "host (columnar numpy, as the reference)"
+            return out
+
+        def graph():
+            d = sq.pop("graph")
+            ds, src_, dst_ = d["ds"], d["src"], d["dst"]
+            sql = ("SELECT VALUE ->knows->person->knows->person->knows->"
+                   "person FROM person:0")
+            t0 = time.perf_counter()
+            (got,) = ds.query_one(sql, ns="b", db="b")  # one source row
+            out = {"first_ms": (time.perf_counter() - t0) * 1e3}
+            # the numpy bag hop: every edge out of every frontier entry
+            order = np.argsort(src_, kind="stable")
+            s_sorted, d_sorted = src_[order], dst_[order]
+            front = np.array([0])
+            for _ in range(3):
+                lo = np.searchsorted(s_sorted, front, "left")
+                hi = np.searchsorted(s_sorted, front, "right")
+                front = np.concatenate(
+                    [d_sorted[a:b] for a, b in zip(lo, hi)] or [[]]
+                ).astype(np.int64)
+            got_ids = sorted(r.id for r in got)
+            check(got_ids == sorted(front.tolist()),
+                  f"sql graph: {len(got_ids)} ids, the numpy bag hop "
+                  f"{len(front)}")
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ds.query_one(sql, ns="b", db="b")
+            out.update(ms=(time.perf_counter() - t0) * 1e3 / 3,
+                       reached=len(got_ids), runs_on="host")
+            return out
+
+        try:
+            if "knn10m" in sq:
+                path("knn10m", knn10m, ("rank_scores_int8",
+                                        "rank_candidates_int8",
+                                        "select_topk_pairs"))
+            path("knn1m", knn1m, ("rank_scores_bf16", "select_topk_rows",
+                                  "gather_rescore_topk"))
+            path("ann", ann, ("ann_descent",))
+            path("brute", brute, ("distance_tile",))
+            path("graph", graph, ())
+            ctr = dict(sup_.counters)
+            check(ctr["device_fallbacks"] == 0
+                  and ctr["device_host_routed"] == 0,
+                  f"sql: a fallback hid the card: {ctr}")
+            emit("sql", mode=sup_.mode, counters=ctr, paths=sorted(out_all),
+                 seconds=round(time.perf_counter() - t_0, 3))
+        finally:
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
+            sq.clear()
+        return out_all
 
     # -- segmented ANN and the persisted artifacts (also `--only segments`) ---
     def euclid_oracle(xs_, qs_, kk, step=1 << 18):
@@ -2773,7 +3199,7 @@ def main(argv=None) -> int:
             churn_ops(ds, range(n0), [])
             out["ingest_s"] = time.perf_counter() - t0
             ctx = ds.context("b", "b")
-            ix = V.get_vector_index(ctx, "tbl", "ix", params)
+            ix = V.get_vector_index(hnsw_def("tbl", params), ctx)
             seg_ix["ix"] = ix
             hd0 = ix.ann_host_descents
             t0 = time.perf_counter()
@@ -3024,7 +3450,7 @@ def main(argv=None) -> int:
                     # reload alone
                     cnf.KNN_ANN_MODE = "off"
                     c_ = ds_.context("b", "b")
-                    ix_ = V.get_vector_index(c_, "ann", "ix", rp)
+                    ix_ = V.get_vector_index(hnsw_def("ann", rp), c_)
                     ix_.sync(c_)
                     c_.txn.cancel()
                     cnf.KNN_ANN_MODE = "auto"
@@ -3146,8 +3572,8 @@ def main(argv=None) -> int:
             entry_check()
         if "batcher" in only:
             batcher_only()
-        if "engine" in only:
-            engine_only()
+        if "engine" in only or "sql" in only:
+            engine_only(with_sql="sql" in only)
         if "segments" in only:
             segments_only()
         if "supervisor" in only:
@@ -4262,9 +4688,11 @@ def main(argv=None) -> int:
                 "knn10m_store": ("vec/b/b/tbl10m/ix", [1, 0]),
                 "ann_xs": ann["xs"], "ann_qs": ann["qs"],
                 "ann_oracle": ann_oracle, "ann_graph": ann["graph"],
-                "src": src_np, "dst": dst_np}
-        xs10 = None  # the engine drops its rows after its knn10m path
+                "src": src_np, "dst": dst_np, "sql": {}}
+        xs10 = None  # the sql phase drops the knn10m rows
         engine_phase(sup, data, launches)
+        # -- 4b'. SurrealQL over the engine phase's datastores, same runner
+        sql_phase(sup, data["sql"], launches)
         del data
         # -- 4c. segmented ANN and the persisted artifacts, same runner ---
         segments_phase(sup, launches)

@@ -6,7 +6,20 @@ GPU memory and answers their ops with hand-written CUDA kernels
 (`csrc/`, built at first use). `ops/` holds the kernels' Python
 wrappers beside their plain PyTorch versions.
 
+`Datastore` (`kvs/ds.py`) is the embedded datastore: `execute`, `query`
+and `query_one` run SurrealQL (`syn/` parses, `exec/` plans and runs,
+`idx/` and `graph/` serve KNN and graph hops) over the port's KV store.
+
 Importing the package (or any module of it) loads no kernel and never
 initialises CUDA; the entry points run on the card unless the caller
 asks for the CPU.
 """
+
+
+def __getattr__(name):
+    # lazy: importing the package imports nothing of the SQL stack
+    if name == "Datastore":
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+
+        return Datastore
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

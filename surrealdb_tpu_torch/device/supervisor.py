@@ -51,6 +51,7 @@ from typing import Callable, Optional
 
 from surrealdb_tpu_torch import cnf
 from surrealdb_tpu_torch.device import proto
+from surrealdb_tpu_torch.err import QueryCancelled, QueryTimeout, SdbError
 
 _MODES = ("off", "auto", "require", "inline")
 
@@ -74,18 +75,15 @@ class DeviceOutOfMemory(DeviceUnavailable):
     event."""
 
 
-class DeviceRequired(Exception):
+class DeviceRequired(SdbError):
     """Mode `require`: the device could not serve, and the caller must
-    fail loudly instead of answering from a host path."""
+    fail loudly instead of answering from a host path (a statement
+    error, as the reference's)."""
 
 
-class QueryTimeout(Exception):
-    """The calling query ran past its budget while waiting on the device
-    (a parked batcher rider)."""
-
-
-class QueryCancelled(Exception):
-    """The calling query was cancelled while waiting on the device."""
+# QueryTimeout (the calling query ran past its budget while waiting on
+# the device) and QueryCancelled (it was cancelled meanwhile) are the
+# statement errors of `err.py`, re-exported here.
 
 
 # -- the serving stack's seam ------------------------------------------------
@@ -109,6 +107,11 @@ def bind_serving(remaining: Optional[Callable[[], Optional[float]]] = None,
     handle."""
     _SERVING.update(remaining=remaining, cancelled=cancelled,
                     stage_record=stage_record, current=current)
+
+
+def serving_bound() -> bool:
+    """Whether any part of a serving stack is bound."""
+    return any(fn is not None for fn in _SERVING.values())
 
 
 def _query_remaining() -> Optional[float]:

@@ -183,6 +183,7 @@ class CsrGraph:
         self._dev_epoch += 1
         self.indptr = None
         self.sorted_cols = None
+        self._node_rids = None  # node identity changed: drop the rid cache
         self._built = True
 
     def n_nodes(self) -> int:
@@ -204,6 +205,8 @@ class CsrGraph:
             i = len(self.node_ids)
             self.node_index[h] = i
             self.node_ids.append(idv)
+            if getattr(self, "_node_rids", None) is not None:
+                self._node_rids.append(RecordId(self.key[2], idv))
         return i
 
     def replay(self, ops) -> bool:
@@ -286,6 +289,20 @@ class CsrGraph:
                 pos = np.arange(total, dtype=np.int64) - base + offs
                 fr = self.sorted_cols[pos].astype(np.int64, copy=False)
             return fr
+
+    def materialize_rids(self, idxs, node_tb: str) -> list:
+        """Node indexes -> RecordId list via a once-built shared cache
+        (RecordIds are immutable: handing out the same objects is safe
+        and skips per-row construction)."""
+        with self.lock:
+            rids = getattr(self, "_node_rids", None)
+            if rids is None or len(rids) != len(self.node_ids):
+                rids = self._node_rids = [
+                    RecordId(node_tb, v) for v in self.node_ids
+                ]
+        if hasattr(idxs, "tolist"):
+            idxs = idxs.tolist()  # bulk int conversion beats per-element
+        return [rids[j] for j in idxs]
 
     def hop_bag(self, start_keys: list) -> list:
         """One `->edge->node` pair hop with BAG semantics (duplicates and

@@ -25,8 +25,9 @@ the port's supervisor (`device/supervisor.py`) only, and the host paths
 are numpy, byte for byte the reference's (its degrade and small-store
 paths, and the conformance oracle's).
 
-Not ported, and raising `NotPorted` where they would engage: a `cond`
-predicate on `knn` and the sharded router (`idx/shardvec.py` holds only
+A `cond` predicate on `knn` (a KNN operator ANDed with other
+predicates) oversamples, checks each candidate on the host and refills.
+The sharded router is not ported (`idx/shardvec.py` holds only
 `merge_topk`).
 """
 
@@ -41,11 +42,11 @@ from surrealdb_tpu_torch import cnf
 from surrealdb_tpu_torch import key as K
 from surrealdb_tpu_torch import resource
 from surrealdb_tpu_torch.device.batcher import DeviceBatcher
-from surrealdb_tpu_torch.err import NotPorted, SdbError
+from surrealdb_tpu_torch.err import SdbError
 from surrealdb_tpu_torch.idx import segments
 from surrealdb_tpu_torch.kvs.api import deserialize
 from surrealdb_tpu_torch.utils.rwlock import RWLock
-from surrealdb_tpu_torch.val import NONE, RecordId
+from surrealdb_tpu_torch.val import NONE, RecordId, is_truthy
 
 # device-search threshold: below this, numpy on host beats dispatch overhead
 DEVICE_MIN_ROWS = cnf.KNN_DEVICE_MIN_ROWS
@@ -72,23 +73,30 @@ def _as_vector(v, dim, what, dtype=np.float64):
     return arr
 
 
-def vector_index_update(ix: str, params: dict, rid: RecordId, before, after,
-                        ctx):
+def vector_index_update(idef, rid: RecordId, before, after, ctx):
     """Write-side maintenance inside the caller's transaction: persist
     rid -> vector under the `he` key, append the `hl` op-log entry and
-    bump `vn` (the reference's `vector_index_update` once the indexed
-    column has been evaluated: `before` / `after` are its values in the
-    old and new document, NONE or None where there is none). Evaluating
-    the column stays with the SQL stack, which is not ported."""
+    bump `vn`. `before` / `after` are the old and new documents (NONE
+    where there is none); the indexed column is evaluated on each."""
+    from surrealdb_tpu_torch.exec.eval import evaluate
+
     ns, db = ctx.need_ns_db()
-    dim = params["dimension"]
-    dtype = _vec_dtype(params)
+    ix = idef.name
+    dim = idef.hnsw["dimension"]
+    col = idef.cols[0]
+    dtype = _vec_dtype(idef.hnsw)
     key = K.ix_state(ns, db, rid.tb, ix, b"he", K.enc_value(rid.id))
     vkey = K.ix_state(ns, db, rid.tb, ix, b"vn")
-    old_vec = before if before is not NONE and before is not None else None
+    old_vec = None
     new_vec = None
-    if after is not NONE and after is not None:
-        new_vec = _as_vector(after, dim, f"index {ix}", dtype)
+    if isinstance(before, dict):
+        v = evaluate(col, ctx.with_doc(before, rid))
+        if v is not NONE and v is not None:
+            old_vec = v
+    if isinstance(after, dict):
+        v = evaluate(col, ctx.with_doc(after, rid))
+        if v is not NONE and v is not None:
+            new_vec = _as_vector(v, dim, f"index {ix}", dtype)
     if new_vec is None and old_vec is None:
         return
     # version allocation is process-atomic (ds.lock): concurrent writers
@@ -1017,21 +1025,18 @@ class TpuVectorIndex:
 
     # -- search -------------------------------------------------------------
     def knn(self, q, k: int, ctx, ef=None, cond=None, cond_ctx=None):
-        """Top-k nearest records as (RecordId, distance) pairs. A `cond`
-        predicate needs the SQL evaluator (`exec/eval.py`), which is not
-        ported: passing one raises."""
+        """Top-k nearest records as (RecordId, distance) pairs. `cond`:
+        an optional per-record predicate, served by oversampling, a host
+        truthiness check of each candidate and refill rounds."""
         import time as _time
 
         from surrealdb_tpu_torch.telemetry import stage_record
 
-        if cond is not None:
-            raise NotPorted("knn with a cond predicate needs exec/eval.py, "
-                            "which is not ported")
         t0 = _time.perf_counter_ns()
         with self.lock:
             self._pins += 1  # pin: eviction must not race this query
         try:
-            return self._knn(q, k, ctx)
+            return self._knn(q, k, ctx, cond=cond, cond_ctx=cond_ctx)
         finally:
             with self.lock:
                 self._pins -= 1
@@ -1039,14 +1044,43 @@ class TpuVectorIndex:
             # kernel (device RPC time shows separately as device_rpc)
             stage_record("index_knn", _time.perf_counter_ns() - t0)
 
-    def _knn(self, q, k: int, ctx):
+    def _knn(self, q, k: int, ctx, cond=None, cond_ctx=None):
         self.sync(ctx)
         n = int(self.valid.sum())
         if n == 0:
             return []
         qv = _as_vector(q, self.dim, "knn query", self.dtype)
-        pairs = self._raw_knn(qv, min(k, n))
-        return pairs[:k]
+        if cond is None:
+            pairs = self._raw_knn(qv, min(k, n))
+            return pairs[:k]
+        # predicate pushdown: oversample, check, refill with 4x the rows
+        want = k
+        fetch = min(max(4 * k, 64), n)
+        checked: set = set()
+        out = []
+        while True:
+            pairs = self._raw_knn(qv, min(fetch, n))
+            for rid, dist in pairs:
+                hkey = K.enc_value(rid.id)
+                if hkey in checked:
+                    continue
+                checked.add(hkey)
+                if self._check_cond(rid, cond, cond_ctx):
+                    out.append((rid, dist))
+                    if len(out) >= want:
+                        return out
+            if fetch >= n:
+                return out
+            fetch = min(fetch * 4, n)
+
+    def _check_cond(self, rid, cond, ctx):
+        from surrealdb_tpu_torch.exec.eval import evaluate, fetch_record
+
+        doc = fetch_record(ctx, rid)
+        if doc is NONE:
+            return False
+        c = ctx.with_doc(doc, rid)
+        return is_truthy(evaluate(cond, c))
 
     def _raw_knn(self, qv: np.ndarray, k: int):
         n = len(self.rids)
@@ -1356,15 +1390,15 @@ class TpuVectorIndex:
         raise SdbError(f"unsupported metric {m}")
 
 
-def get_vector_index(ctx, tb: str, ix: str, params: dict):
-    """The serving engine for one vector index, cached on the datastore
-    (the reference's unsharded branch; `params` is the index's HNSW
-    definition: `dimension`, `distance`, `vector_type`)."""
+def get_vector_index(idef, ctx):
+    """The serving engine for one vector index (an `IndexDef` with an
+    HNSW definition: `dimension`, `distance`, `vector_type`), cached on
+    the datastore. The reference's range-sharded branch is not ported."""
     ns, db = ctx.need_ns_db()
-    key = (ns, db, tb, ix)
+    key = (ns, db, idef.tb, idef.name)
     eng = ctx.ds.vector_indexes.get(key)
     if eng is None:
-        eng = TpuVectorIndex(ns, db, tb, ix, params)
+        eng = TpuVectorIndex(ns, db, idef.tb, idef.name, idef.hnsw)
         eng.snapshot_dir = getattr(ctx.ds, "ann_snapshot_dir", None)
         ctx.ds.vector_indexes[key] = eng
     return eng

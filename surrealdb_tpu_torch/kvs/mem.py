@@ -1,5 +1,5 @@
 """In-memory storage engine (the reference package's `kvs/mem.py`:
-`VersionedStore`, `MemTx`, `MemBackend`).
+`VersionedStore`, `MemTx`, `MemBackend`; reference: core/src/kvs/mem/).
 
 MVCC over a sorted keyspace: every key holds a short version chain
 `[(version, value|None), ...]`; a transaction pins the store version at
@@ -8,6 +8,9 @@ commit validates the writeset against versions committed since the snapshot
 (optimistic write-write conflict detection, like the reference backends'
 serializable/optimistic transactions). Conflicts raise a retryable error.
 Chains are pruned to the oldest active snapshot at commit time.
+
+Savepoints snapshot the overlay (cheap dict copy), giving statement-level
+rollback like the reference's api.rs savepoint API.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Optional
 
 try:
     from sortedcontainers import SortedDict, SortedList
-except ImportError:  # no sortedcontainers: the pure-Python fallback
+except ImportError:  # container lacks the dep — pure-Python fallback
     from surrealdb_tpu_torch.utils.sortedcompat import SortedDict, SortedList
 
 from surrealdb_tpu_torch.err import SdbError
@@ -73,6 +76,9 @@ class VersionedStore:
                 return None
             return self._resolve(chain, snap)
 
+    def range_keys(self, beg: bytes, end: bytes):
+        with self.lock:
+            return list(self.chains.irange(beg, end, inclusive=(True, False)))
 
     def range_items(self, beg: bytes, end: bytes, snap: int, limit=None,
                     reverse=False):
@@ -90,9 +96,17 @@ class VersionedStore:
                     break
             return out
 
+    def read_latest(self, key: bytes) -> Optional[bytes]:
+        """Newest committed value for one key (no snapshot pin) — serves
+        the sharding metadata reads (shard map / commit-log decisions)
+        where the caller wants the latest state, not a snapshot."""
+        with self.lock:
+            chain = self.chains.get(key)
+            return None if chain is None else chain[-1][1]
+
     def latest_items(self):
-        """(key, value) pairs of the newest committed state (the file
-        engine's snapshot); tombstoned keys are skipped."""
+        """(key, value) pairs of the newest committed state (for snapshots/
+        compaction/export). Tombstoned keys are skipped."""
         with self.lock:
             out = []
             for k, chain in self.chains.items():
@@ -109,27 +123,28 @@ class VersionedStore:
             self.chains[key] = [(0, val)]
 
     # -- commit ------------------------------------------------------------
-    def commit(self, writes: dict, snap: int, pre_apply=None) -> int:
-        """Validate + apply a writeset, releasing the committer's
-        snapshot. Returns the new version.
+    def commit(self, writes: dict, snap: int, pre_apply=None,
+               release: bool = True) -> int:
+        """Validate + apply a writeset. Returns the new version.
 
         Raises SdbError(CONFLICT_MSG) when any written key was committed by
-        another transaction after `snap`. `pre_apply` (the file engine's
-        WAL append) runs under the store lock after validation passes and
-        before the writes become visible, so durability and visibility
-        stay atomic; if it raises, nothing is applied. The snapshot is
-        dropped inside the SAME lock acquisition as the validation, and
-        after it: if the snapshot were released before validation, a
-        concurrent delete could prune a conflicting chain away entirely
-        and the conflict would be missed.
+        another transaction after `snap`. `pre_apply` (e.g. a WAL append)
+        runs under the store lock after validation passes, so durability and
+        visibility stay atomic. With `release`, the committer's own snapshot
+        is dropped inside the SAME lock acquisition — validating first is
+        essential: if the snapshot were released before validation, a
+        concurrent delete could prune a conflicting chain away entirely and
+        the conflict would be missed.
         """
         with self.lock:
             for k in writes:
                 chain = self.chains.get(k)
                 if chain is not None and chain[-1][0] > snap:
-                    self._release_locked(snap)
+                    if release:
+                        self._release_locked(snap)
                     raise SdbError(CONFLICT_MSG)
-            self._release_locked(snap)
+            if release:
+                self._release_locked(snap)
             if pre_apply is not None:
                 pre_apply()
             self.version += 1
@@ -169,6 +184,7 @@ class MemTx(BackendTx):
         self.write = write
         self.snap = self.vs.snapshot()
         self.writes: dict[bytes, Optional[bytes]] = {}  # None = tombstone
+        self.savepoints: list[dict] = []
         self.done = False
 
     def _check(self):
@@ -222,6 +238,17 @@ class MemTx(BackendTx):
             n += 1
             if limit is not None and n >= limit:
                 return
+
+    def new_save_point(self):
+        self.savepoints.append(dict(self.writes))
+
+    def rollback_to_save_point(self):
+        if self.savepoints:
+            self.writes = self.savepoints.pop()
+
+    def release_last_save_point(self):
+        if self.savepoints:
+            self.savepoints.pop()
 
     def commit(self):
         self._check()

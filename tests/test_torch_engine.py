@@ -22,12 +22,13 @@ from surrealdb_tpu.kvs.ds import Session as RefSession
 from surrealdb_tpu.val import RecordId as RefRid
 from surrealdb_tpu_torch import cnf as pcnf
 from surrealdb_tpu_torch import key as PK
+from surrealdb_tpu_torch.catalog import IndexDef
 from surrealdb_tpu_torch.carry import datastore_from_items
 from surrealdb_tpu_torch.device import DeviceOpError
 from surrealdb_tpu_torch.device import supervisor as portsup
-from surrealdb_tpu_torch.err import NotPorted
 from surrealdb_tpu_torch.idx.vector import TpuVectorIndex as PortIndex
 from surrealdb_tpu_torch.idx.vector import get_vector_index
+from surrealdb_tpu_torch.expr.ast import Idiom, PField
 from surrealdb_tpu_torch.kvs.api import serialize
 from surrealdb_tpu_torch.val import RecordId
 
@@ -363,8 +364,6 @@ def test_paths_left_out_raise(sups, monkeypatch):
     xs = rng.normal(size=(300, 8)).astype(np.float32)
     p = Pair(xs, metric="cosine")
     rc, pc = p.ctxs()
-    with pytest.raises(NotPorted):
-        p.port.knn(xs[0].tolist(), 3, pc, cond=object())
     # segmented ANN is ported: `auto` past the floor engages segments,
     # and ensure_ann() drains them (the first seal's graph built)
     monkeypatch.setattr(pcnf, "KNN_SEG_MODE", "auto")
@@ -385,6 +384,8 @@ def test_paths_left_out_raise(sups, monkeypatch):
         pc2.txn.cancel()
     finally:
         p.port._segments().close()
-    eng = get_vector_index(pc, "t", "ix", p.params)
-    assert get_vector_index(pc, "t", "ix", p.params) is eng
+    idef = IndexDef("ix", "t", [Idiom([PField("v")])], ["v"],
+                    hnsw=p.params)
+    eng = get_vector_index(idef, pc)
+    assert get_vector_index(idef, pc) is eng
     assert p.pds.vector_indexes[("b", "b", "t", "ix")] is eng

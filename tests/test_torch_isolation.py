@@ -47,6 +47,10 @@ def test_import_initialises_nothing():
         "surrealdb_tpu_torch.ops.topk, surrealdb_tpu_torch.entry, "
         "surrealdb_tpu_torch.ml.onnx, surrealdb_tpu_torch.device.batcher, "
         "surrealdb_tpu_torch.parallel.mesh\n"
+        "ds = surrealdb_tpu_torch.Datastore('memory')\n"
+        "assert ds.query_one('RETURN 1 + 1') == 2\n"
+        "from surrealdb_tpu_torch.device import supervisor\n"
+        "assert supervisor._SUP is None\n"
         "import torch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'surrealdb_tpu')]\n"
@@ -64,13 +68,20 @@ def test_import_initialises_nothing():
 
 
 def test_engines_import_no_torch():
-    """The index engines run in the serving process: importing them (and
-    the KV layer under them) loads neither torch nor the JAX package."""
+    """The index engines and the SurrealQL stack run in the serving
+    process: importing them (and the KV layer under them) loads neither
+    torch nor the JAX package."""
     code = (
         "import sys\n"
         "import surrealdb_tpu_torch.idx.vector, surrealdb_tpu_torch.graph.csr, "
         "surrealdb_tpu_torch.kvs.ds, surrealdb_tpu_torch.kvs.mem, "
-        "surrealdb_tpu_torch.resource, surrealdb_tpu_torch.telemetry\n"
+        "surrealdb_tpu_torch.resource, surrealdb_tpu_torch.telemetry, "
+        "surrealdb_tpu_torch.syn, surrealdb_tpu_torch.syn.parser, "
+        "surrealdb_tpu_torch.exec.executor, surrealdb_tpu_torch.exec.statements, "
+        "surrealdb_tpu_torch.exec.document, surrealdb_tpu_torch.exec.stream, "
+        "surrealdb_tpu_torch.exec.vops, surrealdb_tpu_torch.fnc, "
+        "surrealdb_tpu_torch.idx.planner, surrealdb_tpu_torch.graph, "
+        "surrealdb_tpu_torch.col, surrealdb_tpu_torch.inflight\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'surrealdb_tpu')]\n"
         "assert not bad, bad\n"

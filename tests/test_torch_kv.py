@@ -22,14 +22,18 @@ from surrealdb_tpu.val import Datetime as RDatetime
 from surrealdb_tpu.val import RecordId as RRid
 from surrealdb_tpu.val import Uuid as RUuid
 from surrealdb_tpu_torch import key as PK
+from surrealdb_tpu_torch.catalog import IndexDef
 from surrealdb_tpu_torch.carry import datastore_from_items
-from surrealdb_tpu_torch.err import NotPorted, SdbError
+from surrealdb_tpu_torch.err import SdbError
 from surrealdb_tpu_torch.idx.vector import vector_index_update
 from surrealdb_tpu_torch.kvs import mem as pmem
 from surrealdb_tpu_torch.kvs.api import deserialize, serialize
 from surrealdb_tpu_torch.kvs.ds import Datastore
 from surrealdb_tpu_torch.utils import sortedcompat
+from surrealdb_tpu_torch.expr.ast import Idiom, PField
 from surrealdb_tpu_torch.val import NONE, RecordId
+from surrealdb_tpu_torch.val import Datetime as PDatetime
+from surrealdb_tpu_torch.val import Uuid as PUuid
 
 IDS = [0, 1, -1, 7, 2 ** 53 + 1, -(2 ** 60), 1.5, -0.25, "a", "", "x\x00y",
        "ü", [1, "a"], [], {"b": 1, "a": [2.0, "z"]}, True, False, None,
@@ -88,11 +92,18 @@ def test_key_prefixes_and_u64_byte_equal():
 
 
 def test_unported_key_values_raise():
-    k = RK.enc_value(RUuid(uuid.UUID(int=5)))
-    with pytest.raises(NotPorted):
-        PK.dec_value(k, 0)
-    with pytest.raises(NotPorted):
-        PK.enc_value(datetime.datetime(2020, 1, 1))
+    """The key values the engines once refused (uuids, datetimes) now
+    encode byte for byte as the reference's and decode back."""
+    u = uuid.UUID(int=5)
+    k = RK.enc_value(RUuid(u))
+    assert PK.enc_value(PUuid(u)) == k
+    v, end = PK.dec_value(k, 0)
+    assert isinstance(v, PUuid) and v == PUuid(u) and end == len(k)
+    when = datetime.datetime(2020, 1, 1, tzinfo=datetime.timezone.utc)
+    k = RK.enc_value(RDatetime(when))
+    assert PK.enc_value(PDatetime(when)) == k
+    v, _ = PK.dec_value(k, 0)
+    assert v == PDatetime(when)
 
 
 VALUES = [
@@ -138,16 +149,19 @@ def test_pickle_branch_is_restricted():
 
 
 def test_unported_value_tags_raise():
-    raw = ref_serialize({"when": RDatetime(datetime.datetime(
-        2020, 1, 1, tzinfo=datetime.timezone.utc))})
-    with pytest.raises(NotPorted):
-        deserialize(raw)
+    """A stored datetime (once refused) decodes to the port's Datetime,
+    and re-encodes to the reference's bytes."""
+    when = datetime.datetime(2020, 1, 1, tzinfo=datetime.timezone.utc)
+    raw = ref_serialize({"when": RDatetime(when)})
+    got = deserialize(raw)
+    assert got == {"when": PDatetime(when)}
+    assert serialize(got) == raw
 
 
 def test_write_path_bytes_equal_the_sql_path():
     """The reference's SQL write path and the port's vector_index_update
-    given the same evaluated vectors write the same `he`, `hl` and `vn`
-    bytes: creates, an overwrite, a delete, a str id."""
+    given the same documents write the same `he`, `hl` and `vn` bytes:
+    creates, an overwrite, a delete, a str id."""
     rds = RefDatastore("memory")
     rds.query("DEFINE TABLE t; DEFINE INDEX ix ON t FIELDS emb HNSW "
               "DIMENSION 3 DIST COSINE TYPE F32", ns="b", db="b")
@@ -155,7 +169,9 @@ def test_write_path_bytes_equal_the_sql_path():
              (2, None, [1, 1, 1]), (1, [1, 2, 3], [3, 2, 1]),
              ("a", [0.5, 2, 3], None)]
     sql = {None: "DELETE t:{id}", "set": "UPSERT t:{id} SET emb = {v}"}
-    params = {"dimension": 3, "distance": "cosine", "vector_type": "f32"}
+    idef = IndexDef("ix", "t", [Idiom([PField("emb")])], ["emb"],
+                    hnsw={"dimension": 3, "distance": "cosine",
+                          "vector_type": "f32"})
     pds = Datastore()
     for idv, before, after in steps:
         rid = f"'{idv}'" if isinstance(idv, str) else idv
@@ -163,8 +179,10 @@ def test_write_path_bytes_equal_the_sql_path():
              else sql["set"].format(id=rid, v=after))
         rds.query(q, ns="b", db="b")
         ctx = pds.context("b", "b", write=True)
-        vector_index_update("ix", params, RecordId("t", idv), before, after,
-                            ctx)
+        vector_index_update(
+            idef, RecordId("t", idv),
+            NONE if before is None else {"emb": before},
+            NONE if after is None else {"emb": after}, ctx)
         ctx.txn.commit()
     pre = PK.ix_state("b", "b", "t", "ix", b"")
     ref = [(k, v) for k, v in _all_items(rds) if k.startswith(pre)]

@@ -27,6 +27,8 @@ from surrealdb_tpu_torch.err import SdbError, StorageFullError
 from surrealdb_tpu_torch.idx import cagra as pcagra
 from surrealdb_tpu_torch.idx import segments as pseg
 from surrealdb_tpu_torch.idx.vector import TpuVectorIndex as PortIndex
+from surrealdb_tpu_torch.catalog import IndexDef
+from surrealdb_tpu_torch.expr.ast import Idiom, PField
 from surrealdb_tpu_torch.idx.vector import get_vector_index
 from surrealdb_tpu_torch.kvs.api import serialize
 from surrealdb_tpu_torch.kvs.ds import Datastore
@@ -374,13 +376,15 @@ def _ingest(ds, xs, tb="t"):
     t.commit()
 
 
-PARAMS = {"dimension": DIM, "distance": "euclidean", "vector_type": "f32"}
+IDEF = IndexDef("ix", "t", [Idiom([PField("emb")])], ["emb"],
+                hnsw={"dimension": DIM, "distance": "euclidean",
+                      "vector_type": "f32"})
 
 
 def _open(path):
     ds = Datastore(f"file://{path}")
     ctx = ds.context("b", "b")
-    ix = get_vector_index(ctx, "t", "ix", PARAMS)
+    ix = get_vector_index(IDEF, ctx)
     ix.sync(ctx)
     ctx.txn.cancel()
     return ds, ix

@@ -487,6 +487,8 @@ def test_explain_surfaces_segmented(twin_cnf, ds):
     from surrealdb_tpu_torch.idx.vector import (
         get_vector_index, vector_index_update,
     )
+    from surrealdb_tpu_torch.catalog import IndexDef
+    from surrealdb_tpu_torch.expr.ast import Idiom, PField
     from surrealdb_tpu_torch.kvs.ds import Datastore
     from surrealdb_tpu_torch.val import NONE, RecordId
 
@@ -510,15 +512,16 @@ def test_explain_surfaces_segmented(twin_cnf, ds):
     assert "segmented" in blob, blob
 
     pds = Datastore("memory")
-    params = {"dimension": DIM, "distance": "euclidean",
-              "vector_type": "f32"}
+    idef = IndexDef("ix", "t", [Idiom([PField("v")])], ["v"],
+                    hnsw={"dimension": DIM, "distance": "euclidean",
+                          "vector_type": "f32"})
     w = pds.context("b", "b", write=True)
     for i, v in enumerate(rows):
         vec = [float(f"{x:.4f}") for x in v]
-        vector_index_update("ix", params, RecordId("t", i), NONE, vec, w)
+        vector_index_update(idef, RecordId("t", i), NONE, {"v": vec}, w)
     w.txn.commit()
     ctx = pds.context("b", "b")
-    pix = get_vector_index(ctx, "t", "ix", params)
+    pix = get_vector_index(idef, ctx)
     qv = [float(f"{x:.4f}") for x in q]
     pix.knn(qv, 5, ctx)  # engage + seal
     try:
