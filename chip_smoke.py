@@ -82,13 +82,17 @@ exits non-zero):
               both held to the f64 oracle) and graph (bench.py's 3-hop
               chain over the engine's 20k-node graph, equal to a numpy
               bag hop, on the host); each path prints its stage split
-              (parse, plan, device_rpc, the rest) on its `sql_*` line;
+              (parse, plan, coalescer_wait, device_rpc, the rest) on
+              its `sql_*` line; knn1m and knn10m launch no distance_tile
+              (their queries reach the rank stores, not a brute scan);
+              index_engine_qps runs after the knn1m path's counts are
+              read, so they count only SQL queries;
               no fallback and no host routing may occur;
    segments -- (4c, on that runner, mode require) segmented ANN
               (idx/segments.py) at bench.py's knn_churn configuration
               (CHURN: 500k x 768 clustered euclidean rows written through
               the KV op log, KNN_SEG_MODE=force with 131,072-row seals,
-              4 rounds of +32,768 / -8,192 rows, each with a k=1 probe
+              8 rounds of +32,768 / -8,192 rows, each with a k=1 probe
               of the last committed row and 12 k=10 knn calls, recall@10
               >= 0.95 against an f64 oracle on the card every 4th round
               and at the end, no whole-store rebuild, every segment
@@ -210,11 +214,10 @@ ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
 # bench.py:540 bench_knn_churn (quick=False): clustered rows (n0 // 200
 # centres, sigma 0.15) through the KV op log, segments sealed every
 # `seal` rows, `rounds` rounds of +add / -dele rows and nq k=10 queries.
-# Cut for the time limit (PERF.md section 4): n0 from 1M to 500k (still
-# past the 400k segment floor; at 1M the phase took about 480 s), and
-# the rounds from 8 to 4 (one 131k segment sealed by the rounds instead
-# of two; the whole script took 940-1091 s with 8 beside the sql phase)
-CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=4,
+# n0 is cut from 1M to 500k (still past the 400k segment floor) for the
+# time limit: at 1M the phase took about 480 s beside the rest's 420-460
+# (PERF.md section 4)
+CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=8,
              add=32_768, dele=8_192, nq=12)
 
 # the supervisor phase: a runner in mode auto over the knn1m store,
@@ -2739,8 +2742,12 @@ def main(argv=None) -> int:
         `<|10,COSINE|>`, both held to the f64 oracle) and graph (the
         engine's 20k-node graph: the 3-hop chain of bench.py equal to a
         numpy bag hop; it runs on the host, as the reference's). Each
-        path prints its stage split (parse, plan less device_rpc,
-        device_rpc, the rest of a query's latency) from `telemetry`."""
+        path prints its stage split from `telemetry`, per query: parse;
+        plan (the planner less the index search or the brute device
+        call inside it); coalescer_wait (index_knn less device_rpc: the
+        wait in the batcher's coalescer, with the engine's own host
+        work); device_rpc (a frame's time shared over its riders); and
+        the rest of the latency."""
         from surrealdb_tpu_torch import key as K
         from surrealdb_tpu_torch import telemetry as TEL
         from surrealdb_tpu_torch.device import supervisor as SV
@@ -2797,19 +2804,26 @@ def main(argv=None) -> int:
                 return (after.get(name, (0, 0))[1] - n0) / 1e6 / iters
 
             mean = float(lat.mean())
+            # `plan` holds the index search (`index_knn`, with the
+            # batcher wait and device_rpc inside it) or, for a brute
+            # scan, the device call itself
+            knn_, rpc_ = per("index_knn"), per("device_rpc")
             return {"queries": iters, "clients": threads, "qps": qps,
                     "p50_ms": float(np.percentile(lat, 50)),
                     "p99_ms": float(np.percentile(lat, 99)),
                     "mean_ms": mean,
                     "stages_ms": {
                         "parse": per("parse"),
-                        "plan": per("plan") - per("device_rpc"),
-                        "device_rpc": per("device_rpc"),
+                        "plan": per("plan") - max(knn_, rpc_),
+                        "coalescer_wait": max(knn_ - rpc_, 0.0),
+                        "device_rpc": rpc_,
                         "rest": mean - per("parse") - per("plan")}}
 
-        def path(name, fn, needs):
+        def path(name, fn, needs, absent=(), after=None):
             """One SQL path with the runner's launch counts set to 0
-            just before it and read just after."""
+            just before it and read just after; the kernels of `absent`
+            must not have launched. `after(out)` runs once the counts
+            are read (work that is not the path's own queries)."""
             sup_.call("launch_counts", {"reset": True})
             out = fn()
             _, m, _ = sup_.call("launch_counts", {})
@@ -2819,6 +2833,12 @@ def main(argv=None) -> int:
             for kname in needs:
                 check(m["launches"][kname] > 0,
                       f"sql {name}: kernel {kname} was not launched")
+            for kname in absent:
+                check(m["launches"].get(kname, 0) == 0,
+                      f"sql {name}: kernel {kname} was launched "
+                      f"{m['launches'].get(kname, 0)} times")
+            if after is not None:
+                after(out)
             emit(f"sql_{name}", **out,
                  launches={kn: v for kn, v in m["launches"].items() if v},
                  events=m["events"])
@@ -2835,7 +2855,6 @@ def main(argv=None) -> int:
             d = sq["knn1m"]
             ds, xs_, q_ = d["ds"], d["xs"], d["qs"]
             cnf.KNN_ANN_MODE = "off"
-            ix = ds.vector_indexes[("b", "b", "tbl", "ix")]
             q64 = q_[:64]
             sql = "SELECT id FROM tbl WHERE emb <|10,40|> $q"
             t0 = time.perf_counter()
@@ -2845,14 +2864,6 @@ def main(argv=None) -> int:
             out = measured(ds, sql, q64, SQL["knn1m"], 128)
             out["warm_s"] = warm_s
             out["sql_knn_qps"] = out.pop("qps")
-            # bench.py's _index_engine_qps: one knn_batch of 64 x 64
-            big = np.repeat(q64, 64, axis=0)
-            ix.knn_batch(big, k_)
-            t0 = time.perf_counter()
-            ix.knn_batch(big, k_)
-            out["index_engine_qps"] = len(big) / (time.perf_counter() - t0)
-            out["sql_over_engine"] = (out["sql_knn_qps"]
-                                      / out["index_engine_qps"])
             # recall@10 and vector::distance::knn() against the f64 oracle
             nq_ = 16
             od, oi = cosine_top(xs_, q_[:nq_], k_ + 1)
@@ -2909,6 +2920,20 @@ def main(argv=None) -> int:
                       f"sql {wname}: the probe answered {first}")
             out["writes_seen"] = len(writes)
             return out
+
+        def engine_qps(out):
+            """bench.py's _index_engine_qps on the knn1m engine (one
+            knn_batch of 64 x 64), outside the path's counted window,
+            and the SQL path's share of it."""
+            d = sq["knn1m"]
+            ix = d["ds"].vector_indexes[("b", "b", "tbl", "ix")]
+            big = np.repeat(d["qs"][:64], 64, axis=0)
+            ix.knn_batch(big, k_)
+            t0 = time.perf_counter()
+            ix.knn_batch(big, k_)
+            out["index_engine_qps"] = len(big) / (time.perf_counter() - t0)
+            out["sql_over_engine"] = (out["sql_knn_qps"]
+                                      / out["index_engine_qps"])
 
         def knn10m():
             d = sq.pop("knn10m")
@@ -3027,12 +3052,15 @@ def main(argv=None) -> int:
             return out
 
         try:
+            brute_ = ("distance_tile", "distance_tile_tf32",
+                      "distance_tile_simt")
             if "knn10m" in sq:
                 path("knn10m", knn10m, ("rank_scores_int8",
                                         "rank_candidates_int8",
-                                        "select_topk_pairs"))
+                                        "select_topk_pairs"), absent=brute_)
             path("knn1m", knn1m, ("rank_scores_bf16", "select_topk_rows",
-                                  "gather_rescore_topk"))
+                                  "gather_rescore_topk"), absent=brute_,
+                 after=engine_qps)
             path("ann", ann, ("ann_descent",))
             path("brute", brute, ("distance_tile",))
             path("graph", graph, ())

@@ -175,31 +175,22 @@ def ann_search_cfg() -> dict:
 # The SurrealQL stack (syn/, exec/, fnc/, idx/planner.py, kvs/ds.py)
 # ---------------------------------------------------------------------------
 
-# expression/function recursion ceiling (MAX_COMPUTATION_DEPTH)
-MAX_COMPUTATION_DEPTH = env_int("SURREAL_MAX_COMPUTATION_DEPTH", 120)
-IDIOM_RECURSION_LIMIT = env_int("SURREAL_IDIOM_RECURSION_LIMIT", 256)
+# Fixed at the reference's defaults (nothing in the port sets another
+# value, so none of them is read from the environment):
+# expression/function recursion ceiling
+MAX_COMPUTATION_DEPTH = 120
 # decoded-value cache over stored bytes (kvs/api.py deserialize)
-DECODE_CACHE_BYTES = env_int("SURREAL_DECODE_CACHE_BYTES", 256 << 20)
+DECODE_CACHE_BYTES = 256 << 20
 # parsed-statement cache entries per datastore (kvs/ds.py execute)
-AST_CACHE_SIZE = env_int("SURREAL_AST_CACHE_SIZE", 512)
-# process RSS ceiling in bytes past which a statement aborts (0 = off)
-MEMORY_THRESHOLD = env_int("SURREAL_MEMORY_THRESHOLD", 0)
-# rows buffered per streaming operator batch (OPERATOR_BUFFER_SIZE)
-OPERATOR_BUFFER_SIZE = env_int("SURREAL_OPERATOR_BUFFER_SIZE", 1024)
+AST_CACHE_SIZE = 512
+# rows buffered per streaming operator batch (exec/stream.py)
+OPERATOR_BUFFER_SIZE = 1024
+MAX_STATEMENTS_PER_QUERY = 5000
+# generated-collection byte cap (2^20 bytes)
+GENERATION_ALLOCATION_LIMIT = 2 ** 20
+# similarity/distance function input cap
+FUNCTION_SIMILARITY_MAX_LENGTH = 100_000
+# catalog entries cached per transaction (kvs/api.py)
+TRANSACTION_CACHE_SIZE = 10_000
 # columnar SELECT executor: auto | off | force (exec/vops.py)
 COLUMNAR = env_str("SURREAL_COLUMNAR", "auto")
-# ORDER BY RAND() / rand::* seed (0 = from the OS)
-RAND_SEED = env_int("SURREAL_RAND_SEED", 0)
-MAX_STATEMENTS_PER_QUERY = env_int("SURREAL_MAX_STATEMENTS_PER_QUERY", 5000)
-# object/array nesting accepted by the parser
-MAX_OBJECT_PARSING_DEPTH = env_int("SURREAL_MAX_OBJECT_PARSING_DEPTH", 100)
-MAX_QUERY_PARSING_DEPTH = env_int("SURREAL_MAX_QUERY_PARSING_DEPTH", 100)
-# generated-collection byte cap (GENERATION_ALLOCATION_LIMIT: 2^n bytes)
-GENERATION_ALLOCATION_LIMIT = 2 ** min(
-    env_int("SURREAL_GENERATION_ALLOCATION_LIMIT", 20), 28
-)
-# similarity/distance function input cap (FUNCTION_SIMILARITY_MAX_LENGTH)
-FUNCTION_SIMILARITY_MAX_LENGTH = env_int(
-    "SURREAL_FUNCTION_SIMILARITY_MAX_LENGTH", 100_000
-)
-TRANSACTION_CACHE_SIZE = env_int("SURREAL_TRANSACTION_CACHE_SIZE", 10_000)

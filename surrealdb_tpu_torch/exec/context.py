@@ -105,12 +105,6 @@ class Ctx:
         return c
 
     def check_deadline(self):
-        from surrealdb_tpu_torch import cnf as _cnf
-
-        if _cnf.MEMORY_THRESHOLD:
-            from surrealdb_tpu_torch.mem import check_threshold
-
-            check_threshold()
         if self.cancel is not None and self.cancel.is_set():
             from surrealdb_tpu_torch.err import QueryCancelled
 

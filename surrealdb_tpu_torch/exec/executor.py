@@ -82,7 +82,6 @@ class Executor:
             tel.end(root)
 
     def _execute(self, stmts: list, vars: dict, tel) -> list[QueryResult]:
-        from surrealdb_tpu_torch import cnf as _cnf
         from surrealdb_tpu_torch import inflight as _inflight
         from surrealdb_tpu_torch.exec.statements import _ensure_ns_db
         from surrealdb_tpu_torch.telemetry import stage_record
@@ -170,14 +169,6 @@ class Executor:
                     )
                 )
                 continue
-            if _cnf.MEMORY_THRESHOLD:
-                from surrealdb_tpu_torch.mem import check_threshold
-
-                try:
-                    check_threshold()
-                except SdbError as e:
-                    results.append(QueryResult(error=str(e)))
-                    continue
             if handle is not None and handle.cancel.is_set():
                 # a KILL / disconnect / drain cancels the REMAINING
                 # statements too — they never start, and an open explicit

@@ -1287,15 +1287,12 @@ def _resolve_alias(expr, aliases):
 
 
 def _stmt_rng(ctx):
-    """Statement-level RNG (ORDER BY RAND): datastore-scoped and
-    optionally seeded (SURREAL_RAND_SEED) so deterministic-sim and
-    bench runs stay reproducible — never the process-global `random`
-    instance another subsystem might be consuming."""
+    """Statement-level RNG (ORDER BY RAND): datastore-scoped — never
+    the process-global `random` instance another subsystem might be
+    consuming."""
     rng = getattr(ctx.ds, "rng", None)
     if rng is None:
-        from surrealdb_tpu_torch import cnf
-
-        rng = _random.Random(cnf.RAND_SEED or None)
+        rng = _random.Random()
         try:
             ctx.ds.rng = rng
         except AttributeError:

@@ -157,10 +157,10 @@ class Datastore:
         # columns (col.py): caches over the record keyspace
         self._table_columns: dict = {}
         self._vector_columns: dict = {}
-        # statement-scoped RNG (ORDER BY RAND): SURREAL_RAND_SEED seeds it
+        # statement-scoped RNG (ORDER BY RAND)
         import random as _rnd
 
-        self.rng = _rnd.Random(cnf.RAND_SEED or None)
+        self.rng = _rnd.Random()
         from surrealdb_tpu_torch.exec.batch import counters as _col_counters
 
         self._columnar_counters = _col_counters(self)

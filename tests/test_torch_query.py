@@ -11,9 +11,10 @@ rtol 1e-5; everything else, error texts included, compares exactly.
 KV items compare key for key; values byte for byte, except values
 written by pickle (catalog definitions and index op-log tuples name
 their package's classes), which compare decoded and normalised. Two key
-families hold the wall clock of the write in the key itself: the
-catalog history (`/%` keys) is left out, and a record's version history
-(`/*ns*db*tb%id` + 8 bytes of time) compares without those 8 bytes.
+families hold the wall clock of the write in their last 8 bytes, the
+catalog history (`/%` + the catalog key + time) and a record's version
+history (`/*ns*db*tb%id` + time): both compare without those 8 bytes,
+in the order of the writes, values as above.
 
 Device kernels: `KNN_DEVICE_MIN_ROWS` is lowered in both packages (and
 the engines' `DEVICE_MIN_ROWS`), so small stores take the device path
@@ -157,7 +158,10 @@ def _results(rs):
 
 
 def _untimed(k):
-    """A record history key without its 8 bytes of wall-clock time."""
+    """A catalog or record history key without its 8 bytes of
+    wall-clock time."""
+    if k.startswith(b"/%"):
+        return k[:-8]
     if k.startswith(b"/*"):
         pos = 2
         for _ in range(3):
@@ -171,8 +175,7 @@ def _untimed(k):
 def _items(ds):
     t = ds.transaction(write=False)
     try:
-        return [(_untimed(k), v) for k, v in t.scan(b"", b"\xff" * 9)
-                if not k.startswith(b"/%")]
+        return [(_untimed(k), v) for k, v in t.scan(b"", b"\xff" * 9)]
     finally:
         t.cancel()
 
