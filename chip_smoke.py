@@ -86,8 +86,27 @@ exits non-zero):
               its `sql_*` line; knn1m and knn10m launch no distance_tile
               (their queries reach the rank stores, not a brute scan);
               index_engine_qps runs after the knn1m path's counts are
-              read, so they count only SQL queries;
-              no fallback and no host routing may occur;
+              read, so they count only SQL queries; BASELINE config 2's
+              query under EXPLAIN (the plan names the HNSW index and the
+              KNN operator) and EXPLAIN FULL, which executes it, on
+              knn1m (10 rows fetched), knn10m (the int8 route) and ann
+              (the descent), each in a launch window of its own; INFO
+              FOR DB, TABLE and INDEX on knn1m's datastore and INFO FOR
+              SYSTEM, whose device section is this supervisor (mode
+              require, ready); no fallback and no host routing may
+              occur;
+   search  -- (4b'', on that runner, mode require) bench.py's
+              bench_hybrid through the port's SurrealQL at 2,048
+              documents (HYBRID): DEFINE ANALYZER, a FULLTEXT BM25 and
+              an HNSW (D 64) index, the ingest, then its LET $vs
+              (<|10,40|>) / LET $ft (@1@ 'graph') / search::rrf script,
+              a warm-up and 8 timed runs, each in its own launch window
+              (the bf16 rank store's three kernels launch in every run,
+              distance_tile in none); $vs held to the f64 cosine top
+              10, $ft to the reference's BM25 in numpy, the fused list
+              to search::rrf recomputed; ingest seconds, scripts a
+              second and the stage split printed; no fallback and no
+              host routing may occur;
    segments -- (4c, on that runner, mode require) segmented ANN
               (idx/segments.py) at bench.py's knn_churn configuration
               (CHURN: 500k x 768 clustered euclidean rows written through
@@ -150,6 +169,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only engine
     python3 chip_smoke.py --only sql
     python3 chip_smoke.py --only segments
+    python3 chip_smoke.py --only search
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -167,7 +187,9 @@ supervisor: phase 5 alone, over knn1m's rows made here; hier,
 approx, entry, onnx: those checks over knn1m's rows made here; batcher:
 the batcher check over a supervised runner of its own; engine: phase
 4b over rows made here and a runner of its own, which ships the knn10m
-rows itself; sql: the same, then phase 4b' over its datastores; segments: phase 4c over a runner of its own), then stops
+rows itself; sql: the same, then phase 4b' over its datastores;
+segments: phase 4c over a runner of its own; search: phase 4b'' over a
+runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
@@ -219,6 +241,22 @@ ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
 # (PERF.md section 4)
 CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=8,
              add=32_768, dele=8_192, nq=12)
+
+# bench.py:1230 bench_hybrid: n is cut from 5,000 to 2,048 documents,
+# cnf.KNN_DEVICE_MIN_ROWS (the fewest rows at which the vector leg takes
+# the card), for the full-text ingest, whose cost grows with the square
+# of the documents (each write rewrites its terms' whole postings, as the
+# reference's idx/fulltext.py does)
+HYBRID = dict(n=2048, dim=64, seed=23, iters=8)
+HYBRID_WORDS = ["graph", "vector", "index", "query", "search", "database",
+                "tensor", "shard", "batch", "kernel"]
+HYBRID_SQL = (
+    "LET $vs = SELECT id, vector::distance::knn() AS distance FROM doc "
+    "WHERE emb <|10,40|> $q;"
+    "LET $ft = SELECT id, search::score(1) AS ft_score FROM doc "
+    "WHERE text @1@ 'graph' ORDER BY ft_score DESC LIMIT 10;"
+    "RETURN search::rrf([$vs, $ft], 10, 60);"
+)
 
 # the supervisor phase: a runner in mode auto over the knn1m store,
 # `threads` clients of `frame`-query vec_knn frames, `rounds` frames each
@@ -395,6 +433,107 @@ def port_source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def hybrid_ingest(conn, cfg):
+    """bench.py bench_hybrid's setup and ingest through the port's
+    `Datastore.execute`: DEFINE ANALYZER, the FULLTEXT and HNSW indexes,
+    then cfg["n"] documents written by its CREATE, in its random order
+    (seed 23). Host work only (the full-text postings and the vector
+    op log; the supervisor is off here). Runs in a worker process that
+    the script starts first, so the ingest's host time, which grows
+    with the square of the documents, overlaps the kernels' build.
+    Sends ("ingested", ingest seconds) once the ingest is done, then
+    ("ok", committed KV items, record ids, texts, vectors, query,
+    ingest seconds), which blocks until phase `search` reads it; or
+    ("error", traceback) through `conn`."""
+    import traceback
+
+    try:
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+
+        SV.set_supervisor(SV.DeviceSupervisor("off"))
+        n, dim = cfg["n"], cfg["dim"]
+        ds = Datastore()
+        ds.query(
+            "DEFINE ANALYZER simple TOKENIZERS class FILTERS lowercase;"
+            "DEFINE INDEX ft ON doc FIELDS text FULLTEXT ANALYZER simple "
+            f"BM25;DEFINE INDEX hx ON doc FIELDS emb HNSW DIMENSION {dim} "
+            "DIST COSINE TYPE F32", ns="b", db="b")
+        rng = np.random.default_rng(cfg["seed"])
+        ids, texts = [], []
+        embs = np.empty((n, dim), np.float32)
+        t0 = time.perf_counter()
+        for i in range(n):
+            text = " ".join(rng.choice(HYBRID_WORDS, size=8))
+            texts.append(text)
+            emb = rng.normal(size=dim).astype(np.float32)
+            embs[i] = emb
+            (row,) = ds.query_one("CREATE doc CONTENT { text: $t, emb: $e }",
+                                  ns="b", db="b",
+                                  vars={"t": text, "e": emb.tolist()})
+            ids.append(row["id"].id)
+        ingest_s = time.perf_counter() - t0
+        q = rng.normal(size=dim).astype(np.float32)
+        t = ds.transaction(write=False)
+        items = [(bytes(k), bytes(v)) for k, v in t.scan(b"", b"\xff" * 9)]
+        t.cancel()
+        ds.close()
+        conn.send(("ingested", ingest_s))
+        conn.send(("ok", items, ids, texts, embs, q, ingest_s))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def start_hybrid_ingest():
+    """Start `hybrid_ingest` in a spawned worker process; returns
+    (ingested, result): `ingested()` waits until the ingest is done and
+    returns the seconds it waited, `result()` reads the worker's data
+    and waits for the process's end."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=hybrid_ingest, args=(send, dict(HYBRID)),
+                       name="hybrid-ingest", daemon=True)
+    proc.start()
+    send.close()
+    got = []
+
+    def read():
+        try:
+            out = recv.recv()
+        except EOFError:
+            out = ("error", "the worker sent nothing")
+        check(out[0] != "error", f"search: the ingest worker failed: "
+              f"{out[1] if out[0] == 'error' else ''}")
+        return out
+
+    def ingested():
+        t0 = time.perf_counter()
+        got.append(read())
+        return time.perf_counter() - t0
+
+    def result():
+        try:
+            if not got:
+                got.append(read())
+            out = read()
+        finally:
+            recv.close()
+            proc.join(60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(out[0] == "ok" and proc.exitcode == 0,
+              f"search: the ingest worker ended with {proc.exitcode}")
+        return out[1:]
+
+    return ingested, result
+
+
 def hnsw_def(tb, params):
     """The catalog definition of index `ix` on `tb`'s `emb` column (an
     engine's caller without a catalog of its own)."""
@@ -520,7 +659,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
-              "engine", "sql", "segments")
+              "engine", "sql", "segments", "search")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -548,6 +687,11 @@ def main(argv=None) -> int:
     from surrealdb_tpu_torch.ops import distance as D
     from surrealdb_tpu_torch.ops import merge as MG
     from surrealdb_tpu_torch.ops import topk as T
+
+    # bench_hybrid's ingest: host work in a worker process of its own,
+    # beside the kernels' build; it is done before the first measured
+    # phase, and phase `search` reads its data
+    hybrid = start_hybrid_ingest() if not only or "search" in only else None
 
     # the runner phases time frames with no warm-up frames queued
     # beside them: only the supervisor phase keeps the serving prewarm
@@ -2953,8 +3097,7 @@ def main(argv=None) -> int:
             check(out["recall_at_10"] >= 0.95,
                   f"sql knn10m recall@10 {out['recall_at_10']} < 0.95")
             check(ix.rank_mode == "int8", f"knn10m rank mode {ix.rank_mode}")
-            sup_.call("vec_drop", {"key": ix._dev_key})
-            sup_.forget(ix._dev_key)
+            sq["explain_knn10m"] = d
             return out
 
         def ann():
@@ -2980,8 +3123,97 @@ def main(argv=None) -> int:
                   f"sql ann recall@10 {out['recall_at_10']} < 0.95")
             check(ix.ann_host_descents == hd0,
                   "sql ann: the numpy descent ran")
+            return out
+
+        def explain(ds, tb, q, fetched=True):
+            """BASELINE config 2's query under EXPLAIN (the plan names
+            the HNSW index and the KNN operator) and EXPLAIN FULL, which
+            executes it: its Fetch line counts the 10 rows when the
+            records are in the KV (knn1m), and the path's launches are
+            the query's."""
+            sql = f"SELECT id FROM {tb} WHERE emb <|10,40|> $q"
+            vars_ = {"q": q.tolist()}
+            out = {}
+            for form in ("EXPLAIN", "EXPLAIN FULL"):
+                t0 = time.perf_counter()
+                plan = ds.query_one(f"{form} {sql}", ns="b", db="b",
+                                    vars=vars_)
+                out[f"{form.lower().replace(' ', '_')}_ms"] = (
+                    time.perf_counter() - t0) * 1e3
+                head = plan[0]
+                check(head["operation"] == "Iterate Index"
+                      and head["detail"]["table"] == tb
+                      and head["detail"]["plan"]["index"] == "ix"
+                      and head["detail"]["plan"]["operator"] == "<|10,40|>",
+                      f"sql {form} {tb}: plan {head}")
+                out[form.lower().replace(" ", "_")] = [
+                    {"operation": p["operation"],
+                     **({"count": p["detail"]["count"]}
+                        if p["operation"] == "Fetch" else {})}
+                    for p in plan]
+            fetch = [p for p in out["explain_full"]
+                     if p["operation"] == "Fetch"]
+            check(len(fetch) == 1, f"sql EXPLAIN FULL {tb}: {fetch}")
+            if fetched:
+                check(fetch[0]["count"] == k_,
+                      f"sql EXPLAIN FULL {tb}: fetched {fetch[0]['count']}")
+            return out
+
+        def explain_knn1m():
+            d = sq["knn1m"]
+            cnf.KNN_ANN_MODE = "off"
+            return explain(d["ds"], "tbl", d["qs"][5])
+
+        def explain_knn10m():
+            d = sq.pop("explain_knn10m")
+            ix = d["ix"]
+            cnf.KNN_ANN_MODE = "off"
+            out = explain(d["ds"], "tbl10m", d["qs"][5], fetched=False)
+            sup_.call("vec_drop", {"key": ix._dev_key})
+            sup_.forget(ix._dev_key)
+            return out
+
+        def explain_ann():
+            d = sq["ann"]
+            ix = d["ix"]
+            cnf.KNN_ANN_MODE = "auto"
+            hd0 = ix.ann_host_descents
+            out = explain(d["ds"], "ann", d["qs"][5], fetched=False)
+            check(ix.ann_host_descents == hd0,
+                  "sql EXPLAIN FULL ann: the numpy descent ran")
             sup_.call("ann_drop", {"key": ix._ann_dev_key})
             sup_.forget(ix._ann_dev_key)
+            return out
+
+        def info():
+            """INFO FOR DB, TABLE and INDEX on the knn1m datastore, and
+            INFO FOR SYSTEM: its device section is this supervisor's
+            (mode require, ready) and its knn section the engines'."""
+            ds = sq["knn1m"]["ds"]
+            t0 = time.perf_counter()
+            db_, tb_, ix_, sys_ = (
+                r.unwrap() for r in ds.execute(
+                    "INFO FOR DB; INFO FOR TABLE tbl; "
+                    "INFO FOR INDEX ix ON tbl; INFO FOR SYSTEM",
+                    ns="b", db="b"))
+            out = {"ms": (time.perf_counter() - t0) * 1e3}
+            check(set(db_["tables"]) >= {"tbl"}
+                  and db_["tables"]["tbl"].startswith("DEFINE TABLE tbl"),
+                  f"INFO FOR DB: {db_['tables']}")
+            check(tb_["indexes"].get("ix", "").startswith(
+                "DEFINE INDEX ix ON tbl FIELDS emb HNSW DIMENSION "
+                f"{KNN1M['dim']}"), f"INFO FOR TABLE: {tb_['indexes']}")
+            check(ix_["building"]["status"] == "ready",
+                  f"INFO FOR INDEX: {ix_}")
+            dev_ = sys_["device"]
+            check(dev_["mode"] == "require" and dev_["state"] == "ready",
+                  f"INFO FOR SYSTEM device: {dev_}")
+            check(any(e["index"] == "b.b.tbl.ix" for e in sys_.get("knn", [])),
+                  f"INFO FOR SYSTEM knn: {sys_.get('knn')}")
+            out.update(index=tb_["indexes"]["ix"], building=ix_["building"],
+                       device={f_: dev_.get(f_) for f_ in
+                               ("mode", "state", "platform", "restarts")},
+                       system_keys=sorted(sys_))
             return out
 
         def brute():
@@ -3058,10 +3290,18 @@ def main(argv=None) -> int:
                 path("knn10m", knn10m, ("rank_scores_int8",
                                         "rank_candidates_int8",
                                         "select_topk_pairs"), absent=brute_)
+                path("explain_knn10m", explain_knn10m,
+                     ("rank_scores_int8", "rank_candidates_int8",
+                      "select_topk_pairs"), absent=brute_)
             path("knn1m", knn1m, ("rank_scores_bf16", "select_topk_rows",
                                   "gather_rescore_topk"), absent=brute_,
                  after=engine_qps)
+            path("explain_knn1m", explain_knn1m,
+                 ("rank_scores_bf16", "select_topk_rows",
+                  "gather_rescore_topk"), absent=brute_)
+            path("info", info, (), absent=brute_)
             path("ann", ann, ("ann_descent",))
+            path("explain_ann", explain_ann, ("ann_descent",))
             path("brute", brute, ("distance_tile",))
             path("graph", graph, ())
             ctr = dict(sup_.counters)
@@ -3077,6 +3317,188 @@ def main(argv=None) -> int:
                 setattr(cnf, name, v)
             sq.clear()
         return out_all
+
+    # -- full-text + vector search through SurrealQL (also `--only search`)
+    def search_phase(sup_, counts=None):
+        """bench.py:1230 bench_hybrid's configuration through the port's
+        `Datastore.execute`, under `sup_` (mode require): its analyzer,
+        a FULLTEXT BM25 index on `text` and an HNSW index (D 64, cosine,
+        f32) on `emb`; HYBRID["n"] documents of 8 words of its 10-word
+        vocabulary and a normal 64-wide vector each (seed 23), written
+        by its CREATE in the ingest worker (`hybrid_ingest`) and carried
+        into this process's datastore as its committed KV items; then
+        its script (LET $vs <|10,40|>, LET $ft
+        @1@ 'graph' ORDER BY ft_score DESC LIMIT 10, RETURN
+        search::rrf), one warm-up and HYBRID["iters"] timed runs, and
+        one more that also returns $vs and $ft. Each run has the
+        runner's launch counts set to 0 just before it and read just
+        after: rank_scores_bf16, select_topk_rows and
+        gather_rescore_topk launch in every run, distance_tile in none.
+        $vs holds the f64 cosine top 10 (ids wherever neighbouring
+        oracle distances differ by more than 1e-4, distances within
+        1e-4); every $ft hit holds 'graph' and its ft_score is the
+        reference's BM25 recomputed in numpy (0.0 at this data: every
+        word is in more than half the documents, so the clamped idf is
+        0); the fused list is search::rrf recomputed here from the two.
+        No fallback may hide the card. Prints the ingest seconds, the
+        scripts a second and the stage split of the timed runs."""
+        import math
+
+        from surrealdb_tpu_torch import telemetry as TEL
+        from surrealdb_tpu_torch.carry import datastore_from_items
+        from surrealdb_tpu_torch.device import supervisor as SV
+
+        t_0 = time.perf_counter()
+        n_, dim_ = HYBRID["n"], HYBRID["dim"]
+        host_batch = cnf.KNN_HOST_BATCH
+        cnf.KNN_HOST_BATCH = "auto"
+        old_sup = SV.set_supervisor(sup_)
+        SV.bind_serving()
+        ctr0 = dict(sup_.counters)
+        brute_ = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
+        needs = ("rank_scores_bf16", "select_topk_rows",
+                 "gather_rescore_topk")
+        try:
+            items, ids, texts, embs, q, ingest_s = hybrid[1]()
+            ds = datastore_from_items(items)
+            id_row = {rid: i for i, rid in enumerate(ids)}
+            check(len(id_row) == n_ == ds.query_one(
+                "SELECT count() FROM doc GROUP ALL", ns="b",
+                db="b")[0]["count"], "search: the documents differ")
+
+            launched = {}
+            spent = {}  # stage -> ns inside the timed scripts
+
+            def stages():
+                return {name: st.total_ns
+                        for name, st in list(TEL._STAGES.items())}
+
+            def run(sql, timed=False):
+                sup_.call("launch_counts", {"reset": True})
+                st0 = stages()
+                t1 = time.perf_counter()
+                res = ds.execute(sql, ns="b", db="b", vars={"q": q.tolist()})
+                dt = time.perf_counter() - t1
+                if timed:
+                    for name, v in stages().items():
+                        spent[name] = spent.get(name, 0) + v - st0.get(name, 0)
+                _, m, _ = sup_.call("launch_counts", {})
+                for r in res:
+                    check(r.error is None, f"search: {r.error}")
+                for kname, v in m["launches"].items():
+                    launched[kname] = launched.get(kname, 0) + v
+                    if counts is not None:
+                        counts[kname] += v
+                for kname in needs:
+                    check(m["launches"][kname] > 0,
+                          f"search: kernel {kname} was not launched")
+                for kname in brute_:
+                    check(m["launches"].get(kname, 0) == 0,
+                          f"search: kernel {kname} was launched")
+                return res, dt
+
+            _, warm_s = run(HYBRID_SQL)
+            times = [run(HYBRID_SQL, timed=True)[1]
+                     for _ in range(HYBRID["iters"])]
+            iters = len(times)
+
+            def per(name):
+                return spent.get(name, 0) / 1e6 / iters
+
+            mean = float(np.mean(times)) * 1e3
+            # one client: each device call lies inside the index search,
+            # which lies inside `plan`, which lies inside the script.
+            # Each window holds the script alone (the launch-count calls
+            # around it are device calls too, and stay outside)
+            knn_, rpc_ = per("index_knn"), per("device_rpc")
+            stages_ms = {"parse": per("parse"),
+                         "plan": per("plan") - knn_,
+                         "coalescer_wait": knn_ - rpc_,
+                         "device_rpc": rpc_,
+                         "rest": mean - per("parse") - per("plan")}
+            check(rpc_ > 0 and min(stages_ms.values()) >= 0,
+                  f"search: the stage split does not nest: {stages_ms}")
+            res, _ = run(HYBRID_SQL + "RETURN $vs; RETURN $ft;")
+            fused, vs, ft = res[2].result, res[3].result, res[4].result
+
+            # $vs: the f64 cosine top 10
+            x64 = embs.astype(np.float64)
+            q64 = q.astype(np.float64)
+            d64 = 1.0 - x64 @ q64 / np.maximum(
+                np.linalg.norm(x64, axis=1) * np.linalg.norm(q64), 1e-300)
+            oi = np.argsort(d64, kind="stable")[:11]
+            check(len(vs) == 10, f"search $vs: {len(vs)} rows")
+            got_i = np.array([[id_row[r["id"].id] for r in vs]])
+            vs_err = float(np.abs(np.array([r["distance"] for r in vs])
+                                  - d64[oi[:10]]).max())
+            check(vs_err <= 1e-4, f"search $vs: distance error {vs_err}")
+            check_ids_past(d64[oi][None, :], oi[None, :], got_i,
+                           "search $vs vs oracle", 1e-4)
+            # $ft: the reference's BM25 (idx/fulltext.py _ft_search_impl)
+            toks = [t.split() for t in texts]
+            avg = sum(len(t) for t in toks) / n_
+            df = sum(1 for t in toks if "graph" in t)
+            idf = max(math.log((n_ - df + 0.5) / (df + 0.5)), 0.0)
+            check(len(ft) == 10, f"search $ft: {len(ft)} rows")
+            ft_err = 0.0
+            for r in ft:
+                t = toks[id_row[r["id"].id]]
+                tf = t.count("graph")
+                check(tf > 0, f"search $ft: {r['id']} lacks 'graph'")
+                tfp = 1.0 + math.log(tf)
+                k1, b_ = float(np.float32(1.2)), float(np.float32(0.75))
+                want = 0.0 if idf == 0.0 else float(np.float32(
+                    idf * (k1 + 1) * tfp
+                    / (tfp + k1 * ((1 - b_) + b_ / avg * len(t)))))
+                ft_err = max(ft_err, abs(r["ft_score"] - want))
+            check(ft_err <= 1e-6, f"search $ft: BM25 error {ft_err}")
+            # the fused list: search::rrf([$vs, $ft], 10, 60) recomputed
+            scores, merged, order = {}, {}, []
+            for lst in (vs, ft):
+                for rank, item in enumerate(lst):
+                    h = item["id"].id
+                    if h not in merged:
+                        merged[h] = dict(item)
+                        order.append(h)
+                    else:
+                        merged[h].update(item)
+                    scores[h] = scores.get(h, 0.0) + 1.0 / (60 + rank + 1)
+            want_ids = sorted(order, key=lambda h: -scores[h])[:10]
+            check([r["id"].id for r in fused] == want_ids,
+                  "search: the fused order differs from search::rrf's")
+            check(all(abs(r["rrf_score"] - scores[r["id"].id]) <= 1e-12
+                      for r in fused), "search: rrf scores differ")
+            ctr = dict(sup_.counters)
+            for cname in ("device_fallbacks", "device_host_routed"):
+                check(ctr[cname] == ctr0[cname],
+                      f"search: {cname} moved {ctr0[cname]} -> {ctr[cname]}")
+            emit("search", mode=sup_.mode, docs=n_, dim=dim_,
+                 ingest_s=ingest_s, warm_s=warm_s,
+                 scripts_per_s=iters / float(np.sum(times)),
+                 p50_ms=float(np.percentile(times, 50)) * 1e3,
+                 mean_ms=mean, stages_ms=stages_ms, runs=iters + 2,
+                 vs_max_abs_err=vs_err, ft_max_abs_err=ft_err,
+                 ft_idf=idf, ft_docs_with_term=df,
+                 fused=len(fused),
+                 launches={kn: v for kn, v in launched.items() if v},
+                 counters={c: ctr[c] for c in ("device_fallbacks",
+                                               "device_host_routed")},
+                 seconds=round(time.perf_counter() - t_0, 3))
+            ds.close()
+        finally:
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            cnf.KNN_HOST_BATCH = host_batch
+
+    def search_only():
+        """`--only search`: the search phase under a supervisor in mode
+        require of its own."""
+        sup_ = DeviceSupervisor("require", device="cuda")
+        try:
+            sup_.start()
+            search_phase(sup_)
+        finally:
+            sup_.shutdown()
 
     # -- segmented ANN and the persisted artifacts (also `--only segments`) ---
     def euclid_oracle(xs_, qs_, kk, step=1 << 18):
@@ -3572,6 +3994,9 @@ def main(argv=None) -> int:
     st = compile_cache.ensure_built()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=st["build_s"], dir=st["dir"], built=st["built"])
+    if hybrid is not None:
+        # no measured phase shares the host with the ingest
+        emit("hybrid_ingest", waited_s=round(hybrid[0](), 3))
     if only:
         if "distance" in only:
             distance_checks()
@@ -3604,6 +4029,8 @@ def main(argv=None) -> int:
             engine_only(with_sql="sql" in only)
         if "segments" in only:
             segments_only()
+        if "search" in only:
+            search_only()
         if "supervisor" in only:
             rng = np.random.default_rng(KNN1M["seed"])  # knn1m's rows
             xs_np = rng.standard_normal((KNN1M["n"], KNN1M["dim"]),
@@ -4722,6 +5149,8 @@ def main(argv=None) -> int:
         # -- 4b'. SurrealQL over the engine phase's datastores, same runner
         sql_phase(sup, data["sql"], launches)
         del data
+        # -- 4b''. full-text + vector search through SurrealQL, same runner
+        search_phase(sup, launches)
         # -- 4c. segmented ANN and the persisted artifacts, same runner ---
         segments_phase(sup, launches)
     finally:

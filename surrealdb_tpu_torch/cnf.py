@@ -194,3 +194,7 @@ FUNCTION_SIMILARITY_MAX_LENGTH = 100_000
 TRANSACTION_CACHE_SIZE = 10_000
 # columnar SELECT executor: auto | off | force (exec/vops.py)
 COLUMNAR = env_str("SURREAL_COLUMNAR", "auto")
+# full-text result cache bounds (idx/fulltext.py FtResult entries):
+# entry count + estimated bytes, LRU-evicted (ft_cache_evictions)
+FT_CACHE_ENTRIES = 512
+FT_CACHE_BYTES = 64 << 20

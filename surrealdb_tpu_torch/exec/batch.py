@@ -372,3 +372,12 @@ def counters(ds) -> dict:
 def _count(ds, name, by=1):
     c = counters(ds)
     c[name] = c.get(name, 0) + by
+
+
+def store_nbytes(ds) -> int:
+    total = 0
+    for tc in list(getattr(ds, "_table_columns", {}).values()):
+        total += tc.nbytes()
+    for _v, _cid, pos in list(getattr(ds, "_fused_align", {}).values()):
+        total += int(pos.nbytes)
+    return total

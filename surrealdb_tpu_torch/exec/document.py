@@ -723,6 +723,11 @@ def index_update(rid: RecordId, before, after, ctx: Ctx):
 
             vector_index_update(idef, rid, before, after, ctx)
             continue
+        if idef.fulltext is not None:
+            from surrealdb_tpu_torch.idx.fulltext import fulltext_index_update
+
+            fulltext_index_update(idef, rid, before, after, ctx)
+            continue
         old_rows = (
             _index_rows(_index_values(idef, before, ctx, rid), idef)
             if isinstance(before, dict)
@@ -938,6 +943,11 @@ def _single_index_add(idef, rid, doc, ctx):
 
         vector_index_update(idef, rid, NONE, doc, ctx)
         return
+    if idef.fulltext is not None:
+        from surrealdb_tpu_torch.idx.fulltext import fulltext_index_update
+
+        fulltext_index_update(idef, rid, NONE, doc, ctx)
+        return
     if idef.count:
         if not _count_cond_matches(idef, doc, ctx, rid):
             return
@@ -968,6 +978,18 @@ def _single_index_add(idef, rid, doc, ctx):
     else:
         for row in rows:
             ctx.txn.set(K.index(ns, db, rid.tb, idef.name, row, rid.id), b"\x00")
+
+
+def view_source_tables(sel) -> list:
+    """Table names a view's SELECT reads from (views are not ported;
+    INFO FOR TABLE lists a stored view under its source tables)."""
+    froms = []
+    for w in getattr(sel, "what", []):
+        if isinstance(w, Idiom) and len(w.parts) == 1 and isinstance(
+            w.parts[0], PField
+        ):
+            froms.append(w.parts[0].name)
+    return froms
 
 
 # ---------------------------------------------------------------------------

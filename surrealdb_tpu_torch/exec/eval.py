@@ -338,8 +338,10 @@ def _e_binary(n, ctx):
 
 
 def _e_matches(n, ctx):
-    """text @@ query: the full-text match is not ported."""
-    raise NotPorted("the full-text match operator @@ is not ported")
+    """text @@ query — full-text match via the index (fnc/search path)."""
+    from surrealdb_tpu_torch.idx.fulltext import matches_operator
+
+    return matches_operator(n, ctx)
 
 
 def _e_prefix(n, ctx):

@@ -589,7 +589,9 @@ def _s_select(n: SelectStmt, ctx: Ctx):
     if n.group is not None:
         _check_group_params(n)
     if n.explain:
-        raise NotPorted("EXPLAIN is not ported")
+        if n.version is not None:
+            raise NotPorted("VERSION reads are not ported")
+        return _explain_select(n, c)
     # VERSION clause
     if n.version is not None:
         raise NotPorted("VERSION reads are not ported")
@@ -801,6 +803,10 @@ def _select_pipeline(n: SelectStmt, rows, c):
             "Expected a single result output when using the ONLY keyword"
         )
     return out_rows
+
+
+def _target_of(n, ctx):
+    return None
 
 
 def _expand_field_projections(n, ctx):
@@ -1515,6 +1521,1014 @@ def _fetch_value(v, ctx):
     return v
 
 
+def _explain_streaming(n: SelectStmt, ctx) -> str:
+    """Streaming-executor EXPLAIN string (reference exec/ operator tree
+    pretty-print, used under planner-strategy all-ro). EXPLAIN ANALYZE
+    executes and annotates {rows: N} per operator + a Total rows line."""
+    from surrealdb_tpu_torch.exec.render_def import _expr_sql
+    from surrealdb_tpu_torch.idx.planner import (
+        _choose_index,
+        _classify_preds,
+        _find_knn,
+        _find_matches,
+        _remove_node,
+        get_indexes_for,
+    )
+
+    analyze = n.explain in ("analyze", "analyze-json", "postfix-full")
+    json_fmt = n.explain in (
+        "json", "analyze-json", "postfix", "postfix-full"
+    )
+    orig_n = n
+    if (
+        analyze
+        and not json_fmt
+        and not getattr(
+            ctx.session, "redact_volatile_explain_attrs", False
+        )
+    ):
+        # stream-eligible statements ANALYZE through the real operator
+        # tree: measured rows/batches/elapsed per operator (reference
+        # exec/operators/explain.rs AnalyzePlan). The redacted
+        # (deterministic) form below serves the language-test harness.
+        from surrealdb_tpu_torch.exec.stream import try_stream_analyze
+
+        real = try_stream_analyze(n, ctx)
+        if real is not None:
+            return real
+
+    # ORDER BY id is the natural scan order (reversed for DESC): the
+    # sort is elided and LIMIT/START push into the scan — only when the
+    # plan is a plain table scan (no predicate can pick an index)
+    scan_dir = "Forward"
+    single_target = len(n.what) == 1
+    if (
+        n.order
+        and n.order != "rand"
+        and len(n.order) == 1
+        and expr_name(n.order[0][0]) == "id"
+        and n.cond is None
+        and single_target
+    ):
+        # only a TABLE scan can absorb id-order into scan direction;
+        # RecordIdScan ranges keep the SortTopKByKey (reference
+        # reverse_iterator_range_new_executor)
+        try:
+            _tv = _target_value(n.what[0], ctx)
+        except SdbError:
+            _tv = None
+        if isinstance(_tv, Table):
+            if n.order[0][1] == "desc":
+                scan_dir = "Backward"
+            n = _strip_order(n)
+
+    # resolve scan children (one per FROM target)
+    scans = []  # (label_fn, scan_rows)
+    rid_range_scan = False
+    total_scan_rows = 0
+    residual = n.cond
+    # KNN in the WHERE tree: KnnScan (HNSW access path) or KnnTopK (the
+    # pipeline-breaking brute-force aggregate, exec/operators/knn_topk.rs)
+    knn = _find_knn(n.cond) if n.cond is not None else None
+    knn_residual = _remove_node(n.cond, knn) if knn is not None else None
+    knn_brute = None
+    for expr in n.what:
+        # subquery FROM sources nest their own full sub-plan (reference
+        # streaming planner: the inner SELECT is an operator subtree)
+        sub_sel = None
+        se = _unwrap_start(expr)
+        if isinstance(se, Subquery) and isinstance(se.stmt, SelectStmt):
+            sub_sel = se.stmt
+        if sub_sel is not None:
+            import copy as _copy
+
+            sub = _copy.copy(sub_sel)
+            # the sub-plan always renders as text (the outer call alone
+            # JSON-encodes); keep only the analyze dimension
+            sub.explain = "analyze" if analyze else "explain"
+            txt = _explain_streaming(sub, ctx.child())
+            sub_lines = [
+                l for l in txt.split("\n")
+                if l.strip() and not l.startswith("Total rows")
+            ]
+            rows = (
+                len(list(_iterate_value(_target_value(expr, ctx), ctx)))
+                if analyze else 0
+            )
+            scans.append(("__raw__", rows, sub_lines))
+            total_scan_rows += rows
+            continue
+        v = _target_value(expr, ctx)
+        if isinstance(v, RecordId):
+            rows = len(list(_iterate_value(v, ctx))) if analyze else 0
+            if isinstance(v.id, Range):
+                rid_range_scan = True
+                rg = v.id
+                rid_s = (
+                    f"{v.tb}:{render(rg.beg)}"
+                    + ("..=" if rg.end_incl else "..")
+                    + render(rg.end)
+                )
+            else:
+                rid_s = v.render()
+            scans.append(
+                (f"RecordIdScan [ctx: Db] [record_id: {rid_s}]", rows)
+            )
+            total_scan_rows += rows
+            continue
+        if not isinstance(v, Table):
+            rows = len(list(_iterate_value(v, ctx))) if analyze else 0
+            from surrealdb_tpu_torch.expr.ast import Cast as _Cst, \
+                RangeExpr as _Rng
+
+            src_e = _unwrap_start(expr)
+            if isinstance(src_e, _Cst) and isinstance(src_e.expr, _Rng):
+                # `..` is a binary operator in the reference grammar, so
+                # a cast-of-range renders `<array>  0 .. 5`
+                from surrealdb_tpu_torch.exec.coerce import kind_name as _kn2
+
+                rg = src_e.expr
+                beg = _expr_sql(rg.beg) if rg.beg is not None else ""
+                end = _expr_sql(rg.end) if rg.end is not None else ""
+                src = f"<{_kn2(src_e.kind)}>  {beg} .. {end}"
+            else:
+                src = _expr_sql(src_e)
+            scans.append(
+                (f"SourceExpr [ctx: Db] [expr: {src}]", rows)
+            )
+            total_scan_rows += rows
+            continue
+        tb = v.name
+        pushed_limit = pushed_offset = None
+        indexes = get_indexes_for(tb, ctx)
+        if n.with_index:
+            indexes = [i for i in indexes if i.name in n.with_index]
+        noindex = n.with_index == []
+        label = None
+        if knn is not None:
+            qv = evaluate(knn.rhs, ctx)
+            dim = len(qv) if isinstance(qv, list) else 0
+            idef_h = None
+            if not noindex and knn.dist is None:
+                from surrealdb_tpu_torch.idx.planner import _field_path as _fpk
+
+                kpath = _fpk(knn.lhs)
+                idef_h = next(
+                    (d for d in indexes
+                     if d.hnsw is not None and d.cols_str
+                     and d.cols_str[0] == kpath),
+                    None,
+                )
+            if idef_h is not None:
+                rows = 0
+                if analyze:
+                    from surrealdb_tpu_torch.idx.planner import plan_scan
+
+                    plan = plan_scan(tb, n.cond, ctx.child(), n)
+                    rows = sum(1 for _ in plan) if plan is not None else 0
+                label = (
+                    f"KnnScan [ctx: Db] [index: {idef_h.name}, k: {knn.k}, "
+                    f"ef: {knn.ef or 40}, dimension: {dim}]"
+                )
+                residual = knn_residual  # rendered as a Filter above
+                scans.append((label, rows))
+                total_scan_rows += rows
+                continue
+            knn_brute = (knn, dim)
+            if single_target and knn_residual is not None:
+                rows = 0
+                if analyze:
+                    for src in _iterate_value(v, ctx, None, None):
+                        doc = src.doc if src.rid is not None else src.value
+                        cc = ctx.with_doc(doc, src.rid)
+                        if is_truthy(evaluate(knn_residual, cc)):
+                            rows += 1
+                label = (
+                    f"TableScan [ctx: Db] [table: {tb}, direction: Forward, "
+                    f"predicate: {_expr_sql(knn_residual)}]"
+                )
+            else:
+                rows = (
+                    len(list(_iterate_value(v, ctx, None, None)))
+                    if analyze else 0
+                )
+                label = (
+                    f"TableScan [ctx: Db] [table: {tb}, direction: Forward]"
+                )
+            residual = None
+            scans.append((label, rows))
+            total_scan_rows += rows
+            continue
+        # a MATCHES candidate scores 800 (exec/index/analysis.rs:1281):
+        # it loses to a unique full-equality access (1000) but beats
+        # non-unique eq (500) and ranges — defer the choice until the
+        # eq/range candidates are scored below
+        mts = _find_matches(n.cond) if n.cond is not None and not noindex else []
+        ft_cand = None
+        if mts:
+            mt = mts[0]
+            idef = next((d for d in indexes if d.fulltext is not None), None)
+            if idef is not None:
+                ft_cand = (mt, idef)
+        if label is None and n.cond is not None and not noindex:
+            from surrealdb_tpu_torch.idx.planner import (
+                _array_like_paths,
+                _ft_branch_scan,
+                or_union_branches,
+                union_branch_scan,
+            )
+
+            # plan-time `type::field($param)` resolution applies to the
+            # union analysis too (schemaless parameterized scans)
+            orb = or_union_branches(
+                tb, _resolve_type_fields(n.cond, ctx), indexes, ctx,
+                value_idioms=False,
+            )
+            if orb is not None:
+                from surrealdb_tpu_torch.val import hashable
+
+                branch_lines = []
+                seen_u = set()
+                for br in orb:
+                    brows = 0
+                    if br["kind"] == "ft":
+                        q = evaluate(br["mt"].rhs, ctx)
+                        bl = (
+                            f"FullTextScan [ctx: Db] "
+                            f"[index: {br['idef'].name}, query: {q}]"
+                        )
+                    elif br["kind"] == "range":
+                        acc = " ".join(
+                            f"{op}{render(evaluate(vx, ctx))}"
+                            for op, vx in sorted(
+                                br["tail"][1],
+                                key=lambda t: t[0] in ("<", "<="),
+                            )
+                        )
+                        bl = (
+                            f"IndexScan [ctx: Db] [index: {br['idef'].name}, "
+                            f"access: {acc}, direction: Forward]"
+                        )
+                    elif br["kind"] == "in":
+                        iv = evaluate(br["tail"][1], ctx)
+                        iv = iv if isinstance(iv, list) else [iv]
+                        acc = (
+                            f"= {render(iv[0])}" if len(iv) == 1
+                            else f"IN {render(iv)}"
+                        )
+                        bl = (
+                            f"IndexScan [ctx: Db] [index: {br['idef'].name}, "
+                            f"access: {acc}, direction: Forward]"
+                        )
+                    else:
+                        idef_b = br["idef"]
+                        eq_vals = [
+                            evaluate(br["eqs"][c], ctx)
+                            for c in idef_b.cols_str[:br["nmatch"]]
+                        ]
+                        acc = (
+                            f"= {render(eq_vals[0])}"
+                            if len(eq_vals) == 1 and br["tail"] is None
+                            and len(idef_b.cols_str) == 1
+                            else "[" + ", ".join(
+                                render(x) for x in eq_vals) + "]"
+                        )
+                        bl = (
+                            f"IndexScan [ctx: Db] [index: {idef_b.name}, "
+                            f"access: {acc}, direction: Forward]"
+                        )
+                    if analyze:
+                        srcs = list(union_branch_scan(tb, br, ctx.child()))
+                        brows = len(srcs)
+                        for s in srcs:
+                            if s.rid is not None:
+                                seen_u.add(hashable(s.rid))
+                    branch_lines.append((bl, brows))
+                urows = len(seen_u) if analyze else 0
+                scans.append((
+                    f"UnionIndexScan [ctx: Db] [table: {tb}, "
+                    f"branches: {len(orb)}]",
+                    urows, branch_lines,
+                ))
+                total_scan_rows += urows
+                residual = n.cond
+                continue
+
+            cond_plan = _resolve_type_fields(n.cond, ctx)
+            eqs, ins, rngs = _classify_preds(
+                cond_plan, _array_like_paths(tb, ctx), value_idioms=False
+            )
+            chosen = _choose_index(indexes, eqs, ins, rngs) if (
+                eqs or ins or rngs
+            ) else None
+            union_branches = None
+            if chosen is not None:
+                idef, nmatch, tail, chosen_score = chosen
+                if tail is not None and tail[0] == "in" and nmatch == 0:
+                    iv = evaluate(tail[1], ctx)
+                    iv = iv if isinstance(iv, list) else [iv]
+                    if len(iv) > 32:
+                        # large IN arrays fall back to a table scan
+                        # (reference: in_operator_large_array_fallback)
+                        chosen = None
+                    else:
+                        union_branches = (idef, iv)
+            if ft_cand is not None and (
+                chosen is None or chosen[3] <= 800
+            ):
+                # the MATCHES access (800) outranks everything but a
+                # unique full-equality candidate
+                mt, idef_ft = ft_cand
+                q = evaluate(mt.rhs, ctx)
+                label = (
+                    f"FullTextScan [ctx: Db] [index: {idef_ft.name}, "
+                    f"query: {q}]"
+                )
+                residual = _remove_node(residual, mt)
+                # the scan line reports the raw full-text hit count; the
+                # residual Filter above it shows the post-filter rows
+                rows = 0
+                if analyze:
+                    rows = len(list(_ft_branch_scan(
+                        tb, {"mt": mt, "idef": idef_ft}, ctx.child()
+                    )))
+                scans.append((label, rows))
+                total_scan_rows += rows
+                continue
+            if union_branches is not None and len(union_branches[1]) == 1:
+                idef, iv = union_branches
+                bv = iv[0]
+                label = (
+                    f"IndexScan [ctx: Db] [index: {idef.name}, "
+                    f"access: = {render(bv)}, direction: Forward]"
+                )
+                rows = (
+                    len(list(_iterate_value(v, ctx, n.cond, n)))
+                    if analyze else 0
+                )
+                scans.append((label, rows))
+                total_scan_rows += rows
+                continue
+            if union_branches is not None:
+                idef, iv = union_branches
+                branches = []
+                col = idef.cols_str[0]
+                base_path = col.replace("….", "").replace("…", "")
+                for bv in iv:
+                    brows = 0
+                    if analyze:
+                        from surrealdb_tpu_torch.syn.parser import Parser as _P
+
+                        parts = _P(base_path)._field_name_parts()
+                        for src in _iterate_value(v, ctx):
+                            doc = src.doc if src.rid is not None else src.value
+                            cc = ctx.with_doc(doc, src.rid)
+                            cv = evaluate(Idiom(parts), cc)
+                            if isinstance(cv, list):
+                                flat = []
+                                for x in cv:
+                                    flat.extend(x if isinstance(x, list) else [x])
+                                if any(value_cmp(x, bv) == 0 for x in flat):
+                                    brows += 1
+                            elif value_cmp(cv, bv) == 0:
+                                brows += 1
+                    bacc = (
+                        f"[{render(bv)}]" if len(idef.cols_str) > 1
+                        else f"= {render(bv)}"
+                    )
+                    branches.append((
+                        f"IndexScan [ctx: Db] [index: {idef.name}, "
+                        f"access: {bacc}, direction: Forward]",
+                        brows,
+                    ))
+                urows = 0
+                if analyze:
+                    from surrealdb_tpu_torch.syn.parser import Parser as _P
+
+                    parts = _P(base_path)._field_name_parts()
+                    for src in _iterate_value(v, ctx):
+                        doc = src.doc if src.rid is not None else src.value
+                        cc = ctx.with_doc(doc, src.rid)
+                        cv = evaluate(Idiom(parts), cc)
+                        flat = []
+                        if isinstance(cv, list):
+                            for x in cv:
+                                flat.extend(x if isinstance(x, list) else [x])
+                        else:
+                            flat = [cv]
+                        if any(
+                            value_cmp(x, bv) == 0 for bv in iv for x in flat
+                        ):
+                            urows += 1
+                scans.append((
+                    f"UnionIndexScan [ctx: Db] [table: {tb}, "
+                    f"branches: {len(branches)}]",
+                    urows, branches,
+                ))
+                total_scan_rows += urows
+                continue
+            if chosen is not None:
+                vals = [evaluate(eqs[c], ctx) for c in idef.cols_str[:nmatch]]
+                if nmatch == 0 and tail is not None and tail[0] == "range":
+                    # single-column range: compact ">2000 <2020" form
+                    acc = " ".join(
+                        f"{op}{render(evaluate(vx, ctx))}"
+                        for op, vx in sorted(
+                            tail[1], key=lambda t: t[0] in ("<", "<=")
+                        )
+                    )
+                    tail = ("rng_done", tail[1])
+                elif len(idef.cols_str) > 1 or tail is not None:
+                    acc = "[" + ", ".join(render(x) for x in vals) + "]"
+                else:
+                    acc = f"= {render(vals[0])}" if vals else "[]"
+                # composite tails: only the FIRST range bound rides the
+                # index access; later bounds — and any IN tail after an
+                # eq prefix — drop to a residual Filter (the reference's
+                # streaming executor pushes a single compound range)
+                extra_bound_vxs = []
+                in_tail_residual = False
+                if tail is not None and tail[0] == "range":
+                    # composite access pushes exactly ONE bound (cond
+                    # order); every other bound filters above the scan
+                    opmap = {">": "MoreThan", ">=": "MoreThanEqual",
+                             "<": "LessThan", "<=": "LessThanEqual"}
+                    op, vx = tail[1][0]
+                    acc += f" {opmap.get(op, op)} {render(evaluate(vx, ctx))}"
+                    extra_bound_vxs = [vx2 for _o2, vx2 in tail[1][1:]]
+                elif tail is not None and tail[0] == "in":
+                    if nmatch:
+                        in_tail_residual = True
+                    else:
+                        acc += f" IN {render(evaluate(tail[1], ctx))}"
+                direction = "Forward"
+                if (
+                    n.order
+                    and n.order != "rand"
+                    and len(n.order) == 1
+                    and tail is not None
+                    and tail[0] in ("range", "rng_done")
+                ):
+                    oexpr, odir, _oc, _on = n.order[0]
+                    from surrealdb_tpu_torch.idx.planner import _field_path as _fp
+
+                    if _fp(oexpr) == idef.cols_str[nmatch] \
+                            and single_target:
+                        if odir == "desc":
+                            direction = "Backward"
+                        n = _strip_order(n)
+                if (
+                    idef.unique
+                    and nmatch == len(idef.cols_str)
+                    and tail is None
+                    and n.order
+                    and n.order != "rand"
+                ):
+                    # a UNIQUE full-equality access yields at most one row:
+                    # the streaming planner elides the sort entirely
+                    n = _strip_order(n)
+                limattr = ""
+                if (
+                    n.limit is not None
+                    and n.group is None
+                    and (not n.order or n.order == [])
+                    and single_target
+                ):
+                    pushed_limit = int(evaluate(n.limit, ctx))
+                    limattr = f", limit: {pushed_limit}"
+                    n = _strip_limit(n)
+                    if n.start is not None:
+                        # START pushes with LIMIT (reference limit/offset
+                        # pushdown into the index scan)
+                        limattr += f", offset: {int(evaluate(n.start, ctx))}"
+                        n = _strip_start(n)
+                label = (
+                    f"IndexScan [ctx: Db] [index: {idef.name}, access: {acc}, "
+                    f"direction: {direction}{limattr}]"
+                )
+                # residual: predicates not covered by the index
+                covered = set(idef.cols_str[:nmatch])
+                if tail is not None and not in_tail_residual:
+                    covered.add(idef.cols_str[nmatch])
+                preds = []
+                from surrealdb_tpu_torch.idx.planner import _split_ands, _field_path
+
+                _split_ands(n.cond, preds)
+                keep = []
+                for pred in preds:
+                    from surrealdb_tpu_torch.expr.ast import Binary as _B
+
+                    pth = None
+                    enforceable = False
+                    is_extra_bound = False
+                    if isinstance(pred, _B):
+                        lp0 = _field_path(pred.lhs)
+                        pth = lp0 or _field_path(pred.rhs)
+                        # containment accesses (value INSIDE field, field
+                        # CONTAINS v) scan candidate elements — the
+                        # predicate always re-filters above the scan
+                        enforceable = pred.op in (
+                            "=", "==", "<", "<=", ">", ">="
+                        ) or (pred.op == "∈" and lp0 is not None)
+                        # later range bounds on the tail column dropped
+                        # out of the access string — they filter above
+                        is_extra_bound = any(
+                            pred.rhs is vx or pred.lhs is vx
+                            for vx in extra_bound_vxs
+                        )
+                    if pth is None or pth not in covered or not enforceable \
+                            or is_extra_bound:
+                        keep.append(pred)
+                residual = None
+                for pred in keep:
+                    from surrealdb_tpu_torch.expr.ast import Binary as _B
+
+                    residual = (
+                        pred if residual is None
+                        else _B("&&", residual, pred)
+                    )
+        if (
+            label is None
+            and n.cond is None
+            and n.order
+            and n.order != "rand"
+            and len(n.order) == 1
+            and n.group is None
+            and n.start is None
+            and not noindex
+            and single_target
+        ):
+            # ORDER BY an indexed column: scan the index in order and
+            # push the limit into the scan (reference limit pushdown)
+            oexpr, odir, _oc, _on2 = n.order[0]
+            opath = expr_name(oexpr)
+            idef2 = next(
+                (d for d in indexes
+                 if d.cols_str and d.cols_str[0] == opath
+                 and d.fulltext is None and d.hnsw is None),
+                None,
+            )
+            if idef2 is not None:
+                direction = "Backward" if odir == "desc" else "Forward"
+                limattr = ""
+                if n.limit is not None:
+                    pushed_limit = int(evaluate(n.limit, ctx))
+                    limattr = f", limit: {pushed_limit}"
+                label = (
+                    f"IndexScan [ctx: Db] [index: {idef2.name}, access: "
+                    f", direction: {direction}{limattr}]"
+                )
+                n = _strip_limit(_strip_order(n))
+        if label is None and n.cond is not None and single_target:
+            # point lookup: a conjunct `id = <record>` scans one record
+            # (reference RecordIdScan)
+            prid = _id_eq_rid(n.cond, tb)
+            if prid is not None:
+                from surrealdb_tpu_torch.exec.stream import _inline_params
+
+                pred_s = _expr_sql(
+                    _elide_count_args(_inline_params(n.cond, ctx))
+                )
+                label = (
+                    f"RecordIdScan [ctx: Db] [record_id: {prid.render()}, "
+                    f"predicate: {pred_s}]"
+                )
+                residual = None
+        if label is None and ctx.doc is not None and single_target:
+            # scans inside a per-document context (computed fields, field
+            # clauses) re-plan per evaluation: the reference labels them
+            # DynamicScan with params UN-inlined (they're row-dynamic)
+            extra = ""
+            if n.cond is not None:
+                extra += f", predicate: {_expr_sql(n.cond)}"
+                residual = None
+            if n.limit is not None and not n.order and n.group is None:
+                extra += f", limit: {int(evaluate(n.limit, ctx))}"
+                if n.start is not None:
+                    extra += f", offset: {int(evaluate(n.start, ctx))}"
+            label = f"DynamicScan [ctx: Db] [source: {tb}{extra}]"
+        if label is None:
+            extra = ""
+            if n.cond is not None and single_target:
+                # a single table scan absorbs the predicate; multi-source
+                # and subquery plans keep a Filter node above (reference
+                # explain/complex.surql). Params render inlined: physical
+                # exprs hold evaluated constants.
+                from surrealdb_tpu_torch.exec.stream import _inline_params
+                extra += f", predicate: {_expr_sql(_elide_count_args(_inline_params(n.cond, ctx)))}"
+                residual = None
+            if (
+                n.limit is not None
+                and not n.order
+                and n.group is None
+            ):
+                pushed_limit = int(evaluate(n.limit, ctx))
+                extra += f", limit: {pushed_limit}"
+                if n.start is not None:
+                    pushed_offset = int(evaluate(n.start, ctx))
+                    extra += f", offset: {pushed_offset}"
+            label = (
+                f"TableScan [ctx: Db] [table: {tb}, "
+                f"direction: {scan_dir}{extra}]"
+            )
+        if analyze:
+            # scans report their own emitted rows (pre-residual-filter);
+            # table scans with inlined predicates report post-filter
+            if label.startswith("TableScan") and n.cond is not None:
+                kept = 0
+                for src in _iterate_value(v, ctx, None, None):
+                    doc = src.doc if src.rid is not None else src.value
+                    cc = ctx.with_doc(doc, src.rid)
+                    if is_truthy(evaluate(n.cond, cc)):
+                        kept += 1
+                rows = kept
+            else:
+                rows = len(list(_iterate_value(v, ctx, n.cond, n)))
+            # a limit pushed into the scan caps the rows it emits
+            if pushed_limit is not None:
+                off = pushed_offset or 0
+                rows = max(0, min(pushed_limit, rows - off))
+        else:
+            rows = 0
+        scans.append((label, rows))
+        total_scan_rows += rows
+
+    # assemble the tree bottom-up
+    mid_lines = []
+    # run the select for row counts of upper operators
+    out_rows_n = 0
+    if analyze:
+        saved = orig_n.explain
+        orig_n.explain = None
+        try:
+            result = _s_select(orig_n, ctx.child())
+        finally:
+            orig_n.explain = saved
+        out_rows_n = len(result) if isinstance(result, list) else 1
+
+    root_lines = []
+    lookup_lines = []  # raw pre-indented graph field.lookup sub-trees
+    scan_lines = []  # (reldepth, text, rows)
+
+    def _emit_scan(depth, entry):
+        if entry[0] == "__raw__":
+            # a nested sub-plan: pre-rendered lines, re-indented at
+            # assembly relative to this slot
+            for line in entry[2]:
+                scan_lines.append((("raw", depth), line, 0))
+            return
+        scan_lines.append((depth, entry[0], entry[1]))
+        if len(entry) > 2 and entry[2]:
+            for bl, br in entry[2]:
+                scan_lines.append((depth + 1, bl, br))
+
+    if len(scans) > 1:
+        scan_lines.append((0, "Union [ctx: Db]", total_scan_rows))
+        for entry in scans:
+            _emit_scan(1, entry)
+    else:
+        _emit_scan(0, scans[0])
+    if knn_brute is not None:
+        knn_o, dim_o = knn_brute
+        dist_name = (knn_o.dist or "EUCLIDEAN").capitalize()
+        filt_line = None
+        if len(scans) > 1 and knn_residual is not None:
+            filt_rows = 0
+            if analyze:
+                for expr in n.what:
+                    vv = _target_value(expr, ctx)
+                    for src in _iterate_value(vv, ctx, None, None):
+                        doc = src.doc if src.rid is not None else src.value
+                        cc = ctx.with_doc(doc, src.rid)
+                        if is_truthy(evaluate(knn_residual, cc)):
+                            filt_rows += 1
+            filt_line = (
+                f"Filter [ctx: Db] [predicate: {_expr_sql(knn_residual)}]",
+                filt_rows,
+            )
+        else:
+            filt_rows = scans[0][1] if scans else 0
+        ktop_rows = min(knn_o.k, filt_rows) if analyze else 0
+        wrapped = [(
+            0,
+            f"KnnTopK [ctx: Db] [field: {expr_name(knn_o.lhs)}, "
+            f"k: {knn_o.k}, distance: {dist_name}, dimension: {dim_o}]",
+            ktop_rows,
+        )]
+        shift = 1
+        if filt_line is not None:
+            wrapped.append((1, filt_line[0], filt_line[1]))
+            shift = 2
+        scan_lines = wrapped + [(_shift_depth(d, shift), t, r) for d, t, r in scan_lines]
+    if not single_target and n.cond is not None and knn_brute is None:
+        # multi-source plans always filter above the Union — a per-branch
+        # index access can't cover the other branches (explain/complex)
+        residual = n.cond
+    if residual is not None:
+        # rows THROUGH the filter: equals the final row count except under
+        # grouping, where the aggregate collapses them (5581_select_count)
+        filt_rows = out_rows_n
+        if analyze and n.group is not None and single_target:
+            try:
+                v0 = _target_value(n.what[0], ctx)
+                cctx = ctx.child()
+                filt_rows = 0
+                for src in _iterate_value(v0, cctx, n.cond, n):
+                    doc = src.doc if src.rid is not None else src.value
+                    if n.cond is None or cctx._cond_consumed or is_truthy(
+                        evaluate(n.cond, cctx.with_doc(doc, src.rid))
+                    ):
+                        filt_rows += 1
+            except SdbError:
+                filt_rows = out_rows_n
+        scan_lines = [
+            (0, "Filter [ctx: Db] [predicate: "
+             f"{_expr_sql(_label_cond(residual, ctx))}]",
+             filt_rows)
+        ] + [(_shift_depth(d, 1), t, r) for d, t, r in scan_lines]
+    if n.split:
+        names = ", ".join(expr_name(sp) for sp in n.split)
+        scan_lines = [
+            (0, f"Split [ctx: Db] [on: {names}]", out_rows_n)
+        ] + [(_shift_depth(d, 1), t, r) for d, t, r in scan_lines]
+    # aggregation / projection root
+    if n.group is not None:
+        if n.group:
+            by = ", ".join(expr_name(g) for g in n.group) or ", ".join(
+                (a or expr_name(e))
+                for e, a in n.exprs
+                if e != "*" and not _is_aggregate(e)
+            )
+            root_lines.append((f"Aggregate [ctx: Db] [by: {by}]", out_rows_n))
+        else:
+            # count-only GROUP ALL uses the dedicated count scans
+            only_count = (
+                len(n.exprs) == 1
+                and isinstance(n.exprs[0][0], FunctionCall)
+                and n.exprs[0][0].name.lower() == "count"
+                and not n.exprs[0][0].args
+            )
+            if only_count and len(n.what) == 1 and len(scans) == 1:
+                label, rows = scans[0][0], scans[0][1]
+                tbname = label.split("table: ")[1].split(",")[0].rstrip(
+                    "]"
+                ) if "table: " in label else None
+                tv = _target_value(n.what[0], ctx)
+                if isinstance(tv, RecordId) and isinstance(tv.id, Range) \
+                        and n.cond is None:
+                    rg = tv.id
+                    rsrc = (
+                        f"{tv.tb}:{render(rg.beg)}"
+                        + ("..=" if rg.end_incl else "..")
+                        + render(rg.end)
+                    )
+                    text = f"CountScan [ctx: Db] [source: {rsrc}]"
+                    return _render_tree([(0, text, 1 if analyze else 0)],
+                                        analyze, 1)
+                if label.startswith("TableScan") and n.cond is None:
+                    from surrealdb_tpu_torch.val import escape_ident as _esc2
+
+                    text = (
+                        f"CountScan [ctx: Db] [source: {_esc2(tbname)}]"
+                    )
+                    return _render_tree([(0, text, 1 if analyze else 0)],
+                                        analyze, 1)
+                if label.startswith("IndexScan") and residual is None:
+                    # a count scan needs the index to cover the WHOLE
+                    # predicate; residuals require real documents
+                    tbn = _target_value(n.what[0], ctx).name
+                    cond_s = _expr_sql(n.cond) if n.cond is not None else ""
+                    text = (
+                        f"IndexCountScan [ctx: Db] [source: {tbn}, "
+                        f"condition: {cond_s}]"
+                    )
+                    return _render_tree([(0, text, 1 if analyze else 0)],
+                                        analyze, 1)
+            root_lines.append(
+                ("Aggregate [ctx: Db] [mode: GROUP ALL]",
+                 max(out_rows_n, 1))
+            )
+    else:
+        if n.value is not None:
+            root_lines.append(
+                (f"ProjectValue [ctx: Db] [expr: {_expr_sql(n.value)}]",
+                 out_rows_n)
+            )
+            if isinstance(n.value, Idiom):
+                prec = next(
+                    (p for p in n.value.parts if isinstance(p, PRecurse)),
+                    None,
+                )
+                if prec is not None:
+                    pi = n.value.parts.index(prec)
+                    lookup_lines.append((
+                        "expr.recurse",
+                        _recurse_flat(prec, n.value.parts[pi + 1:]),
+                    ))
+        else:
+            # bare `Project` is the pass-through root over RecordIdScans
+            # (point lookups, keys-only counts); once an ORDER/LIMIT
+            # pipeline sits above the scan the reference renders the full
+            # SelectProject (explain/select_basic, count_range_keys_only
+            # vs reverse_iterator_range)
+            only_rid_scans = scans and all(
+                entry[0].startswith("RecordIdScan")
+                and "predicate:" not in entry[0] for entry in scans
+            ) and not (n.order and n.order != "rand") and n.limit is None
+            graph_projs = bool(n.exprs) and all(
+                e != "*" and isinstance(e, Idiom)
+                and any(isinstance(p, PGraph) for p in e.parts)
+                for e, _a in n.exprs
+            )
+            if graph_projs:
+                # graph-lookup projections: bare Project root with one
+                # `field.lookup:` sub-tree per projection
+                root_lines.append(("Project [ctx: Db]", out_rows_n))
+                for e, _a in n.exprs:
+                    flat = _graph_hops_flat(e.parts)
+                    if flat:
+                        lookup_lines.append(("field.lookup", flat))
+            elif only_rid_scans:
+                root_lines.append(("Project [ctx: Db]", out_rows_n))
+            else:
+                def _proj_name(e, a):
+                    if a:
+                        return a
+                    # destructure projections list the BASE field; the
+                    # destructure itself runs in a Compute node
+                    if isinstance(e, Idiom):
+                        cut = next(
+                            (ix for ix, p in enumerate(e.parts)
+                             if isinstance(p, PDestructure)), None)
+                        if cut:
+                            return expr_name(Idiom(list(e.parts[:cut])))
+                    return expr_name(e)
+
+                projs = ", ".join(
+                    "*" if e == "*" else _proj_name(e, a) for e, a in n.exprs
+                )
+                root_lines.append(
+                    (f"SelectProject [ctx: Db] [projections: {projs}]",
+                     out_rows_n)
+                )
+                # function-call fields render with elided args (reference
+                # operator pretty-print: `vector::distance::knn(...)`)
+                computed = [
+                    f"{a or expr_name(e)} = " + (
+                        f"{e.name}(...)" if isinstance(e, FunctionCall)
+                        else _expr_sql(e)
+                    )
+                    for e, a in n.exprs
+                    if e != "*" and not isinstance(e, Idiom)
+                ]
+                for e, a in n.exprs:
+                    if e == "*" or not isinstance(e, Idiom):
+                        continue
+                    if any(isinstance(p, PDestructure) for p in e.parts) \
+                            and not any(
+                                isinstance(p, PRecurse) for p in e.parts
+                            ):
+                        computed.append(
+                            f"{_proj_name(e, a)} = "
+                            f"{expr_name(e, sql=True)}"
+                        )
+                # recursion idioms compute through a Recurse sub-plan
+                for e, a in n.exprs:
+                    if e == "*" or not isinstance(e, Idiom):
+                        continue
+                    prec = next(
+                        (p for p in e.parts if isinstance(p, PRecurse)),
+                        None,
+                    )
+                    if prec is None:
+                        continue
+                    nm = a or expr_name(e)
+                    computed.append(f"{nm} = {expr_name(e, sql=True)}")
+                    pi = e.parts.index(prec)
+                    lookup_lines.append((
+                        f"{nm}.recurse",
+                        _recurse_flat(prec, e.parts[pi + 1:]),
+                    ))
+                if computed:
+                    mid_lines.insert(
+                        0,
+                        (f"Compute [ctx: Db] [fields: {', '.join(computed)}]",
+                         out_rows_n),
+                    )
+    # order / limit layers: grouped sorts sit ABOVE the Aggregate; plain
+    # sorts sit under the projection
+    if n.order and n.order != "rand":
+        keys = ", ".join(
+            f"{expr_name(e)} {'DESC' if d == 'desc' else 'ASC'}"
+            for e, d, _c, _n2 in n.order
+        )
+        if n.group is not None:
+            if n.limit is not None:
+                lim = int(evaluate(n.limit, ctx))
+                root_lines.insert(
+                    0,
+                    (f"SortTopK [ctx: Db] [order_by: {keys}, limit: {lim}]",
+                     out_rows_n),
+                )
+            else:
+                root_lines.insert(
+                    0, (f"Sort [ctx: Db] [order_by: {keys}]", out_rows_n)
+                )
+        elif n.limit is not None:
+            lim = int(evaluate(n.limit, ctx))
+            off = int(evaluate(n.start, ctx)) if n.start is not None else 0
+            # sorts sit directly under the projection, above Compute; the
+            # top-k keeps limit+offset rows, the Limit node drops the skip
+            mid_lines.insert(
+                0,
+                (f"SortTopKByKey [ctx: Db] [sort_keys: {keys}, "
+                 f"limit: {lim + off}]",
+                 out_rows_n)
+            )
+            limattr2 = f"limit: {lim}, offset: {off}" \
+                if n.start is not None else f"limit: {lim}"
+            mid_lines.insert(
+                0, (f"Limit [ctx: Db] [{limattr2}]", out_rows_n)
+            )
+        else:
+            # ORDER BY id ASC over a single forward table scan streams in
+            # key order already — the sort is elided (iterator order)
+            id_asc = (
+                len(n.order) == 1
+                and n.order[0][1] != "desc"
+                and expr_name(n.order[0][0]) == "id"
+                and len(scans) == 1
+                and scans[0][0].startswith("TableScan")
+                and "direction: Forward" in scans[0][0]
+            )
+            if not id_asc:
+                mid_lines.insert(
+                    0,
+                    (f"SortByKey [ctx: Db] [sort_keys: {keys}]", out_rows_n)
+                )
+    if n.limit is not None and n.group is not None:
+        lim = int(evaluate(n.limit, ctx))
+        root_lines.insert(0, (f"Limit [ctx: Db] [limit: {lim}]", out_rows_n))
+    if n.fetch:
+        fields = ", ".join(expr_name(f) for f in n.fetch)
+        root_lines.insert(
+            0, (f"Fetch [ctx: Db] [fields: {fields}]", out_rows_n)
+        )
+    stacked = [(i, t, r) for i, (t, r) in enumerate(root_lines + mid_lines)]
+    base = len(stacked)
+    raw = []
+    for label, flat in lookup_lines:
+        for line in _lookup_raw_lines(label, flat, max(base - 1, 0)):
+            raw.append((None, line, 0))
+    shifted = []
+    for d, t, r in scan_lines:
+        if isinstance(d, tuple):
+            shifted.append((None, "    " * (base + d[1]) + t, 0))
+        else:
+            shifted.append((base + d, t, r))
+    ordered = stacked + raw + shifted
+    if json_fmt:
+        return _tree_to_json(ordered, analyze, out_rows_n)
+    return _render_tree(ordered, analyze, out_rows_n)
+
+
+def _id_eq_rid(cond, tb):
+    """A top-level AND conjunct `id = <record>` / `<record> = id` (or ==)
+    naming the scanned table -> the RecordId, else None (RecordIdScan)."""
+    from surrealdb_tpu_torch.expr.ast import Binary as _B, Literal as _L
+
+    preds = []
+    from surrealdb_tpu_torch.idx.planner import _split_ands
+
+    _split_ands(cond, preds)
+    for p in preds:
+        if not (isinstance(p, _B) and p.op in ("=", "==")):
+            continue
+        for lhs, rhs in ((p.lhs, p.rhs), (p.rhs, p.lhs)):
+            if isinstance(lhs, Idiom) and len(lhs.parts) == 1 and \
+                    isinstance(lhs.parts[0], PField) and \
+                    lhs.parts[0].name == "id":
+                v = None
+                if isinstance(rhs, _L) and isinstance(rhs.value, RecordId):
+                    v = rhs.value
+                else:
+                    from surrealdb_tpu_torch.expr.ast import RecordIdLit as _RL
+
+                    if isinstance(rhs, _RL):
+                        try:
+                            from surrealdb_tpu_torch.exec.static_eval import (
+                                static_value,
+                            )
+
+                            v = static_value(rhs)
+                        except Exception:
+                            v = None
+                if isinstance(v, RecordId) and v.tb == tb and \
+                        not isinstance(v.id, Range):
+                    return v
+    return None
+
+
 def _elide_count_args(node):
     """Predicate labels render count(->edge) as count(...) (reference
     count-exists rewriter plan text)."""
@@ -1574,12 +2588,639 @@ def _resolve_type_fields(node, ctx):
     return rec(node)
 
 
+def _label_cond(node, ctx):
+    """Filter-label rendering: function args elide (count(...),
+    type::field(...)) and doc-free IN/INSIDE arrays fold to their
+    evaluated values."""
+    import copy as _copy
+
+    from surrealdb_tpu_torch.expr.ast import ArrayExpr as _AE
+    from surrealdb_tpu_torch.expr.ast import Binary as _B, Constant as _C
+    from surrealdb_tpu_torch.expr.ast import FunctionCall as _FC
+    from surrealdb_tpu_torch.expr.ast import Literal as _L
+
+    def rec(e):
+        if isinstance(e, _FC) and e.args and e.name.lower() in (
+            "count", "type::field", "type::fields"
+        ):
+            e2 = _copy.copy(e)
+            e2.args = [_C("...")]
+            return e2
+        if isinstance(e, _B):
+            e2 = _copy.copy(e)
+            e2.lhs = rec(e.lhs)
+            e2.rhs = rec(e.rhs)
+            if e2.op in ("∈", "IN") and isinstance(e.rhs, _AE):
+                try:
+                    e2.rhs = _L(evaluate(e.rhs, ctx))
+                except SdbError:
+                    pass
+            return e2
+        return e
+
+    return rec(node)
+
+
+def _strip_order(n):
+    import copy as _copy
+
+    n2 = _copy.copy(n)
+    n2.order = []
+    return n2
+
+
+def _strip_limit(n):
+    import copy as _copy
+
+    n2 = _copy.copy(n)
+    n2.limit = None
+    return n2
+
+
+def _strip_start(n):
+    import copy as _copy
+
+    n2 = _copy.copy(n)
+    n2.start = None
+    return n2
+
+
 import re as _re_mod
+
+
+def _tree_to_json(entries, analyze, total):
+    """Structured (FORMAT JSON) explain: {operator, context, attributes,
+    children[, metrics, total_rows]} (reference exec explain JSON)."""
+    # raw pre-indented lookup lines (depth None) carry no tree position;
+    # recover depth from their indentation so the JSON nest stays sane
+    fixed = []
+    for d, t, r in entries:
+        if d is None:
+            stripped = t.lstrip(" ")
+            d = max((len(t) - len(stripped)) // 4, 0)
+            t = stripped
+        fixed.append((d, t, r))
+    entries = fixed
+    rx = _re_mod.compile(
+        r"^(?P<op>\w+) \[ctx: (?P<ctx>\w+)\](?: \[(?P<attrs>.*)\])?$"
+    )
+
+    def parse(text):
+        m = rx.match(text)
+        if m is None:
+            return {"operator": text, "context": "Db", "attributes": {}}
+        attrs = {}
+        raw = m.group("attrs")
+        if raw:
+            for part in _re_mod.split(r", (?=[\w.]+: )", raw):
+                k, _, v = part.partition(": ")
+                attrs[k] = v
+        out = {
+            "operator": m.group("op"),
+            "context": m.group("ctx"),
+            "attributes": attrs,
+        }
+        if m.group("op") == "Filter" and "predicate" in attrs:
+            # reference Filter nodes also carry an expressions list
+            out["expressions"] = [
+                {"role": "predicate", "sql": attrs["predicate"]}
+            ]
+        return out
+
+    nodes = []
+    stack = []  # (depth, node)
+    root = None
+    for depth, text, rows in entries:
+        node = parse(text)
+        node["children"] = []
+        if analyze:
+            node["metrics"] = {"output_rows": rows}
+        while stack and stack[-1][0] >= depth:
+            stack.pop()
+        if stack:
+            stack[-1][1]["children"].append(node)
+        else:
+            root = node
+        stack.append((depth, node))
+        nodes.append(node)
+    if root is None:
+        root = {"operator": "Empty", "context": "Db", "attributes": {},
+                "children": []}
+    def prune(nd):
+        if not nd["children"]:
+            nd.pop("children", None)
+        else:
+            for ch in nd["children"]:
+                prune(ch)
+    prune(root)
+    if analyze:
+        root["total_rows"] = total
+    return root
+
+
+def _unwrap_start(e):
+    """Unwrap a single-part start-tuple idiom to its inner expression."""
+    if isinstance(e, Idiom) and len(e.parts) == 1 and \
+            isinstance(e.parts[0], tuple) and e.parts[0][0] == "start":
+        return e.parts[0][1]
+    return e
+
+
+def _shift_depth(d, k):
+    """Shift a scan-line depth by k; raw sub-plan lines carry tuple depths."""
+    if isinstance(d, tuple):
+        return (d[0], d[1] + k)
+    return d + k
+
+
+def _render_tree(entries, analyze, total):
+    out = []
+    for depth, text, rows in entries:
+        if depth is None:
+            # raw pre-indented line (graph lookup sub-trees)
+            out.append(text)
+            continue
+        line = ("    " * depth) + text
+        if analyze:
+            line += f" {{rows: {rows}}}"
+        out.append(line)
+    s = "\n".join(out) + "\n"
+    if analyze:
+        s += f"\nTotal rows: {total}"
+    return s
+
+
+def _graph_hops_flat(parts):
+    """Top-down node labels for a graph-lookup chain: hops render
+    outermost-last-hop-first, ending at CurrentValueSource (reference
+    exec/operators/scan/graph.rs GraphEdgeScan explain). Subquery hops
+    render their SELECT plan over a FullEdge-output scan."""
+    from surrealdb_tpu_torch.exec.render_def import _expr_sql
+    from surrealdb_tpu_torch.expr.ast import PGraph
+
+    arrows = {"out": "->", "in": "<-", "both": "<->", "ref": "<~"}
+    hops = [p for p in parts if isinstance(p, PGraph)]
+    if not hops:
+        return None
+    flat = []
+    for g in reversed(hops):
+        if getattr(g, "expr", None) is not None:
+            sel = g.expr
+            tbls = ", ".join(expr_name(w) for w in sel.what)
+            if sel.group:
+                by = ", ".join(expr_name(x) for x in sel.group)
+                flat.append(f"Aggregate [ctx: Db] [by: {by}]")
+            else:
+                projs = ", ".join(
+                    "*" if e == "*" else (a or expr_name(e))
+                    for e, a in sel.exprs
+                ) or "*"
+                flat.append(
+                    f"SelectProject [ctx: Db] [projections: {projs}]"
+                )
+            if sel.cond is not None:
+                flat.append(
+                    f"Filter [ctx: Db] [predicate: {_expr_sql(sel.cond)}]"
+                )
+            flat.append(
+                f"GraphEdgeScan [ctx: Db] [direction: {arrows[g.dir]}, "
+                f"tables: {tbls}, output: FullEdge]"
+            )
+        else:
+            tbls = ", ".join(w[0] for w in g.what) if g.what else "?"
+            flat.append(
+                f"GraphEdgeScan [ctx: Db] [direction: {arrows[g.dir]}, "
+                f"tables: {tbls}, output: TargetId]"
+            )
+    flat.append("CurrentValueSource [ctx: Rt]")
+    return flat
+
+
+def _recurse_flat(prec, following=()):
+    """Node labels for a `.{n}` recursion: a Recurse head, then the
+    repeated path's hop chain. A destructure body (inside the braces or
+    as the following part) is `pattern: tree` with no hop chain."""
+    from surrealdb_tpu_torch.expr.ast import PDestructure as _PD
+
+    if prec.min == prec.max and prec.min is not None:
+        depth_s = str(prec.min)
+    elif prec.max is None:
+        depth_s = f"{1 if prec.min is None else prec.min}.."
+    else:
+        depth_s = f"{1 if prec.min is None else prec.min}..{prec.max}"
+    attrs = (
+        f"depth: {depth_s}, instruction: {prec.instruction or 'default'}"
+    )
+    inner = list(prec.parts or [])
+    nxt = following[0] if following else None
+    if any(isinstance(x, _PD) for x in inner) or (
+        not inner and isinstance(nxt, _PD)
+    ):
+        attrs += ", pattern: tree"
+        return [f"Recurse [ctx: Db] [{attrs}]"]
+    head = [f"Recurse [ctx: Db] [{attrs}]"]
+    hops = _graph_hops_flat(inner)
+    return head + (hops if hops else ["CurrentValueSource [ctx: Rt]"])
+
+
+def _lookup_raw_lines(label, flat, parent_depth):
+    """Render a `{label}: <tree>` block: the label line sits 2 spaces past
+    the parent's indent, nested nodes 4 more each."""
+    base = "    " * parent_depth + "  "
+    lines = [f"{base}{label}: {flat[0]}"]
+    for i, lab in enumerate(flat[1:], 1):
+        lines.append(base + "    " * i + lab)
+    return lines
+
+
+def _graph_lookup_lines(parts, label, parent_depth=0):
+    flat = _graph_hops_flat(parts)
+    if flat is None:
+        return None
+    return _lookup_raw_lines(label, flat, parent_depth)
+
+
+def _s_explain_generic(n: ExplainStmt, ctx: Ctx):
+    """EXPLAIN of non-select statements: AST pretty-print (Rt context)."""
+    from surrealdb_tpu_torch.exec.render_def import _expr_sql
+
+    lines = []
+
+    def walk_node(node, depth):
+        from surrealdb_tpu_torch.expr.ast import (
+            BreakStmt as _Br,
+            ContinueStmt as _Co,
+            ForStmt as _For,
+            IfElse as _If,
+            LetStmt as _Let,
+            ReturnStmt as _Ret,
+            Subquery as _Sub,
+            ThrowStmt as _Th,
+        )
+
+        if isinstance(node, _Ret):
+            lines.append((depth, "Return [ctx: Rt]"))
+            walk_node(node.what, depth + 1)
+        elif isinstance(node, _Th):
+            lines.append(
+                (depth, f"Expr [ctx: Rt] [expr: THROW {_expr_sql(node.what)}]")
+            )
+        elif isinstance(node, _Br):
+            lines.append((depth, "Expr [ctx: Rt] [expr: BREAK]"))
+        elif isinstance(node, _Co):
+            lines.append((depth, "Expr [ctx: Rt] [expr: CONTINUE]"))
+        elif isinstance(node, _Let):
+            lines.append((depth, f"Let [ctx: Rt] [param: ${node.name}]"))
+            walk_node(node.what, depth + 1)
+        elif isinstance(node, _For):
+            from surrealdb_tpu_torch.expr.ast import BlockExpr as _Blk
+
+            nstmts = (
+                len(node.body.stmts) if isinstance(node.body, _Blk) else 1
+            )
+            lines.append((
+                depth,
+                f"Foreach [ctx: Rt] [param: {node.param}, statements: {nstmts}]",
+            ))
+        elif isinstance(node, _If):
+            attrs = f"branches: {len(node.branches)}"
+            if node.otherwise is not None:
+                attrs += ", has_else: true"
+            lines.append((depth, f"IfElse [ctx: Rt] [{attrs}]"))
+        elif isinstance(node, _Sub):
+            walk_node(node.stmt, depth)
+        elif isinstance(node, SleepStmt):
+            dur = evaluate(node.duration, ctx)
+            lines.append((
+                depth,
+                f"Sleep [ctx: Rt] [duration: {render(dur)}]",
+            ))
+        elif isinstance(node, Idiom) and any(
+            isinstance(p, PGraph) for p in node.parts
+        ):
+            # graph-lookup idiom: the Expr line plus a nested lookup tree
+            from surrealdb_tpu_torch.exec.render_def import _select_sql
+
+            arrows = {"out": "->", "in": "<-", "both": "<->", "ref": "<~"}
+            pieces = []
+            for p in node.parts:
+                if isinstance(p, tuple) and p[0] == "start":
+                    pieces.append(f"({_expr_sql(p[1])})")
+                elif isinstance(p, PGraph):
+                    if getattr(p, "expr", None) is not None:
+                        pieces.append(
+                            f"{arrows[p.dir]}({_select_sql(p.expr)})"
+                        )
+                    else:
+                        nm = ", ".join(w[0] for w in p.what) \
+                            if p.what else "?"
+                        pieces.append(f"{arrows[p.dir]}{nm}")
+                elif isinstance(p, PField):
+                    pieces.append(f".{p.name}")
+            lines.append(
+                (depth, f"Expr [ctx: Db] [expr: {''.join(pieces)}]")
+            )
+            for raw in _graph_lookup_lines(node.parts, "expr.lookup"):
+                lines.append((None, raw))
+        else:
+            lines.append((depth, f"Expr [ctx: Rt] [expr: {_expr_sql(node)}]"))
+
+    walk_node(n.stmt, 0)
+    out = []
+    rows_suffix = " {rows: 0}" if n.analyze else ""
+    for depth, text in lines:
+        if depth is None:
+            out.append(text)
+            continue
+        out.append(("    " * depth) + text + rows_suffix)
+    s_out = "\n".join(out) + "\n"
+    if n.analyze:
+        # bare expressions report one row; control-flow statements zero
+        is_bare = lines and lines[0][1].startswith("Expr ")
+        total = 1 if is_bare else 0
+        s_out += f"\nTotal rows: {total}"
+    return s_out
+
+
+def _explain_select(n: SelectStmt, ctx):
+    """EXPLAIN — report the plan the iterator would use (dbs/plan.rs).
+    EXPLAIN FULL also executes and reports fetch counts."""
+    if ctx.session.planner_strategy == "all-ro":
+        return _explain_streaming(n, ctx)
+    from surrealdb_tpu_torch.idx.planner import explain_plan
+
+    out = []
+    range_target = False
+    for expr in n.what:
+        v = _target_value(expr, ctx)
+        if isinstance(v, Table):
+            plan_e = explain_plan(v.name, n.cond, ctx, n)
+            out.extend(plan_e if isinstance(plan_e, list) else [plan_e])
+            if n.with_index == []:
+                out.append(
+                    {
+                        "detail": {"reason": "WITH NOINDEX"},
+                        "operation": "Fallback",
+                    }
+                )
+        elif isinstance(v, RecordId) and isinstance(v.id, Range):
+            rg = v.id
+            direction = "forward"
+            if (
+                n.order
+                and n.order != "rand"
+                and len(n.order) == 1
+                and n.order[0][1] == "desc"
+                and expr_name(n.order[0][0]) == "id"
+            ):
+                direction = "backward"
+            rs = rg
+            range_target = True
+            count_only_rng = (
+                n.cond is None
+                and not n.order
+                and len(n.exprs) == 1
+                and isinstance(n.exprs[0][0], FunctionCall)
+                and n.exprs[0][0].name.lower() == "count"
+                and not n.exprs[0][0].args
+            )
+            if count_only_rng and n.group == []:
+                rng_op = "Iterate Range Count"
+            elif count_only_rng and n.group is None:
+                rng_op = "Iterate Range Keys"
+            else:
+                rng_op = "Iterate Range"
+            out.append(
+                {
+                    "detail": {
+                        "direction": direction,
+                        "range": rs,
+                        "table": v.tb,
+                    },
+                    "operation": rng_op,
+                }
+            )
+        else:
+            out.append(
+                {
+                    "detail": {"type": "Value"},
+                    "operation": "Iterate Value",
+                }
+            )
+    # an index range scan that consumed the ORDER BY (in-order / backward
+    # iteration) behaves order-free for the start/limit strategy
+    # (iterator.rs can_cancel_on_limit); the marker is internal-only
+    order_consumed = any([
+        o.get("detail", {}).pop("_order_consumed", False)
+        for o in out
+        if isinstance(o.get("detail"), dict)
+    ])  # list-comp: pop the marker from EVERY entry before any() looks
+    out.append(_collector_detail(n, ctx))
+    if n.explain in ("full", "postfix-full"):
+        out.append(
+            {
+                "detail": {"type": "KeysAndValues"},
+                "operation": "RecordStrategy",
+            }
+        )
+        if (n.start is not None or n.limit is not None) \
+                and not range_target:
+            # mirrors iterator.rs can_start_skip / can_cancel_on_limit:
+            # START pushes to storage only for a single unfiltered iterator
+            # (or an index that applies the WHERE itself) with no ORDER BY;
+            # LIMIT cancels early unless GROUP BY or un-indexed ORDER BY
+            index_backed = bool(out) and str(
+                out[0].get("operation", "")
+            ).startswith("Iterate Index")
+            can_skip = (
+                not n.group
+                and len(n.what) == 1
+                and (n.cond is None or index_backed)
+                and (not n.order or order_consumed)
+            )
+            can_cancel = not n.group and (not n.order or order_consumed)
+            detail = {}
+            if n.limit is not None and can_cancel:
+                detail["CancelOnLimit"] = int(evaluate(n.limit, ctx))
+            if n.start is not None and can_skip:
+                sv = int(evaluate(n.start, ctx))
+                if sv:
+                    detail["SkipStart"] = sv
+            if detail:
+                out.append(
+                    {"detail": detail, "operation": "StartLimitStrategy"}
+                )
+        count = 0
+        for expr in n.what:
+            v = _target_value(expr, ctx)
+            cctx = ctx.child()
+            for src in _iterate_value(v, cctx, n.cond, n):
+                # the fetch stage counts rows that reach the collector:
+                # post-WHERE (scan access paths may over-approximate)
+                if n.cond is not None and not cctx._cond_consumed:
+                    doc = src.doc if src.rid is not None else src.value
+                    cc = cctx.with_doc(doc, src.rid)
+                    if not is_truthy(evaluate(n.cond, cc)):
+                        continue
+                count += 1
+        if n.start is not None:
+            count = max(count - int(evaluate(n.start, ctx)), 0)
+        if n.limit is not None:
+            count = min(count, int(evaluate(n.limit, ctx)))
+        # an in-order (range-plan) index scan cancelled on limit streams
+        # straight from the index: the fetch stage reports 0
+        if any(
+            o.get("operation") == "StartLimitStrategy"
+            and "CancelOnLimit" in o.get("detail", {})
+            for o in out
+        ) and any(
+            o.get("operation") == "Iterate Index"
+            and isinstance(o.get("detail", {}).get("plan"), dict)
+            and "from" in o["detail"]["plan"]
+            for o in out
+        ):
+            count = 0
+        # a top-k collector (MemoryOrderedLimit) holds full rows — the
+        # fetch stage never re-reads records (reference: count always 0)
+        if any(
+            o.get("operation") == "Collector"
+            and o.get("detail", {}).get("type") == "MemoryOrderedLimit"
+            for o in out
+        ):
+            count = 0
+        out.append({"detail": {"count": count}, "operation": "Fetch"})
+    return out
 
 
 # ---------------------------------------------------------------------------
 # write statements -> document pipeline
 # ---------------------------------------------------------------------------
+
+
+def _explain_write(n, ctx):
+    from surrealdb_tpu_torch.idx.planner import explain_plan
+
+    # UPSERT defers record creation (Iterable::Defer); other writes on a
+    # direct record id iterate the record (dbs/iterator.rs)
+    defer = type(n).__name__ == "UpsertStmt"
+    out = []
+    for expr in n.what:
+        v = _target_value(expr, ctx)
+        if isinstance(v, Table):
+            if defer and n.cond is None:
+                # bare-table UPSERT yields one new record — it never
+                # scans the table (Iterable::Yield)
+                out.append({
+                    "detail": {"table": v.name},
+                    "operation": "Iterate Yield",
+                })
+                continue
+            plan_e = explain_plan(v.name, n.cond, ctx, n)
+            out.extend(plan_e if isinstance(plan_e, list) else [plan_e])
+        elif isinstance(v, RecordId) and not isinstance(v.id, Range):
+            out.append({
+                "detail": {"record": v},
+                "operation": "Iterate Defer" if defer else "Iterate Record",
+            })
+        else:
+            out.append({"detail": {"type": "Value"}, "operation": "Iterate Value"})
+    out.append({"detail": {"type": "Memory"}, "operation": "Collector"})
+    return out
+
+
+def threading_active() -> int:
+    import threading
+
+    return threading.active_count()
+
+
+def _collector_detail(n: SelectStmt, ctx=None):
+    """Collector explain entry; GROUP queries report their aggregation
+    slots (reference Group collector: _aN aggregations over exprN argument
+    slots, _gN group expressions)."""
+    if n.group is None:
+        if n.order and n.order != "rand" and n.limit is not None                 and ctx is not None:
+            # ordered + limited: the collector keeps start+limit rows
+            lim = int(evaluate(n.limit, ctx))
+            if n.start is not None:
+                lim += int(evaluate(n.start, ctx))
+            return {
+                "detail": {"limit": lim, "type": "MemoryOrderedLimit"},
+                "operation": "Collector",
+            }
+        ctype = "MemoryOrdered" if n.order else "Memory"
+        return {"detail": {"type": ctype}, "operation": "Collector"}
+    _AGG_NAMES = {
+        "count": "Count", "math::sum": "Sum", "math::mean": "Mean",
+        "__count_value__": "CountValue",
+        "math::min": "Min", "math::max": "Max", "time::min": "DatetimeMin",
+        "time::max": "DatetimeMax", "math::stddev": "StdDev",
+        "math::variance": "Variance",
+    }
+    from surrealdb_tpu_torch.exec.render_def import _expr_sql
+
+    aggs = {}
+    sel = {}
+    group_exprs = {}
+    agg_exprs = {}
+    expr_slots: dict = {}  # arg text -> exprN
+    ai = 0
+    # group slots are numbered in GROUP BY clause order (catalog
+    # aggregation planner walks the GROUP BY list, not the projection)
+    group_slots: dict = {}  # select-field name -> _gN
+    non_agg: dict = {}  # select-field name -> expr
+    for expr, alias in n.exprs:
+        if expr == "*":
+            continue
+        if not (
+            isinstance(expr, FunctionCall) and expr.name.lower() in _AGG_NAMES
+        ):
+            non_agg[alias or expr_name(expr)] = expr
+    if isinstance(n.group, list):
+        for g in n.group:
+            gname = expr_name(g)
+            gkey = f"_g{len(group_slots)}"
+            group_slots[gname] = gkey
+            src = non_agg.get(gname, g)
+            group_exprs[gkey] = _expr_sql(src)
+    for expr, alias in n.exprs:
+        if expr == "*":
+            continue
+        name = alias or expr_name(expr)
+        if isinstance(expr, FunctionCall) and expr.name.lower() in _AGG_NAMES:
+            key = f"_a{ai}"
+            ai += 1
+            base = _AGG_NAMES[expr.name.lower()]
+            if expr.args:
+                if expr.name.lower() == "count":
+                    base = "CountValue"
+                argtext = expr_name(expr.args[0])
+                slot = expr_slots.get(argtext)
+                if slot is None:
+                    slot = f"expr{len(expr_slots)}"
+                    expr_slots[argtext] = slot
+                    agg_exprs[slot] = argtext
+                aggs[key] = f"{base}({slot})"
+            else:
+                aggs[key] = base
+            sel[name] = key
+        else:
+            gkey = group_slots.get(name)
+            if gkey is None:
+                gkey = f"_g{len(group_slots)}"
+                group_slots[name] = gkey
+                group_exprs[gkey] = _expr_sql(expr)
+            sel[name] = gkey
+    return {
+        "detail": {
+            "Aggregate expressions": agg_exprs,
+            "Aggregations": aggs,
+            "Group expressions": group_exprs,
+            "Select expression": sel,
+            "type": "Group",
+        },
+        "operation": "Collector",
+    }
 
 
 def _only_wrap(results, only):
@@ -1715,7 +3356,7 @@ def _s_update(n: UpdateStmt, ctx: Ctx):
     from surrealdb_tpu_torch.exec.document import update_one
 
     if n.explain:
-        raise NotPorted("EXPLAIN is not ported")
+        return _explain_write(n, ctx)
     results = []
     for src in iterate_targets(n.what, ctx, None, None):
         ctx.check_deadline()
@@ -1742,7 +3383,7 @@ def _s_upsert(n: UpsertStmt, ctx: Ctx):
     from surrealdb_tpu_torch.exec.document import create_one, update_one
 
     if n.explain:
-        raise NotPorted("EXPLAIN is not ported")
+        return _explain_write(n, ctx)
     results = []
     for expr in n.what:
         v = _target_value(expr, ctx)
@@ -1849,7 +3490,7 @@ def _s_delete(n: DeleteStmt, ctx: Ctx):
     from surrealdb_tpu_torch.exec.document import delete_one
 
     if n.explain:
-        raise NotPorted("EXPLAIN is not ported")
+        return _explain_write(n, ctx)
     results = []
     for src in iterate_targets(n.what, ctx, None, None):
         ctx.check_deadline()
@@ -1937,6 +3578,14 @@ def _exists_guard(ctx, key, name, kind, if_not_exists, overwrite,
                 msg or f"The {kind} '{name}' already exists"
             )
     return False
+
+
+def _base_phrase(base, ctx):
+    if base == "root":
+        return "in the root"
+    if base == "ns":
+        return f"in the namespace '{ctx.session.ns}'"
+    return f"in the database '{ctx.session.db}'"
 
 
 def _s_define_ns(n: DefineNamespace, ctx):
@@ -2655,6 +4304,18 @@ def _remove_index_data(ns, db, tb, ix, ctx):
 _BASE_RANK = {"root": 0, "ns": 1, "db": 2}
 
 
+def _s_define_analyzer(n: DefineAnalyzer, ctx):
+    _ensure_ns_db(ctx)
+    ns, db = ctx.need_ns_db()
+    kdef = K.az_def(ns, db, n.name)
+    if _exists_guard(ctx, kdef, n.name, "analyzer", n.if_not_exists, n.overwrite):
+        return NONE
+    ctx.txn.set_val(
+        kdef, AnalyzerDef(n.name, n.tokenizers, n.filters, n.function, n.comment)
+    )
+    return NONE
+
+
 def _s_remove(n: RemoveStmt, ctx: Ctx):
     ns = ctx.session.ns
     db = ctx.session.db
@@ -2720,12 +4381,333 @@ def _s_remove(n: RemoveStmt, ctx: Ctx):
         ctx.txn.delete(key)
         _remove_index_data(ns, db, n.tb, n.name, ctx)
         return NONE
+    if kind == "analyzer":
+        key = K.az_def(ns, db, n.name)
+        if _guard(key, n.name):
+            return NONE
+        ctx.txn.delete(key)
+        return NONE
     raise NotPorted(f"REMOVE {kind.upper()} is not ported")
 
 
 # ---------------------------------------------------------------------------
 # INFO
 # ---------------------------------------------------------------------------
+
+
+def _s_info(n: InfoStmt, ctx: Ctx):
+    from surrealdb_tpu_torch.exec.render_def import (
+        render_access,
+        render_analyzer,
+        render_db,
+        render_event,
+        render_field,
+        render_function,
+        render_index,
+        render_ns,
+        render_param,
+        render_sequence,
+        render_table,
+        render_user,
+    )
+
+    if getattr(n, "version", None) is not None:
+        raise NotPorted("VERSION reads are not ported")
+    if n.level == "system":
+        import os as _os
+
+        mem_kb = 0
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS"):
+                        mem_kb = int(line.split()[1])
+                        break
+        except OSError:
+            pass
+        # device state from the supervisor: never import torch on a
+        # query thread; the runner subprocess owns the card, INFO reads
+        # its health snapshot
+        from surrealdb_tpu_torch.device import get_supervisor
+        from surrealdb_tpu_torch.telemetry import (
+            stage_snapshot as _stage_snapshot,
+        )
+
+        def _mem_snapshot():
+            from surrealdb_tpu_torch.resource import get_accountant
+
+            return get_accountant().snapshot()
+
+        def _columnar_snapshot(ds):
+            from surrealdb_tpu_torch.exec.batch import counters, store_nbytes
+
+            out = dict(counters(ds))
+            out["colstore_bytes"] = store_nbytes(ds)
+            out["colstore_tables"] = len(
+                getattr(ds, "_table_columns", {})
+            )
+            return out
+
+        dev = get_supervisor().status()
+
+        out = {
+            "available_parallelism": _os.cpu_count() or 1,
+            "cpu_usage": 0.0,
+            "load_average": list(_os.getloadavg()),
+            "memory_allocated": mem_kb * 1024,
+            "memory_usage": mem_kb * 1024,
+            "physical_cores": _os.cpu_count() or 1,
+            "threads": threading_active(),
+            # the reference's key: the runner's device count when ready
+            "tpu_devices": (dev.get("device_count", 0)
+                            if dev.get("state") == "ready" else 0),
+            # device supervisor health: state (cold/probing/ready/
+            # degraded), restart/timeout counters, last error, resident
+            # block-cache counts — the serving-side view of the runner
+            "device": dev,
+            "metrics": dict(ctx.ds.metrics),
+            # the slow-query log is not ported: its ring stays empty,
+            # as the reference's does at its default threshold of 0
+            "slow_queries": [],
+            # in-flight (non-LIVE) query registry: each id is a valid
+            # KILL <query-id> target (inflight.py)
+            "queries": ctx.ds.inflight.snapshot(),
+            # per-stage query timing (telemetry.stage_record)
+            "stages": _stage_snapshot(),
+            # live queries are not ported: the reference's fan-out
+            # figures for a datastore that has none
+            "live": {"sessions": 0, "dispatch_backlog": 0, "routes": 0,
+                     "notif_dropped": 0, "handler_errors": 0,
+                     "overflows": 0, "sent": 0, "subscriptions": 0},
+            # node-wide resource governance (resource.py): accounted
+            # derived-state bytes vs the soft/hard watermarks, the
+            # per-kind breakdown, and eviction/shed/throttle counters
+            "mem": _mem_snapshot(),
+            # columnar executor health (exec/batch.py + exec/vops.py):
+            # vectorized vs fallback rows, aggregate tier hits, column
+            # store builds/hits/bytes, fused-KNN and pushdown tallies
+            "columnar": _columnar_snapshot(ctx.ds),
+        }
+        # vector index residency — rows, host bytes, ANN state, sync
+        # version, mesh width (device_sharded, device/mesh.py) — so an
+        # operator can see where each index is serving (the store is
+        # unsharded: no "shards" key, as the reference's on such a store)
+        knn_status = []
+        for ixkey, eng in list(ctx.ds.vector_indexes.items()):
+            res_fn = getattr(eng, "residency", None)
+            if res_fn is None:
+                continue
+            knn_status.append({"index": ".".join(str(x) for x in ixkey),
+                               "residency": res_fn()})
+        if knn_status:
+            out["knn"] = knn_status
+        return out
+    if n.level == "root":
+        out = {"accesses": {}, "namespaces": {}, "nodes": {}, "system": {},
+               "users": {}}
+        syscfg = ctx.txn.get_val(K.sys_cfg())
+        if syscfg:
+            out["config"] = {k: v for k, v in sorted(syscfg.items())}
+        dflt = ctx.txn.get_val(K.cfg_def("", "", "DEFAULT"))
+        # always present: {} when no DEFAULT config (remove/config/default)
+        out["defaults"] = (
+            {k: v for k, v in sorted(dflt.items())} if dflt is not None
+            else {}
+        )
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ns_prefix())):
+            out["namespaces"][d.name] = render_ns(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.us_prefix("root"))):
+            out["users"][d.name] = render_user(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ac_prefix("root"))):
+            out["accesses"][d.name] = render_access(d)
+        return out
+    if n.level == "ns":
+        ns = ctx.session.ns
+        out = {"accesses": {}, "databases": {}, "users": {}}
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.db_prefix(ns))):
+            out["databases"][d.name] = render_db(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.us_prefix("ns", ns))):
+            out["users"][d.name] = render_user(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ac_prefix("ns", ns))):
+            out["accesses"][d.name] = render_access(d)
+        return out
+    if n.level == "db":
+        ns, db = ctx.need_ns_db()
+        out = {
+            "accesses": {}, "analyzers": {}, "apis": {}, "buckets": {},
+            "configs": {}, "functions": {}, "models": {}, "modules": {},
+            "params": {}, "sequences": {}, "tables": {}, "users": {},
+        }
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.tb_prefix(ns, db))):
+            out["tables"][d.name] = render_table(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.pa_prefix(ns, db))):
+            out["params"][d.name] = render_param(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.fc_prefix(ns, db))):
+            out["functions"][d.name] = render_function(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.mod_prefix(ns, db))):
+            txt = f"DEFINE MODULE mod::{d.name} AS <module>"
+            if d.comment:
+                txt += f" COMMENT '{d.comment}'"
+            txt += " PERMISSIONS FULL"
+            out["modules"][d.name] = txt
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ml_prefix(ns, db))):
+            label = f"{d.name}<{d.version}>"
+            txt = f"DEFINE MODEL ml::{d.name}<{d.version}>"
+            if d.comment:
+                txt += f" COMMENT '{d.comment}'"
+            txt += " PERMISSIONS FULL"
+            out["models"][label] = txt
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.az_prefix(ns, db))):
+            out["analyzers"][d.name] = render_analyzer(d)
+        for _k, d in ctx.txn.scan_vals(
+            *K.prefix_range(K.us_prefix("db", ns, db))
+        ):
+            out["users"][d.name] = render_user(d)
+        for _k, d in ctx.txn.scan_vals(
+            *K.prefix_range(K.ac_prefix("db", ns, db))
+        ):
+            out["accesses"][d.name] = render_access(d)
+        for _k, st in ctx.txn.scan_vals(
+            *K.prefix_range(b"/!sq" + K.enc_str(ns) + K.enc_str(db))
+        ):
+            sd = st[0]
+            out["sequences"][sd.name] = render_sequence(sd)
+        from surrealdb_tpu_torch.exec.render_def import (
+            render_api,
+            render_bucket,
+            render_config,
+        )
+
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.api_prefix(ns, db))):
+            out["apis"][d.path] = render_api(d)
+        for _k, d in ctx.txn.scan_vals(
+            *K.prefix_range(K.bucket_prefix(ns, db))
+        ):
+            out["buckets"][d.name] = render_bucket(d)
+        _cfg_names = {"GRAPHQL": "GraphQL", "API": "API", "DEFAULT": "Default"}
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.cfg_prefix(ns, db))):
+            out["configs"][_cfg_names.get(d.what, d.what)] = render_config(d)
+        if n.structure:
+            from surrealdb_tpu_torch.exec.render_def import (
+                config_structure,
+                table_structure,
+            )
+
+            out["configs"] = [
+                config_structure(d)
+                for _k, d in ctx.txn.scan_vals(
+                    *K.prefix_range(K.cfg_prefix(ns, db))
+                )
+            ]
+            # STRUCTURE mode lists structured defs instead of SQL strings
+            out["tables"] = [
+                table_structure(d)
+                for _k, d in ctx.txn.scan_vals(
+                    *K.prefix_range(K.tb_prefix(ns, db))
+                )
+            ]
+            seqs = []
+            for _k, st in ctx.txn.scan_vals(
+                *K.prefix_range(b"/!sq" + K.enc_str(ns) + K.enc_str(db))
+            ):
+                sd = st[0]
+                seqs.append({
+                    "name": sd.name,
+                    "batch": str(sd.batch),
+                    "start": str(sd.start),
+                    "timeout": sd.timeout if sd.timeout is not None else NONE,
+                })
+            out["sequences"] = seqs
+            for k2 in ("accesses", "analyzers", "apis", "buckets",
+                       "functions", "models", "modules", "params", "users"):
+                if isinstance(out.get(k2), dict):
+                    out[k2] = list(out[k2].values())
+        return out
+    if n.level == "table":
+        from surrealdb_tpu_torch.exec.render_def import (
+            event_structure,
+            field_structure,
+            index_structure,
+        )
+
+        ns, db = ctx.need_ns_db()
+        tb = n.target
+        if ctx.txn.get(K.tb_def(ns, db, tb)) is None:
+            raise SdbError(f"The table '{tb}' does not exist")
+        if n.structure:
+            out = {"events": [], "fields": [], "indexes": [], "lives": [],
+                   "tables": []}
+            for _k, d in ctx.txn.scan_vals(
+                *K.prefix_range(K.fd_prefix(ns, db, tb))
+            ):
+                out["fields"].append(field_structure(d, tb))
+            for _k, d in ctx.txn.scan_vals(
+                *K.prefix_range(K.ix_prefix(ns, db, tb))
+            ):
+                out["indexes"].append(index_structure(d))
+            for _k, d in ctx.txn.scan_vals(
+                *K.prefix_range(K.ev_prefix(ns, db, tb))
+            ):
+                out["events"].append(event_structure(d, tb))
+            return out
+        out = {"events": {}, "fields": {}, "indexes": {}, "lives": {},
+               "tables": {}}
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.fd_prefix(ns, db, tb))):
+            from surrealdb_tpu_torch.exec.render_def import field_name_key
+
+            out["fields"][field_name_key(d.name_str)] = render_field(d, tb)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ix_prefix(ns, db, tb))):
+            out["indexes"][d.name] = render_index(d)
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ev_prefix(ns, db, tb))):
+            out["events"][d.name] = render_event(d, tb)
+        # views (foreign tables) whose FROM sources this table are listed
+        # under `tables` (reference catalog: table definitions carry their
+        # source link; INFO FOR TABLE shows dependent views)
+        from surrealdb_tpu_torch.exec.document import view_source_tables
+
+        for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.tb_prefix(ns, db))):
+            if d.view is not None and tb in view_source_tables(d.view):
+                out["tables"][d.name] = render_table(d)
+        return out
+    if n.level == "index":
+        ns, db = ctx.need_ns_db()
+        idef = ctx.txn.get_val(K.ix_def(ns, db, n.target2, n.target))
+        if idef is None:
+            raise SdbError(f"The index '{n.target}' does not exist")
+        st = ctx.ds.index_builds.get((ns, db, n.target2, n.target))
+        if st is None:
+            st = {"status": "ready", "initial": 0, "pending": 0,
+                  "updated": 0}
+        return {"building": dict(st)}
+    if n.level == "user":
+        explicit = None
+        if n.target2:
+            t2 = n.target2.lower()
+            explicit = {"db": "db", "database": "db", "ns": "ns",
+                        "namespace": "ns", "root": "root"}.get(t2)
+        bases = (explicit,) if explicit else ("db", "ns", "root")
+        key = None
+        for b in bases:
+            key_try = K.us_def(
+                b,
+                ctx.session.ns if b in ("ns", "db") else None,
+                ctx.session.db if b == "db" else None,
+                n.target,
+            )
+            if ctx.txn.get(key_try) is not None:
+                key = key_try
+                break
+        if key is None:
+            if explicit and explicit != "root":
+                raise SdbError(
+                    f"The user '{n.target}' does not exist "
+                    f"{_base_phrase(explicit, ctx)}"
+                )
+            raise SdbError(f"The root user '{n.target}' does not exist")
+        from surrealdb_tpu_torch.exec.render_def import render_user
+
+        return render_user(ctx.txn.get_val(key))
+    raise SdbError(f"unknown INFO level {n.level}")
 
 
 # ---------------------------------------------------------------------------
@@ -2771,7 +4753,7 @@ _STMTS = {
     DefineEvent: _unported("DEFINE EVENT"),
     DefineParam: _unported("DEFINE PARAM"),
     DefineFunction: _unported("DEFINE FUNCTION"),
-    DefineAnalyzer: _unported("DEFINE ANALYZER"),
+    DefineAnalyzer: _s_define_analyzer,
     DefineUser: _unported("DEFINE USER"),
     DefineAccess: _unported("DEFINE ACCESS"),
     DefineModule: _unported("DEFINE MODULE"),
@@ -2780,9 +4762,9 @@ _STMTS = {
     RemoveStmt: _s_remove,
     AlterTable: _unported("ALTER TABLE"),
     AlterStmt: _unported("ALTER"),
-    ExplainStmt: _unported("EXPLAIN"),
+    ExplainStmt: _s_explain_generic,
     RebuildIndex: _unported("REBUILD INDEX"),
-    InfoStmt: _unported("INFO"),
+    InfoStmt: _s_info,
     LiveStmt: _unported("LIVE SELECT"),
     KillStmt: _unported("KILL"),
     ShowStmt: _unported("SHOW CHANGES"),

@@ -51,6 +51,16 @@ class OpMetrics:
         self.frows = 0
 
 
+def _fmt_elapsed(ns: int) -> str:
+    if ns >= 1_000_000_000:
+        return f"{ns / 1e9:.2f}s"
+    if ns >= 1_000_000:
+        return f"{ns / 1e6:.2f}ms"
+    if ns >= 1_000:
+        return f"{ns / 1e3:.2f}µs"
+    return f"{ns}ns"
+
+
 class Operator:
     """Base operator: `execute(ctx)` yields row batches; `lines()` yields
     (depth, label, metrics) rows for EXPLAIN ANALYZE rendering."""
@@ -1014,3 +1024,34 @@ def try_stream_select(n, ctx):
         return _UNSUPPORTED
     return out
 
+
+def try_stream_analyze(n, ctx):
+    """EXPLAIN ANALYZE through the real operator tree: executes, drains,
+    and renders per-operator measured rows/batches/elapsed (reference
+    exec/operators/explain.rs AnalyzePlan + metrics.rs). Returns None when
+    the statement isn't stream-eligible (cosmetic renderer handles it)."""
+    import copy as _copy
+
+    n2 = _copy.copy(n)
+    n2.explain = None
+    plan = build_select_plan(n2, ctx)
+    if plan is None:
+        return None
+    plan.enable_metrics()
+    total = 0
+    for b in plan.execute(ctx):
+        total += len(b)
+    lines = []
+    for depth, label, m in plan.lines():
+        extra = ""
+        if m.vrows or m.frows:
+            # columnar accounting: rows the vectorized kernels served
+            # vs rows that took the scalar fallback (exec/vops.py)
+            extra = f"vectorized: {m.vrows}, fallback: {m.frows}, "
+        lines.append(
+            "    " * depth + label
+            + f" {{rows: {m.rows}, batches: {m.batches}, "
+            + extra
+            + f"elapsed: {_fmt_elapsed(m.ns)}}}"
+        )
+    return "\n".join(lines) + f"\n\nTotal rows: {total}"

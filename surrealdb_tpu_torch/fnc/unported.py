@@ -1,9 +1,10 @@
 """The builtin functions the port leaves out (the reference's
-`fnc/misc_fns.py` families: crypto, parse, encoding, bytes, geo, session,
-sequence, value, search, http, api and file). Each name stays in the
-registry, in the reference's order, so the parser accepts it and its
+`fnc/misc_fns.py` families but search: crypto, parse, encoding, bytes,
+geo, session, sequence, value, http, api and file). Each name stays in
+the registry, in the reference's order, so the parser accepts it and its
 "did you mean" hints read as the reference's; a call raises `NotPorted`
-naming the function."""
+naming the function. The ported search family (`fnc/misc_fns.py`)
+registers at its place between value:: and http::."""
 
 from __future__ import annotations
 
@@ -28,10 +29,10 @@ UNPORTED = (
     "session::ac", "session::db", "session::ns", "session::id",
     "session::ip", "session::origin", "session::rd", "session::token",
     "sequence::nextval", "value::chain", "value::diff", "value::patch",
-    "search::score", "search::highlight", "search::offsets",
-    "search::analyze", "search::rrf", "search::linear", "http::head",
-    "http::get", "http::put", "http::post", "http::patch", "http::delete",
-    "api::invoke", "file::bucket", "file::key", "file::put",
+)
+UNPORTED_AFTER_SEARCH = (
+    "http::head", "http::get", "http::put", "http::post", "http::patch",
+    "http::delete", "api::invoke", "file::bucket", "file::key", "file::put",
     "file::put_if_not_exists", "file::get", "file::head", "file::exists",
     "file::delete", "file::copy", "file::copy_if_not_exists", "file::rename",
     "file::rename_if_not_exists", "file::list",
@@ -46,4 +47,10 @@ def _unported(name):
 
 
 for _name in UNPORTED:
+    register(_name)(_unported(_name))
+
+# the ported search family takes its place in the registry's order
+from surrealdb_tpu_torch.fnc import misc_fns  # noqa: E402,F401
+
+for _name in UNPORTED_AFTER_SEARCH:
     register(_name)(_unported(_name))

@@ -25,7 +25,7 @@ from surrealdb_tpu_torch.expr.ast import (
 from surrealdb_tpu_torch.val import NONE, Range, RecordId, hashable, value_cmp, \
     value_eq
 
-from surrealdb_tpu_torch.err import NotPorted, SdbError
+from surrealdb_tpu_torch.err import SdbError
 
 
 def _field_path(expr):
@@ -213,12 +213,55 @@ def multi_index_leaves(tb, cond, indexes, ctx, value_idioms=True):
     return non_range + ranges
 
 
+def _ft_branch_scan(tb, br, ctx):
+    """One full-text branch of a multi-index union: run the search,
+    publish the score/offset context (so the re-applied OR filter's
+    MATCHES evaluates by membership), and yield the hits."""
+    from surrealdb_tpu_torch.exec.eval import evaluate, fetch_record
+    from surrealdb_tpu_torch.exec.statements import Source
+    from surrealdb_tpu_torch.idx.fulltext import ft_result
+
+    mt = br["mt"]
+    idef = br["idef"]
+    q = evaluate(mt.rhs, ctx)
+    pre = (ctx.vars.get("__ft__") or {}).get(("node", id(mt)))
+    if pre is not None and pre["idef"].name == idef.name \
+            and pre["query"] == str(q) and pre.get("res") is not None:
+        res = pre["res"]
+    else:
+        res = ft_result(idef, str(q), ctx, boolean=mt.boolean)
+    hits = res.hits
+    ft_ctx = dict(ctx.vars.get("__ft__") or {})
+    ctx.vars["__ft__"] = ft_ctx
+    ref = mt.ref if mt.ref is not None else 0
+    entry = {
+        "scores": res.scores,
+        "offsets": res.offsets,
+        "idef": idef,
+        "query": str(q),
+        "res": res,
+    }
+    ft_ctx[ref] = entry
+    # per-node key: two OR branches may share the default ref 0 (the AND
+    # path rejects that as a duplicate, fulltext.py plan_matches); the
+    # re-applied filter's membership check must not see the other
+    # branch's hits, so matches_operator prefers this node-keyed entry
+    ft_ctx[("node", id(mt))] = entry
+    for rid, _s in hits:
+        doc = fetch_record(ctx, rid)
+        if doc is NONE:
+            continue
+        yield Source(rid=rid, doc=doc)
+
+
 def union_branch_scan(tb, br, ctx):
     """Execute ONE multi-index union branch — the single dispatch point
     shared by _union_scan and the streaming explain's row counting, so
     explain output can't drift from what actually runs."""
     from surrealdb_tpu_torch.exec.eval import evaluate
 
+    if br["kind"] == "ft":
+        return _ft_branch_scan(tb, br, ctx)
     if br["kind"] in ("range", "in"):
         return _index_scan(tb, br["idef"], [], br["tail"], ctx)
     idef = br["idef"]
@@ -375,7 +418,15 @@ def _link_join_scan(tb, jn, ctx):
 
     def gen():
         rt, ridef = jn["rt"], jn["ridef"]
-        if jn["op"] == "in":
+        if jn["op"] == "matches":
+            from surrealdb_tpu_torch.idx.fulltext import ft_search
+
+            q = evaluate(jn["vexpr"], ctx)
+            hits, _offsets = ft_search(
+                ridef, str(q), ctx, boolean=jn["mt"].boolean
+            )
+            remote_ids = [r for r, _s in hits]
+        elif jn["op"] == "in":
             vals = evaluate(jn["vexpr"], ctx)
             vals = vals if isinstance(vals, list) else [vals]
             remote_ids = [
@@ -399,6 +450,35 @@ def _link_join_scan(tb, jn, ctx):
             yield from _index_scan(tb, jn["lidef"], [rid], None, ctx)
 
     return gen()
+
+
+def _link_join_explain(tb, jn, ctx):
+    from surrealdb_tpu_torch.exec.eval import evaluate
+
+    if jn["op"] == "matches":
+        mt = jn["mt"]
+        rop = f"@{mt.ref}@" if mt.ref is not None else "@@"
+        val = evaluate(jn["vexpr"], ctx)
+    elif jn["op"] == "in":
+        rop = "union"
+        val = evaluate(jn["vexpr"], ctx)
+    else:
+        rop = "="
+        val = evaluate(jn["vexpr"], ctx)
+    return {
+        "detail": {
+            "plan": {
+                "index": jn["lidef"].name,
+                "joins": [
+                    {"index": jn["ridef"].name, "operator": rop,
+                     "value": val}
+                ],
+                "operator": "join",
+            },
+            "table": tb,
+        },
+        "operation": "Iterate Index",
+    }
 
 
 def _is_array_value(e) -> bool:
@@ -603,16 +683,81 @@ def _choose_index(indexes, eqs, ins, rngs, model="streaming"):
     return best[1], best[2], best[3], best[0][0]
 
 
+def _register_match_contexts(tb, cond, ctx):
+    """The reference's QueryExecutor registers score/offset contexts for
+    every indexed MATCHES in the cond even when the plan falls back to a
+    table iterator (idx/planner/executor.rs QueryExecutor::new walks all
+    matches expressions) — so search::score(ref)/highlight work without
+    the full-text index driving the scan."""
+    from surrealdb_tpu_torch.expr.ast import Matches
+
+    nodes = []
+
+    def rec(c):
+        if isinstance(c, Matches):
+            nodes.append(c)
+        elif isinstance(c, Binary) and c.op in ("&&", "||"):
+            rec(c.lhs)
+            rec(c.rhs)
+
+    rec(cond)
+    if not nodes:
+        return
+    from surrealdb_tpu_torch.exec.eval import evaluate
+    from surrealdb_tpu_torch.idx.fulltext import ft_result
+
+    indexes = get_indexes_for(tb, ctx)
+    ft_ctx = dict(ctx.vars.get("__ft__") or {})
+    registered: dict = {}
+    for mt in nodes:
+        idef = _ft_index_for(mt, indexes)
+        if idef is None:
+            continue  # no index: the filter evaluates it ad-hoc
+        q = str(evaluate(mt.rhs, ctx))
+        ref = mt.ref if mt.ref is not None else 0
+        prev = registered.get(ref)
+        if prev is not None:
+            if prev == (idef.name, q):
+                # same expression repeated: share the entry
+                ft_ctx[("node", id(mt))] = ft_ctx[ref]
+                continue
+            # colliding refs (e.g. two implicit @@ in one cond): the
+            # ref-keyed entry stays first-wins for the score functions;
+            # the node-keyed entry below keeps membership exact per node
+            # (plan_matches still rejects duplicates among AND-planned
+            # matches, matching the reference's executor error)
+        res = ft_result(idef, q, ctx, boolean=mt.boolean)
+        entry = {
+            "scores": res.scores,
+            "offsets": res.offsets,
+            "idef": idef,
+            "query": q,
+            "res": res,
+        }
+        if prev is None:
+            ft_ctx[ref] = entry
+            registered[ref] = (idef.name, q)
+        ft_ctx[("node", id(mt))] = entry
+    ctx.vars["__ft__"] = ft_ctx
+
+
 def plan_scan(tb: str, cond, ctx, stmt):
     """Return a Source generator when an index path applies, else None
-    (table scan). A full-text MATCHES in the cond raises `NotPorted`."""
+    (table scan). Indexed MATCHES in the cond get their score contexts
+    registered regardless of which plan wins (the reference's
+    QueryExecutor does this for every matches expression), so
+    search::score/highlight work under table scans, eq-index scans,
+    and union branches alike."""
     import time as _time
 
     from surrealdb_tpu_torch.telemetry import stage_record
 
     t0 = _time.perf_counter_ns()
-    if cond is not None and _find_matches(cond):
-        raise NotPorted("the full-text match operator @@ is not ported")
+    if cond is not None:
+        with_index = getattr(stmt, "with_index", None) \
+            if stmt is not None else None
+        if with_index != []:
+            _register_match_contexts(tb, cond, ctx)
     try:
         return _plan_scan(tb, cond, ctx, stmt)
     finally:
@@ -666,6 +811,55 @@ def _plan_scan(tb: str, cond, ctx, stmt):
             union = or_union_branches(tb, cond, indexes, ctx)
     if union is not None:
         return _union_scan(tb, union, ctx)
+
+    # ---- MATCHES ----------------------------------------------------------
+    mts = _find_matches(cond)
+    if mts:
+        use_ft = True
+        if getattr(ctx.session, "planner_strategy", None) == "all-ro":
+            # multi-part idioms (`t.name @@ …`) may traverse record links;
+            # MatchesOp only evaluates against the source table's fulltext
+            # index (reference exec/planner.rs:525-537 PlannerUnimplemented)
+            from surrealdb_tpu_torch.expr.ast import Idiom as _Idiom
+
+            for m in mts:
+                if isinstance(m.lhs, _Idiom) and len(m.lhs.parts) > 1:
+                    raise SdbError(
+                        "Invalid query: New executor does not support: "
+                        "MATCHES with multi-part field path not yet "
+                        "supported in streaming executor"
+                    )
+            # the streaming planner scores the MATCHES access at 800
+            # (exec/index/analysis.rs:1281): a unique full-equality
+            # candidate outranks it and the MATCHES drops to the filter
+            eqs0, ins0, rngs0 = _classify_preds(
+                cond, _array_like_paths(tb, ctx), value_idioms=False
+            )
+            ch0 = _choose_index(indexes, eqs0, ins0, rngs0) if (
+                eqs0 or ins0 or rngs0
+            ) else None
+            if ch0 is not None and ch0[3] > 800:
+                use_ft = False
+        if use_ft:
+            # a MATCHES on a multi-part link path can't use a LOCAL ft
+            # index — try the remote-index join before plan_matches
+            # raises (single-part un-indexed matches keep the error)
+            if not all(_ft_index_for(m, indexes) for m in mts):
+                jn = _find_link_join(tb, cond, indexes, ctx) if getattr(
+                    ctx.session, "planner_strategy", None
+                ) != "all-ro" else None
+                if jn is not None:
+                    return _link_join_scan(tb, jn, ctx)
+                from surrealdb_tpu_torch.expr.ast import Idiom as _Idiom2
+
+                if all(
+                    isinstance(m.lhs, _Idiom2) and len(m.lhs.parts) > 1
+                    for m in mts
+                ):
+                    return None  # link-path matches: row-wise ad hoc eval
+            from surrealdb_tpu_torch.idx.fulltext import plan_matches
+
+            return plan_matches(tb, cond, mts, indexes, ctx, stmt)
 
     # ---- equality / range / contains on indexed columns --------------------
     array_paths = _array_like_paths(tb, ctx)
@@ -1128,3 +1322,474 @@ def _brute_knn(tb, knn: Knn, qv, rest, ctx):
     idx = idx[np.argsort(d[idx], kind="stable")]
     return [(rows[int(ii)], float(d[ii])) for ii in idx]
 
+
+def _unsupported_expr(cond):
+    """First planner-unsupported subexpression (unary ops) in an AND tree,
+    rendered compactly for the Fallback explain entry."""
+    from surrealdb_tpu_torch.expr.ast import Prefix as _Pfx
+
+    preds = []
+    _split_ands(cond, preds)
+    for p in preds:
+        if isinstance(p, _Pfx):
+            from surrealdb_tpu_torch.exec.render_def import _expr_sql
+
+            inner = _expr_sql(p.expr)
+            return f"{p.op}{inner}"
+    return None
+
+
+def explain_plan(tb, cond, ctx, stmt):
+    """EXPLAIN output (reference dbs/plan.rs Explanation)."""
+    with_index = getattr(stmt, "with_index", None) if stmt is not None else None
+    orig_cond = cond
+    if with_index == []:
+        cond = None  # WITH NOINDEX: always a table scan
+    # record strategy (idx/planner/mod.rs check_record_strategy): a
+    # count()-only selection over a bare table needs no document values —
+    # GROUP ALL counts keys (Count), ungrouped iterates keys (KeysOnly)
+    if orig_cond is None and stmt is not None and             not getattr(stmt, "order", None) and             getattr(stmt, "exprs", None):
+        from surrealdb_tpu_torch.expr.ast import FunctionCall as _FC3
+
+        if (
+            len(stmt.exprs) == 1
+            and isinstance(stmt.exprs[0][0], _FC3)
+            and stmt.exprs[0][0].name.lower() == "count"
+            and not stmt.exprs[0][0].args
+        ):
+            group = getattr(stmt, "group", None)
+            if group == []:
+                # a live COUNT index serves the whole-table count directly
+                # (reference count_exists_rewriter.rs; decommissioned
+                # PREPARE REMOVE indexes are skipped)
+                idxs0 = get_indexes_for(tb, ctx)
+                if with_index:
+                    idxs0 = [i for i in idxs0 if i.name in with_index]
+                cidx = next(
+                    (i for i in idxs0 if i.count
+                     and getattr(i, "count_cond", None) is None
+                     and not getattr(i, "prepare_remove", False)),
+                    None,
+                )
+                if cidx is not None:
+                    return {
+                        "detail": {
+                            "plan": {"index": cidx.name, "operator": "Count"},
+                            "table": tb,
+                        },
+                        "operation": "Iterate Index Count",
+                    }
+                return {
+                    "detail": {"direction": "forward", "table": tb},
+                    "operation": "Iterate Table Count",
+                }
+            if group is None:
+                return {
+                    "detail": {"direction": "forward", "table": tb},
+                    "operation": "Iterate Table Keys",
+                }
+    if cond is not None:
+        from surrealdb_tpu_torch.exec.statements import _resolve_type_fields
+
+        cond = _resolve_type_fields(cond, ctx)
+        knn = _find_knn(cond)
+        indexes = get_indexes_for(tb, ctx)
+        if with_index:
+            indexes = [i for i in indexes if i.name in with_index]
+        if knn is not None:
+            path = _field_path(knn.lhs)
+            for idef in indexes:
+                if idef.hnsw is not None and idef.cols_str and \
+                        idef.cols_str[0] == path and (
+                            knn.dist is None
+                            or knn.dist.lower() == idef.hnsw.get(
+                                "distance", "euclidean")
+                        ):
+                    from surrealdb_tpu_torch.exec.eval import evaluate
+
+                    try:
+                        qval = evaluate(knn.rhs, ctx)
+                    except Exception:
+                        qval = None
+                    ef = knn.ef
+                    if ef is None and knn.dist is not None:
+                        ef = idef.hnsw.get("ef_construction", 150)
+                    from surrealdb_tpu_torch.idx.vector import get_vector_index
+
+                    eng = get_vector_index(idef, ctx)
+                    plan = {
+                        "index": idef.name,
+                        "operator": f"<|{knn.k},{ef or 40}|>",
+                        "value": qval,
+                    }
+                    ann_plan = eng.ann_plan(knn.k)
+                    if ann_plan is not None:
+                        # the size/metric gate routed this store off
+                        # the brute scan: "graph" = whole-store CAGRA
+                        # (int8 descent + exact re-rank), "segmented" =
+                        # LSM-style sealed-segment fan-out with
+                        # per-segment graphs (idx/segments.py); the
+                        # segment/ready counts surface the lifecycle
+                        plan.update(ann_plan)
+                    refresh = getattr(eng, "refresh_parts", None)
+                    if refresh is not None:
+                        # sharded store: the search scatter-gathers
+                        # across this many index shards (idx/shardvec)
+                        try:
+                            plan["shards"] = len(refresh())
+                        except SdbError:
+                            pass  # map unreadable: plan stays useful
+                    return {
+                        "detail": {"plan": plan, "table": tb},
+                        "operation": "Iterate Index",
+                    }
+            return {
+                "detail": {"direction": "forward", "table": tb},
+                "operation": "Iterate Table",
+            }
+        union = multi_index_leaves(tb, cond, indexes, ctx)
+        if union is not None:
+            from surrealdb_tpu_torch.exec.eval import evaluate
+
+            entries = []
+            for br in union:
+                if br["kind"] == "range":
+                    frm = {"inclusive": False, "value": NONE}
+                    to = {"inclusive": False, "value": NONE}
+                    for rop, rexpr in br["tail"][1]:
+                        rv = evaluate(rexpr, ctx)
+                        if rop in (">", ">="):
+                            frm = {"inclusive": rop == ">=", "value": rv}
+                        else:
+                            to = {"inclusive": rop == "<=", "value": rv}
+                    entries.append({
+                        "detail": {
+                            "plan": {
+                                "direction": "forward",
+                                "from": frm,
+                                "index": br["idef"].name,
+                                "to": to,
+                            },
+                            "table": tb,
+                        },
+                        "operation": "Iterate Index",
+                    })
+                    continue
+                if br["kind"] == "ft":
+                    mt = br["mt"]
+                    op = f"@{mt.ref}@" if mt.ref is not None else "@@"
+                    try:
+                        val = evaluate(mt.rhs, ctx)
+                    except Exception:
+                        val = None
+                elif br["kind"] == "in":
+                    op = "union"
+                    iv = evaluate(br["tail"][1], ctx)
+                    val = iv if isinstance(iv, list) else [iv]
+                else:
+                    idef = br["idef"]
+                    op = "="
+                    vals = [
+                        evaluate(br["eqs"][c], ctx)
+                        for c in idef.cols_str[:br["nmatch"]]
+                    ]
+                    val = vals[0] if len(vals) == 1 else vals
+                entries.append({
+                    "detail": {
+                        "plan": {
+                            "index": br["idef"].name,
+                            "operator": op,
+                            "value": val,
+                        },
+                        "table": tb,
+                    },
+                    "operation": "Iterate Index",
+                })
+            return entries
+        # a top-level OR whose disjuncts each carry an AND tail is not a
+        # leaf union (multi_index_leaves rejects it) but still unions one
+        # access per disjunct — render it as a single UnionIndexScan
+        # plan object (reference exec/operators/scan/union.rs JSON)
+        orb = or_union_branches(tb, cond, indexes, ctx)
+        if orb is not None:
+            from surrealdb_tpu_torch.exec.eval import evaluate
+
+            plans = []
+            for br in orb:
+                if br["kind"] == "range":
+                    frm = {"inclusive": False, "value": NONE}
+                    to = {"inclusive": False, "value": NONE}
+                    for rop, rexpr in br["tail"][1]:
+                        rv = evaluate(rexpr, ctx)
+                        if rop in (">", ">="):
+                            frm = {"inclusive": rop == ">=", "value": rv}
+                        else:
+                            to = {"inclusive": rop == "<=", "value": rv}
+                    plans.append({
+                        "direction": "forward", "from": frm,
+                        "index": br["idef"].name, "to": to,
+                    })
+                    continue
+                if br["kind"] == "ft":
+                    mt = br["mt"]
+                    op = f"@{mt.ref}@" if mt.ref is not None else "@@"
+                    try:
+                        val = evaluate(mt.rhs, ctx)
+                    except Exception:
+                        val = None
+                elif br["kind"] == "in":
+                    op = "union"
+                    iv = evaluate(br["tail"][1], ctx)
+                    val = iv if isinstance(iv, list) else [iv]
+                else:
+                    idef = br["idef"]
+                    op = "="
+                    vals = [
+                        evaluate(br["eqs"][c], ctx)
+                        for c in idef.cols_str[:br["nmatch"]]
+                    ]
+                    val = vals[0] if len(vals) == 1 else vals
+                plans.append({
+                    "index": br["idef"].name,
+                    "operator": op,
+                    "value": val,
+                })
+            return {
+                "detail": {
+                    "plan": {
+                        "operator": "UnionIndexScan",
+                        "branches": plans,
+                    },
+                    "table": tb,
+                },
+                "operation": "Iterate Index Union",
+            }
+        mts = _find_matches(cond)
+        if mts:
+            from surrealdb_tpu_torch.exec.eval import evaluate
+
+            mt = mts[0]
+            path = _field_path(mt.lhs)
+            for idef in indexes:
+                if idef.fulltext is not None and (
+                    path is None or (idef.cols_str and idef.cols_str[0] == path)
+                ):
+                    op = f"@{mt.ref}@" if mt.ref is not None else "@@"
+                    try:
+                        val = evaluate(mt.rhs, ctx)
+                    except Exception:
+                        val = None
+                    return {
+                        "detail": {
+                            "plan": {
+                                "index": idef.name,
+                                "operator": op,
+                                "value": val,
+                            },
+                            "table": tb,
+                        },
+                        "operation": "Iterate Index",
+                    }
+        from surrealdb_tpu_torch.exec.eval import evaluate
+
+        eqs, ins, rngs = _classify_preds(cond, _array_like_paths(tb, ctx))
+        best = None
+        chosen = _choose_index(indexes, eqs, ins, rngs, model="legacy")
+        if chosen is None:
+            jn = _find_link_join(tb, cond, indexes, ctx)
+            if jn is not None:
+                return _link_join_explain(tb, jn, ctx)
+        count_only = False
+        if stmt is not None and getattr(stmt, "group", None) == [] and \
+                getattr(stmt, "exprs", None):
+            from surrealdb_tpu_torch.expr.ast import FunctionCall as _FC2
+
+            count_only = (
+                len(stmt.exprs) == 1
+                and isinstance(stmt.exprs[0][0], _FC2)
+                and stmt.exprs[0][0].name.lower() == "count"
+                and not stmt.exprs[0][0].args
+            )
+        if chosen is not None:
+            idef, nmatch, tail, _score = chosen
+            if count_only:
+                # a count-only scan requires the index to cover the whole
+                # WHERE clause; residual predicates need real documents
+                covered = set(idef.cols_str[:nmatch])
+                if tail is not None:
+                    covered.add(idef.cols_str[nmatch])
+                preds = []
+                _split_ands(cond, preds)
+                classified = set(eqs) | set(ins) | set(rngs)
+                _IDXOPS = ("=", "==", "\u2208", "<", "<=", ">", ">=",
+                           "\u220b", "\u2287", "containsany")
+                for pred in preds:
+                    pth = None
+                    servable = False
+                    if isinstance(pred, Binary) and pred.op in _IDXOPS:
+                        lp2 = _field_path(pred.lhs)
+                        rp2 = _field_path(pred.rhs)
+                        # exactly one side is the column; the other side
+                        # must be a computable value
+                        if (lp2 is None) != (rp2 is None):
+                            pth = lp2 or rp2
+                            servable = True
+                    if not servable or pth not in covered or \
+                            pth not in classified:
+                        count_only = False
+                        break
+            vals = [evaluate(eqs[c], ctx) for c in idef.cols_str[:nmatch]]
+            op = "="
+            if tail is not None and tail[0] == "in":
+                op = "union"
+                iv = evaluate(tail[1], ctx)
+                iv = iv if isinstance(iv, list) else [iv]
+                if nmatch:
+                    # composite: one [prefix..., v] branch per IN value
+                    vals = [list(vals) + [x] for x in iv]
+                else:
+                    vals = vals + [iv]
+            elif tail is not None and tail[0] == "range" and not nmatch \
+                    and not count_only:
+                frm = {"inclusive": False, "value": NONE}
+                to = {"inclusive": False, "value": NONE}
+                for rop2, rexpr2 in tail[1]:
+                    rv2 = evaluate(rexpr2, ctx)
+                    if rop2 in (">", ">="):
+                        frm = {"inclusive": rop2 == ">=", "value": rv2}
+                    else:
+                        to = {"inclusive": rop2 == "<=", "value": rv2}
+                direction = "forward"
+                order_consumed = False
+                order = getattr(stmt, "order", None) if stmt is not None                     else None
+                if order and order != "rand" and len(order) == 1:
+                    from surrealdb_tpu_torch.exec.statements import expr_name
+
+                    oexpr, odir = order[0][0], order[0][1]
+                    if expr_name(oexpr) == idef.cols_str[0]:
+                        # the scan streams in index order: ASC rides the
+                        # forward iterator, DESC the reverse iterator
+                        order_consumed = True
+                        if odir == "desc":
+                            direction = "backward"
+                detail = {
+                    "plan": {
+                        "direction": direction,
+                        "from": frm,
+                        "index": idef.name,
+                        "to": to,
+                    },
+                    "table": tb,
+                }
+                if order_consumed:
+                    detail["_order_consumed"] = True
+                return {
+                    "detail": detail,
+                    "operation": "Iterate Index",
+                }
+            elif tail is not None and tail[0] == "range" and nmatch and \
+                    not count_only:
+                # composite eq-prefix + range tail: the reference renders
+                # the prefix values and each range bound in cond order
+                # (exe/lookup compound plans)
+                return {
+                    "detail": {
+                        "plan": {
+                            "index": idef.name,
+                            "prefix": vals,
+                            "ranges": [
+                                {"operator": rop, "value": evaluate(rexpr, ctx)}
+                                for rop, rexpr in tail[1]
+                            ],
+                        },
+                        "table": tb,
+                    },
+                    "operation": "Iterate Index",
+                }
+            elif tail is not None:
+                op = {">": "MoreThan", ">=": "MoreThanOrEqual",
+                      "<": "LessThan", "<=": "LessThanOrEqual"}.get(
+                          tail[1][0][0], "range")
+                vals = vals + [evaluate(tail[1][0][1], ctx)]
+            value = vals[0] if len(vals) == 1 else vals
+            if op == "union" and len(vals) == 1:
+                value = vals[0]
+            if count_only and tail is not None and tail[0] == "range":
+                frm = {"inclusive": True, "value": NONE}
+                to = {"inclusive": False, "value": NONE}
+                for rop, rexpr in tail[1]:
+                    rv = evaluate(rexpr, ctx)
+                    if rop in (">", ">="):
+                        frm = {"inclusive": rop == ">=", "value": rv}
+                    else:
+                        to = {"inclusive": rop == "<=", "value": rv}
+                return {
+                    "detail": {
+                        "plan": {
+                            "direction": "forward",
+                            "from": frm,
+                            "index": idef.name,
+                            "to": to,
+                        },
+                        "table": tb,
+                    },
+                    "operation": "Iterate Index Count",
+                }
+            return {
+                "detail": {
+                    "plan": {
+                        "index": idef.name,
+                        "operator": op,
+                        "value": value,
+                    },
+                    "table": tb,
+                },
+                "operation": "Iterate Index Count" if count_only
+                else "Iterate Index",
+            }
+    if cond is None and stmt is not None and with_index != []:
+        # no WHERE, but a single-key ORDER BY over an indexed column:
+        # stream the index in (reverse) order (reference Plan::SingleIndex
+        # with Order/ReverseOrder iterators)
+        order = getattr(stmt, "order", None)
+        if order and order != "rand" and len(order) == 1:
+            from surrealdb_tpu_torch.exec.statements import expr_name
+
+            oexpr, odir = order[0][0], order[0][1]
+            opath = expr_name(oexpr)
+            idxs = get_indexes_for(tb, ctx)
+            if with_index:
+                idxs = [i for i in idxs if i.name in with_index]
+            idef3 = next(
+                (d for d in idxs
+                 if d.cols_str and d.cols_str[0] == opath
+                 and d.hnsw is None and d.fulltext is None and not d.count),
+                None,
+            )
+            if idef3 is not None:
+                return {
+                    "detail": {
+                        "plan": {
+                            "index": idef3.name,
+                            "operator": "ReverseOrder" if odir == "desc"
+                            else "Order",
+                        },
+                        "table": tb,
+                        "_order_consumed": True,
+                    },
+                    "operation": "Iterate Index",
+                }
+    base = {
+        "detail": {"direction": "forward", "table": tb},
+        "operation": "Iterate Table",
+    }
+    if cond is not None:
+        reason = _unsupported_expr(cond)
+        if reason is not None:
+            # the planner analyzer bailed on an unsupported expression
+            # shape: the explain carries a Fallback entry (dbs/plan.rs)
+            return [base, {
+                "detail": {"reason": f"Unsupported expression: {reason}"},
+                "operation": "Fallback",
+            }]
+    return base

@@ -78,12 +78,6 @@ class Backend:
     def transaction(self, write: bool) -> BackendTx:
         raise NotImplementedError
 
-    def topology(self):
-        """Shard topology of this backend, or None for an unsharded
-        store. The range-sharded router (kvs/shard.py) overrides this;
-        INFO FOR SYSTEM and the /kv/topology route surface it."""
-        return None
-
     def close(self) -> None:
         pass
 
@@ -182,6 +176,10 @@ def deserialize_shared(b: bytes):
     return deserialize(b)
 
 
+# module prefix of the reference package's pickled types
+_REFERENCE_PREFIX = "surrealdb_tpu."
+
+
 class _RestrictedUnpickler(pickle.Unpickler):
     """The pickle fallback codec only ever stores this package's own
     types (AST-bearing catalog structs) plus stdlib value types. In
@@ -203,10 +201,26 @@ class _RestrictedUnpickler(pickle.Unpickler):
     }
 
     def find_class(self, module, name):
+        mapped = module.startswith(_REFERENCE_PREFIX)
+        if mapped:
+            # a store the reference package wrote: its catalog structs
+            # and AST nodes have counterparts of the same module path and
+            # name here (a `file://` directory opens in either package)
+            module = "surrealdb_tpu_torch." + module[len(_REFERENCE_PREFIX):]
         if module.startswith(self._ALLOWED_MODULES) or (
             module, name
         ) in self._ALLOWED_EXACT:
-            return super().find_class(module, name)
+            try:
+                found = super().find_class(module, name)
+            except (ImportError, AttributeError):
+                raise pickle.UnpicklingError(
+                    f"stored value references unknown type {module}.{name}"
+                ) from None
+            if mapped and not isinstance(found, type):
+                # only the reference's classes have counterparts here
+                raise pickle.UnpicklingError(
+                    f"stored value references {module}.{name}, not a type")
+            return found
         raise pickle.UnpicklingError(
             f"stored value references disallowed type {module}.{name}"
         )
@@ -336,7 +350,10 @@ class Transaction:
                 shared[1][key] = v
             if len(self._cat_cache) < cnf.TRANSACTION_CACHE_SIZE:
                 self._cat_cache[key] = v
-                return _copy.deepcopy(v) if v is not None else None
+                # a second decode is the caller's fresh copy: for a
+                # full-text posting dict it costs a twentieth of a
+                # deepcopy, and every indexed write reads its postings
+                return deserialize(raw) if v is not None else None
             return v  # not cached: the fresh object is already private
         raw = self.btx.get(key)
         return None if raw is None else deserialize(raw)

@@ -7,8 +7,9 @@ snapshot in that directory), the catalog cache, the parsed-statement
 cache and the engine caches: `vector_indexes` ((ns, db, tb, ix) ->
 TpuVectorIndex), `index_builds` (background `DEFINE INDEX` builds),
 `graph_engine` ((ns, db, node_tb, edge_tb, dir) -> CsrGraph),
-`graph_versions` ((ns, db, tb) -> write counter) and the columnar
-caches of `exec/batch.py` and `col.py`. A file-backed store keeps its
+`graph_versions` ((ns, db, tb) -> write counter), the full-text result
+cache (`_ft_cache`, a `resource.BudgetedLRU` registered with the memory
+accountant) and the columnar caches of `exec/batch.py` and `col.py`. A file-backed store keeps its
 engines' persisted ANN graphs in `ann_snapshot_dir`
 (`<store>/.ann-cache`), so a restart reloads them instead of rebuilding.
 
@@ -142,6 +143,20 @@ class Datastore:
         self.index_builds: dict = {}  # (ns,db,tb,ix) -> building status
         self.graph_engine = None
         self.graph_versions: dict = {}
+        # full-text result cache: bounded LRU (entry + byte caps), so a
+        # hot mixed read/write table does not keep one dead entry per
+        # write version; registered with the memory accountant below
+        from surrealdb_tpu_torch import resource as _resource
+
+        self._ft_cache = _resource.BudgetedLRU(cnf.FT_CACHE_ENTRIES,
+                                               cnf.FT_CACHE_BYTES)
+        self._mem_ft = _resource.register(
+            "ft", "ft-cache", self._ft_cache_bytes,
+            evict=self._ft_cache_evict, owner=self,
+        )
+        self.telemetry.register_counter(
+            "ft_cache_evictions", lambda: self._ft_cache.evictions
+        )
         self.metrics = {
             "transactions": 0, "commits": 0, "cancels": 0,
             "statements": 0, "statement_errors": 0, "slow_queries": 0,
@@ -168,6 +183,15 @@ class Datastore:
         self._catalog_ver = 0
         self._catalog_shared = (0, {})
         self._stamp_storage_version(check_version)
+
+    # -- resource accounting (resource.py) ------------------------------------
+    def _ft_cache_bytes(self) -> int:
+        return int(self._ft_cache.nbytes)
+
+    def _ft_cache_evict(self):
+        # drop the coldest half: the next identical search re-runs the
+        # posting walk (a pure cache: the KV truth is untouched)
+        self._ft_cache.shrink(0.5)
 
     # -- transactions -------------------------------------------------------
     def transaction(self, write: bool = True,

@@ -1,8 +1,9 @@
 """Node-wide memory accounting for derived state (the reference
 package's `resource.py`, trimmed to what the index engines register
-with): `Account`, `MemoryAccountant`, `register`, `checkpoint`,
-`throttle`, `get_accountant` / `set_accountant`. The port keeps its own
-process-wide accountant.
+with): `Account`, `MemoryAccountant` (with INFO FOR SYSTEM's
+`snapshot`), `register`, `checkpoint`, `throttle`, `get_accountant` /
+`set_accountant`, and `BudgetedLRU`, the full-text result cache's
+container. The port keeps its own process-wide accountant.
 
 Every byte of derived state an engine holds (a vector index's host rows
 and per-epoch rank stats, its CAGRA build) is a cache over KV truth and
@@ -21,16 +22,18 @@ from __future__ import annotations
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from typing import Optional
 
 from surrealdb_tpu_torch import cnf
 
 # Eviction priority, first kind evicted first, ordered by rebuild cost
 # (the reference's order, over the kinds the port registers): per-epoch
-# rank stats are a trivial recompute, ANN graphs rebuild in the
-# background while brute force serves, vector host arrays rebuild from
-# a KV range scan on the next sync.
-EVICT_ORDER = ("rank_stats", "ann", "vec")
+# rank stats are a trivial recompute, a full-text result re-runs its
+# posting walk, ANN graphs rebuild in the background while brute force
+# serves, vector host arrays rebuild from a KV range scan on the next
+# sync.
+EVICT_ORDER = ("rank_stats", "ft", "ann", "vec")
 
 
 def host_limit_bytes() -> int:
@@ -237,6 +240,22 @@ class MemoryAccountant:
             return self.usage()
         return self._last_usage
 
+    def snapshot(self) -> dict:
+        """Accounting breakdown for INFO FOR SYSTEM / bench JSON."""
+        by_kind: dict[str, int] = {}
+        total = 0
+        for a in self._live_accounts():
+            b = a.bytes()
+            total += b
+            by_kind[a.kind] = by_kind.get(a.kind, 0) + b
+        return {
+            "accounted_bytes": total,
+            "budget_bytes": self.budget_bytes,
+            "soft_bytes": self.soft_bytes,
+            "hard_bytes": self.hard_bytes,
+            "by_kind": {k: v for k, v in sorted(by_kind.items())},
+            "counters": dict(self.counters),
+        }
 
     # -- eviction -----------------------------------------------------------
     def maybe_evict(self, target: Optional[int] = None) -> int:
@@ -310,6 +329,78 @@ class MemoryAccountant:
         while self.usage() > self.hard_bytes \
                 and time.monotonic() < end:
             time.sleep(min(0.02, pause_s))
+
+
+class BudgetedLRU:
+    """Entry-count + byte-capped LRU mapping (the FtResult cache's
+    container, reusable for any keyed derived-state cache). Costs are
+    caller-estimated at put() (cheap arithmetic, not sys.getsizeof
+    traversals); eviction pops least-recently-used entries and counts
+    them. Thread-safe."""
+
+    def __init__(self, max_entries: int, max_bytes: int):
+        self.max_entries = max(int(max_entries), 1)
+        self.max_bytes = max(int(max_bytes), 1)
+        self._lock = threading.Lock()
+        self._d: OrderedDict = OrderedDict()  # key -> (value, cost)
+        self.nbytes = 0
+        self.evictions = 0
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key, default=None):
+        with self._lock:
+            ent = self._d.get(key)
+            if ent is None:
+                self.misses += 1
+                return default
+            self._d.move_to_end(key)
+            self.hits += 1
+            return ent[0]
+
+    def put(self, key, value, cost: int = 0):
+        cost = max(int(cost), 0)
+        with self._lock:
+            old = self._d.pop(key, None)
+            if old is not None:
+                self.nbytes -= old[1]
+            self._d[key] = (value, cost)
+            self.nbytes += cost
+            while self._d and (len(self._d) > self.max_entries
+                               or self.nbytes > self.max_bytes):
+                if len(self._d) == 1 and len(self._d) <= \
+                        self.max_entries:
+                    break  # one oversized entry may live alone
+                _k, (_v, c) = self._d.popitem(last=False)
+                self.nbytes -= c
+                self.evictions += 1
+
+    def shrink(self, frac: float = 0.5) -> int:
+        """Accountant evict callback: drop the coldest `frac` of the
+        entries. Returns bytes freed."""
+        with self._lock:
+            drop = max(int(len(self._d) * frac), 1) if self._d else 0
+            freed = 0
+            for _ in range(drop):
+                if not self._d:
+                    break
+                _k, (_v, c) = self._d.popitem(last=False)
+                freed += c
+                self.nbytes -= c
+                self.evictions += 1
+            return freed
+
+    def clear(self):
+        with self._lock:
+            self._d.clear()
+            self.nbytes = 0
+
+    def __len__(self):
+        return len(self._d)
+
+    def __contains__(self, key):
+        with self._lock:
+            return key in self._d
 
 
 # -- process-wide singleton ---------------------------------------------------

@@ -7,7 +7,8 @@ per-query span trees.
   `txn_open`, the executor `stmt_eval` and `stmt_envelope`, the planner
   `plan`, the vector engine `index_knn` (cache sync, batcher wait,
   kernel), and a serving stack binds `stage_record` into the supervisor
-  (`bind_serving`) for its `device_rpc` stage.
+  (`bind_serving`) for its `device_rpc` stage. `stage_snapshot()` reads
+  the table (INFO FOR SYSTEM's `stages`).
 - `Telemetry`: a datastore's counters and gauges and the ring of recent
   span trees (`start`/`end`/`span`); `SURREAL_TELEMETRY_FILE` exports one
   span tree per completed query as JSONL.
@@ -75,6 +76,13 @@ def stage_record(name: str, ns: int):
         # the same stage leaves one winner and loses one sample
         st = _STAGES.setdefault(name, StageStat())
     st.add(ns)
+
+
+def stage_snapshot() -> dict:
+    """{stage: {count, total_ms, avg_us, max_us, last_us}} sorted by
+    total time descending."""
+    items = sorted(_STAGES.items(), key=lambda kv: -kv[1].total_ns)
+    return {k: v.to_dict() for k, v in items}
 
 
 class Span:

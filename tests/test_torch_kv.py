@@ -135,17 +135,46 @@ def test_hl_entries_are_pickle_and_records_cbor():
 
 
 def test_pickle_branch_is_restricted():
-    # a stored value naming a reference class cannot be read here: it
-    # raises, and never decodes to None
-    raw = ref_serialize(("set", RDatetime(datetime.datetime(
-        2020, 1, 1, tzinfo=datetime.timezone.utc)), b""))
+    # a stored value naming a reference class decodes to the port's
+    # counterpart of the same module path and name (a directory the
+    # reference wrote opens here), and never to None
+    when = datetime.datetime(2020, 1, 1, tzinfo=datetime.timezone.utc)
+    raw = ref_serialize(("set", RDatetime(when), b""))
     assert raw[:1] == b"\x00"
+    assert deserialize(raw) == ("set", PDatetime(when), b"")
+    # a reference type with no counterpart here still raises
+    from surrealdb_tpu.server.fanout import FanoutHub
+
     with pytest.raises(pickle.UnpicklingError):
-        deserialize(raw)
+        deserialize(b"\x00" + pickle.dumps(FanoutHub, protocol=5))
     evil = b"\x00" + pickle.dumps(print, protocol=5)
     with pytest.raises(pickle.UnpicklingError):
         deserialize(evil)
     assert deserialize(b"\x00" + pickle.dumps({1, 2}, protocol=5)) == {1, 2}
+
+
+def test_pickle_mapped_reference_function_is_refused():
+    """Only the reference's classes map to the port's: a stored value
+    naming a reference function, whose name the port also defines,
+    raises and is never called."""
+    from surrealdb_tpu.kvs import api as ref_api
+
+    raw = b"\x00" + pickle.dumps(ref_api.serialize, protocol=5)
+    assert b"surrealdb_tpu.kvs.api" in raw
+    with pytest.raises(pickle.UnpicklingError, match="not a type"):
+        deserialize(raw)
+    reduce = b"\x00" + pickle.dumps(_CallsReferenceFunction(), protocol=5)
+    with pytest.raises(pickle.UnpicklingError, match="not a type"):
+        deserialize(reduce)
+
+
+class _CallsReferenceFunction:
+    """Pickles as a call of the reference's `serialize` on load."""
+
+    def __reduce__(self):
+        from surrealdb_tpu.kvs import api as ref_api
+
+        return ref_api.serialize, ("x",)
 
 
 def test_unported_value_tags_raise():

@@ -24,194 +24,23 @@ euclidean, the exact store for manhattan, the int8 store under a small
 `KNN_ANN_MODE=force`.
 """
 
-import dataclasses
-import math
 import time
-from decimal import Decimal
 
-import jax
 import numpy as np
 import pytest
 
 from surrealdb_tpu import cnf as rcnf
-from surrealdb_tpu.device import supervisor as refsup
 from surrealdb_tpu.idx import vector as RV
-from surrealdb_tpu.kvs.api import deserialize as ref_deserialize
-from surrealdb_tpu.kvs.ds import Datastore as RefDatastore
 from surrealdb_tpu_torch import cnf as pcnf
-from surrealdb_tpu_torch import key as PK
-from surrealdb_tpu_torch.device import supervisor as portsup
-from surrealdb_tpu_torch.device.handlers import DeviceHost as PortHost
 from surrealdb_tpu_torch.idx import vector as PV
-from surrealdb_tpu_torch.kvs.api import deserialize as port_deserialize
-from surrealdb_tpu_torch.kvs.ds import Datastore as PortDatastore
-
-ATOL, RTOL = 1e-4, 1e-5
-NS, DB = "t", "t"
-DIM = 16
-MIN_ROWS = 64
-
-
-@pytest.fixture()
-def both(monkeypatch):
-    """A reference and a port datastore, each over its package's inline
-    supervisor, with the device floor lowered in both packages."""
-    monkeypatch.setattr(jax, "device_count", lambda: 1)
-    for c in (rcnf, pcnf):
-        monkeypatch.setattr(c, "KNN_DEVICE_MIN_ROWS", MIN_ROWS)
-        monkeypatch.setattr(c, "KNN_ANN_MODE", "off")
-        monkeypatch.setattr(c, "KNN_SEG_MODE", "off")
-        monkeypatch.setattr(c, "KNN_HOST_BATCH", "device")
-    for m in (RV, PV):
-        monkeypatch.setattr(m, "DEVICE_MIN_ROWS", MIN_ROWS)
-    old_r = refsup.set_supervisor(refsup.DeviceSupervisor(mode="inline"))
-    sup = portsup.DeviceSupervisor("inline", device="cpu")
-    host = PortHost("cpu")
-    ops = []
-    handle = host.handle
-
-    def recording(op, meta, bufs):
-        ops.append(op)
-        return handle(op, meta, bufs)
-
-    host.handle = recording
-    sup._inline_host = host
-    old_p = portsup.set_supervisor(sup)
-    pair = Both()
-    pair.ops = ops
-    try:
-        yield pair
-    finally:
-        pair.close()
-        refsup.reset_supervisor()
-        refsup.set_supervisor(old_r)
-        portsup.reset_supervisor()
-        portsup.set_supervisor(old_p)
-
-
-# -- normalising and comparing ------------------------------------------------
-
-
-def norm(v):
-    """A value of either package as plain Python."""
-    if v is None or isinstance(v, (bool, int, float, str, bytes)):
-        return v
-    if isinstance(v, Decimal):
-        return ("dec", str(v))
-    if isinstance(v, (list, tuple)):
-        return [norm(x) for x in v]
-    if isinstance(v, dict):
-        return {k: norm(x) for k, x in v.items()}
-    if isinstance(v, (set, frozenset)):
-        return ("pyset", sorted(repr(norm(x)) for x in v))
-    if isinstance(v, np.ndarray):
-        return ("nd", str(v.dtype), v.tolist())
-    name = type(v).__name__
-    if name == "_NoneType":
-        return ("NONE",)
-    if name == "RecordId":
-        return ("rid", v.tb, norm(v.id))
-    if name == "Datetime":
-        return ("dt", v.epoch_ns())
-    if name in ("Duration", "Uuid", "Table", "Range", "Geometry", "SSet",
-                "File", "Regex", "Closure"):
-        return (name, v.render())
-    if dataclasses.is_dataclass(v):
-        return (name, {f.name: norm(getattr(v, f.name))
-                       for f in dataclasses.fields(v)})
-    if hasattr(v, "__dict__"):
-        return (name, {k: norm(x) for k, x in vars(v).items()})
-    if hasattr(v, "__slots__"):
-        return (name, {k: norm(getattr(v, k, None)) for k in v.__slots__})
-    return (name, repr(v))
-
-
-def same(a, b, path="$"):
-    """Assert two normalised values equal, floats to the tolerance."""
-    if isinstance(a, float) or isinstance(b, float):
-        assert isinstance(a, (int, float)) and isinstance(b, (int, float)) \
-            and not isinstance(a, bool) and not isinstance(b, bool), \
-            f"{path}: {a!r} != {b!r}"
-        if math.isnan(a) or math.isnan(b):
-            assert math.isnan(a) and math.isnan(b), f"{path}: {a} != {b}"
-            return
-        assert math.isclose(a, b, rel_tol=RTOL, abs_tol=ATOL) or a == b, \
-            f"{path}: {a!r} != {b!r}"
-        return
-    assert type(a) is type(b), f"{path}: {a!r} != {b!r}"
-    if isinstance(a, (list, tuple)):
-        assert len(a) == len(b), f"{path}: {a!r} != {b!r}"
-        for i, (x, y) in enumerate(zip(a, b)):
-            same(x, y, f"{path}[{i}]")
-        return
-    if isinstance(a, dict):
-        assert list(a) == list(b), f"{path}: keys {list(a)} != {list(b)}"
-        for k in a:
-            same(a[k], b[k], f"{path}.{k}")
-        return
-    assert a == b, f"{path}: {a!r} != {b!r}"
-
-
-def _results(rs):
-    return [("err", r.error) if r.error is not None else ("ok", norm(r.result))
-            for r in rs]
-
-
-def _untimed(k):
-    """A catalog or record history key without its 8 bytes of
-    wall-clock time."""
-    if k.startswith(b"/%"):
-        return k[:-8]
-    if k.startswith(b"/*"):
-        pos = 2
-        for _ in range(3):
-            _s, pos = PK.dec_str(k, pos)
-            pos += 1
-        if k[pos - 1:pos] == b"%":
-            return k[:-8]
-    return k
-
-
-def _items(ds):
-    t = ds.transaction(write=False)
-    try:
-        return [(_untimed(k), v) for k, v in t.scan(b"", b"\xff" * 9)]
-    finally:
-        t.cancel()
-
-
-class Both:
-    def __init__(self):
-        self.ref = RefDatastore("memory")
-        self.port = PortDatastore("memory")
-
-    def close(self):
-        self.ref.close()
-        self.port.close()
-
-    def run(self, sql, vars=None):
-        """Run `sql` on both; assert the same results; return the port's
-        QueryResults."""
-        r = self.ref.execute(sql, ns=NS, db=DB, vars=vars)
-        p = self.port.execute(sql, ns=NS, db=DB, vars=vars)
-        same(_results(r), _results(p))
-        return p
-
-    def ok(self, sql, vars=None):
-        """`run`, and every statement succeeded."""
-        out = self.run(sql, vars)
-        for r in out:
-            assert r.error is None, r.error
-        return [r.result for r in out]
-
-    def same_items(self):
-        ri, pi = _items(self.ref), _items(self.port)
-        assert [k for k, _ in ri] == [k for k, _ in pi]
-        for (k, rv), (_k, pv) in zip(ri, pi):
-            if rv != pv:
-                assert rv[:1] == pv[:1] == b"\x00", repr(k)
-                same(norm(ref_deserialize(rv)), norm(port_deserialize(pv)),
-                     repr(k))
+from torch_sql_harness import (  # noqa: F401  (both is a fixture)
+    ATOL,
+    DB,
+    DIM,
+    NS,
+    RTOL,
+    both,
+)
 
 
 def _vectors(n, dim=DIM, seed=5):
@@ -524,17 +353,17 @@ def test_parse_errors_match(both):
 def test_unported_statements_raise(both):
     both.ok("CREATE x:1")
     out = both.port.execute(
-        "INFO FOR DB; EXPLAIN SELECT * FROM x; LIVE SELECT * FROM x; "
+        "LIVE SELECT * FROM x; "
         "DEFINE FUNCTION fn::f() { RETURN 1 }; DEFINE EVENT e ON x THEN {}; "
-        "DEFINE ANALYZER a TOKENIZERS blank; SELECT * FROM x VERSION "
+        "SELECT * FROM x VERSION "
         "d'2024-01-01T00:00:00Z'; RETURN crypto::md5('a'); "
         "RETURN http::get('http://localhost'); DEFINE TABLE v AS SELECT * FROM x; "
-        "DEFINE TABLE cf CHANGEFEED 1h; SELECT * FROM x WHERE a @@ 'b'; "
+        "DEFINE TABLE cf CHANGEFEED 1h; "
         "RETURN function() { return 1; }; DEFINE PARAM $p VALUE 1",
         ns=NS, db=DB)
-    names = ["INFO", "EXPLAIN", "LIVE SELECT", "DEFINE FUNCTION",
-             "DEFINE EVENT", "DEFINE ANALYZER", "VERSION", "crypto::md5",
-             "http::get", "views", "CHANGEFEED", "@@", "scripting",
+    names = ["LIVE SELECT", "DEFINE FUNCTION",
+             "DEFINE EVENT", "VERSION", "crypto::md5",
+             "http::get", "views", "CHANGEFEED", "scripting",
              "DEFINE PARAM"]
     assert len(out) == len(names)
     for r, name in zip(out, names):

@@ -479,9 +479,11 @@ def test_seg_snapshot_persist_reload(twin_cnf, tmp_path, monkeypatch):
 
 
 def test_explain_surfaces_segmented(twin_cnf, ds):
-    """The port's engine fed through its KV write path reports the
-    segmented route with the reference's fan-out shape (the reference
-    driven through its SQL EXPLAIN, as its own case does)."""
+    """The port's engine reports the segmented route with the
+    reference's fan-out shape: fed through its KV write path (its
+    `ann_plan` against the reference's), and driven through its SQL
+    EXPLAIN with the reference's script, where the plan equals the
+    reference's."""
     import json
 
     from surrealdb_tpu_torch.idx.vector import (
@@ -533,6 +535,25 @@ def test_explain_surfaces_segmented(twin_cnf, ds):
         assert _pairs(pix.knn_batch(qs, 5)) == _pairs(rix.knn_batch(qs, 5))
     finally:
         pds.close()
+
+    sds = Datastore("memory")
+    try:
+        sds.query(
+            f"DEFINE TABLE t; DEFINE INDEX ix ON t FIELDS v HNSW "
+            f"DIMENSION {DIM} DIST EUCLIDEAN TYPE F32"
+        )
+        sds.query("".join(
+            f"CREATE t:{i} SET v = [{', '.join(f'{x:.4f}' for x in v)}];"
+            for i, v in enumerate(rows)
+        ))
+        ids = [[r["id"].id for r in res] for res in sds.query(sql)]
+        assert ids == [[r["id"].id for r in res] for res in ds.query(sql)]
+        six = next(iter(sds.vector_indexes.values()))
+        assert six.ensure_ann()
+        pblob = json.dumps(sds.query(f"EXPLAIN {sql}")[0], default=str)
+        assert pblob == blob
+    finally:
+        sds.close()
 
 
 # -- the port's own paths -----------------------------------------------------
