@@ -95,6 +95,29 @@ exits non-zero):
               SYSTEM, whose device section is this supervisor (mode
               require, ready); no fallback and no host routing may
               occur;
+   server  -- (after sql, on that runner, mode require) knn1m's
+              datastore behind the port's network server (make_server
+              on 127.0.0.1:0, unauthenticated, the default admission
+              gate), each step in a launch window of its own: 128
+              clients of the port's SDK over the WebSocket (CBOR) send
+              SQL["knn1m"] `<|10,40|>` queries (ws_knn_qps, p50, p99
+              beside the sql phase's sql_knn_qps and index_engine_qps;
+              recall@10 of 16 >= 0.99; the bf16 store's three kernels
+              launch, distance_tile never); the same query through POST
+              /sql and POST /rpc (JSON), ids equal; LIVE SELECT id FROM
+              tbl on one session and a CREATE on another (one CREATE
+              notification, the probe answers the row first), KILL
+              (a second CREATE delivers nothing in 1 s), both rows
+              deleted; bench.py's
+              live_soak at its quick shape (64 sessions, 2 frozen, 4
+              writers, 400 writes, 256-byte pad; order_violations 0,
+              per_session_complete 62, live_sessions_end 0); a drain
+              with one query in flight (the fresh vector's, the first
+              after the deletes: it answers without the deleted rows, a
+              new request sheds with a typed 503, the drain reaches the
+              supervisor's shutdown, which is counted, not run, so the
+              runner serves the later phases); no fallback, host routing or numpy
+              descent may occur;
    search  -- (4b'', on that runner, mode require) bench.py's
               bench_hybrid through the port's SurrealQL at 2,048
               documents (HYBRID): DEFINE ANALYZER, a FULLTEXT BM25 and
@@ -168,6 +191,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only hier,approx,entry,onnx,batcher
     python3 chip_smoke.py --only engine
     python3 chip_smoke.py --only sql
+    python3 chip_smoke.py --only server
     python3 chip_smoke.py --only segments
     python3 chip_smoke.py --only search
 
@@ -188,6 +212,7 @@ approx, entry, onnx: those checks over knn1m's rows made here; batcher:
 the batcher check over a supervised runner of its own; engine: phase
 4b over rows made here and a runner of its own, which ships the knn10m
 rows itself; sql: the same, then phase 4b' over its datastores;
+server: the same, then the server phase over knn1m's;
 segments: phase 4c over a runner of its own; search: phase 4b'' over a
 runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
@@ -544,6 +569,264 @@ def hnsw_def(tb, params):
                     hnsw=params)
 
 
+class SoakWs:
+    """A raw WebSocket client of the port's server (JSON frames, masked
+    as RFC 6455 asks of a client): `call` waits for its reply, `feed`
+    reads what has arrived without blocking (the soak's collector)."""
+
+    def __init__(self, port, rcvbuf=None):
+        import socket as S
+
+        self.sock = S.socket(S.AF_INET, S.SOCK_STREAM)
+        if rcvbuf:
+            self.sock.setsockopt(S.SOL_SOCKET, S.SO_RCVBUF, rcvbuf)
+        self.sock.settimeout(30)
+        self.sock.connect(("127.0.0.1", port))
+        key = "c29ha3Nlc3Npb25rZXk93d=="
+        self.sock.sendall(
+            (f"GET /rpc HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+             f"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+             f"Sec-WebSocket-Key: {key}\r\n"
+             f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            chunk = self.sock.recv(4096)
+            if not chunk:
+                raise ConnectionError("handshake failed")
+            resp += chunk
+        self.buf = bytearray(resp.split(b"\r\n\r\n", 1)[1])
+        self._id = 0
+
+    def call(self, method, params):
+        self._id += 1
+        payload = json.dumps({"id": self._id, "method": method,
+                              "params": params}).encode()
+        mask = b"\x11\x22\x33\x44"
+        masked = bytes(c ^ mask[i % 4] for i, c in enumerate(payload))
+        n = len(payload)
+        if n < 126:
+            hdr = b"\x81" + bytes([0x80 | n])
+        else:
+            hdr = b"\x81" + struct.pack("!BH", 0x80 | 126, n)
+        self.sock.sendall(hdr + mask + masked)
+        while True:
+            msg = self._read_msg()
+            if msg.get("id") == self._id:
+                return msg
+
+    def _read_msg(self):
+        while True:
+            msgs = soak_parse(self.buf)
+            if msgs:
+                if msgs[0] is None:  # server close frame
+                    raise ConnectionError("closed by server")
+                return msgs[0]
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("closed")
+            self.buf += chunk
+
+    def feed(self) -> list:
+        """Non-blocking drain for the collector: recv once, return the
+        complete messages parsed out of the buffer."""
+        try:
+            chunk = self.sock.recv(262144)
+        except (BlockingIOError, InterruptedError):
+            return []
+        except OSError:
+            return [None]  # connection gone
+        if not chunk:
+            return [None]
+        self.buf += chunk
+        return soak_parse(self.buf, limit=0)
+
+    def close(self):
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def soak_parse(buf: bytearray, limit: int = 1) -> list:
+    """Parse complete server frames out of `buf` in place; returns
+    decoded JSON messages (close frames decode to None)."""
+    out = []
+    while buf and (limit == 0 or len(out) < limit):
+        if len(buf) < 2:
+            break
+        b1, b2 = buf[0], buf[1]
+        n = b2 & 0x7F
+        off = 2
+        if n == 126:
+            if len(buf) < 4:
+                break
+            n = struct.unpack_from("!H", buf, 2)[0]
+            off = 4
+        elif n == 127:
+            if len(buf) < 10:
+                break
+            n = struct.unpack_from("!Q", buf, 2)[0]
+            off = 10
+        if len(buf) < off + n:
+            break
+        data = bytes(buf[off:off + n])
+        del buf[:off + n]
+        opcode = b1 & 0x0F
+        if opcode == 0x8:
+            out.append(None)
+            break
+        if opcode not in (0x1, 0x2):
+            continue
+        try:
+            out.append(json.loads(data.decode()))
+        except ValueError:
+            continue
+    return out
+
+
+def live_soak(ds, port, sessions=64, frozen=2, writers=4, writes=400,
+              payload_pad=256, table="soak", ns="s", db="s",
+              settle_s=8.0):
+    """bench.py:1445 live_soak over the port's server at `port` (serving
+    `ds`): `sessions` WebSocket sessions each hold one LIVE SELECT on
+    `table`, `frozen` of them never read their socket (a 4 KB receive
+    buffer, so TCP backpressure bites), `writers` threads stream
+    CREATEs through `ds`, first with no subscriber (the baseline write
+    rate) and then into the subscribed fleet, and one collector thread
+    drains every live socket through a selector, checking each
+    session's per-writer sequence for order. Then every session closes
+    without KILL and the registry must empty. Returns bench.py's
+    metrics."""
+    import selectors
+    import threading
+
+    pad = "x" * payload_pad if payload_pad else ""
+    ds.execute(f"DEFINE TABLE {table}", ns=ns, db=db)
+    # a per-phase base keeps `s` unique and monotonic per (phase,
+    # writer): the order check keys on s // 1_000_000
+    phase = [0]
+
+    def run_writes(tag, count):
+        phase[0] += 1
+        base = phase[0] * 100_000_000
+
+        def w(wi):
+            for j in range(count // writers):
+                r = ds.execute(
+                    f"CREATE {table}:{tag}{wi}x{j} SET ts = $ts, "
+                    f"s = $s, p = $p", ns=ns, db=db,
+                    vars={"ts": time.time(),
+                          "s": base + wi * 1_000_000 + j, "p": pad})
+                check(r[0].error is None, f"soak write: {r[0].error}")
+
+        ts = [threading.Thread(target=w, args=(i,), daemon=True)
+              for i in range(writers)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        return (count // writers) * writers / (time.perf_counter() - t0)
+
+    base_qps = run_writes("b", writes)
+    live, cold = [], []
+    for i in range(sessions):
+        is_frozen = i < frozen
+        c = SoakWs(port, rcvbuf=4096 if is_frozen else None)
+        c.call("use", [ns, db])
+        c.lid = c.call("live", [table]).get("result")
+        c.si = i
+        (cold if is_frozen else live).append(c)
+    stats = {"delivered": 0, "overflow": 0, "error": 0,
+             "order_violations": 0, "lat": [], "closed": 0,
+             "per_session": {}}
+    stop = threading.Event()
+
+    def collect():
+        sel = selectors.DefaultSelector()
+        for c in live:
+            c.sock.setblocking(False)
+            sel.register(c.sock, selectors.EVENT_READ, c)
+        last_seq: dict = {}
+        while not stop.is_set():
+            for key, _ev in sel.select(timeout=0.2):
+                c = key.data
+                for msg in c.feed():
+                    if msg is None:
+                        try:
+                            sel.unregister(c.sock)
+                        except KeyError:
+                            pass
+                        stats["closed"] += 1
+                        break
+                    if msg.get("id") is not None:
+                        continue
+                    note = msg.get("result") or {}
+                    act = note.get("action")
+                    if act == "OVERFLOW":
+                        stats["overflow"] += 1
+                        continue
+                    if act == "ERROR":
+                        stats["error"] += 1
+                        continue
+                    row = note.get("result") or {}
+                    ts = row.get("ts")
+                    if isinstance(ts, (int, float)):
+                        stats["lat"].append(time.time() - ts)
+                    sq = row.get("s")
+                    key_ = (c.si, sq is not None and sq // 1_000_000)
+                    prev = last_seq.get(key_)
+                    if prev is not None and sq is not None and sq <= prev:
+                        stats["order_violations"] += 1
+                    if sq is not None:
+                        last_seq[key_] = sq
+                    stats["delivered"] += 1
+                    ps = stats["per_session"]
+                    ps[c.si] = ps.get(c.si, 0) + 1
+
+    col = threading.Thread(target=collect, daemon=True)
+    col.start()
+    t0 = time.perf_counter()
+    fan_qps = run_writes("f", writes)
+    target = len(live) * (writes // writers) * writers
+    end = time.monotonic() + settle_s
+    while time.monotonic() < end and stats["delivered"] < target:
+        time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    stop.set()
+    col.join(timeout=5)
+    lats = sorted(stats["lat"])
+
+    def pct(p):
+        return (lats[min(int(len(lats) * p), len(lats) - 1)] * 1000
+                if lats else None)
+
+    # closing every session without KILL must empty the registry
+    for c in live + cold:
+        c.close()
+    gc_end = time.monotonic() + 10.0
+    while len(ds.live_queries) and time.monotonic() < gc_end:
+        time.sleep(0.05)
+    tel = ds.telemetry
+    n_writes = (writes // writers) * writers
+    return {
+        "sessions": sessions, "frozen": frozen, "writes": n_writes,
+        "delivered": stats["delivered"],
+        "notifications_per_s": stats["delivered"] / wall,
+        "delivery_p50_ms": pct(0.50), "delivery_p99_ms": pct(0.99),
+        "write_qps_base": base_qps, "write_qps_fanout": fan_qps,
+        "decoupling_ratio": fan_qps / base_qps if base_qps else 0.0,
+        "order_violations": stats["order_violations"],
+        "overflow_notes": stats["overflow"],
+        "overflows": tel.get("live_overflows"),
+        "overflow_disconnects": tel.get("live_overflow_disconnects"),
+        "notifications_dropped": tel.get("notifications_dropped"),
+        "live_sessions_end": len(ds.live_queries),
+        "per_session_complete": sum(
+            1 for v in stats["per_session"].values() if v >= n_writes),
+    }
+
+
 def bound(nbytes, ops, peak):
     """Least time (ms) the card could take: the larger of bytes over
     the HBM rate and operations over the peak rate of their type."""
@@ -659,7 +942,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
-              "engine", "sql", "segments", "search")
+              "engine", "sql", "server", "segments", "search")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -2815,11 +3098,12 @@ def main(argv=None) -> int:
                 setattr(cnf, name, v)
         return out_all
 
-    def engine_only(with_sql=False):
+    def engine_only(with_sql=False, with_server=False):
         """`--only engine`: the engine phase over rows made here (the
         knn10m rows shipped by the engine itself), under a supervisor in
         mode require of its own; `--only sql`: the same, then the sql
-        phase over the engine's datastores."""
+        phase over the engine's datastores; `--only server`: then the
+        server phase over knn1m's."""
         rng_ = np.random.default_rng(KNN1M["seed"])
         xs1 = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
                                    dtype=np.float32)
@@ -2845,7 +3129,9 @@ def main(argv=None) -> int:
             sup_.start()
             engine_phase(sup_, data)
             if with_sql:
-                sql_phase(sup_, data["sql"])
+                sql_phase(sup_, data["sql"], keep_knn1m=with_server)
+            if with_server:
+                server_phase(sup_, data["sql"].pop("knn1m"))
         finally:
             sup_.shutdown()
 
@@ -2868,7 +3154,7 @@ def main(argv=None) -> int:
         ids = torch.gather(torch.cat(ti_), 0, sel_)
         return (1.0 - v_).T.cpu().numpy(), ids.T.cpu().numpy()
 
-    def sql_phase(sup_, sq, counts=None):
+    def sql_phase(sup_, sq, counts=None, keep_knn1m=False):
         """SurrealQL through the port's `Datastore.execute` over the
         engine phase's datastores (`sq`), under `sup_` (mode require):
         knn1m (`<|10,40|>` as bench.py drives it: 3 queries, 128 at 128
@@ -3315,7 +3601,315 @@ def main(argv=None) -> int:
             SV.set_supervisor(old_sup)
             for name, v in saved.items():
                 setattr(cnf, name, v)
+            # the server phase serves knn1m's datastore next, beside this
+            # phase's figures for the same query
+            kept = sq.get("knn1m") if keep_knn1m else None
             sq.clear()
+            if kept is not None:
+                kept["sql_out"] = out_all.get("knn1m")
+                sq["knn1m"] = kept
+        return out_all
+
+    # -- the network server over knn1m's datastore (also `--only server`) --
+    class KeepRunner:
+        """The phase's runner as the drain sees it: every call goes to
+        it, and drain_and_shutdown's closing `shutdown()` is counted,
+        not run, so the later phases keep the runner."""
+
+        def __init__(self, sup_):
+            self._sup = sup_
+            self.shutdowns = 0
+
+        def __getattr__(self, name):
+            return getattr(self._sup, name)
+
+        def shutdown(self):
+            self.shutdowns += 1
+
+    def server_phase(sup_, d, counts=None):
+        """knn1m's datastore (BASELINE config 2 at full width, after the
+        sql phase) behind the port's `make_server` on 127.0.0.1:0
+        (unauthenticated, the default admission gate), under `sup_`
+        (mode require), each step in a launch window of its own: (a)
+        128 clients of the port's SDK (`connect("ws://…", fmt="cbor")`)
+        send SQL["knn1m"] `<|10,40|>` queries (ws_knn_qps, p50, p99
+        beside the sql phase's sql_knn_qps and index_engine_qps),
+        recall@10 of 16 queries >= 0.99 against the f64 oracle; (b) the
+        same query through POST /sql and POST /rpc (JSON), ids equal to
+        the WebSocket's; (c) LIVE SELECT id FROM tbl on one session, a
+        CREATE of a fresh vector on another: one CREATE notification,
+        the `<|10|>` probe answers the row first, KILL, a second CREATE
+        delivers nothing in 1 s, both rows deleted; (d) bench.py's live
+        soak at its quick shape on a table of its own (order_violations
+        0, per_session_complete 62, live_sessions_end 0); (e) a drain
+        with one query in flight (the fresh vector's `<|10,40|>`, the
+        first query after the deletes, which must not answer them): it
+        finishes, a new request sheds with a typed 503, and the drain
+        reaches the supervisor's shutdown (counted by KeepRunner). No
+        fallback, host routing or numpy descent may occur."""
+        import threading
+        import urllib.error
+        import urllib.request
+
+        from surrealdb_tpu_torch import server as SRV
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.sdk import _live_key, connect
+
+        t_0 = time.perf_counter()
+        ds, xs_, q_ = d["ds"], d["xs"], d["qs"]
+        sql_out = d.get("sql_out") or {}
+        k_ = KNN1M["k"]
+        knobs = ("KNN_ANN_MODE", "KNN_HOST_BATCH")
+        saved = {name: getattr(cnf, name) for name in knobs}
+        cnf.KNN_HOST_BATCH = "auto"
+        cnf.KNN_ANN_MODE = "off"
+        old_sup = SV.set_supervisor(sup_)
+        SV.bind_serving()
+        ix = ds.vector_indexes[("b", "b", "tbl", "ix")]
+        ctr0, hd0 = dict(sup_.counters), ix.ann_host_descents
+        srv = SRV.make_server(ds, "127.0.0.1", 0, unauthenticated=True)
+        port = srv.server_address[1]
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url, base = f"ws://127.0.0.1:{port}", f"http://127.0.0.1:{port}"
+        sql = "SELECT id FROM tbl WHERE emb <|10,40|> $q"
+        ql = [q.tolist() for q in q_[:64]]
+        brute_ = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
+        bf16_ = ("rank_scores_bf16", "select_topk_rows",
+                 "gather_rescore_topk")
+        out_all, clients, state = {}, [], {"served": True}
+
+        def window(name, fn, needs, absent=brute_):
+            sup_.call("launch_counts", {"reset": True})
+            out = fn()
+            _, m, _ = sup_.call("launch_counts", {})
+            if counts is not None:
+                for kname, v in m["launches"].items():
+                    counts[kname] += v
+            for kname in needs:
+                check(m["launches"][kname] > 0,
+                      f"server {name}: kernel {kname} was not launched")
+            for kname in absent:
+                check(m["launches"].get(kname, 0) == 0,
+                      f"server {name}: kernel {kname} was launched")
+            emit(f"server_{name}", **out,
+                 launches={kn: v for kn, v in m["launches"].items() if v})
+            out_all[name] = out
+
+        def ids(rows):
+            return [r["id"].id for r in rows]
+
+        def http(path, body, headers=None):
+            r = urllib.request.Request(
+                base + path, data=body, method="POST",
+                headers={"surreal-ns": "b", "surreal-db": "b",
+                         **(headers or {})})
+            try:
+                with urllib.request.urlopen(r, timeout=60) as resp:
+                    return resp.status, dict(resp.headers), resp.read()
+            except urllib.error.HTTPError as e:
+                return e.code, dict(e.headers), e.read()
+
+        def ws_knn():
+            for _ in range(128):
+                c = connect(url, fmt="cbor", timeout=120.0)
+                c.use("b", "b")
+                clients.append(c)
+            per = SQL["knn1m"] // len(clients)
+            lat = np.zeros(per * len(clients))
+
+            def client(ci, n_, timed):
+                c = clients[ci]
+                for j in range(n_):
+                    i = ci * n_ + j
+                    t0 = time.perf_counter()
+                    res = c.query(sql, {"q": ql[i % len(ql)]})
+                    if timed:
+                        lat[i] = (time.perf_counter() - t0) * 1e3
+                    check(res[0]["status"] == "OK"
+                          and len(res[0]["result"]) == k_,
+                          f"server ws: answer {res[0]}")
+
+            # one untimed query a client (the batched shapes), then the
+            # timed ones
+            for timed, n_ in ((False, 1), (True, per)):
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(len(clients)) as ex:
+                    list(ex.map(lambda ci: client(ci, n_, timed),
+                                range(len(clients))))
+                wall = time.perf_counter() - t0
+            out = {"clients": len(clients), "queries": len(lat),
+                   "ws_knn_qps": len(lat) / wall,
+                   "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99)),
+                   "sql_knn_qps": sql_out.get("sql_knn_qps"),
+                   "index_engine_qps": sql_out.get("index_engine_qps")}
+            if out["sql_knn_qps"]:
+                out["ws_over_sql"] = out["ws_knn_qps"] / out["sql_knn_qps"]
+                out["ws_over_engine"] = (out["ws_knn_qps"]
+                                         / out["index_engine_qps"])
+            nq_ = 16
+            _od, oi = cosine_top(xs_, q_[:nq_], k_)
+            got = [ids(clients[qi].query(sql, {"q": q_[qi].tolist()})[0]
+                       ["result"]) for qi in range(nq_)]
+            out["recall_at_10"] = float(np.mean(
+                [len(set(a) & set(b.tolist())) / k_
+                 for a, b in zip(got, oi)]))
+            check(out["recall_at_10"] >= 0.99,
+                  f"server ws recall@10 {out['recall_at_10']} < 0.99")
+            state["ws_ids"] = got
+            return out
+
+        def http_knn():
+            t0 = time.perf_counter()
+            for qi in range(4):
+                want = state["ws_ids"][qi]
+                qv = q_[qi].tolist()
+                st, _h, b = http("/sql", f"LET $q = {json.dumps(qv)}; "
+                                 f"{sql}".encode())
+                rows = json.loads(b)[1]["result"]
+                check(st == 200 and [int(r["id"].split(":")[1])
+                                     for r in rows] == want,
+                      f"server /sql: {st} {rows}")
+                st, _h, b = http("/rpc", json.dumps(
+                    {"id": 1, "method": "query",
+                     "params": [sql, {"q": qv}]}).encode(),
+                    {"Content-Type": "application/json"})
+                rows = json.loads(b)["result"][0]["result"]
+                check(st == 200 and [int(r["id"].split(":")[1])
+                                     for r in rows] == want,
+                      f"server /rpc: {st} {rows}")
+            return {"queries": 4, "ids_equal_ws": True,
+                    "ms_per_pair": (time.perf_counter() - t0) * 1e3 / 4}
+
+        def live():
+            a, b = clients[0], clients[1]
+            got = []
+            lid = _live_key(a.query("LIVE SELECT id FROM tbl")[0]["result"])
+            a.engine.register_live(lid, got.append)
+            rid = xs_.shape[0] + 7
+            v = np.random.default_rng(KNN1M["seed"] + 5).standard_normal(
+                KNN1M["dim"]).astype(np.float32).tolist()
+            out = {}
+            t0 = time.perf_counter()
+            b.query(f"CREATE tbl:{rid} SET emb = $v", {"v": v})
+            end = time.monotonic() + 30
+            while not got and time.monotonic() < end:
+                time.sleep(0.001)
+            out["notify_ms"] = (time.perf_counter() - t0) * 1e3
+            check(len(got) == 1 and got[0]["action"] == "CREATE"
+                  and got[0]["record"].id == rid
+                  and got[0]["result"]["id"].id == rid,
+                  f"server live: notifications {got}")
+            t0 = time.perf_counter()
+            first = ids(b.query("SELECT id FROM tbl WHERE emb <|10|> $q",
+                                {"q": v})[0]["result"])
+            out["probe_ms"] = (time.perf_counter() - t0) * 1e3
+            check(first[:1] == [rid],
+                  f"server live: the probe found {first}")
+            a.kill(lid)
+            check(lid not in ds.live_queries,
+                  "server live: KILL left the subscription")
+            b.query(f"CREATE tbl:{rid + 1} SET emb = $v", {"v": v})
+            time.sleep(1.0)
+            check(len(got) == 1,
+                  f"server live: delivered after KILL: {got}")
+            b.query(f"DELETE tbl:{rid}; DELETE tbl:{rid + 1}")
+            # the next query (the drain's in-flight one) must not see them
+            state["deleted"] = (v, (rid, rid + 1))
+            out.update(notifications=len(got), quiet_after_kill_s=1.0)
+            return out
+
+        def soak():
+            for c in clients:
+                c.close()
+            clients.clear()
+            out = live_soak(ds, port, sessions=64, frozen=2, writers=4,
+                            writes=400, payload_pad=256, table="soak",
+                            ns="s", db="s")
+            check(out["order_violations"] == 0,
+                  f"server soak: order violations {out}")
+            check(out["per_session_complete"] == 62,
+                  f"server soak: complete sessions {out}")
+            check(out["live_sessions_end"] == 0,
+                  f"server soak: live queries left {out}")
+            return out
+
+        def drain():
+            keeper = KeepRunner(sup_)
+            SV.set_supervisor(keeper)
+            res, dr = {}, {}
+
+            v, gone = state["deleted"]
+
+            def inflight():
+                with connect(base, fmt="cbor") as h:
+                    h.use("b", "b")
+                    t0 = time.perf_counter()
+                    res["r"] = h.query(f"SLEEP 500ms; {sql}", {"q": v})
+                    res["ms"] = (time.perf_counter() - t0) * 1e3
+
+            t = threading.Thread(target=inflight, daemon=True)
+            t.start()
+            end = time.monotonic() + 10
+            while ds.inflight.count() == 0 and time.monotonic() < end:
+                time.sleep(0.002)
+            check(ds.inflight.count() > 0, "server drain: nothing in flight")
+
+            def drainer():
+                dr["clean"] = SRV.drain_and_shutdown(srv, ds, 30.0)
+
+            td = threading.Thread(target=drainer, daemon=True)
+            t0 = time.perf_counter()
+            td.start()
+            while not srv.admission.draining:
+                time.sleep(0.001)
+            st, hdrs, body = http("/sql", b"RETURN 1")
+            shed = json.loads(body)
+            check(st == 503 and shed["code"] == 503
+                  and int(hdrs.get("Retry-After", 0)) >= 1,
+                  f"server drain: a new request got {st} {shed}")
+            td.join(60)
+            t.join(60)
+            state["served"] = False
+            SV.set_supervisor(sup_)
+            check(dr.get("clean") is True, f"server drain: {dr}")
+            rows = res["r"][1]
+            check(rows["status"] == "OK" and len(rows["result"]) == k_
+                  and not set(ids(rows["result"])) & set(gone),
+                  f"server drain: the in-flight query answered {res}")
+            check(keeper.shutdowns == 1,
+                  f"server drain: supervisor shutdowns {keeper.shutdowns}")
+            return {"drain_s": time.perf_counter() - t0, "clean": True,
+                    "shed_status": st,
+                    "retry_after_ms": shed["retry_after_ms"],
+                    "inflight_ms": res["ms"], "inflight_answered": True,
+                    "deleted_rows_gone": True}
+
+        try:
+            window("ws_knn", ws_knn, bf16_)
+            window("http", http_knn, bf16_)
+            window("live", live, bf16_)
+            window("soak", soak, ())
+            window("drain", drain, bf16_)
+            ctr = dict(sup_.counters)
+            for name in ("device_fallbacks", "device_host_routed"):
+                check(ctr[name] == ctr0[name],
+                      f"server: {name} moved {ctr0[name]} -> {ctr[name]}")
+            check(ix.ann_host_descents == hd0,
+                  "server: the numpy descent ran")
+            emit("server", mode=sup_.mode, counters=ctr,
+                 steps=sorted(out_all),
+                 seconds=round(time.perf_counter() - t_0, 3))
+        finally:
+            for c in clients:
+                c.close()
+            if state["served"]:
+                srv.shutdown()
+            srv.server_close()
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
         return out_all
 
     # -- full-text + vector search through SurrealQL (also `--only search`)
@@ -4025,8 +4619,9 @@ def main(argv=None) -> int:
             entry_check()
         if "batcher" in only:
             batcher_only()
-        if "engine" in only or "sql" in only:
-            engine_only(with_sql="sql" in only)
+        if "engine" in only or "sql" in only or "server" in only:
+            engine_only(with_sql="sql" in only or "server" in only,
+                        with_server="server" in only)
         if "segments" in only:
             segments_only()
         if "search" in only:
@@ -5147,7 +5742,9 @@ def main(argv=None) -> int:
         xs10 = None  # the sql phase drops the knn10m rows
         engine_phase(sup, data, launches)
         # -- 4b'. SurrealQL over the engine phase's datastores, same runner
-        sql_phase(sup, data["sql"], launches)
+        sql_phase(sup, data["sql"], launches, keep_knn1m=True)
+        # -- 4b (server). knn1m's datastore behind the network server ------
+        server_phase(sup, data["sql"].pop("knn1m"), launches)
         del data
         # -- 4b''. full-text + vector search through SurrealQL, same runner
         search_phase(sup, launches)

@@ -8,12 +8,18 @@ wrappers beside their plain PyTorch versions.
 
 `Datastore` (`kvs/ds.py`) is the embedded datastore: `execute`, `query`
 and `query_one` run SurrealQL (`syn/` parses, `exec/` plans and runs,
-`idx/` and `graph/` serve KNN and graph hops) over the port's KV store.
+`idx/` and `graph/` serve KNN and graph hops) over the port's KV store,
+and LIVE SELECT pushes its notifications through `server/fanout.py`.
+`server/` serves a datastore over HTTP and WebSocket RPC (`rpc.py`),
+`sdk/` is its client, and `python -m surrealdb_tpu_torch start` starts
+it.
 
 Importing the package (or any module of it) loads no kernel and never
 initialises CUDA; the entry points run on the card unless the caller
 asks for the CPU.
 """
+
+__version__ = "0.1.0"
 
 
 def __getattr__(name):

@@ -1,0 +1,208 @@
+"""CLI (the reference package's `__main__.py`; reference:
+surrealdb/server/src/cli/ — start, sql REPL, isready, validate,
+version).
+
+    python -m surrealdb_tpu_torch start [--bind 127.0.0.1:8000] [--path memory]
+        [--unauthenticated] [--device off|auto|require|inline]
+    python -m surrealdb_tpu_torch sql [--path memory] [--ns t --db t]
+        [--device off|auto|require|inline]
+    python -m surrealdb_tpu_torch validate file.surql
+    python -m surrealdb_tpu_torch isready [--conn http://127.0.0.1:8000]
+    python -m surrealdb_tpu_torch version
+
+`start` serves on the card: its device supervisor starts a runner at
+boot, in mode require unless `--device` or `SURREAL_DEVICE` says
+otherwise (a query that cannot reach the card fails; `--device auto` is
+the reference's degrade-to-host default); `--device off` keeps every
+path on the host. `sql` takes the same `--device` and the same
+default. `--user` / `--pass` need `DEFINE USER` (no iam), and the
+subcommands export, import, kv, kv-admin, upgrade, fix and ml are not
+ported: each parses and exits non-zero with a `NotPorted` message
+naming itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+# parsed, then refused with a NotPorted message naming the subcommand;
+# their options are not read, so none is declared
+_NOT_PORTED = ("export", "import", "kv", "kv-admin", "upgrade", "fix", "ml")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="surrealdb-tpu")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    # shared by the two subcommands that open a datastore
+    device = argparse.ArgumentParser(add_help=False)
+    device.add_argument(
+        "--device", default=None,
+        choices=("off", "auto", "require", "inline"),
+        help="accelerator execution mode (SURREAL_DEVICE): off = host "
+             "paths only, auto = supervised runner subprocess with "
+             "degrade-and-recover, require = a supervised runner whose "
+             "failures surface as query errors (the default when "
+             "SURREAL_DEVICE is unset), inline = in-process (debug; "
+             "forfeits fault isolation)")
+
+    p_start = sub.add_parser("start", parents=[device],
+                             help="start the server")
+    p_start.add_argument("--bind", default="127.0.0.1:8000")
+    p_start.add_argument("--path", default="memory")
+    p_start.add_argument("--user", default=None)
+    p_start.add_argument("--pass", dest="passwd", default=None)
+    p_start.add_argument("--web-crt", dest="web_crt", default=None,
+                         help="TLS certificate (PEM) for HTTPS")
+    p_start.add_argument("--web-key", dest="web_key", default=None,
+                         help="TLS private key (PEM)")
+    p_start.add_argument(
+        "--unauthenticated", action="store_true",
+        help="allow anonymous connections full access (dev mode)")
+    p_start.add_argument("--max-inflight", type=int, default=None,
+                         help="concurrent queries executing at once "
+                              "(admission-control worker slots; 0 "
+                              "disables admission control)")
+    p_start.add_argument("--queue-depth", type=int, default=None,
+                         help="requests allowed to wait for a worker "
+                              "slot before the server sheds with 503")
+    p_start.add_argument("--default-timeout", default=None,
+                         help="server-side default query timeout "
+                              "(e.g. 5s, 500ms) applied when the client "
+                              "sends no X-Surreal-Timeout")
+    p_start.add_argument("--drain-timeout", default=None,
+                         help="SIGTERM drain budget (e.g. 10s): finish "
+                              "in-flight queries this long, then cancel "
+                              "and exit")
+
+    p_sql = sub.add_parser("sql", parents=[device],
+                           help="interactive REPL")
+    p_sql.add_argument("--path", default="memory")
+    p_sql.add_argument("--ns", default="test")
+    p_sql.add_argument("--db", default="test")
+
+    p_val = sub.add_parser("validate")
+    p_val.add_argument("files", nargs="+")
+
+    p_rdy = sub.add_parser("isready")
+    p_rdy.add_argument("--conn", default="http://127.0.0.1:8000")
+
+    sub.add_parser("version")
+    for name in _NOT_PORTED:
+        sub.add_parser(name)
+
+    args, extra = ap.parse_known_args(argv)
+    if extra and args.cmd not in _NOT_PORTED:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+
+    if args.cmd == "version":
+        import surrealdb_tpu_torch
+
+        print(f"surrealdb-tpu {surrealdb_tpu_torch.__version__}")
+        return 0
+
+    if args.cmd == "validate":
+        from surrealdb_tpu_torch.syn import parse
+
+        rc = 0
+        for f in args.files:
+            try:
+                parse(open(f, encoding="utf-8").read())
+                print(f"{f}: OK")
+            except Exception as e:
+                print(f"{f}: {e}")
+                rc = 1
+        return rc
+
+    if args.cmd == "isready":
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(args.conn + "/health", timeout=5) as r:
+                if r.status == 200:
+                    print("OK")
+                    return 0
+        except Exception:
+            pass
+        print("Not ready")
+        return 1
+
+    from surrealdb_tpu_torch.err import NotPorted
+
+    if args.cmd in _NOT_PORTED:
+        return _not_ported(NotPorted(
+            f"the {args.cmd} subcommand is not ported"))
+    if args.cmd == "start" and (args.user or args.passwd):
+        return _not_ported(NotPorted(
+            "start --user/--pass is not ported (no DEFINE USER)"))
+
+    # before the first get_supervisor(): the supervisor reads
+    # SURREAL_DEVICE at construction. With neither the flag nor the
+    # variable, `start` and `sql` run on the card with no host fallback
+    # (`--device auto` is the reference's degrade-to-host default)
+    if args.device:
+        os.environ["SURREAL_DEVICE"] = args.device
+    elif not os.environ.get("SURREAL_DEVICE"):
+        os.environ["SURREAL_DEVICE"] = "require"
+
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    if args.cmd == "start":
+        from surrealdb_tpu_torch.server import parse_timeout, serve
+
+        host, _, port = args.bind.partition(":")
+        try:
+            ds = Datastore(args.path)
+        except NotPorted as e:
+            return _not_ported(e)
+        if not args.unauthenticated:
+            print("no --unauthenticated: anonymous connections have no "
+                  "access (and --user/--pass are not ported)")
+        default_timeout_s = (parse_timeout(args.default_timeout)
+                             if args.default_timeout else None)
+        drain_timeout_s = (parse_timeout(args.drain_timeout)
+                           if args.drain_timeout else None)
+        serve(ds, host or "127.0.0.1", int(port or 8000),
+              unauthenticated=args.unauthenticated,
+              tls_cert=args.web_crt, tls_key=args.web_key,
+              max_inflight=args.max_inflight,
+              queue_depth=args.queue_depth,
+              default_timeout_s=default_timeout_s,
+              drain_timeout_s=drain_timeout_s)
+        return 0
+
+    from surrealdb_tpu_torch.val import render
+
+    try:
+        ds = Datastore(args.path)
+    except NotPorted as e:
+        return _not_ported(e)
+    ns, db = args.ns, args.db
+    print(f"surrealdb-tpu sql — ns={ns} db={db} (Ctrl-D to exit)")
+    while True:
+        try:
+            line = input(f"{ns}/{db}> ")
+        except (EOFError, KeyboardInterrupt):
+            print()
+            break
+        if not line.strip():
+            continue
+        for r in ds.execute(line, ns=ns, db=db):
+            if r.error:
+                print(f"ERR: {r.error}")
+            else:
+                print(render(r.result))
+    ds.close()
+    return 0
+
+
+def _not_ported(err) -> int:
+    print(f"surrealdb-tpu: {err}", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """Environment-variable knobs the index engines, the device runner, its
-supervisor and the cross-query batcher read: the KNN and DEVICE
-settings of the reference package's `cnf.py`, with the same SURREAL_*
-names and defaults."""
+supervisor, the cross-query batcher, the live-query fan-out and the
+network server read: the KNN, DEVICE, LIVE and HTTP settings of the
+reference package's `cnf.py`, with the same SURREAL_* names and
+defaults."""
 
 from __future__ import annotations
 
@@ -198,3 +199,59 @@ COLUMNAR = env_str("SURREAL_COLUMNAR", "auto")
 # entry count + estimated bytes, LRU-evicted (ft_cache_evictions)
 FT_CACHE_ENTRIES = 512
 FT_CACHE_BYTES = 64 << 20
+
+
+# ---------------------------------------------------------------------------
+# The network server (server/, rpc.py) and its admission control
+# (server/admission.py, inflight.py)
+# ---------------------------------------------------------------------------
+
+# concurrent queries executing at once (the worker-slot budget); the CLI
+# --max-inflight flag overrides. 0 disables admission control entirely.
+HTTP_MAX_INFLIGHT = env_int("SURREAL_HTTP_MAX_INFLIGHT", 64)
+# requests allowed to WAIT for a slot; one past this sheds with a 503
+HTTP_QUEUE_DEPTH = env_int("SURREAL_HTTP_QUEUE_DEPTH", 128)
+# server-side default query timeout seeding the query's deadline when the
+# client sends no X-Surreal-Timeout / rpc timeout field (0 = unbounded)
+HTTP_DEFAULT_TIMEOUT_S = env_float("SURREAL_HTTP_DEFAULT_TIMEOUT_S", 0.0)
+# SIGTERM drain budget: stop admitting, let in-flight work finish this
+# long, then cancel whatever remains and exit
+DRAIN_TIMEOUT_S = env_float("SURREAL_DRAIN_TIMEOUT_S", 10.0)
+# WebSocket message / HTTP body caps (fixed at the reference's
+# defaults, as the live settings below, apart from the overflow policy)
+WEBSOCKET_MAX_MESSAGE_SIZE = 128 << 20
+HTTP_MAX_BODY_SIZE = 128 << 20
+
+
+# -- live-query fan-out (server/fanout.py) -----------------------------------
+# Fixed at the reference's defaults (nothing in the port sets another
+# value), apart from the overflow policy, which is read from
+# SURREAL_LIVE_OVERFLOW.
+# per-session bounded outbound notification queue: the writer thread
+# drains it toward the client socket; a full queue triggers the
+# overflow policy instead of ever blocking a committing writer
+LIVE_QUEUE_DEPTH = 256
+# what happens to a slow consumer whose queue overflows:
+#   notify     — drop the queued backlog, count it, and push one typed
+#                OVERFLOW notification per bound live id (the client
+#                knows it lost a window and can re-read)
+#   disconnect — force-close the laggard's connection (the client's
+#                reconnect logic owns recovery)
+LIVE_OVERFLOW_POLICY = env_str("SURREAL_LIVE_OVERFLOW", "notify")
+# post-commit dispatch workers doing live-query matching (condition +
+# projection evaluation). Events are sharded by (ns,db,tb) so one
+# subscription always observes its table's commits in order.
+LIVE_DISPATCH_WORKERS = 2
+# commit batches a dispatch worker may have queued before the hub
+# declares push overload: the backlog is dropped and every subscription
+# on the affected tables gets a typed OVERFLOW notification
+LIVE_DISPATCH_BACKLOG = 4096
+# notifications coalesced into one socket write by a session's writer
+# thread (burst batching: N frames, one sendall)
+LIVE_DELIVERY_BATCH = 64
+# dead-session sweep cadence (rides the kvs/net.py Runtime seam): GC
+# live queries whose session died without KILL
+LIVE_SWEEP_INTERVAL_S = 30.0
+# embedded in-process notification buffer cap (Datastore.notifications,
+# drained by drain_notifications()); drops are counted, the first warns
+NOTIFY_BUFFER_CAP = 10_000

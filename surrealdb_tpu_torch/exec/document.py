@@ -1,9 +1,11 @@
 """Document write pipeline.
 
 Stage order mirrors the reference (doc/mod.rs:12-37): process → alter →
-field(schema) → check(perms) → store → edges → index → pluck(output). One
-function per statement kind drives the shared pipeline. Changefeeds,
-events, live queries and materialised views are not ported: the
+field(schema) → check(perms) → store → edges → index → lives →
+pluck(output). One function per statement kind drives the shared
+pipeline. Live queries capture each committed-to-be mutation here
+(`notify_lives`) and are matched after the commit (server/fanout.py).
+Changefeeds, events and materialised views are not ported: the
 statements that would define them raise `NotPorted`, so no table reaches
 the write path with one.
 """
@@ -997,6 +999,35 @@ def view_source_tables(sel) -> list:
 # ---------------------------------------------------------------------------
 
 
+def notify_lives(rid, before, after, action, ctx: Ctx):
+    """Live-query CAPTURE (doc/lives.rs:29 process_table_lives).
+
+    The commit path does no matching: when the subscription registry
+    has entries for this (ns, db, tb) — one indexed dict lookup — the
+    mutation is snapshotted into the transaction's `_live_events`
+    buffer. The executor publishes the buffer to the fan-out dispatch
+    workers only after the transaction COMMITS (server/fanout.py);
+    condition/projection evaluation, payload shaping, and delivery all
+    happen post-commit, off this thread. A rolled-back statement's
+    events are truncated with its savepoint, and a cancelled
+    transaction publishes nothing."""
+    ns, db = ctx.need_ns_db()
+    if not ctx.ds.live_queries.count_for(ns, db, rid.tb):
+        return
+    from surrealdb_tpu_torch.server.fanout import LiveEvent
+
+    txn = ctx.txn
+    buf = getattr(txn, "_live_events", None)
+    if buf is None:
+        buf = txn._live_events = []
+    # snapshot: the executor may mutate these dicts after this statement
+    # (same-txn overwrites share doc objects via the record cache)
+    buf.append(LiveEvent(
+        ns, db, rid.tb, rid,
+        copy_value(before), copy_value(after), action,
+    ))
+
+
 def shape_output(output: OutputClause, before, after, rid, ctx: Ctx):
     from surrealdb_tpu_torch.exec.eval import apply_computed_fields
 
@@ -1175,6 +1206,8 @@ def _store_record(rid, before, after, ctx: Ctx, action, output, edge=None):
     index_update(rid, before, after, ctx)
     # record references (REFERENCE fields)
     refs_update(rid, before, after, ctx)
+    # live queries
+    notify_lives(rid, before, after, action, ctx)
     return shape_output(output, before, after, rid, ctx)
 
 
@@ -1457,6 +1490,7 @@ def delete_one(rid: RecordId, before, output, ctx: Ctx):
                 delete_one(erid, edoc, OutputClause("none"), ctx)
     index_update(rid, before, NONE, ctx)
     refs_update(rid, before, NONE, ctx)
+    notify_lives(rid, before, NONE, "DELETE", ctx)
     if output is None:
         return NONE
     return shape_output(output, before, NONE, rid, ctx)

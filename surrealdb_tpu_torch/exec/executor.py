@@ -73,6 +73,32 @@ class Executor:
             f"READ AT expects a duration but found {render(d)}"
         )
 
+    def _commit_and_publish(self, txn):
+        """Commit, then hand the transaction's captured live events to
+        the fan-out dispatch workers (server/fanout.py). A transaction
+        with events commits under the hub's commit-order lock: publish
+        order must equal commit order, and a GIL handoff between
+        commit() and publish() would let a racing writer's later commit
+        publish first (subscriber state diverging from the table with
+        no OVERFLOW). Unwatched transactions — no captured events —
+        commit without the lock. A cancelled transaction publishes
+        nothing, so subscribers never see uncommitted mutations."""
+        events = getattr(txn, "_live_events", None)
+        if not events:
+            txn.commit()
+            return
+        txn._live_events = None
+        fanout = self.ds.fanout
+        with fanout.commit_order_lock:
+            txn.commit()
+            fanout.publish(events)
+
+    @staticmethod
+    def _truncate_lives(txn, n: int):
+        events = getattr(txn, "_live_events", None)
+        if events is not None and len(events) > n:
+            del events[n:]
+
     def execute(self, stmts: list, vars: dict) -> list[QueryResult]:
         tel = self.ds.telemetry
         root = tel.start("query", statements=len(stmts))
@@ -129,7 +155,7 @@ class Executor:
                             )
                         )
                     else:
-                        txn.commit()
+                        self._commit_and_publish(txn)
                         results.append(QueryResult(result=NONE))
                     txn = None
                 else:
@@ -189,6 +215,11 @@ class Executor:
                 ))
                 continue
             own_txn = txn is None
+            # pre-statement live-event watermark (savepoint rollback
+            # truncates to it; set before the try so an error raised
+            # ahead of new_save_point still finds it bound)
+            n_lives = len(getattr(txn, "_live_events", None) or ()) \
+                if txn is not None else 0
             try:
                 if own_txn:
                     t_txn = time.perf_counter_ns()
@@ -272,7 +303,7 @@ class Executor:
                 elif isinstance(stmt, UseStmt):
                     pass  # session mutated in place
                 if own_txn:
-                    cur.commit()
+                    self._commit_and_publish(cur)
                 ensured_nsdb = True
                 dt = time.perf_counter_ns() - t0
                 # envelope = statement machinery around the evaluation
@@ -285,7 +316,7 @@ class Executor:
                     buffered.append(len(results) - 1)
             except ReturnException as r:
                 if own_txn:
-                    cur.commit()
+                    self._commit_and_publish(cur)
                 results.append(
                     QueryResult(result=r.value, time_ns=time.perf_counter_ns() - t0)
                 )
@@ -303,6 +334,7 @@ class Executor:
                     cur.cancel()
                 else:
                     cur.rollback_to_save_point()
+                    self._truncate_lives(cur, n_lives)
                     failed = True
                 self.ds.record_statement(
                     False, time.perf_counter_ns() - t0, type(stmt).__name__
@@ -319,6 +351,7 @@ class Executor:
                     cur.cancel()
                 else:
                     cur.rollback_to_save_point()
+                    self._truncate_lives(cur, n_lives)
                     failed = True
                 results.append(
                     QueryResult(error=f"Internal error: {e.__class__.__name__}: {e}")

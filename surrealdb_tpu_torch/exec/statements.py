@@ -4474,11 +4474,10 @@ def _s_info(n: InfoStmt, ctx: Ctx):
             "queries": ctx.ds.inflight.snapshot(),
             # per-stage query timing (telemetry.stage_record)
             "stages": _stage_snapshot(),
-            # live queries are not ported: the reference's fan-out
-            # figures for a datastore that has none
-            "live": {"sessions": 0, "dispatch_backlog": 0, "routes": 0,
-                     "notif_dropped": 0, "handler_errors": 0,
-                     "overflows": 0, "sent": 0, "subscriptions": 0},
+            # live-query fan-out spine health (server/fanout.py):
+            # sessions, dispatch backlog, overflow/drop tallies
+            "live": dict(ctx.ds.fanout.stats(),
+                         subscriptions=len(ctx.ds.live_queries)),
             # node-wide resource governance (resource.py): accounted
             # derived-state bytes vs the soft/hard watermarks, the
             # per-kind breakdown, and eviction/shed/throttle counters
@@ -4720,6 +4719,65 @@ _GRANT_POOL = (
 )
 
 
+def _s_live(n: LiveStmt, ctx: Ctx):
+    ns, db = ctx.need_ns_db()
+    what = _target_value(n.what, ctx)
+    if not isinstance(what, Table):
+        raise SdbError("LIVE SELECT requires a table")
+    lid = Uuid.new_v4()
+    sub = SubscriptionDef(
+        id=str(lid.u),
+        ns=ns,
+        db=db,
+        tb=what.name,
+        expr=n.expr,
+        cond=n.cond,
+        fetch=n.fetch,
+        session_vars=dict(ctx.vars),
+        auth_level=ctx.session.auth_level,
+        rid=ctx.session.rid,
+        node=ctx.ds.node_id,
+    )
+    ctx.txn.set_val(K.lq_def(ns, db, what.name, str(lid.u)), sub)
+    ctx.ds.live_queries[str(lid.u)] = sub
+    # route to the session's outbox IN THE SAME STEP as registration:
+    # binding later (rpc layer, after the statement returns) leaves a
+    # window where a dispatch worker matches the sub but finds no
+    # route and silently drops the notification
+    ob = getattr(ctx.session, "live_outbox", None)
+    if ob is not None:
+        ctx.ds.fanout.bind(str(lid.u), ob)
+    return lid
+
+
+def _s_kill(n: KillStmt, ctx: Ctx):
+    v = evaluate(n.id, ctx)
+    if isinstance(v, str):
+        lid = v
+    elif isinstance(v, Uuid):
+        lid = str(v.u)
+    else:
+        raise SdbError("KILL requires a live query uuid")
+    sub = ctx.ds.live_queries.pop(lid, None)
+    if sub is not None:
+        # stop routing BEFORE deleting the row: a dispatch worker that
+        # already matched this lid may still hold a notification, but
+        # nothing new is enqueued to the session after KILL returns
+        ctx.ds.fanout.unbind(lid)
+    if sub is None:
+        # not a LIVE query: try the in-flight (normal) query registry —
+        # KILL <query-id> sets the cooperative cancel flag and the
+        # target fails with "The query was cancelled" at its next
+        # check_deadline site
+        if ctx.ds.inflight.kill(lid):
+            return NONE
+        raise SdbError(
+            f"Can not execute KILL statement using id '{render(v)}'"
+        )
+    ctx.txn.delete(K.lq_def(sub.ns, sub.db, sub.tb, lid))
+    return NONE
+
+
 def _unported(what):
     def fn(n, ctx):
         raise NotPorted(f"{what} is not ported")
@@ -4765,8 +4823,8 @@ _STMTS = {
     ExplainStmt: _s_explain_generic,
     RebuildIndex: _unported("REBUILD INDEX"),
     InfoStmt: _s_info,
-    LiveStmt: _unported("LIVE SELECT"),
-    KillStmt: _unported("KILL"),
+    LiveStmt: _s_live,
+    KillStmt: _s_kill,
     ShowStmt: _unported("SHOW CHANGES"),
     AccessStmt: _unported("ACCESS"),
 }

@@ -18,8 +18,16 @@ statement loop of `exec/executor.py`, under a `QueryHandle` of the
 datastore's in-flight registry; the device supervisor reads that handle's
 budget and cancellation, and records its `device_rpc` stage, through
 `bind_serving`. The supervisor itself starts on the first query that
-needs the card. Live queries, changefeeds, the node's cluster tasks and
-the remote, sharded and LSM engines are not ported.
+needs the card.
+
+The live half: `live_queries` (a `server.fanout.SubscriptionRegistry`,
+indexed by table), the fan-out hub `fanout` (post-commit dispatch and
+per-session outboxes), the bounded in-process buffer `notifications`
+with `drain_notifications()`, the embedded `notification_handlers`, and
+`gc_session_lives` for a session that went away without KILL. A served
+datastore starts the node's heartbeat and membership tasks
+(`start_node_tasks`, `node.py`). Changefeeds and the remote, sharded
+and LSM engines are not ported.
 """
 
 from __future__ import annotations
@@ -57,6 +65,21 @@ class Session:
     @property
     def is_owner(self):
         return self.auth_level == "owner"
+
+
+class Notification:
+    """A live-query notification (CREATE/UPDATE/DELETE action on a record)."""
+
+    __slots__ = ("live_id", "action", "record", "result")
+
+    def __init__(self, live_id, action, record, result):
+        self.live_id = live_id
+        self.action = action  # CREATE | UPDATE | DELETE
+        self.record = record  # RecordId
+        self.result = result  # value payload
+
+    def __repr__(self):
+        return f"Notification({self.action} {self.record} -> {self.result!r})"
 
 
 class QueryResult:
@@ -139,6 +162,20 @@ class Datastore:
             raise NotPorted(f"datastore path {path!r} is not ported "
                             f"(only 'memory', 'file://' and 'skv://')")
         self.lock = threading.RLock()
+        # live subscriptions, indexed by (ns,db,tb): the write path
+        # gates on count_for() instead of scanning every subscription
+        from surrealdb_tpu_torch.server.fanout import (
+            FanoutHub,
+            SubscriptionRegistry,
+        )
+
+        self.live_queries = SubscriptionRegistry()
+        self.notifications: list[Notification] = []  # in-proc, bounded
+        self.notification_handlers: list = []  # callables(Notification)
+        # the notification fan-out spine: post-commit dispatch workers +
+        # per-session bounded outboxes (threads spawn lazily on first
+        # publish: a datastore that never runs LIVE pays nothing)
+        self.fanout = FanoutHub(self)
         self.vector_indexes: dict = {}
         self.index_builds: dict = {}  # (ns,db,tb,ix) -> building status
         self.graph_engine = None
@@ -165,7 +202,20 @@ class Datastore:
         # different $vars) skip the parser; ASTs hold no execution state
         self._ast_cache: dict = {}
         self._ast_cache_cap = cnf.AST_CACHE_SIZE
+        # cluster identity (reference dbs/node.rs); the heartbeat and
+        # membership loops start only for a served datastore
+        from surrealdb_tpu_torch.node import make_node_id
+
+        self.node_id = make_node_id()
+        self.node_tasks = None
         self.inflight = InflightRegistry(self.telemetry)
+        # the device supervisor's health gauges and the memory
+        # accountant's, for /metrics (closures: registering spawns
+        # nothing)
+        from surrealdb_tpu_torch.device import attach_telemetry
+
+        attach_telemetry(self.telemetry)
+        _resource.attach_telemetry(self.telemetry)
         self._hlc_wall = 0  # HLC: last physical millis issued
         self._hlc_count = 0  # HLC: logical counter within the millisecond
         # columnar executor state (exec/batch.py) and brute-scan vector
@@ -192,6 +242,17 @@ class Datastore:
         # drop the coldest half: the next identical search re-runs the
         # posting walk (a pure cache: the KV truth is untouched)
         self._ft_cache.shrink(0.5)
+
+    def start_node_tasks(self, interval_s: float = 10.0,
+                         stale_s: float = 30.0):
+        """Start heartbeat + membership-check loops (reference
+        engine/tasks.rs:48-56). Idempotent."""
+        from surrealdb_tpu_torch.node import NodeTasks
+
+        if self.node_tasks is None:
+            self.node_tasks = NodeTasks(self, interval_s, stale_s)
+            self.node_tasks.start()
+        return self.node_tasks
 
     # -- transactions -------------------------------------------------------
     def transaction(self, write: bool = True,
@@ -271,6 +332,9 @@ class Datastore:
             cur = _inflight.current()
             if cur is not None:
                 handle = cur  # nested execute: ride the enclosing query
+                if cur.edge:
+                    # a server route opened it before the SQL was known
+                    cur.refine(sess.ns, sess.db, sql)
             else:
                 own = handle = self.inflight.open(
                     sess.ns, sess.db, sql, deadline
@@ -292,6 +356,68 @@ class Datastore:
     def query_one(self, sql: str, ns="test", db="test", vars=None):
         out = self.query(sql, ns=ns, db=db, vars=vars)
         return out[-1] if out else None
+
+    # -- notifications ------------------------------------------------------
+    def notify(self, notification: Notification):
+        """Enqueue-only delivery: the fan-out hub appends to the bounded
+        in-process buffer, invokes embedded handlers (errors counted,
+        never swallowed silently), and routes to the bound session
+        outbox. No socket I/O, no unbounded growth, and nothing here
+        runs on a committing writer's thread — the doc pipeline captures
+        events and the post-commit dispatch workers call this."""
+        self.fanout.deliver(notification)
+
+    def drain_notifications(self) -> list[Notification]:
+        # barrier: anything already committed must be matched and
+        # routed before the drain returns (the embedded consumer's
+        # read-your-own-writes contract survives async dispatch)
+        self.fanout.flush()
+        with self.lock:
+            out = self.notifications
+            self.notifications = []
+        return out
+
+    def gc_session_lives(self, lids) -> int:
+        """Drop a dead session's live queries: registry entries, outbox
+        routes, and the persisted `!lq` catalog rows (the reference GCs
+        these from engine/tasks.rs:49-51; without it a session that died
+        without KILL pays match cost on every write forever)."""
+        lids = [str(x) for x in lids]
+        subs = []
+        for lid in lids:
+            self.fanout.unbind(lid)
+            sub = self.live_queries.pop(lid, None)
+            if sub is not None:
+                subs.append((lid, sub))
+        if not subs:
+            return 0
+        from surrealdb_tpu_torch import key as K
+
+        try:
+            txn = self.transaction(write=True)
+        except SdbError:
+            # KV unavailable: the registry is clean, rows sweep later
+            self.telemetry.inc("live_gc_collected", len(subs))
+            return len(subs)
+        committed = False
+        try:
+            for lid, sub in subs:
+                txn.delete(K.lq_def(sub.ns, sub.db, sub.tb, lid))
+            txn.commit()
+            committed = True
+        except SdbError:
+            pass  # rows survive until the next sweep
+        finally:
+            # ANY non-commit exit must release the write transaction:
+            # the periodic sweep swallows errors, so a leaked handle
+            # would recur every interval
+            if not committed:
+                try:
+                    txn.cancel()
+                except SdbError:
+                    pass
+        self.telemetry.inc("live_gc_collected", len(subs))
+        return len(subs)
 
     def _stamp_storage_version(self, check: bool = True):
         """Stamp new stores; refuse to open any other format version."""
@@ -337,8 +463,12 @@ class Datastore:
             return (self._hlc_wall << 20) | self._hlc_count
 
     def close(self):
-        """Stop the engines' segment maintenance workers, then close the
-        backend (a file store compacts its WAL into the snapshot)."""
+        """Stop the node's tasks, the fan-out's workers and outboxes and
+        the engines' segment maintenance workers, then close the backend
+        (a file store compacts its WAL into the snapshot)."""
+        if self.node_tasks is not None:
+            self.node_tasks.stop()
+        self.fanout.close_all()
         for eng in list(self.vector_indexes.values()):
             if getattr(eng, "_segs", None) is not None:
                 eng._segs.close()

@@ -2,8 +2,10 @@
 package's `resource.py`, trimmed to what the index engines register
 with): `Account`, `MemoryAccountant` (with INFO FOR SYSTEM's
 `snapshot`), `register`, `checkpoint`, `throttle`, `get_accountant` /
-`set_accountant`, and `BudgetedLRU`, the full-text result cache's
-container. The port keeps its own process-wide accountant.
+`set_accountant`, `admit_ok` (the server's admission gate),
+`attach_telemetry` (the `/metrics` gauges) and `BudgetedLRU`, the
+full-text result cache's container. The port keeps its own process-wide
+accountant.
 
 Every byte of derived state an engine holds (a vector index's host rows
 and per-epoch rank stats, its CAGRA build) is a cache over KV truth and
@@ -32,8 +34,9 @@ from surrealdb_tpu_torch import cnf
 # rank stats are a trivial recompute, a full-text result re-runs its
 # posting walk, ANN graphs rebuild in the background while brute force
 # serves, vector host arrays rebuild from a KV range scan on the next
-# sync.
-EVICT_ORDER = ("rank_stats", "ft", "ann", "vec")
+# sync. The live fan-out's backlog and session outboxes (`push`) come
+# last: their "eviction" is the typed slow-consumer overflow policy.
+EVICT_ORDER = ("rank_stats", "ft", "ann", "vec", "push")
 
 
 def host_limit_bytes() -> int:
@@ -311,6 +314,17 @@ class MemoryAccountant:
         if u > self.soft_bytes:
             self.maybe_evict()
 
+    def admit_ok(self) -> bool:
+        """Admission-layer gate: True when a new query may start. Over
+        the hard watermark an eviction pass runs first; only a node
+        that STAYS over hard sheds (typed 503 in server/admission.py)."""
+        if self._usage_gated() <= self.hard_bytes:
+            return True
+        self.maybe_evict()
+        if self.usage() <= self.hard_bytes:
+            return True
+        self.counters["mem_shed"] += 1
+        return False
 
     def throttle(self, stage: str = "") -> None:
         """Chunk-boundary pause point for allocation-heavy background
@@ -445,3 +459,30 @@ def checkpoint(fresh: bool = False):
 
 def throttle(stage: str = ""):
     get_accountant().throttle(stage)
+
+
+def attach_telemetry(telemetry):
+    """Register the accountant's gauges/counters on a datastore's
+    telemetry hub. Closures read the CURRENT singleton so a swapped
+    accountant keeps reporting."""
+    telemetry.register_gauge(
+        "mem_accounted_bytes", lambda: get_accountant().usage()
+    )
+    telemetry.register_gauge(
+        "mem_budget_bytes", lambda: get_accountant().budget_bytes
+    )
+    telemetry.register_gauge(
+        "mem_soft_bytes", lambda: get_accountant().soft_bytes
+    )
+    for name in ("mem_evictions", "mem_evicted_bytes", "mem_shed",
+                 "mem_throttles"):
+        telemetry.register_counter(
+            name, lambda n=name: get_accountant().counters.get(n, 0)
+        )
+    for kind in EVICT_ORDER:
+        telemetry.register_counter(
+            f"mem_evictions_{kind}",
+            lambda k=kind: get_accountant().counters.get(
+                f"mem_evictions_{k}", 0
+            ),
+        )

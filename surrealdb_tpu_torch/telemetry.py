@@ -1,6 +1,6 @@
-"""Telemetry (the reference package's `telemetry.py`, without its
-Prometheus rendering): per-stage query timing, counters, gauges and
-per-query span trees.
+"""Telemetry (the reference package's `telemetry.py`): per-stage query
+timing, counters, gauges, per-query span trees and their Prometheus
+rendering (the server's `/metrics`).
 
 - `stage_record(name, ns)`: a process-wide table of stage name -> count,
   total, max and last nanoseconds. The datastore records `parse` and
@@ -11,7 +11,9 @@ per-query span trees.
   the table (INFO FOR SYSTEM's `stages`).
 - `Telemetry`: a datastore's counters and gauges and the ring of recent
   span trees (`start`/`end`/`span`); `SURREAL_TELEMETRY_FILE` exports one
-  span tree per completed query as JSONL.
+  span tree per completed query as JSONL; `prometheus(ds)` renders the
+  counters, gauges, stage table and query-duration histogram as
+  Prometheus text.
 """
 
 from __future__ import annotations
@@ -237,3 +239,71 @@ class Telemetry:
         with self.lock:
             spans = list(self.traces[-limit:])
         return [s.to_dict() for s in spans]
+
+    # -- prometheus ---------------------------------------------------------
+    def prometheus(self, ds=None) -> str:
+        """Render Prometheus text-format metrics (server /metrics)."""
+        lines = []
+
+        def counter(name, value, help_=None):
+            if help_:
+                lines.append(f"# HELP {name} {help_}")
+            lines.append(f"# TYPE {name} counter")
+            lines.append(f"{name} {value}")
+
+        with self.lock:
+            counters = dict(self.counters)
+            hist = list(self.hist)
+            hsum, hcount = self.hist_sum_ms, self.hist_count
+            gauges = dict(self.gauges)
+            cprov = dict(self.counter_providers)
+        for k, fn in sorted(cprov.items()):
+            try:
+                counters.setdefault(k, 0)
+                counters[k] += fn()
+            except Exception:
+                continue
+        if ds is not None:
+            for k, v in ds.metrics.items():
+                counter(f"surreal_ds_{k}_total", v,
+                        "datastore counter (kvs::Metrics analog)")
+            lines.append("# TYPE surreal_live_queries gauge")
+            lines.append(f"surreal_live_queries {len(ds.live_queries)}")
+            lines.append("# TYPE surreal_vector_indexes gauge")
+            lines.append(f"surreal_vector_indexes {len(ds.vector_indexes)}")
+        for k in sorted(counters):
+            counter(f"surreal_{k}_total", counters[k])
+        for k in sorted(gauges):
+            try:
+                v = gauges[k]()
+            except Exception:
+                continue  # a dying provider must not poison the scrape
+            lines.append(f"# TYPE surreal_{k} gauge")
+            lines.append(f"surreal_{k} {v}")
+        lines.append("# TYPE surreal_query_stage_us summary")
+        for sname, st in stage_snapshot().items():
+            lines.append(
+                f'surreal_query_stage_us{{stage="{sname}",stat="avg"}} '
+                f'{st["avg_us"]}'
+            )
+            lines.append(
+                f'surreal_query_stage_us{{stage="{sname}",stat="max"}} '
+                f'{st["max_us"]}'
+            )
+            lines.append(
+                f'surreal_query_stage_count{{stage="{sname}"}} '
+                f'{st["count"]}'
+            )
+        lines.append("# TYPE surreal_query_duration_ms histogram")
+        acc = 0
+        for i, edge in enumerate(_BUCKETS_MS):
+            acc += hist[i]
+            lines.append(
+                f'surreal_query_duration_ms_bucket{{le="{edge}"}} {acc}'
+            )
+        lines.append(
+            f'surreal_query_duration_ms_bucket{{le="+Inf"}} {hcount}'
+        )
+        lines.append(f"surreal_query_duration_ms_sum {round(hsum, 3)}")
+        lines.append(f"surreal_query_duration_ms_count {hcount}")
+        return "\n".join(lines) + "\n"

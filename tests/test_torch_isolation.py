@@ -92,3 +92,35 @@ def test_engines_import_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "no torch" in out.stdout
+
+
+def test_server_modules_import_no_reference():
+    """The live-query fan-out, the network server, the RPC layer, the
+    SDK, the node tasks, the clock seam and the CLI: importing them (and
+    starting a server that answers one request) loads neither the JAX
+    package nor jax, nor torch."""
+    code = (
+        "import sys, json, threading, urllib.request\n"
+        "import surrealdb_tpu_torch.server, surrealdb_tpu_torch.server.fanout, "
+        "surrealdb_tpu_torch.server.admission, surrealdb_tpu_torch.rpc, "
+        "surrealdb_tpu_torch.sdk, surrealdb_tpu_torch.node, "
+        "surrealdb_tpu_torch.kvs.net, surrealdb_tpu_torch.__main__\n"
+        "from surrealdb_tpu_torch.kvs.ds import Datastore\n"
+        "ds = Datastore('memory')\n"
+        "srv = surrealdb_tpu_torch.server.make_server(ds, '127.0.0.1', 0, "
+        "unauthenticated=True)\n"
+        "threading.Thread(target=srv.serve_forever, daemon=True).start()\n"
+        "r = urllib.request.Request(f'http://127.0.0.1:{srv.server_address[1]}"
+        "/sql', data=b'RETURN 1 + 1', method='POST')\n"
+        "assert json.loads(urllib.request.urlopen(r).read())[0]['result'] == 2\n"
+        "srv.shutdown()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'surrealdb_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('no reference')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no reference" in out.stdout

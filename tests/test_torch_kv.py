@@ -143,10 +143,10 @@ def test_pickle_branch_is_restricted():
     assert raw[:1] == b"\x00"
     assert deserialize(raw) == ("set", PDatetime(when), b"")
     # a reference type with no counterpart here still raises
-    from surrealdb_tpu.server.fanout import FanoutHub
+    from surrealdb_tpu.kvs.lsm import LsmBackend
 
     with pytest.raises(pickle.UnpicklingError):
-        deserialize(b"\x00" + pickle.dumps(FanoutHub, protocol=5))
+        deserialize(b"\x00" + pickle.dumps(LsmBackend, protocol=5))
     evil = b"\x00" + pickle.dumps(print, protocol=5)
     with pytest.raises(pickle.UnpicklingError):
         deserialize(evil)

@@ -353,7 +353,7 @@ def test_parse_errors_match(both):
 def test_unported_statements_raise(both):
     both.ok("CREATE x:1")
     out = both.port.execute(
-        "LIVE SELECT * FROM x; "
+        "SHOW CHANGES FOR TABLE x SINCE 0; "
         "DEFINE FUNCTION fn::f() { RETURN 1 }; DEFINE EVENT e ON x THEN {}; "
         "SELECT * FROM x VERSION "
         "d'2024-01-01T00:00:00Z'; RETURN crypto::md5('a'); "
@@ -361,7 +361,7 @@ def test_unported_statements_raise(both):
         "DEFINE TABLE cf CHANGEFEED 1h; "
         "RETURN function() { return 1; }; DEFINE PARAM $p VALUE 1",
         ns=NS, db=DB)
-    names = ["LIVE SELECT", "DEFINE FUNCTION",
+    names = ["SHOW CHANGES", "DEFINE FUNCTION",
              "DEFINE EVENT", "VERSION", "crypto::md5",
              "http::get", "views", "CHANGEFEED", "scripting",
              "DEFINE PARAM"]
