@@ -95,7 +95,36 @@ exits non-zero):
               SYSTEM, whose device section is this supervisor (mode
               require, ready); no fallback and no host routing may
               occur;
-   server  -- (after sql, on that runner, mode require) knn1m's
+   auth    -- (after sql, on that runner, mode require) knn1m's
+              datastore behind the port's network server (make_server
+              on 127.0.0.1:0, not unauthenticated) with the root user
+              `start --user root --pass root` defines, each step in a
+              launch window of its own: (a) an anonymous POST /sql and
+              an anonymous WebSocket query of `<|10,40|>` are refused
+              with the IAM error and launch nothing (the stored user's
+              hash route printed: `scrypt` without the argon2 package);
+              (b) root signs in once over the WebSocket (CBOR), 128 SDK
+              clients `authenticate` with its token and send 512 of
+              SQL["knn1m"]'s `<|10,40|>` queries (queries/s, p50, p99),
+              ids equal to Datastore.execute's as root, recall@10 of 16
+              >= 0.99; (c) a database VIEWER over POST /sql with Basic
+              auth answers root's ids, its CREATE is refused with the
+              IAM error; (d) record access on `acl` (32,768 x 768 cosine
+              rows of its own through the KV, owner user:alice on even
+              ids and user:bob on odd ones, PERMISSIONS WHERE owner =
+              $auth.id, its own bf16 store): alice and bob sign up and
+              sign in over the WebSocket, session::ac() and $auth.id
+              read back, 16 `<|10,40|>` queries each answer root's ids
+              less the other user's rows; (e) fn::nearest, wrapping
+              (b)'s query, answers (b)'s ids; (f) DEFINE EVENT audits
+              alice's CREATE on acl, her next `<|10|>` probe answers the
+              new row first; REBUILD INDEX drops the old store from the
+              runner, the next queries ship the rebuilt one and answer
+              as before; the bf16 store's three kernels launch in
+              (b)-(f), distance_tile never, knn1m's store is never
+              shipped again; no fallback, host routing or numpy descent
+              may occur;
+   server  -- (after auth, on that runner, mode require) knn1m's
               datastore behind the port's network server (make_server
               on 127.0.0.1:0, unauthenticated, the default admission
               gate), each step in a launch window of its own: 128
@@ -105,15 +134,15 @@ exits non-zero):
               recall@10 of 16 >= 0.99; the bf16 store's three kernels
               launch, distance_tile never); the same query through POST
               /sql and POST /rpc (JSON), ids equal; LIVE SELECT id FROM
-              tbl on one session and a CREATE on another (one CREATE
-              notification, the probe answers the row first), KILL
-              (a second CREATE delivers nothing in 1 s), both rows
-              deleted; bench.py's
+              acl (phase auth's table: no step writes to knn1m's) on one
+              session and a CREATE on another (one CREATE notification,
+              the probe answers the row first), KILL (a second CREATE
+              delivers nothing in 1 s), both rows deleted; bench.py's
               live_soak at its quick shape (64 sessions, 2 frozen, 4
               writers, 400 writes, 256-byte pad; order_violations 0,
               per_session_complete 62, live_sessions_end 0); a drain
-              with one query in flight (the fresh vector's, the first
-              after the deletes: it answers without the deleted rows, a
+              with one query in flight (the fresh vector's on acl, the
+              first after the deletes: it answers without the deleted rows, a
               new request sheds with a typed 503, the drain reaches the
               supervisor's shutdown, which is counted, not run, so the
               runner serves the later phases); no fallback, host routing or numpy
@@ -191,6 +220,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only hier,approx,entry,onnx,batcher
     python3 chip_smoke.py --only engine
     python3 chip_smoke.py --only sql
+    python3 chip_smoke.py --only auth
     python3 chip_smoke.py --only server
     python3 chip_smoke.py --only segments
     python3 chip_smoke.py --only search
@@ -211,8 +241,9 @@ supervisor: phase 5 alone, over knn1m's rows made here; hier,
 approx, entry, onnx: those checks over knn1m's rows made here; batcher:
 the batcher check over a supervised runner of its own; engine: phase
 4b over rows made here and a runner of its own, which ships the knn10m
-rows itself; sql: the same, then phase 4b' over its datastores;
-server: the same, then the server phase over knn1m's;
+rows itself; sql: the same, then phase 4b' over its datastores; auth: then the auth
+phase over knn1m's; server: then the auth and server phases over
+knn1m's;
 segments: phase 4c over a runner of its own; search: phase 4b'' over a
 runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
@@ -282,6 +313,16 @@ HYBRID_SQL = (
     "WHERE text @1@ 'graph' ORDER BY ft_score DESC LIMIT 10;"
     "RETURN search::rrf([$vs, $ft], 10, 60);"
 )
+
+# phase auth: `clients` SDK clients authenticated with root's token send
+# `queries` of SQL["knn1m"]'s queries; `acl`, the record users' table:
+# rows of its own (owner user:alice on even ids, user:bob on odd ones),
+# `queries` probes of each user. n is cut from 65,536 to 32,768 for the
+# time limit: REBUILD INDEX reads and re-indexes every document on the
+# host (the reference's build_index), 37 s at 65,536 rows on the card's
+# host (PERF.md section 6)
+AUTH = dict(clients=128, queries=512)
+ACL = dict(n=32_768, seed=41, queries=16)
 
 # the supervisor phase: a runner in mode auto over the knn1m store,
 # `threads` clients of `frame`-query vec_knn frames, `rounds` frames each
@@ -942,7 +983,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
-              "engine", "sql", "server", "segments", "search")
+              "engine", "sql", "auth", "server", "segments", "search")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -3098,12 +3139,13 @@ def main(argv=None) -> int:
                 setattr(cnf, name, v)
         return out_all
 
-    def engine_only(with_sql=False, with_server=False):
+    def engine_only(with_sql=False, with_auth=False, with_server=False):
         """`--only engine`: the engine phase over rows made here (the
         knn10m rows shipped by the engine itself), under a supervisor in
         mode require of its own; `--only sql`: the same, then the sql
-        phase over the engine's datastores; `--only server`: then the
-        server phase over knn1m's."""
+        phase over the engine's datastores; `--only auth`: then the auth
+        phase over knn1m's; `--only server`: then the auth and server
+        phases over knn1m's (the server's writes go to auth's `acl`)."""
         rng_ = np.random.default_rng(KNN1M["seed"])
         xs1 = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
                                    dtype=np.float32)
@@ -3129,9 +3171,12 @@ def main(argv=None) -> int:
             sup_.start()
             engine_phase(sup_, data)
             if with_sql:
-                sql_phase(sup_, data["sql"], keep_knn1m=with_server)
-            if with_server:
-                server_phase(sup_, data["sql"].pop("knn1m"))
+                sql_phase(sup_, data["sql"], keep_knn1m=with_auth)
+            if with_auth:
+                knn1m_d = data["sql"].pop("knn1m")
+                auth_phase(sup_, knn1m_d)
+                if with_server:
+                    server_phase(sup_, knn1m_d)
         finally:
             sup_.shutdown()
 
@@ -3626,6 +3671,392 @@ def main(argv=None) -> int:
         def shutdown(self):
             self.shutdowns += 1
 
+    # -- authentication and the schema statements over the wire (also
+    # `--only auth`) -------------------------------------------------------
+    def auth_phase(sup_, d, counts=None):
+        """knn1m's datastore behind `make_server(ds, "127.0.0.1", 0,
+        unauthenticated=False)` with the root user `start --user root
+        --pass root` defines (`__main__.define_root_user`), under `sup_`
+        (mode require), each step in a launch window of its own: (a) an
+        anonymous POST /sql and an anonymous WebSocket query of
+        `<|10,40|>` are refused with the IAM error and launch nothing;
+        (b) root signs in once over the WebSocket (CBOR), 128 SDK
+        clients `authenticate` with its token and send AUTH["queries"]
+        of SQL["knn1m"]'s `<|10,40|>` queries (queries/s, p50, p99), ids
+        equal to `Datastore.execute`'s as root in process, recall@10 of
+        16 >= 0.99 against the f64 oracle; (c) a database VIEWER over
+        POST /sql with `Basic` auth answers root's ids and its CREATE is
+        refused with the IAM error; (d) record access on `acl` (ACL:
+        rows of its own written through the KV, `owner` user:alice on
+        even ids and user:bob on odd ones, PERMISSIONS WHERE owner =
+        $auth.id, its own bf16 store): alice and bob sign up and sign in
+        over the WebSocket, `session::ac()` and `$auth.id` read back,
+        and each one's `<|10,40|>` answers are root's less the other
+        user's rows (the permission filter after the index's k); (e)
+        `fn::nearest`, which wraps (b)'s query, called by root, answers
+        (b)'s ids; (f) an event that audits acl's CREATEs: alice's
+        CREATE writes its audit row and her next `<|10|>` probe answers
+        the new row first; then REBUILD INDEX: the old store is dropped
+        from the runner and the next queries ship the rebuilt one and
+        answer as before. The bf16 store's three kernels launch in
+        (b)-(f) and distance_tile never; knn1m's store is not shipped
+        again. No fallback, host routing or numpy descent may occur.
+        Leaves `d["acl"]` (the rows) and `d["tbl_store"]` (knn1m's
+        store key and tag) for phase server."""
+        import base64
+        import threading
+        import urllib.error
+        import urllib.request
+
+        from surrealdb_tpu_torch import key as K
+        from surrealdb_tpu_torch import server as SRV
+        from surrealdb_tpu_torch.__main__ import define_root_user
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.err import SdbError
+        from surrealdb_tpu_torch.kvs.api import serialize
+        from surrealdb_tpu_torch.sdk import connect
+        from surrealdb_tpu_torch.val import RecordId
+
+        t_0 = time.perf_counter()
+        ds, xs_, q_ = d["ds"], d["xs"], d["qs"]
+        k_ = KNN1M["k"]
+        knobs = ("KNN_ANN_MODE", "KNN_HOST_BATCH")
+        saved = {name: getattr(cnf, name) for name in knobs}
+        cnf.KNN_HOST_BATCH = "auto"
+        cnf.KNN_ANN_MODE = "off"
+        old_sup = SV.set_supervisor(sup_)
+        SV.bind_serving()
+        ix = ds.vector_indexes[("b", "b", "tbl", "ix")]
+        ctr0, hd0 = dict(sup_.counters), ix.ann_host_descents
+        tbl_store = (ix._dev_key, ix.version, ix._dev_epoch)
+        d["tbl_store"] = tbl_store
+        t0 = time.perf_counter()
+        route = define_root_user(ds, "root", "root")
+        define_s = time.perf_counter() - t0
+        srv = SRV.make_server(ds, "127.0.0.1", 0, unauthenticated=False)
+        port = srv.server_address[1]
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url, base = f"ws://127.0.0.1:{port}", f"http://127.0.0.1:{port}"
+        sql = "SELECT id FROM tbl WHERE emb <|10,40|> $q"
+        acl_sql = "SELECT id FROM acl WHERE emb <|10,40|> $q"
+        ql = [q.tolist() for q in q_[:64]]
+        iam_err = "IAM error: Not enough permissions"
+        brute_ = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
+        bf16_ = ("rank_scores_bf16", "select_topk_rows",
+                 "gather_rescore_topk")
+        out_all, clients, state = {}, [], {}
+
+        def window(name, fn, needs, absent=brute_, none=False):
+            sup_.call("launch_counts", {"reset": True})
+            out = fn()
+            _, m, _ = sup_.call("launch_counts", {})
+            if counts is not None:
+                for kname, v in m["launches"].items():
+                    counts[kname] += v
+            for kname in needs:
+                check(m["launches"][kname] > 0,
+                      f"auth {name}: kernel {kname} was not launched")
+            for kname in absent:
+                check(m["launches"].get(kname, 0) == 0,
+                      f"auth {name}: kernel {kname} was launched")
+            if none:
+                check(not any(m["launches"].values()),
+                      f"auth {name}: launched {m['launches']}")
+            emit(f"auth_{name}", **out,
+                 launches={kn: v for kn, v in m["launches"].items() if v})
+            out_all[name] = out
+
+        def ids(rows):
+            return [r["id"].id for r in rows]
+
+        def http(path, body, headers=None):
+            r = urllib.request.Request(
+                base + path, data=body, method="POST",
+                headers={"surreal-ns": "b", "surreal-db": "b",
+                         **(headers or {})})
+            try:
+                with urllib.request.urlopen(r, timeout=60) as resp:
+                    return resp.status, resp.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        def ws_client():
+            c = connect(url, fmt="cbor", timeout=120.0)
+            clients.append(c)
+            return c
+
+        def anonymous():
+            st, b = http("/sql", f"LET $q = {json.dumps(ql[0])}; "
+                         f"{sql}".encode())
+            rows = json.loads(b) if st == 200 else None
+            check(st == 401 or all(r["status"] == "ERR"
+                                   and iam_err in r["result"]
+                                   for r in rows),
+                  f"auth anonymous /sql: {st} {b[:300]}")
+            c = ws_client()
+            c.use("b", "b")
+            try:
+                res = c.query(sql, {"q": ql[0]})
+            except SdbError as e:
+                res = str(e)
+            check(iam_err in res, f"auth anonymous ws: {res}")
+            return {"http_status": st, "ws_refused": True,
+                    "hash_route": route, "define_user_s": define_s}
+
+        def root():
+            c0 = ws_client()
+            t0 = time.perf_counter()
+            token = c0.signin(user="root", passwd="root")
+            signin_ms = (time.perf_counter() - t0) * 1e3
+            c0.use("b", "b")
+            state["root"] = c0
+            nc = AUTH["clients"]
+            t0 = time.perf_counter()
+            auth_clients = []
+            for _ in range(nc):
+                c = ws_client()
+                c.authenticate(token)
+                c.use("b", "b")
+                auth_clients.append(c)
+            authenticate_ms = (time.perf_counter() - t0) * 1e3 / nc
+            # the same queries as root in process
+            want = [ids(ds.query_one(sql, ns="b", db="b", vars={"q": q}))
+                    for q in ql]
+            state["want"] = want
+            per = AUTH["queries"] // nc
+            lat = np.zeros(per * nc)
+
+            def client(ci, n_, timed):
+                c = auth_clients[ci]
+                for j in range(n_):
+                    i = ci * n_ + j
+                    t1 = time.perf_counter()
+                    res = c.query(sql, {"q": ql[i % len(ql)]})
+                    if timed:
+                        lat[i] = (time.perf_counter() - t1) * 1e3
+                    check(res[0]["status"] == "OK"
+                          and ids(res[0]["result"]) == want[i % len(ql)],
+                          f"auth root: answer {res[0]}")
+
+            # one untimed query a client (the batched shapes), then the
+            # timed ones
+            for timed, n_ in ((False, 1), (True, per)):
+                t1 = time.perf_counter()
+                with ThreadPoolExecutor(nc) as ex:
+                    list(ex.map(lambda ci: client(ci, n_, timed),
+                                range(nc)))
+                wall = time.perf_counter() - t1
+            nq_ = 16
+            _od, oi = cosine_top(xs_, q_[:nq_], k_)
+            rec = float(np.mean([len(set(want[qi]) & set(oi[qi].tolist()))
+                                 / k_ for qi in range(nq_)]))
+            check(rec >= 0.99, f"auth root recall@10 {rec} < 0.99")
+            return {"clients": nc, "queries": len(lat),
+                    "qps": len(lat) / wall,
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "signin_ms": signin_ms,
+                    "authenticate_ms": authenticate_ms,
+                    "ids_equal_in_process": True, "recall_at_10": rec}
+
+        def viewer():
+            ds.query("DEFINE USER reader ON DATABASE PASSWORD 'reader-pass' "
+                     "ROLES VIEWER", ns="b", db="b")
+            basic = {"Authorization": "Basic " + base64.b64encode(
+                b"reader:reader-pass").decode()}
+            t0 = time.perf_counter()
+            for qi in range(4):
+                st, b = http("/sql", f"LET $q = {json.dumps(ql[qi])}; "
+                             f"{sql}".encode(), basic)
+                rows = json.loads(b)[1]["result"]
+                check(st == 200 and [int(r["id"].split(":")[1])
+                                     for r in rows] == state["want"][qi],
+                      f"auth viewer /sql: {st} {rows}")
+            ms = (time.perf_counter() - t0) * 1e3 / 4
+            st, b = http("/sql", f"CREATE tbl:{xs_.shape[0] + 99} SET emb = "
+                         f"{json.dumps(ql[0])}".encode(), basic)
+            res = json.loads(b)
+            check(st == 200 and res[0]["status"] == "ERR"
+                  and iam_err in res[0]["result"],
+                  f"auth viewer CREATE: {st} {res}")
+            check((ix._dev_key, ix.version, ix._dev_epoch) == tbl_store,
+                  "auth viewer: knn1m's store changed")
+            return {"queries": 4, "ms_per_query": ms,
+                    "ids_equal_root": True, "create_refused": True}
+
+        # `acl`: rows of its own through the KV (a record holding its
+        # vector and its owner, and the index's `he` key), then `vn`
+        n_acl, dim = ACL["n"], KNN1M["dim"]
+        arng = np.random.default_rng(ACL["seed"])
+        axs = arng.standard_normal((n_acl, dim), dtype=np.float32)
+        aqs = arng.standard_normal((ACL["queries"], dim), dtype=np.float32)
+        d["acl"] = {"xs": axs}
+        owners = (RecordId("user", "alice"), RecordId("user", "bob"))
+
+        def acl_ingest():
+            ds.query(
+                "DEFINE TABLE acl PERMISSIONS FOR select, create, update, "
+                "delete WHERE owner = $auth.id; DEFINE INDEX ix ON acl "
+                f"FIELDS emb HNSW DIMENSION {dim} DIST COSINE TYPE F32; "
+                "DEFINE ACCESS account ON DATABASE TYPE RECORD "
+                "SIGNUP (CREATE type::record('user', $name) "
+                "SET pass = crypto::scrypt::generate($pass)) "
+                "SIGNIN (SELECT * FROM user WHERE id = "
+                "type::record('user', $name) AND "
+                "crypto::scrypt::compare(pass, $pass))", ns="b", db="b")
+            t0 = time.perf_counter()
+            t = ds.transaction(write=True)
+            try:
+                for i in range(n_acl):
+                    t.set(K.record("b", "b", "acl", i), serialize(
+                        {"id": RecordId("acl", i), "emb": axs[i].tolist(),
+                         "owner": owners[i % 2]}))
+                    t.set_val(K.ix_state("b", "b", "acl", "ix", b"he",
+                                         K.enc_value(i)), axs[i].tobytes())
+                t.set_val(K.ix_state("b", "b", "acl", "ix", b"vn"), n_acl)
+                t.commit()
+            except BaseException:
+                t.cancel()
+                raise
+            return time.perf_counter() - t0
+
+        def record():
+            out = {"rows": n_acl, "ingest_s": acl_ingest()}
+            users = {}
+            t0 = time.perf_counter()
+            for name in ("alice", "bob"):
+                creds = {"NS": "b", "DB": "b", "AC": "account",
+                         "name": name, "pass": f"{name}-pass"}
+                ws_client().signup(**creds)
+                c = ws_client()
+                c.signin(**creds)
+                back = c.query("RETURN [session::ac(), $auth.id]")
+                check(back[0]["result"] == ["account",
+                                            RecordId("user", name)],
+                      f"auth record {name}: {back}")
+                users[name] = c
+            out["signup_signin_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+            aql = [q.tolist() for q in aqs]
+            state["aql"] = aql
+            t0 = time.perf_counter()
+            roots = [ids(ds.query_one(acl_sql, ns="b", db="b",
+                                        vars={"q": q}))
+                     for q in aql]
+            out["first_query_s"] = time.perf_counter() - t0  # the ship
+            state["acl_root"] = roots
+            got_n = 0
+            t0 = time.perf_counter()
+            for parity, name in enumerate(("alice", "bob")):
+                for qi, q in enumerate(aql):
+                    res = users[name].query(acl_sql, {"q": q})
+                    got = ids(res[0]["result"])
+                    want = [i for i in roots[qi] if i % 2 == parity]
+                    check(res[0]["status"] == "OK" and got == want,
+                          f"auth record {name} q{qi}: {got} != {want}")
+                    got_n += len(got)
+            out["ms_per_query"] = ((time.perf_counter() - t0) * 1e3
+                                   / (2 * len(aql)))
+            out["rows_answered"] = got_n
+            out["root_rows"] = 2 * sum(len(r) for r in roots)
+            state["alice"] = users["alice"]
+            return out
+
+        def function():
+            ds.query("DEFINE FUNCTION fn::nearest($q: array<float>) "
+                     f"{{ RETURN {sql}; }}", ns="b", db="b")
+            c0 = state["root"]
+            t0 = time.perf_counter()
+            for qi in range(8):
+                res = c0.query("RETURN fn::nearest($q)", {"q": ql[qi]})
+                check(res[0]["status"] == "OK"
+                      and ids(res[0]["result"]) == state["want"][qi],
+                      f"auth fn::nearest q{qi}: {res[0]}")
+            return {"calls": 8, "ids_equal_root": True,
+                    "ms_per_call": (time.perf_counter() - t0) * 1e3 / 8}
+
+        def event():
+            ds.query("DEFINE TABLE audit PERMISSIONS FULL; DEFINE EVENT "
+                     "audit ON acl WHEN $event = 'CREATE' THEN (CREATE "
+                     "audit SET rec = $after.id, by = $auth.id)",
+                     ns="b", db="b")
+            alice, rid = state["alice"], n_acl + 1
+            v = np.random.default_rng(ACL["seed"] + 1).standard_normal(
+                dim).astype(np.float32).tolist()
+            t0 = time.perf_counter()
+            res = alice.query("CREATE type::record('acl', $id) SET emb = $v, "
+                              "owner = $auth.id", {"id": rid, "v": v})
+            out = {"create_ms": (time.perf_counter() - t0) * 1e3}
+            check(res[0]["status"] == "OK", f"auth event CREATE: {res}")
+            aud = ds.query_one("SELECT rec, by FROM audit WHERE rec = $r",
+                           ns="b", db="b", vars={"r": RecordId("acl", rid)})
+            check(len(aud) == 1
+                  and aud[0]["by"] == RecordId("user", "alice"),
+                  f"auth event: audit rows {aud}")
+            t0 = time.perf_counter()
+            first = ids(alice.query("SELECT id FROM acl WHERE emb <|10|> $q",
+                                    {"q": v})[0]["result"])
+            out["probe_ms"] = (time.perf_counter() - t0) * 1e3
+            check(first[:1] == [rid], f"auth event: the probe found {first}")
+            # the new row is alice's and sits in the store from now on
+            state["acl_new"] = (rid, v)
+            return out
+
+        def rebuild():
+            aix = ds.vector_indexes[("b", "b", "acl", "ix")]
+            old = (aix._dev_key, [aix.version, aix._dev_epoch])
+            before = [ids(ds.query_one(acl_sql, ns="b", db="b",
+                                        vars={"q": q}))
+                      for q in state["aql"][:4]]
+            t0 = time.perf_counter()
+            res = state["root"].query("REBUILD INDEX ix ON acl")
+            out = {"rebuild_s": time.perf_counter() - t0}
+            check(res[0]["status"] == "OK", f"auth REBUILD: {res}")
+            t, _m, _ = sup_.call("vec_knn", {"key": old[0], "tag": old[1],
+                                             "k": k_}, [aqs[:1]])
+            check(t == "stale", f"auth REBUILD: the old store answered {t}")
+            t0 = time.perf_counter()
+            after = [ids(ds.query_one(acl_sql, ns="b", db="b",
+                                        vars={"q": q}))
+                     for q in state["aql"][:4]]
+            out["first_query_s"] = time.perf_counter() - t0
+            check(after == before,
+                  f"auth REBUILD: answers {after} != {before}")
+            nix = ds.vector_indexes[("b", "b", "acl", "ix")]
+            check(nix is not aix and nix._dev_key != old[0],
+                  "auth REBUILD: the engine was not replaced")
+            out.update(old_store_dropped=True, ids_equal=True,
+                       rows=len(nix.rids))
+            return out
+
+        try:
+            window("anonymous", anonymous, (), none=True)
+            window("root", root, bf16_)
+            window("viewer", viewer, bf16_)
+            window("record", record, bf16_)
+            window("function", function, bf16_)
+            window("event", event, bf16_)
+            window("rebuild", rebuild, bf16_)
+            check((ix._dev_key, ix.version, ix._dev_epoch) == tbl_store,
+                  "auth: knn1m's store was shipped again")
+            ctr = dict(sup_.counters)
+            for name in ("device_fallbacks", "device_host_routed"):
+                check(ctr[name] == ctr0[name],
+                      f"auth: {name} moved {ctr0[name]} -> {ctr[name]}")
+            check(ix.ann_host_descents == hd0, "auth: the numpy descent ran")
+            emit("auth", mode=sup_.mode, counters=ctr,
+                 steps=list(out_all),
+                 seconds=round(time.perf_counter() - t_0, 3))
+        finally:
+            for c in clients:
+                c.close()
+            srv.shutdown()
+            srv.server_close()
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
+        return out_all
+
     def server_phase(sup_, d, counts=None):
         """knn1m's datastore (BASELINE config 2 at full width, after the
         sql phase) behind the port's `make_server` on 127.0.0.1:0
@@ -3636,17 +4067,19 @@ def main(argv=None) -> int:
         beside the sql phase's sql_knn_qps and index_engine_qps),
         recall@10 of 16 queries >= 0.99 against the f64 oracle; (b) the
         same query through POST /sql and POST /rpc (JSON), ids equal to
-        the WebSocket's; (c) LIVE SELECT id FROM tbl on one session, a
-        CREATE of a fresh vector on another: one CREATE notification,
-        the `<|10|>` probe answers the row first, KILL, a second CREATE
-        delivers nothing in 1 s, both rows deleted; (d) bench.py's live
-        soak at its quick shape on a table of its own (order_violations
-        0, per_session_complete 62, live_sessions_end 0); (e) a drain
-        with one query in flight (the fresh vector's `<|10,40|>`, the
-        first query after the deletes, which must not answer them): it
-        finishes, a new request sheds with a typed 503, and the drain
-        reaches the supervisor's shutdown (counted by KeepRunner). No
-        fallback, host routing or numpy descent may occur."""
+        the WebSocket's; (c) LIVE SELECT id FROM acl (phase auth's table)
+        on one session, a CREATE of a fresh vector on another: one
+        CREATE notification, the `<|10|>` probe answers the row first,
+        KILL, a second CREATE delivers nothing in 1 s, both rows deleted;
+        (d) bench.py's live soak at its quick shape on a table of its own
+        (order_violations 0, per_session_complete 62, live_sessions_end
+        0); (e) a drain with one query in flight (the fresh vector's
+        `<|10,40|>` on acl, the first query after the deletes, which must
+        not answer them): it finishes, a new request sheds with a typed
+        503, and the drain reaches the supervisor's shutdown (counted by
+        KeepRunner). No step writes to knn1m's `tbl`, whose store is the
+        one phase auth found. No fallback, host routing or numpy descent
+        may occur."""
         import threading
         import urllib.error
         import urllib.request
@@ -3784,14 +4217,14 @@ def main(argv=None) -> int:
         def live():
             a, b = clients[0], clients[1]
             got = []
-            lid = _live_key(a.query("LIVE SELECT id FROM tbl")[0]["result"])
+            lid = _live_key(a.query("LIVE SELECT id FROM acl")[0]["result"])
             a.engine.register_live(lid, got.append)
-            rid = xs_.shape[0] + 7
+            rid = d["acl"]["xs"].shape[0] + 7
             v = np.random.default_rng(KNN1M["seed"] + 5).standard_normal(
                 KNN1M["dim"]).astype(np.float32).tolist()
             out = {}
             t0 = time.perf_counter()
-            b.query(f"CREATE tbl:{rid} SET emb = $v", {"v": v})
+            b.query(f"CREATE acl:{rid} SET emb = $v", {"v": v})
             end = time.monotonic() + 30
             while not got and time.monotonic() < end:
                 time.sleep(0.001)
@@ -3801,7 +4234,7 @@ def main(argv=None) -> int:
                   and got[0]["result"]["id"].id == rid,
                   f"server live: notifications {got}")
             t0 = time.perf_counter()
-            first = ids(b.query("SELECT id FROM tbl WHERE emb <|10|> $q",
+            first = ids(b.query("SELECT id FROM acl WHERE emb <|10|> $q",
                                 {"q": v})[0]["result"])
             out["probe_ms"] = (time.perf_counter() - t0) * 1e3
             check(first[:1] == [rid],
@@ -3809,11 +4242,11 @@ def main(argv=None) -> int:
             a.kill(lid)
             check(lid not in ds.live_queries,
                   "server live: KILL left the subscription")
-            b.query(f"CREATE tbl:{rid + 1} SET emb = $v", {"v": v})
+            b.query(f"CREATE acl:{rid + 1} SET emb = $v", {"v": v})
             time.sleep(1.0)
             check(len(got) == 1,
                   f"server live: delivered after KILL: {got}")
-            b.query(f"DELETE tbl:{rid}; DELETE tbl:{rid + 1}")
+            b.query(f"DELETE acl:{rid}; DELETE acl:{rid + 1}")
             # the next query (the drain's in-flight one) must not see them
             state["deleted"] = (v, (rid, rid + 1))
             out.update(notifications=len(got), quiet_after_kill_s=1.0)
@@ -3845,7 +4278,9 @@ def main(argv=None) -> int:
                 with connect(base, fmt="cbor") as h:
                     h.use("b", "b")
                     t0 = time.perf_counter()
-                    res["r"] = h.query(f"SLEEP 500ms; {sql}", {"q": v})
+                    res["r"] = h.query(
+                        "SLEEP 500ms; SELECT id FROM acl WHERE emb <|10,40|> "
+                        "$q", {"q": v})
                     res["ms"] = (time.perf_counter() - t0) * 1e3
 
             t = threading.Thread(target=inflight, daemon=True)
@@ -3897,6 +4332,9 @@ def main(argv=None) -> int:
                       f"server: {name} moved {ctr0[name]} -> {ctr[name]}")
             check(ix.ann_host_descents == hd0,
                   "server: the numpy descent ran")
+            check((ix._dev_key, ix.version, ix._dev_epoch)
+                  == d["tbl_store"], "server: knn1m's store was shipped "
+                  "again")
             emit("server", mode=sup_.mode, counters=ctr,
                  steps=sorted(out_all),
                  seconds=round(time.perf_counter() - t_0, 3))
@@ -4619,8 +5057,9 @@ def main(argv=None) -> int:
             entry_check()
         if "batcher" in only:
             batcher_only()
-        if "engine" in only or "sql" in only or "server" in only:
-            engine_only(with_sql="sql" in only or "server" in only,
+        if {"engine", "sql", "auth", "server"} & set(only):
+            engine_only(with_sql=bool({"sql", "auth", "server"} & set(only)),
+                        with_auth=bool({"auth", "server"} & set(only)),
                         with_server="server" in only)
         if "segments" in only:
             segments_only()
@@ -5743,8 +6182,12 @@ def main(argv=None) -> int:
         engine_phase(sup, data, launches)
         # -- 4b'. SurrealQL over the engine phase's datastores, same runner
         sql_phase(sup, data["sql"], launches, keep_knn1m=True)
-        # -- 4b (server). knn1m's datastore behind the network server ------
-        server_phase(sup, data["sql"].pop("knn1m"), launches)
+        # -- 4b (auth, server). knn1m's datastore behind the network
+        # server: signed-in users, then the server's paths ------------------
+        knn1m_d = data["sql"].pop("knn1m")
+        auth_phase(sup, knn1m_d, launches)
+        server_phase(sup, knn1m_d, launches)
+        del knn1m_d
         del data
         # -- 4b''. full-text + vector search through SurrealQL, same runner
         search_phase(sup, launches)

@@ -12,7 +12,8 @@ and `query_one` run SurrealQL (`syn/` parses, `exec/` plans and runs,
 and LIVE SELECT pushes its notifications through `server/fanout.py`.
 `server/` serves a datastore over HTTP and WebSocket RPC (`rpc.py`),
 `sdk/` is its client, and `python -m surrealdb_tpu_torch start` starts
-it.
+it. `iam.py` signs users in (root, namespace, database and record
+access) and verifies their tokens.
 
 Importing the package (or any module of it) loads no kernel and never
 initialises CUDA; the entry points run on the card unless the caller

@@ -3,7 +3,8 @@ surrealdb/server/src/cli/ — start, sql REPL, isready, validate,
 version).
 
     python -m surrealdb_tpu_torch start [--bind 127.0.0.1:8000] [--path memory]
-        [--unauthenticated] [--device off|auto|require|inline]
+        [--user root --pass root] [--unauthenticated]
+        [--device off|auto|require|inline]
     python -m surrealdb_tpu_torch sql [--path memory] [--ns t --db t]
         [--device off|auto|require|inline]
     python -m surrealdb_tpu_torch validate file.surql
@@ -15,7 +16,10 @@ boot, in mode require unless `--device` or `SURREAL_DEVICE` says
 otherwise (a query that cannot reach the card fails; `--device auto` is
 the reference's degrade-to-host default); `--device off` keeps every
 path on the host. `sql` takes the same `--device` and the same
-default. `--user` / `--pass` need `DEFINE USER` (no iam), and the
+default. `--user` / `--pass` define the root user at boot
+(`define_root_user`: `DEFINE USER … ON ROOT PASSWORD … ROLES OWNER`);
+clients sign in as it (rpc `signin`, POST /signin, `Basic` auth) and
+without `--unauthenticated` anonymous connections get no access. The
 subcommands export, import, kv, kv-admin, upgrade, fix and ml are not
 ported: each parses and exits non-zero with a `NotPorted` message
 naming itself.
@@ -31,6 +35,38 @@ import sys
 # parsed, then refused with a NotPorted message naming the subcommand;
 # their options are not read, so none is declared
 _NOT_PORTED = ("export", "import", "kv", "kv-admin", "upgrade", "fix", "ml")
+
+
+def _sql_ident(name: str) -> str:
+    if name.isidentifier():
+        return name
+    return "`" + name.replace("\\", "\\\\").replace("`", "\\`") + "`"
+
+
+def _sql_string(text: str) -> str:
+    return "'" + text.replace("\\", "\\\\").replace("'", "\\'") + "'"
+
+
+def define_root_user(ds, user: str, passwd: str) -> str:
+    """Define the root user `start --user/--pass` names, as the
+    reference's `start` does (`DEFINE USER … ON ROOT PASSWORD … ROLES
+    OWNER`); a user that already exists (a restarted `file://` store)
+    is kept. Returns the stored passhash's route: `argon2` where the
+    `argon2` package imports, else `scrypt` (fnc/misc_fns.py
+    password_hash)."""
+    from surrealdb_tpu_torch import key as K
+    from surrealdb_tpu_torch.err import SdbError
+
+    res = ds.execute(f"DEFINE USER {_sql_ident(user)} ON ROOT PASSWORD "
+                     f"{_sql_string(passwd)} ROLES OWNER")[0]
+    if res.error is not None and "already exists" not in res.error:
+        raise SdbError(res.error)
+    txn = ds.transaction(write=False)
+    try:
+        ud = txn.get_val(K.us_def("root", None, None, user))
+    finally:
+        txn.cancel()
+    return ud.passhash.split("$")[1].split("-")[0]
 
 
 def main(argv=None):
@@ -135,9 +171,6 @@ def main(argv=None):
     if args.cmd in _NOT_PORTED:
         return _not_ported(NotPorted(
             f"the {args.cmd} subcommand is not ported"))
-    if args.cmd == "start" and (args.user or args.passwd):
-        return _not_ported(NotPorted(
-            "start --user/--pass is not ported (no DEFINE USER)"))
 
     # before the first get_supervisor(): the supervisor reads
     # SURREAL_DEVICE at construction. With neither the flag nor the
@@ -158,9 +191,11 @@ def main(argv=None):
             ds = Datastore(args.path)
         except NotPorted as e:
             return _not_ported(e)
-        if not args.unauthenticated:
-            print("no --unauthenticated: anonymous connections have no "
-                  "access (and --user/--pass are not ported)")
+        if args.user and args.passwd:
+            define_root_user(ds, args.user, args.passwd)
+        elif not args.unauthenticated:
+            print("no --user/--pass given and --unauthenticated not set: "
+                  "anonymous connections have no access")
         default_timeout_s = (parse_timeout(args.default_timeout)
                              if args.default_timeout else None)
         drain_timeout_s = (parse_timeout(args.drain_timeout)

@@ -1,13 +1,16 @@
 """Document write pipeline.
 
 Stage order mirrors the reference (doc/mod.rs:12-37): process → alter →
-field(schema) → check(perms) → store → edges → index → lives →
+field(schema) → check(perms) → store → edges → index → event → lives →
 pluck(output). One function per statement kind drives the shared
-pipeline. Live queries capture each committed-to-be mutation here
-(`notify_lives`) and are matched after the commit (server/fanout.py).
-Changefeeds, events and materialised views are not ported: the
-statements that would define them raise `NotPorted`, so no table reaches
-the write path with one.
+pipeline. A table's events (`DEFINE EVENT`) run inside the writing
+transaction (`run_events`: WHEN, then THEN with $event, $before, $after,
+$value and $input bound; an ASYNC event never fails the write and is
+retried up to its RETRY count). Live queries capture each
+committed-to-be mutation here (`notify_lives`) and are matched after the
+commit (server/fanout.py). Changefeeds and materialised views are not
+ported: the statements that would define them raise `NotPorted`, so no
+table reaches the write path with one.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from surrealdb_tpu_torch.expr.ast import (
     SetData,
     UnsetData,
 )
-from surrealdb_tpu_torch.kvs.api import deserialize, serialize
+from surrealdb_tpu_torch.kvs.api import deserialize, deserialize_once, serialize
 from surrealdb_tpu_torch.val import (
     NONE,
     Range,
@@ -352,6 +355,11 @@ def get_fields(tb: str, ctx: Ctx):
 def get_indexes(tb: str, ctx: Ctx):
     ns, db = ctx.need_ns_db()
     return [d for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ix_prefix(ns, db, tb)))]
+
+
+def get_events(tb: str, ctx: Ctx):
+    ns, db = ctx.need_ns_db()
+    return [d for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.ev_prefix(ns, db, tb)))]
 
 
 def apply_fields(
@@ -929,7 +937,7 @@ def build_index(idef, ctx: Ctx):
         count += 1
         _ns, _db, _tb, idv = K.decode_record_id(k)
         rid = RecordId(idef.tb, idv)
-        doc = deserialize(raw)
+        doc = deserialize_once(raw)
         # inline: perform same logic for just this idef
         _single_index_add(idef, rid, doc, ctx)
     ctx.ds.index_builds[key] = {
@@ -995,8 +1003,44 @@ def view_source_tables(sel) -> list:
 
 
 # ---------------------------------------------------------------------------
-# output shaping
+# events / live queries
 # ---------------------------------------------------------------------------
+
+
+def run_events(rid, before, after, action, ctx: Ctx, input_doc=NONE):
+    events = get_events(rid.tb, ctx)
+    if not events:
+        return
+    from surrealdb_tpu_torch.exec.statements import eval_statement
+
+    for ev in events:
+        c = ctx.with_doc(after if isinstance(after, dict) else before, rid)
+        c.vars["event"] = action
+        c.vars["before"] = before if before is not NONE else NONE
+        c.vars["after"] = after if after is not NONE else NONE
+        c.vars["value"] = after if isinstance(after, dict) else before
+        c.vars["input"] = input_doc
+        if ev.when is not None and not is_truthy(evaluate(ev.when, c)):
+            continue
+        if getattr(ev, "async_", False):
+            # async events never fail the triggering write (reference
+            # doc/event.rs enqueues them out-of-band); retry up to RETRY
+            tries = 1 + int(getattr(ev, "retry", None) or 1)
+            for _try in range(tries):
+                try:
+                    for stmt in ev.then:
+                        eval_statement(stmt, c)
+                    break
+                except SdbError:
+                    continue
+            continue
+        try:
+            for stmt in ev.then:
+                eval_statement(stmt, c)
+        except SdbError as e:
+            raise SdbError(
+                f"Error while processing event {ev.name}: {e}"
+            )
 
 
 def notify_lives(rid, before, after, action, ctx: Ctx):
@@ -1026,6 +1070,11 @@ def notify_lives(rid, before, after, action, ctx: Ctx):
         ns, db, rid.tb, rid,
         copy_value(before), copy_value(after), action,
     ))
+
+
+# ---------------------------------------------------------------------------
+# output shaping
+# ---------------------------------------------------------------------------
 
 
 def shape_output(output: OutputClause, before, after, rid, ctx: Ctx):
@@ -1114,8 +1163,11 @@ def _index_msg_value(v):
 
 
 def _store_record(rid, before, after, ctx: Ctx, action, output, edge=None):
-    """Shared store stages: schema, perms, write, edges, indexes, output."""
+    """Shared store stages: schema, perms, write, edges, indexes, events,
+    lives, output."""
     ns, db = ctx.need_ns_db()
+    # the user-supplied document, before schema/VALUE clauses ($input)
+    input_doc = copy_value(after) if isinstance(after, dict) else NONE
     tdef = get_table(rid.tb, ctx)
     is_create = action == "CREATE"
     # relation-table checks
@@ -1206,6 +1258,8 @@ def _store_record(rid, before, after, ctx: Ctx, action, output, edge=None):
     index_update(rid, before, after, ctx)
     # record references (REFERENCE fields)
     refs_update(rid, before, after, ctx)
+    # events
+    run_events(rid, before, after, action, ctx, input_doc)
     # live queries
     notify_lives(rid, before, after, action, ctx)
     return shape_output(output, before, after, rid, ctx)
@@ -1490,6 +1544,7 @@ def delete_one(rid: RecordId, before, output, ctx: Ctx):
                 delete_one(erid, edoc, OutputClause("none"), ctx)
     index_update(rid, before, NONE, ctx)
     refs_update(rid, before, NONE, ctx)
+    run_events(rid, before, NONE, "DELETE", ctx)
     notify_lives(rid, before, NONE, "DELETE", ctx)
     if output is None:
         return NONE

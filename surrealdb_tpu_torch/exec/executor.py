@@ -261,6 +261,16 @@ class Executor:
                 ctx.inflight = handle
             ctx.vars.update(shared_vars)
             try:
+                if self.session.auth_level == "none" \
+                        and self.session.guests_refused and not getattr(
+                            self.ds.capabilities, "guest_access", False):
+                    # an anonymous session of a server started without
+                    # --unauthenticated runs nothing unless guests are
+                    # allowed (SURREAL_CAPS_ALLOW_GUESTS, SurrealDB's
+                    # --allow-guests); signin/signup/authenticate are
+                    # rpc methods and routes, not statements
+                    raise SdbError("IAM error: Not enough permissions to "
+                                   "perform this action")
                 if self.session.ns and self.session.db and not ensured_nsdb:
                     # non-strict mode lazily registers the session ns/db in
                     # the catalog (reference kvs get_or_add_ns/db); once per

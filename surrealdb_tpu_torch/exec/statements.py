@@ -4298,7 +4298,52 @@ def _remove_index_data(ns, db, tb, ix, ctx):
     ctx.txn.delete_range(*K.prefix_range(K.index_prefix(ns, db, tb, ix)))
     ctx.txn.delete_range(*K.prefix_range(K.index_unique_prefix(ns, db, tb, ix)))
     ctx.txn.delete_range(*K.prefix_range(K.ix_state(ns, db, tb, ix, b"")))
-    ctx.ds.vector_indexes.pop((ns, db, tb, ix), None)
+    eng = ctx.ds.vector_indexes.pop((ns, db, tb, ix), None)
+    if eng is not None:
+        # REMOVE INDEX / REBUILD INDEX: the runner keeps no stale store
+        eng.release_device()
+
+
+def _s_define_event(n: DefineEvent, ctx):
+    _ensure_ns_db(ctx)
+    ns, db = ctx.need_ns_db()
+    if ctx.txn.get(K.tb_def(ns, db, n.tb)) is None:
+        ctx.txn.set_val(K.tb_def(ns, db, n.tb), TableDef(name=n.tb))
+    kdef = K.ev_def(ns, db, n.tb, n.name)
+    if _exists_guard(ctx, kdef, n.name, "event", n.if_not_exists, n.overwrite):
+        return NONE
+    ctx.txn.set_val(kdef, EventDef(
+        n.name, n.when, n.then, n.comment,
+        getattr(n, "async_", False), getattr(n, "retry", None),
+        getattr(n, "maxdepth", None),
+    ))
+    return NONE
+
+
+def _s_define_param(n: DefineParam, ctx):
+    _ensure_ns_db(ctx)
+    ns, db = ctx.need_ns_db()
+    kdef = K.pa_def(ns, db, n.name)
+    if _exists_guard(ctx, kdef, f"${n.name}", "param", n.if_not_exists, n.overwrite):
+        return NONE
+    v = evaluate(n.value, ctx)
+    ctx.txn.set_val(kdef, ParamDef(n.name, v, n.permissions, n.comment))
+    return NONE
+
+
+def _s_define_function(n: DefineFunction, ctx):
+    _ensure_ns_db(ctx)
+    ns, db = ctx.need_ns_db()
+    kdef = K.fc_def(ns, db, n.name)
+    if _exists_guard(ctx, kdef, n.name, "function", n.if_not_exists,
+                     n.overwrite,
+                     msg=f"The function 'fn::{n.name}' already exists"):
+        return NONE
+    ctx.txn.set_val(
+        kdef,
+        FunctionDef(n.name, n.args, n.block, n.returns, n.permissions, n.comment),
+    )
+    return NONE
 
 
 _BASE_RANK = {"root": 0, "ns": 1, "db": 2}
@@ -4313,6 +4358,98 @@ def _s_define_analyzer(n: DefineAnalyzer, ctx):
     ctx.txn.set_val(
         kdef, AnalyzerDef(n.name, n.tokenizers, n.filters, n.function, n.comment)
     )
+    return NONE
+
+
+def _s_define_user(n: DefineUser, ctx):
+    from surrealdb_tpu_torch.fnc.misc_fns import password_hash
+
+    base = n.base
+    # a principal can only manage users at or below its own base
+    # (reference Options::is_allowed level check / fn auth_limit)
+    sess_base = getattr(ctx.session, "auth_base", "root")
+    if _BASE_RANK.get(base, 2) < _BASE_RANK.get(sess_base, 0):
+        raise SdbError(
+            "IAM error: Not enough permissions to perform this action"
+        )
+    if base in ("ns", "db") and not ctx.session.ns:
+        raise SdbError("Specify a namespace to use")
+    if base == "db" and not ctx.session.db:
+        raise SdbError("Specify a database to use")
+    ns = ctx.session.ns if base in ("ns", "db") else None
+    db = ctx.session.db if base == "db" else None
+    kdef = K.us_def(base, ns, db, n.name)
+    ulabel = {"root": "root user", "ns": "namespace user",
+              "db": "database user"}[base]
+    if _exists_guard(ctx, kdef, n.name, ulabel, n.if_not_exists, n.overwrite):
+        return NONE
+    ph = n.passhash or (password_hash(n.password) if n.password else "")
+    ctx.txn.set_val(
+        kdef, UserDef(n.name, base, ph, n.roles, n.duration, n.comment)
+    )
+    return NONE
+
+
+def _s_define_access(n: DefineAccess, ctx):
+    base = n.base
+    ns = ctx.session.ns if base in ("ns", "db") else None
+    db = ctx.session.db if base == "db" else None
+    # materialize expression-valued config (KEY $key etc.) and validate
+    # the algorithm surface (reference access_type.rs)
+    cfg = dict(n.config)
+    for a in ("key", "issuer_key", "url"):
+        v = cfg.get(a)
+        if isinstance(v, Node):
+            rv = evaluate(v, ctx)
+            cfg[a] = None if rv is NONE else rv
+    kdef = K.ac_def(base, ns, db, n.name)
+    if _exists_guard(
+        ctx, kdef, n.name, "access", n.if_not_exists, n.overwrite,
+        msg=(f"The access method '{n.name}' already exists "
+             f"{_base_phrase(base, ctx)}"),
+    ):
+        # IF NOT EXISTS short-circuits before algorithm validation
+        return NONE
+    alg = (cfg.get("alg") or "").upper()
+    ialg = (cfg.get("issuer_alg") or "").upper()
+    if "ES512" in (alg, ialg):
+        raise SdbError(
+            "The ES512 algorithm is not currently supported. "
+            "Please use ES384 or another supported algorithm"
+        )
+    if alg.startswith("HS") and cfg.get("issuer_key") is not None \
+            and cfg.get("key") is not None \
+            and cfg["issuer_key"] != cfg["key"]:
+        raise SdbError(
+            f"Invalid query: Symmetric algorithm {alg} requires the same "
+            "key for signing and verification. Use the same key value for "
+            "both KEY and WITH ISSUER KEY clauses, or omit WITH ISSUER KEY."
+        )
+    ctx.txn.set_val(
+        kdef, AccessDef(n.name, base, n.kind, cfg, n.duration, n.comment)
+    )
+    return NONE
+
+
+def _s_define_sequence(n: DefineSequence, ctx):
+    _ensure_ns_db(ctx)
+    ns, db = ctx.need_ns_db()
+    kdef = K.seq_state(ns, db, n.name)
+    if ctx.txn.get(kdef) is not None:
+        if n.if_not_exists:
+            return NONE
+        if not n.overwrite:
+            raise SdbError(f"The sequence '{n.name}' already exists")
+    tmo = None
+    if n.timeout is not None:
+        from surrealdb_tpu_torch.val import Duration
+
+        tmo = evaluate(n.timeout, ctx)
+        if not isinstance(tmo, Duration):
+            raise SdbError(f"Expected a duration but found {render(tmo)}")
+    sd = SequenceDef(n.name, n.batch, n.start, tmo)
+    ctx.txn.set_val(kdef, (sd, n.start))
+    ctx.ds.sequences.pop((ns, db, n.name), None)  # drop stale local batch
     return NONE
 
 
@@ -4357,7 +4494,9 @@ def _s_remove(n: RemoveStmt, ctx: Ctx):
         ctx.txn.delete_range(*K.prefix_range(base))
         for ixkey in list(ctx.ds.vector_indexes):
             if ixkey[:3] == (ns, db, n.name):
-                ctx.ds.vector_indexes.pop(ixkey, None)
+                eng = ctx.ds.vector_indexes.pop(ixkey, None)
+                if eng is not None:
+                    eng.release_device()
         gk = (ns, db, n.name)
         from surrealdb_tpu_torch.exec.document import _bump_graph_version
 
@@ -4387,7 +4526,283 @@ def _s_remove(n: RemoveStmt, ctx: Ctx):
             return NONE
         ctx.txn.delete(key)
         return NONE
-    raise NotPorted(f"REMOVE {kind.upper()} is not ported")
+    if kind == "event":
+        key = K.ev_def(ns, db, n.tb, n.name)
+        if _guard(key, n.name):
+            return NONE
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "param":
+        key = K.pa_def(ns, db, n.name)
+        if ctx.txn.get(key) is None:
+            if n.if_exists:
+                return NONE
+            raise SdbError(f"The param '${n.name}' does not exist")
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "function":
+        key = K.fc_def(ns, db, n.name)
+        if _guard(key, f"fn::{n.name}"):
+            return NONE
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "analyzer":
+        key = K.az_def(ns, db, n.name)
+        if _guard(key, n.name):
+            return NONE
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "user":
+        base = n.base or "root"
+        ulabel = {"root": "root user", "ns": "namespace user",
+                  "db": "database user"}[base]
+        key = K.us_def(base, ns if base in ("ns", "db") else None,
+                       db if base == "db" else None, n.name)
+        if ctx.txn.get(key) is None:
+            if n.if_exists:
+                return NONE
+            raise SdbError(f"The {ulabel} '{n.name}' does not exist")
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "access":
+        base = n.base or "db"
+        key = K.ac_def(base, ns if base in ("ns", "db") else None,
+                       db if base == "db" else None, n.name)
+        if ctx.txn.get(key) is None:
+            if n.if_exists:
+                return NONE
+            raise SdbError(
+                f"The access method '{n.name}' does not exist "
+                f"{_base_phrase(base, ctx)}"
+            )
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "sequence":
+        key = K.seq_state(ns, db, n.name)
+        if _guard(key, n.name):
+            return NONE
+        ctx.txn.delete(key)
+        ctx.ds.sequences.pop((ns, db, n.name), None)
+        return NONE
+    if kind in ("config", "api", "bucket", "module"):
+        raise NotPorted(f"REMOVE {kind.upper()} is not ported")
+    raise SdbError(f"unknown REMOVE kind {kind}")
+
+
+def _supports_compaction(ctx) -> bool:
+    return hasattr(ctx.ds.backend, "compact")
+
+
+def _s_alter(n: AlterTable, ctx: Ctx):
+    ns, db = ctx.need_ns_db()
+    key = K.tb_def(ns, db, n.name)
+    tdef = ctx.txn.take_val(key)
+    if tdef is None:
+        if n.if_exists:
+            return NONE
+        raise SdbError(f"The table '{n.name}' does not exist")
+    if getattr(n, "compact", False) and not _supports_compaction(ctx):
+        raise SdbError(
+            "The storage layer does not support compaction requests."
+        )
+    if n.full is not None:
+        tdef.full = n.full
+    if n.drop is not None:
+        tdef.drop = n.drop
+    if n.kind is not None:
+        tdef.kind = n.kind
+    if n.relation_from is not None:
+        tdef.relation_from = n.relation_from
+    if n.relation_to is not None:
+        tdef.relation_to = n.relation_to
+    if n.permissions is not None:
+        tdef.permissions = n.permissions
+    if n.comment is not None:
+        if n.comment == "__drop__":
+            tdef.comment = None
+        else:
+            c = n.comment
+            if isinstance(c, Node):
+                c = evaluate(c, ctx)
+            tdef.comment = None if c is NONE else c
+    if n.changefeed is not None and n.changefeed != "__drop__":
+        raise NotPorted("CHANGEFEED is not ported")
+    ctx.txn.set_val(key, tdef)
+    return NONE
+
+
+def _s_alter_other(n: AlterStmt, ctx: Ctx):
+    """ALTER for non-table definitions: load, apply clause edits, store."""
+    ns = ctx.session.ns
+    db = ctx.session.db
+    kind = n.kind
+    labels = {
+        "field": "field", "index": "index", "event": "event",
+        "param": "param", "function": "function", "analyzer": "analyzer",
+        "user": "user", "access": "access", "sequence": "sequence",
+        "api": "api", "bucket": "bucket", "config": "config",
+    }
+    if kind == "database":
+        if n.name is not None and ctx.txn.get(K.db_def(ns, n.name)) is None:
+            if n.if_exists:
+                return NONE
+            raise SdbError(f"The database '{n.name}' does not exist")
+        if ("compact", True) in (n.changes or []) and not _supports_compaction(ctx):
+            raise SdbError(
+                "The storage layer does not support compaction requests."
+            )
+        return NONE  # COMPACT is a maintenance hint elsewhere
+    if kind in ("config", "api", "bucket", "module"):
+        raise NotPorted(f"ALTER {kind.upper()} is not ported")
+    if kind in ("system", "model"):
+        if kind == "system":
+            from surrealdb_tpu_torch.val import Duration as _Dur
+
+            for clause, value in (n.changes or []):
+                if clause == "compact" and not _supports_compaction(ctx):
+                    raise SdbError(
+                        "The storage layer does not support compaction "
+                        "requests."
+                    )
+                if clause == "query_timeout":
+                    skey = K.sys_cfg()
+                    cfg = ctx.txn.take_val(skey) or {}
+                    if value == "__drop__":
+                        cfg.pop("QUERY_TIMEOUT", None)
+                    else:
+                        v = evaluate(value, ctx)
+                        if not isinstance(v, _Dur):
+                            raise SdbError(
+                                f"Expected a duration but found {render(v)}"
+                            )
+                        cfg["QUERY_TIMEOUT"] = v
+                    if cfg:
+                        ctx.txn.set_val(skey, cfg)
+                    else:
+                        ctx.txn.delete(skey)
+        return NONE
+    keymap = {
+        "field": lambda: K.fd_def(ns, db, n.tb, n.name if isinstance(n.name, str) else _field_name_str(n.name)),
+        "index": lambda: K.ix_def(ns, db, n.tb, n.name),
+        "event": lambda: K.ev_def(ns, db, n.tb, n.name),
+        "param": lambda: K.pa_def(ns, db, n.name),
+        "function": lambda: K.fc_def(ns, db, n.name),
+        "analyzer": lambda: K.az_def(ns, db, n.name),
+        "user": lambda: K.us_def(
+            n.base or "root",
+            ns if (n.base or "root") in ("ns", "db") else None,
+            db if (n.base or "root") == "db" else None,
+            n.name,
+        ),
+        "access": lambda: K.ac_def(
+            n.base or "db",
+            ns if (n.base or "db") in ("ns", "db") else None,
+            db if (n.base or "db") == "db" else None,
+            n.name,
+        ),
+        "sequence": lambda: K.seq_state(ns, db, n.name),
+    }
+    key = keymap[kind]()
+    stored = ctx.txn.take_val(key)
+    if stored is None:
+        if n.if_exists:
+            return NONE
+        disp = n.name
+        if kind == "function":
+            disp = f"fn::{disp}"
+        elif kind == "param":
+            disp = f"${disp}"
+        if kind == "access":
+            raise SdbError(
+                f"The access method '{disp}' does not exist "
+                f"{_base_phrase(n.base or 'db', ctx)}"
+            )
+        if kind == "user":
+            raise SdbError(
+                f"The user '{disp}' does not exist "
+                f"{_base_phrase(n.base or 'root', ctx)}"
+            )
+        raise SdbError(
+            f"The {labels.get(kind, kind)} '{disp}' does not exist"
+        )
+    d = stored[0] if kind == "sequence" else stored
+    if kind == "sequence":
+        from surrealdb_tpu_torch.val import Duration as _Dur
+
+        for i2, (clause, value) in enumerate(list(n.changes)):
+            if clause == "timeout" and value != "__drop__" and not isinstance(
+                value, _Dur
+            ):
+                v2 = evaluate(value, ctx)
+                if v2 is NONE or v2 is None:
+                    n.changes[i2] = (clause, "__drop__")
+                    continue
+                if not isinstance(v2, _Dur):
+                    raise SdbError(
+                        f"Expected a duration but found {render(v2)}"
+                    )
+                n.changes[i2] = (clause, v2)
+    for clause, value in n.changes:
+        if value == "__drop__":
+            if clause == "comment":
+                d.comment = None
+            elif clause in ("value", "default", "when"):
+                setattr(d, "default" if clause == "default" else clause, None)
+            elif clause == "assert":
+                d.assert_ = None
+            elif clause == "type":
+                d.kind = None
+            elif clause == "async":
+                d.async_ = False
+                d.retry = None
+                d.maxdepth = None
+            elif clause == "readonly":
+                d.readonly = False
+            elif clause == "flexible":
+                d.flex = False
+            elif clause in ("tokenizers", "filters", "roles"):
+                setattr(d, clause, [])
+            elif clause == "duration":
+                d.duration = None
+            elif clause == "timeout":
+                d.timeout = None
+            elif clause == "reference":
+                d.reference = None
+            continue
+        if clause == "password":
+            from surrealdb_tpu_torch.fnc.misc_fns import password_hash
+
+            d.passhash = password_hash(value)
+            continue
+        if clause == "value" and kind == "param":
+            d.value = evaluate(value, ctx)
+            continue
+        if hasattr(d, clause):
+            v = value
+            if clause in ("comment",) and not isinstance(v, (str, type(None))):
+                v = evaluate(v, ctx)
+                if v is NONE:
+                    v = None
+            setattr(d, clause, v)
+    if kind == "sequence":
+        ctx.txn.set_val(key, (d, stored[1]))
+    else:
+        ctx.txn.set_val(key, d)
+    return NONE
+
+
+def _s_rebuild(n: RebuildIndex, ctx: Ctx):
+    ns, db = ctx.need_ns_db()
+    idef = ctx.txn.get_val(K.ix_def(ns, db, n.tb, n.name))
+    if idef is None:
+        if n.if_exists:
+            return NONE
+        raise SdbError(f"The index '{n.name}' does not exist")
+    _remove_index_data(ns, db, n.tb, n.name, ctx)
+    from surrealdb_tpu_torch.exec.document import build_index
+
+    build_index(idef, ctx)
+    return NONE
 
 
 # ---------------------------------------------------------------------------
@@ -4778,6 +5193,183 @@ def _s_kill(n: KillStmt, ctx: Ctx):
     return NONE
 
 
+def _access_level(n, ctx):
+    """Resolve the statement's base (explicit ON, else the session's
+    selected base — reference Options::selected_base)."""
+    base = n.base
+    if base is None:
+        base = ("db" if ctx.session.db
+                else "ns" if ctx.session.ns else "root")
+    ns = ctx.session.ns if base in ("ns", "db") else None
+    db = ctx.session.db if base == "db" else None
+    if base == "db" and (not ns or not db):
+        ctx.need_ns_db()
+    if base == "ns" and not ns:
+        raise SdbError("Specify a namespace to use")
+    return base, ns, db
+
+
+def _access_nf(base, ctx, name):
+    if base == "root":
+        return f"The root access method '{name}' does not exist"
+    if base == "ns":
+        return (f"The access method '{name}' does not exist in the "
+                f"namespace '{ctx.session.ns}'")
+    return (f"The access method '{name}' does not exist in the "
+            f"database '{ctx.session.db}'")
+
+
+def _user_nf(base, ctx, name):
+    if base == "root":
+        return f"The root user '{name}' does not exist"
+    if base == "ns":
+        return (f"The user '{name}' does not exist in the "
+                f"namespace '{ctx.session.ns}'")
+    return (f"The user '{name}' does not exist in the "
+            f"database '{ctx.session.db}'")
+
+
+def _grant_object(g: dict, redact: bool) -> dict:
+    """SurrealQL object for an access grant (reference
+    expr/statements/access.rs access_object_from_grant)."""
+    grant = dict(g["grant"])
+    if redact and "key" in grant:
+        grant["key"] = "[REDACTED]"
+    return {
+        "id": g["id"],
+        "ac": g["ac"],
+        "type": g["type"],
+        "creation": g["creation"],
+        "expiration": g.get("expiration", NONE),
+        "revocation": g.get("revocation", NONE),
+        "subject": dict(g["subject"]),
+        "grant": grant,
+    }
+
+
+def _s_access(n, ctx):
+    from surrealdb_tpu_torch.val import Datetime, Duration
+
+    if n.op == "alter_sequence":
+        ns, db = ctx.need_ns_db()
+        if ctx.txn.get(K.seq_state(ns, db, n.name)) is None and not n.subject:
+            raise SdbError(f"The sequence '{n.name}' does not exist")
+        return NONE
+    base, ns, db = _access_level(n, ctx)
+    adef = ctx.txn.get_val(K.ac_def(base, ns, db, n.name))
+    if adef is None:
+        raise SdbError(_access_nf(base, ctx, n.name))
+
+    if n.op == "grant":
+        if adef.kind != "bearer":
+            raise SdbError(
+                f"The functionality 'Grants for {adef.kind.upper()}' is "
+                f"not implemented"
+            )
+        kind, sv = n.subject
+        bearer_for = (adef.config or {}).get("for", "user")
+        if kind == "user":
+            if bearer_for != "user":
+                raise SdbError(
+                    "The access method cannot issue grants to the "
+                    "provided subject"
+                )
+            if ctx.txn.get(K.us_def(base, ns, db, sv)) is None:
+                raise SdbError(_user_nf(base, ctx, sv))
+            subject = {"user": sv}
+        else:
+            if bearer_for != "record":
+                raise SdbError(
+                    "The access method cannot issue grants to the "
+                    "provided subject"
+                )
+            rid = evaluate(sv, ctx)
+            subject = {"record": rid}
+        rng = _random.SystemRandom()
+        gid = rng.choice(_GRANT_POOL[10:]) + "".join(
+            rng.choice(_GRANT_POOL) for _ in range(11)
+        )
+        secret = "".join(rng.choice(_GRANT_POOL) for _ in range(24))
+        creation = Datetime.now()
+        dur = (adef.duration or {}).get("grant", Duration.parse("30d"))
+        if isinstance(dur, Duration):
+            import datetime as _dt
+
+            expiration = Datetime(
+                creation.dt + _dt.timedelta(seconds=dur.to_seconds()),
+                creation.ns_frac, creation.year_shift,
+            )
+        else:
+            expiration = NONE
+        g = {
+            "id": gid,
+            "ac": n.name,
+            "type": "bearer",
+            "creation": creation,
+            "expiration": expiration,
+            "revocation": NONE,
+            "subject": subject,
+            "grant": {"id": gid, "key": f"surreal-bearer-{gid}-{secret}"},
+        }
+        ctx.txn.set_val(K.ac_grant(base, ns, db, n.name, gid), g)
+        # the ONE place the real key is returned (reference: grants are
+        # redacted everywhere after creation)
+        return _grant_object(g, redact=False)
+
+    beg, end = K.prefix_range(K.ac_grant_prefix(base, ns, db, n.name))
+
+    def _matching():
+        sel_kind, operand = n.selector or ("all", None)
+        for k, g in ctx.txn.scan_vals(beg, end):
+            if sel_kind == "grant" and g["id"] != operand:
+                continue
+            if sel_kind == "where":
+                doc = _grant_object(g, redact=True)
+                if not is_truthy(evaluate(operand, ctx.with_doc(doc, None))):
+                    continue
+            yield k, g
+
+    if n.op == "show":
+        return [_grant_object(g, redact=True) for _k, g in _matching()]
+
+    if n.op == "revoke":
+        out = []
+        now = Datetime.now()
+        for k, g in _matching():
+            if g.get("revocation") not in (None, NONE):
+                continue
+            g = dict(g)
+            g["revocation"] = now
+            ctx.txn.set_val(k, g)
+            out.append(_grant_object(g, redact=True))
+        return out
+
+    if n.op == "purge":
+        kinds, grace_e = n.purge or (set(), None)
+        grace = 0.0
+        if grace_e is not None:
+            gv = evaluate(grace_e, ctx)
+            if isinstance(gv, Duration):
+                grace = gv.to_seconds()
+        now = Datetime.now()
+        out = []
+        for k, g in _matching():
+            exp = g.get("expiration")
+            rev = g.get("revocation")
+            dead = False
+            gns = int(grace * 1e9)
+            if "expired" in kinds and isinstance(exp, Datetime):
+                dead = dead or now.epoch_ns() - exp.epoch_ns() >= gns
+            if "revoked" in kinds and isinstance(rev, Datetime):
+                dead = dead or now.epoch_ns() - rev.epoch_ns() >= gns
+            if dead:
+                ctx.txn.delete(k)
+                out.append(_grant_object(g, redact=True))
+        return out
+
+    raise SdbError(f"unknown ACCESS operation '{n.op}'")
+
+
 def _unported(what):
     def fn(n, ctx):
         raise NotPorted(f"{what} is not ported")
@@ -4808,25 +5400,25 @@ _STMTS = {
     DefineTable: _s_define_table,
     DefineField: _s_define_field,
     DefineIndex: _s_define_index,
-    DefineEvent: _unported("DEFINE EVENT"),
-    DefineParam: _unported("DEFINE PARAM"),
-    DefineFunction: _unported("DEFINE FUNCTION"),
+    DefineEvent: _s_define_event,
+    DefineParam: _s_define_param,
+    DefineFunction: _s_define_function,
     DefineAnalyzer: _s_define_analyzer,
-    DefineUser: _unported("DEFINE USER"),
-    DefineAccess: _unported("DEFINE ACCESS"),
+    DefineUser: _s_define_user,
+    DefineAccess: _s_define_access,
     DefineModule: _unported("DEFINE MODULE"),
-    DefineSequence: _unported("DEFINE SEQUENCE"),
+    DefineSequence: _s_define_sequence,
     DefineConfig: _unported("DEFINE CONFIG"),
     RemoveStmt: _s_remove,
-    AlterTable: _unported("ALTER TABLE"),
-    AlterStmt: _unported("ALTER"),
+    AlterTable: _s_alter,
+    AlterStmt: _s_alter_other,
     ExplainStmt: _s_explain_generic,
-    RebuildIndex: _unported("REBUILD INDEX"),
+    RebuildIndex: _s_rebuild,
     InfoStmt: _s_info,
     LiveStmt: _s_live,
     KillStmt: _s_kill,
     ShowStmt: _unported("SHOW CHANGES"),
-    AccessStmt: _unported("ACCESS"),
+    AccessStmt: _s_access,
 }
 
 

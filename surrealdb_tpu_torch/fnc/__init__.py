@@ -126,9 +126,11 @@ def call_function(node, ctx):
     from surrealdb_tpu_torch.exec.eval import evaluate
 
     name = node.name.lower()
-    if name.startswith(("fn::", "mod::", "ml::")):
+    if name.startswith("fn::"):
+        return call_custom(node.name[4:], [evaluate(a, ctx) for a in node.args], ctx)
+    if name.startswith(("mod::", "ml::")):
         raise NotPorted(f"function {node.name}() is not ported "
-                        f"(custom, module and ml:: functions)")
+                        f"(module and ml:: functions)")
     if name == "__future__":
         # futures evaluate lazily; this build evaluates at read time
         return evaluate(node.args[0], ctx)
@@ -166,6 +168,95 @@ def invoke(name, fn, args, ctx):
         raise SdbError(
             f"Incorrect arguments for function {name}(). Not enough arguments"
         )
+
+
+def call_custom(name, args, ctx):
+    """fn::name(...) — user-defined function from the catalog."""
+    from surrealdb_tpu_torch import key as K
+    from surrealdb_tpu_torch.catalog import FunctionDef
+    from surrealdb_tpu_torch.exec.coerce import coerce
+    from surrealdb_tpu_torch.exec.eval import evaluate
+    from surrealdb_tpu_torch.err import ReturnException
+
+    ns, db = ctx.need_ns_db()
+    fd = ctx.txn.get_val(K.fc_def(ns, db, name))
+    if not isinstance(fd, FunctionDef):
+        raise SdbError(f"The function 'fn::{name}' does not exist")
+    # PERMISSIONS gate record/anonymous sessions (reference fnc/mod.rs
+    # checks the function permission before invocation)
+    if getattr(ctx.session, "auth_level", "owner") in ("record", "none"):
+        perm = getattr(fd, "permissions", True)
+        # no PERMISSIONS clause defaults to FULL (reference define/function)
+        allowed = perm is True or perm is None
+        if perm not in (True, False, None):
+            from surrealdb_tpu_torch.val import is_truthy
+
+            # the clause evaluates with row permissions disabled, like
+            # table PERMISSIONS (reference new_with_perms(false)); real
+            # evaluation errors propagate rather than read as denials
+            c0 = ctx.child()
+            c0.vars["auth"] = getattr(ctx.session, "rid", None) or NONE
+            c0._in_perm_check = True
+            allowed = is_truthy(evaluate(perm, c0))
+        if not allowed:
+            raise SdbError(
+                f"You don't have permission to run the fn::{name} function"
+            )
+    # arity: trailing option<>/any params are optional (reference fnc
+    # custom: custom_optional_args.surql — a middle optional still makes
+    # every later position mandatory)
+    total = len(fd.args)
+    required = total
+    for _pname, pkind in reversed(fd.args):
+        if pkind is not None and getattr(pkind, "name", None) in (
+                "option", "any"):
+            required -= 1
+        else:
+            break
+    if len(args) > total or len(args) < required:
+        if required == total:
+            expects = (
+                f"{total} argument" if total == 1 else f"{total} arguments"
+            )
+        else:
+            expects = f"{required} to {total} arguments"
+        raise SdbError(
+            f"Incorrect arguments for function fn::{name}(). "
+            f"The function expects {expects}."
+        )
+    c = ctx.child()
+    for i, (pname, pkind) in enumerate(fd.args):
+        v = args[i] if i < len(args) else NONE
+        if pkind is not None:
+            try:
+                v = coerce(v, pkind)
+            except SdbError as e:
+                raise SdbError(
+                    f"Incorrect arguments for function fn::{name}(). "
+                    f"Failed to coerce argument `${pname}`: {e}"
+                )
+        c.vars[pname] = v
+    try:
+        out = evaluate(fd.block, c)
+    except ReturnException as r:
+        out = r.value
+    except Exception as e:
+        from surrealdb_tpu_torch.err import BreakException, ContinueException
+
+        if isinstance(e, (BreakException, ContinueException)):
+            raise SdbError(
+                "Invalid control flow statement, break or continue "
+                "statement found outside of loop."
+            )
+        raise
+    if fd.returns is not None:
+        try:
+            out = coerce(out, fd.returns)
+        except SdbError as e:
+            raise SdbError(
+                f"Couldn't coerce return value from function `fn::{name}`: {e}"
+            )
+    return out
 
 
 from surrealdb_tpu_torch.val import SSet as _SSet  # noqa: E402
@@ -454,7 +545,7 @@ def _rand_ulid(args, ctx):
 # family modules register themselves on import
 from surrealdb_tpu_torch.fnc import (  # noqa: E402,F401
     array_fns,
-    unported,
+    misc_fns,
     math_fns,
     string_fns,
     time_fns,

@@ -153,16 +153,23 @@ def get_analyzer(name, ctx) -> AnalyzerDef:
 
 
 def analyze(az: AnalyzerDef, text: str, ctx=None, stage="index"):
-    # FUNCTION analyzers preprocess the text through a custom function;
-    # DEFINE FUNCTION is not ported, so no such function can be called
+    # FUNCTION analyzers preprocess the text through a custom function
+    # that must return a string (reference ft/analyzer mapper)
     if getattr(az, "function", None) and ctx is not None:
-        from surrealdb_tpu_torch.err import NotPorted
+        from surrealdb_tpu_torch.fnc import call_custom
 
         name = az.function
-        if not name.startswith("fn::"):
-            name = "fn::" + name
-        raise NotPorted(f"the analyzer function {name}() is not ported "
-                        f"(DEFINE FUNCTION is not ported)")
+        if name.startswith("fn::"):
+            name = name[4:]
+        out = call_custom(name, [text], ctx)
+        if not isinstance(out, str):
+            from surrealdb_tpu_torch.err import SdbError
+
+            raise SdbError(
+                f"There was a problem running the {name}() function. "
+                f"The function should return a string."
+            )
+        text = out
     return _apply_filters(_tokenize(text, az.tokenizers), az.filters, stage)
 
 

@@ -491,6 +491,32 @@ class TpuVectorIndex:
             self.rids.extend(add_rids)
         self._drop_device()
 
+    def release_device(self):
+        """Free this engine's device blocks for good: its index was
+        removed or rebuilt, and the engine that replaces it ships its
+        rows under keys of its own. Best-effort, and only while the
+        runner is serving: a cold supervisor holds nothing, and the
+        runner's LRU and byte budget reclaim whatever this misses."""
+        from surrealdb_tpu_torch.device import get_supervisor
+
+        drops = [("vec_drop", self._dev_key), ("ann_drop", self._ann_dev_key)]
+        segs = self._segs
+        if segs is not None:
+            drops += [("ann_drop", s.dev_key) for s in list(segs.segs)]
+            segs.close(timeout_s=0.0)
+        try:
+            sup = get_supervisor()
+            if sup.mode != "inline" and sup.state != "ready":
+                return
+            for op, key in drops:
+                sup.forget(key)
+                try:
+                    sup.call(op, {"key": key, "tag": []}, [])
+                except Exception:
+                    pass
+        except Exception:
+            pass
+
     def _drop_device(self):
         """Invalidate the device-resident cache (host arrays are truth):
         bumping the epoch makes the runner's copy stale, so the next

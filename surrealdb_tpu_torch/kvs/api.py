@@ -145,6 +145,16 @@ def deserialize(b: bytes):
     return _restricted_loads(b)
 
 
+def deserialize_once(b: bytes):
+    """Decode a value a whole-table pass reads once (an index build): no
+    decode-cache entry, whose insert would cost the pass a copy of every
+    record and evict the cache's hot values, and no copy (the value is
+    fresh: the caller owns it)."""
+    if b[:1] == b"\x01":
+        return wire.decode(b[1:])
+    return deserialize(b)
+
+
 def deserialize_fields(b: bytes, wanted):
     """Project `wanted` top-level fields out of a stored record without
     materializing the rest (exec/batch.py columnar extraction). Exact:

@@ -54,6 +54,9 @@ class Session:
         self.token = None  # verified JWT claims ($token / $session.tk)
         # the base the authenticated principal is scoped to: root | ns | db
         self.auth_base = "root"
+        # a secured server's session: while anonymous (auth level none)
+        # its statements fail the IAM check unless guests are allowed
+        self.guests_refused = False
         self.planner_strategy = None  # None | "all-ro" | "compute-only"
         self.redact_volatile_explain_attrs = False
         self.import_mode = False  # OPTION IMPORT: DEFINEs overwrite
@@ -180,6 +183,9 @@ class Datastore:
         self.index_builds: dict = {}  # (ns,db,tb,ix) -> building status
         self.graph_engine = None
         self.graph_versions: dict = {}
+        # (ns, db, name) -> [next, end): the id range this node claimed
+        # from a sequence's state row (fnc/misc_fns.py sequence::nextval)
+        self.sequences: dict = {}
         # full-text result cache: bounded LRU (entry + byte caps), so a
         # hot mixed read/write table does not keep one dead entry per
         # write version; registered with the memory accountant below

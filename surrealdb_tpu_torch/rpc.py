@@ -3,9 +3,10 @@
 responses). Shared by the WebSocket session actor and the HTTP one-shot
 /rpc route.
 
-`signin`, `signup` and `authenticate` need `iam.py` (`DEFINE USER` /
-`DEFINE ACCESS`), and `graphql` needs `gql.py`; none is ported, so each
-raises `NotPorted` naming itself."""
+`signin`, `signup` and `authenticate` go through `iam.py`: they change
+the connection's session (its auth level, base, record id and token)
+for every later method. `graphql` needs `gql.py`, which is not ported,
+so it raises `NotPorted` naming itself."""
 
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ class RpcSession:
         # Network sessions start unauthenticated ("none") unless the server
         # was explicitly started in unauthenticated dev mode.
         self.session = Session(auth_level=anon_level)
+        self.session.guests_refused = anon_level == "none"
         self.live_ids: set = set()
         # absolute monotonic deadline for the CURRENT request (the rpc
         # `timeout` field / X-Surreal-Timeout header); every ds.execute
@@ -225,15 +227,25 @@ class RpcSession:
         return out
 
     def rpc_signin(self, params):
-        raise NotPorted("the rpc method signin is not ported (no iam)")
+        from surrealdb_tpu_torch.iam import signin
+
+        if not params or not isinstance(params[0], dict):
+            raise RpcError(-32602, "Invalid params")
+        return signin(self.ds, self.session, params[0])
 
     def rpc_signup(self, params):
-        raise NotPorted("the rpc method signup is not ported (no iam)")
+        from surrealdb_tpu_torch.iam import signup
+
+        if not params or not isinstance(params[0], dict):
+            raise RpcError(-32602, "Invalid params")
+        return signup(self.ds, self.session, params[0])
 
     def rpc_authenticate(self, params):
-        raise NotPorted(
-            "the rpc method authenticate is not ported (no iam)"
-        )
+        from surrealdb_tpu_torch.iam import authenticate
+
+        if not params:
+            raise RpcError(-32602, "Invalid params")
+        return authenticate(self.ds, self.session, params[0])
 
     def rpc_invalidate(self, params):
         self.session.auth_level = "none"

@@ -14,15 +14,17 @@ negotiation, or one-shot HTTP `/rpc` POSTs.
 
     from surrealdb_tpu_torch.sdk import connect
     db = connect("ws://127.0.0.1:8000")      # or "mem://", "http://…"
+    db.signin(user="root", passwd="root")
     db.use("ns", "db")
     db.create("person:1", {"name": "a"})
     rows = db.query("SELECT * FROM person")
     lid = db.live("person", lambda n: print(n))
 
-Not ported: the flatbuffers format (`fmt="fb"`, which needs the
+`signin`, `signup` and `authenticate` go through the server's `iam.py`
+(the HTTP engine replays the session's token on each request). Not
+ported: the flatbuffers format (`fmt="fb"`, which needs the
 `flatbuffers` package) and the `remote://` engine raise `NotPorted`;
-`signin`, `signup`, `authenticate` and `graphql` reach the server, whose
-`rpc.py` answers `NotPorted` naming the method.
+`graphql` reaches the server, whose `rpc.py` answers `NotPorted`.
 """
 
 from __future__ import annotations
@@ -375,6 +377,15 @@ class HttpEngine:
                 raw = r.read()
         except urllib.error.HTTPError as e:
             raw = e.read()
+            if e.code == 401:
+                # a refused credential: the route's JSON body, in any
+                # format, not an RPC envelope
+                try:
+                    why = json.loads(raw).get("error")
+                except ValueError:
+                    why = None
+                raise RpcRemoteError(
+                    -32000, why or "There was a problem with authentication")
         except urllib.error.URLError as e:
             raise SdbError(f"rpc connection failed: {e.reason}")
         if self.fmt == "cbor":

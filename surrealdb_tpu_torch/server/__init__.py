@@ -8,11 +8,13 @@ upgrade on /rpc with live-query notification push (JSON or CBOR).
 Routes: /status, /health, /version, /metrics, /telemetry/traces,
 POST /sql, POST /rpc, GET /rpc (the WebSocket), /key/:table[/:id]. The
 admission gate, X-Surreal-Timeout and cancel-on-disconnect guard every
-data route. Left out, each answering with the reference's error
-envelope for the route and a `NotPorted` message naming it: /api/*
-(`DEFINE API`), /graphql, /signin, /signup, /export, /import, /ml/* and
-/kv/topology; an `Authorization: Bearer|Basic` header (no iam); the
-flatbuffers format."""
+data route. POST /signin and /signup answer a token (`iam.py`); an
+`Authorization: Bearer <token>` header authenticates the request's
+session (an invalid token is a 401, never an anonymous session) and
+`Basic` signs its user in. Left out, each answering with the reference's
+error envelope for the route and a `NotPorted` message naming it:
+/api/* (`DEFINE API`), /graphql, /export, /import, /ml/* and
+/kv/topology; the flatbuffers format."""
 
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ def parse_timeout(raw) -> float:
 
 
 class _AuthFailed(Exception):
-    """Authorization header rejected — maps to HTTP 401."""
+    """Bearer token rejected — maps to HTTP 401."""
 
 
 class _BodyTooLarge(Exception):
@@ -129,13 +131,27 @@ class SurrealHandler(BaseHTTPRequestHandler):
             db=self.headers.get("surreal-db") or self.headers.get("DB"),
             auth_level=self.anon_level,
         )
+        s.guests_refused = self.anon_level == "none"
         auth = self.headers.get("Authorization") or ""
-        for scheme in ("Bearer", "Basic"):
-            if auth.startswith(scheme + " "):
-                # no iam: a credential is refused, never downgraded to
-                # an anonymous session
-                raise _AuthFailed(
-                    _not_ported(f"{scheme} authentication"))
+        if auth.startswith("Bearer "):
+            from surrealdb_tpu_torch.iam import authenticate
+
+            # an invalid token is a hard 401, not a silent downgrade to
+            # an anonymous session (reference net/auth.rs)
+            try:
+                authenticate(self.ds, s, auth[7:])
+            except SdbError as e:
+                raise _AuthFailed(str(e))
+        elif auth.startswith("Basic "):
+            from surrealdb_tpu_torch.iam import signin
+
+            try:
+                raw = base64.b64decode(auth[6:]).decode()
+                user, _, passwd = raw.partition(":")
+                signin(self.ds, s,
+                       {"user": user, "pass": passwd, "NS": s.ns, "DB": s.db})
+            except (SdbError, ValueError):
+                s.auth_level = "none"
         return s
 
     def _run_sql(self, sql: str, sess: Session, vars=None):
@@ -355,10 +371,29 @@ class SurrealHandler(BaseHTTPRequestHandler):
             self._refuse(400, {"error": _not_ported(
                 path if path == "/import" else "/ml/*")})
             return
-        if path in ("/signin", "/signup"):
-            # no iam (DEFINE USER / DEFINE ACCESS): the route's
-            # authentication-failure envelope names it
-            self._refuse(401, {"code": 401, "details": _not_ported(path)})
+        if path == "/signin":
+            from surrealdb_tpu_torch.iam import signin
+
+            try:
+                creds = json.loads(self._body() or b"{}")
+                token = signin(self.ds, self._session(), creds)
+                self._json(200, {"code": 200,
+                                 "details": "Authentication succeeded",
+                                 "token": token})
+            except SdbError as e:
+                self._json(401, {"code": 401, "details": str(e)})
+            return
+        if path == "/signup":
+            from surrealdb_tpu_torch.iam import signup
+
+            try:
+                creds = json.loads(self._body() or b"{}")
+                token = signup(self.ds, self._session(), creds)
+                self._json(200, {"code": 200,
+                                 "details": "Authentication succeeded",
+                                 "token": token})
+            except SdbError as e:
+                self._json(401, {"code": 401, "details": str(e)})
             return
         if path == "/rpc":
             # HTTP one-shot RPC with format negotiation
@@ -375,16 +410,16 @@ class SurrealHandler(BaseHTTPRequestHandler):
             fmt_out = "cbor" if "cbor" in accept else "json"
             rich_out = fmt_out != "json"
 
-            def respond(payload, code=200):
+            def respond(payload):
                 if fmt_out == "cbor":
                     from surrealdb_tpu_torch import wire
 
                     body = wire.encode(payload)
                     mime = "application/cbor"
                 else:
-                    self._json(code, payload)
+                    self._json(200, payload)
                     return
-                self.send_response(code)
+                self.send_response(200)
                 self.send_header("Content-Type", mime)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
@@ -410,11 +445,6 @@ class SurrealHandler(BaseHTTPRequestHandler):
                     "id": req.get("id"),
                     "result": out if rich_out else to_json(out),
                 })
-            except _AuthFailed as e:
-                # 401, in the RPC error envelope and the negotiated
-                # format, so an RPC client reads the refusal
-                respond({"id": req.get("id"),
-                         "error": {"code": -32000, "message": str(e)}}, 401)
             except RpcError as e:
                 respond({"id": req.get("id"),
                          "error": {"code": e.code, "message": str(e)}})

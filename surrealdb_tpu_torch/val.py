@@ -1031,6 +1031,9 @@ def to_json(v):
     raise TypeError(f"cannot jsonify {type(v)!r}")
 
 
+_FLAT_TYPES = frozenset((float, int, str, bool))
+
+
 def copy_value(v):
     """Deep copy of a value (records are mutated in the doc pipeline).
     Exact-type fast paths: scalar elements copy by shallow list/dict copy
@@ -1038,6 +1041,8 @@ def copy_value(v):
     t = type(v)
     if t is list:
         out = list(v)
+        if len(out) > 8 and set(map(type, out)) <= _FLAT_TYPES:
+            return out  # a vector of scalars: one C-level type scan
         for i, x in enumerate(out):
             if isinstance(x, (list, dict, SSet)):
                 out[i] = copy_value(x)

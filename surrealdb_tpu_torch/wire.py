@@ -11,6 +11,7 @@ the geometry tags 88-94.
 
 from __future__ import annotations
 
+import functools
 import struct
 from decimal import Decimal
 
@@ -73,6 +74,16 @@ def _head(out: bytearray, major: int, arg: int):
     else:
         out.append((major << 5) | 27)
         out += arg.to_bytes(8, "big")
+
+
+# a float array (an embedding) packs and unpacks in one struct call: the
+# same bytes as item by item (0xFB + the big-endian double, each item)
+_FLOAT_RUN_MIN = 16
+
+
+@functools.lru_cache(maxsize=64)
+def _float_run(n: int) -> struct.Struct:
+    return struct.Struct(">" + "Bd" * n)
 
 
 def _encode(v, out: bytearray):
@@ -159,6 +170,11 @@ def _encode(v, out: bytearray):
         return
     if isinstance(v, list):
         _head(out, 4, len(v))
+        if len(v) >= _FLOAT_RUN_MIN and set(map(type, v)) == {float}:
+            args = [0xFB] * (2 * len(v))
+            args[1::2] = v
+            out += _float_run(len(v)).pack(*args)
+            return
         for x in v:
             _encode(x, out)
         return
@@ -247,6 +263,14 @@ class _Dec:
             return self.take(self.arg(info)).decode("utf-8")
         if major == 4:
             n = self.arg(info)
+            if n >= _FLOAT_RUN_MIN and self.i < len(self.b) \
+                    and self.b[self.i] == 0xFB and len(self.b) - self.i >= 9 * n:
+                # aligned 0xFB heads at every 9th byte are exactly a run
+                # of n doubles: the first item of another kind breaks it
+                run = _float_run(n).unpack_from(self.b, self.i)
+                if run[0::2].count(0xFB) == n:
+                    self.i += 9 * n
+                    return list(run[1::2])
             return [self.value() for _ in range(n)]
         if major == 5:
             n = self.arg(info)

@@ -249,24 +249,76 @@ def test_remote_engine_not_ported():
 @pytest.mark.parametrize("method", ["signin", "signup", "authenticate",
                                     "graphql"])
 def test_left_out_methods_name_themselves(servers, engine, method):
-    _ref, port = servers
-    url = {"local": "mem://", "ws": f"ws://127.0.0.1:{port.port}",
-           "http": f"http://127.0.0.1:{port.port}"}[engine]
-    with pconnect(url) as db:
-        db.use("t", "t")
-        call = {"signin": lambda: db.signin(user="root", passwd="root"),
-                "signup": lambda: db.signup(user="u"),
-                "authenticate": lambda: db.authenticate("tok"),
-                "graphql": lambda: db.graphql("{ person { id } }")}[method]
-        if engine == "http" and method == "authenticate":
-            # the stateless engine keeps the token client-side; the next
-            # request carries it as a Bearer header, which the server
-            # refuses instead of serving anonymously
-            call()
-            with pytest.raises(SdbError,
-                               match="Bearer authentication is not ported"):
+    """graphql names itself. signin, signup and authenticate are ported:
+    through each engine they answer as the reference's SDK does (tokens
+    with the same claims, the same session after them, the same
+    refusal of a bad token)."""
+    ref, port = servers
+
+    def url(srv):
+        return {"local": "mem://", "ws": f"ws://127.0.0.1:{srv.port}",
+                "http": f"http://127.0.0.1:{srv.port}"}[engine]
+
+    if method == "graphql":
+        with pconnect(url(port)) as db:
+            db.use("t", "t")
+            with pytest.raises(SdbError, match="rpc method graphql is not "
+                                               "ported"):
+                db.graphql("{ person { id } }")
+        return
+    outs = []
+    for srv, connect in ((ref, rconnect), (port, pconnect)):
+        out = []
+        with connect(url(srv)) as db:
+            db.use("t", "t")
+            db.query(_SDK_AUTH)
+            if method == "signin":
+                out.append(_claims(db.signin(user="root", passwd="root")))
+            elif method == "signup":
+                out.append(_claims(db.signup(
+                    NS="t", DB="t", AC="account", name="u", **{"pass": "p"})))
+            else:
+                db.signup(NS="t", DB="t", AC="account", name="v",
+                          **{"pass": "p"})
+                tok = db.signin(NS="t", DB="t", AC="account", name="v",
+                                **{"pass": "p"})
+                db.invalidate()
+                db.authenticate(tok)
+            out.append(_untimed(norm(db.query(
+                "RETURN [session::ac(), $auth.id]"))))
+            if method == "authenticate" and engine != "http":
+                try:
+                    db.authenticate("bad.token.here")
+                    out.append("accepted")
+                except Exception as e:
+                    out.append(str(e))
+        outs.append(out)
+    same(outs[0], outs[1])
+    if method == "authenticate" and engine == "http":
+        # the stateless engine keeps the token client-side; the next
+        # request carries it as a Bearer header, which the server
+        # refuses (a 401) instead of serving anonymously
+        with pconnect(url(port)) as db:
+            db.use("t", "t")
+            db.authenticate("bad.token.here")
+            with pytest.raises(SdbError, match="There was a problem with "
+                                               "authentication"):
                 db.query("RETURN 1")
-            return
-        with pytest.raises(SdbError, match=f"rpc method {method} is not "
-                                           f"ported"):
-            call()
+
+
+_SDK_AUTH = (
+    "DEFINE USER IF NOT EXISTS root ON ROOT PASSWORD 'root' ROLES OWNER; "
+    "DEFINE ACCESS IF NOT EXISTS account ON DATABASE TYPE RECORD "
+    "SIGNUP (CREATE type::record('user', $name) SET pass = "
+    "crypto::scrypt::generate($pass)) "
+    "SIGNIN (SELECT * FROM user WHERE id = type::record('user', $name) "
+    "AND crypto::scrypt::compare(pass, $pass))")
+
+
+def _claims(token):
+    import base64
+    import json
+
+    body = token.split(".")[1]
+    payload = json.loads(base64.urlsafe_b64decode(body + "=" * (-len(body) % 4)))
+    return {k: v for k, v in payload.items() if k not in ("iat", "exp")}

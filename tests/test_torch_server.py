@@ -11,9 +11,14 @@ by their own package's `wire` and normalised as
 distances compare at atol 1e-4 / rtol 1e-5, ids exactly. Live query ids
 are random uuids and compare only within one package.
 
-Routes, methods, formats, headers and subcommands the port leaves out
-answer with the reference's error envelope for the route and a
-`NotPorted` message naming each; a case below covers each.
+Routes, methods, formats and subcommands the port leaves out answer
+with the reference's error envelope for the route and a `NotPorted`
+message naming each; a case below covers each. Authentication (the
+`Bearer` and `Basic` headers, /signin, /signup, rpc signin / signup /
+authenticate, `start --user/--pass`) answers as the reference's; on a
+server started without `--unauthenticated` the port also refuses an
+anonymous session's statements (guest access is off unless
+SURREAL_CAPS_ALLOW_GUESTS says otherwise), where the reference runs them.
 """
 
 import base64
@@ -889,6 +894,15 @@ LEFT_OUT_ROUTES = [
                          ids=lambda v: str(v))
 def test_left_out_route_answers_not_ported(pair, method, path, code, key,
                                            name):
+    """Each left-out route names itself. /signin and /signup are ported:
+    with no credentials they answer the reference's authentication
+    failure (the same 401 and `details`)."""
+    if path in ("/signin", "/signup"):
+        r, p = both_req(pair, path, method, b"{}", NSDB)
+        assert p[0] == code and json.loads(r[2]) == json.loads(p[2]) == {
+            "code": 401, "details": "There was a problem with authentication"}
+        assert req(pair[1].base, "/health")[0] == 200
+        return
     st, _h, body = req(pair[1].base, path, method,
                        b"{}" if method != "GET" else None, NSDB)
     out = json.loads(body)
@@ -905,18 +919,24 @@ def test_left_out_route_answers_not_ported(pair, method, path, code, key,
 ])
 @pytest.mark.parametrize("path", ["/sql", "/rpc", "/key/x"])
 def test_auth_header_answers_not_ported(pair, scheme, cred, path):
-    """A credential is never downgraded to an anonymous session."""
+    """Ported: an invalid Bearer token is a 401, never downgraded to an
+    anonymous session, and Basic signs its user in; both packages give
+    the same answer."""
+    for served in pair:
+        served.ds.query("DEFINE USER IF NOT EXISTS root ON ROOT PASSWORD "
+                        "'root' ROLES OWNER")
     body = (json.dumps({"id": 1, "method": "query",
                         "params": ["RETURN 1"]})
             if path == "/rpc" else "RETURN 1")
-    st, _h, raw = req(pair[1].base, path, "POST", body,
-                      {**NSDB, "Authorization": f"{scheme} {cred}"})
-    assert st == 401
-    msg = json.loads(raw)["error"]
-    if path == "/rpc":
-        # the RPC error envelope, so an RPC client reads the refusal
-        msg = msg["message"]
-    assert f"{scheme} authentication" in msg and "not ported" in msg
+    r, p = both_req(pair, path, "POST", body,
+                    {**NSDB, "Authorization": f"{scheme} {cred}"})
+    rj, pj = untimed(json.loads(r[2])), untimed(json.loads(p[2]))
+    assert rj == pj, (rj, pj)
+    if scheme == "Bearer":
+        assert p[0] == 401 and pj == {
+            "error": "There was a problem with authentication"}
+    else:
+        assert p[0] == r[0] and "not ported" not in json.dumps(pj)
 
 
 @pytest.mark.parametrize("hdr", ["Content-Type", "Accept"])
@@ -939,15 +959,36 @@ def test_flatbuffers_ws_answers_not_ported(pair):
     assert b"flatbuffers format is not ported" in body
 
 
+_AUTH_PARAMS = {"signin": [{"user": "u", "pass": "p"}],
+                "signup": [{"user": "u"}], "authenticate": ["tok"]}
+
+
 @pytest.mark.parametrize("fmt", ["json", "cbor"])
 @pytest.mark.parametrize("method", ["signin", "signup", "authenticate",
                                     "graphql"])
 def test_left_out_rpc_methods(pair, method, fmt):
-    body, hdrs = _rpc_body(fmt, method, [{"user": "u", "pass": "p"}], pwire)
-    st, _h, raw = req(pair[1].base, "/rpc", "POST", body, {**NSDB, **hdrs})
-    out = json.loads(raw) if fmt == "json" else pwire.decode(raw)
-    msg = out["error"]["message"]
-    assert f"rpc method {method}" in msg and "not ported" in msg
+    """graphql names itself; signin, signup and authenticate are ported
+    and answer as the reference's (here, for credentials nobody holds,
+    the same authentication failure)."""
+    if method == "graphql":
+        body, hdrs = _rpc_body(fmt, method, [{"user": "u", "pass": "p"}],
+                               pwire)
+        st, _h, raw = req(pair[1].base, "/rpc", "POST", body,
+                          {**NSDB, **hdrs})
+        out = json.loads(raw) if fmt == "json" else pwire.decode(raw)
+        msg = out["error"]["message"]
+        assert f"rpc method {method}" in msg and "not ported" in msg
+        return
+    got = []
+    for served, wire in ((pair[0], rwire), (pair[1], pwire)):
+        body, hdrs = _rpc_body(fmt, method, _AUTH_PARAMS[method], wire)
+        st, _h, raw = req(served.base, "/rpc", "POST", body,
+                          {**NSDB, **hdrs})
+        got.append((st, json.loads(raw) if fmt == "json"
+                    else norm(wire.decode(raw))))
+    assert got[0] == got[1]
+    assert got[1][1]["error"]["message"] == \
+        "There was a problem with authentication"
 
 
 @pytest.mark.parametrize("argv,name", [
@@ -962,9 +1003,30 @@ def test_left_out_rpc_methods(pair, method, fmt):
     (["start", "--path", "remote://127.0.0.1:1"], "remote://"),
     (["sql", "--path", "lsm://x"], "lsm://"),
 ])
-def test_left_out_subcommands(capsys, argv, name):
+def test_left_out_subcommands(capsys, monkeypatch, argv, name):
+    """Each left-out subcommand or engine names itself. `start --user
+    --pass` is ported: it defines the root user and serves."""
     from surrealdb_tpu_torch.__main__ import main
 
+    if name == "--user/--pass":
+        import surrealdb_tpu_torch.server as SRV
+        from surrealdb_tpu_torch import iam
+        from surrealdb_tpu_torch.kvs.ds import Session
+
+        seen = {}
+
+        def fake_serve(ds, host, port, **kw):
+            s = Session()
+            seen["token"] = iam.signin(ds, s, {"user": "root",
+                                               "pass": "root"})
+            seen.update(level=s.auth_level, **kw)
+            ds.close()
+
+        monkeypatch.setattr(SRV, "serve", fake_serve)
+        assert main([*argv, "--device", "off"]) == 0
+        assert seen["level"] == "owner" and seen["token"]
+        assert not seen["unauthenticated"]
+        return
     assert main(argv) != 0
     err = capsys.readouterr().err
     assert name in err and "not ported" in err
@@ -1049,3 +1111,193 @@ def test_sql_device_mode(monkeypatch, capsys, argv, env, want):
     assert "2" in capsys.readouterr().out.splitlines()
     assert os.environ["SURREAL_DEVICE"] == want
     assert DeviceSupervisor().mode == want
+
+
+# -- authentication over the wire -------------------------------------------------------
+
+_ACCESS = (
+    "DEFINE ACCESS account ON DATABASE TYPE RECORD "
+    "SIGNUP (CREATE type::record('user', $name) SET pass = "
+    "crypto::scrypt::generate($pass)) "
+    "SIGNIN (SELECT * FROM user WHERE id = type::record('user', $name) "
+    "AND crypto::scrypt::compare(pass, $pass)); "
+    "DEFINE TABLE note PERMISSIONS FOR select, create WHERE owner = "
+    "$auth.id; DEFINE USER ed ON DATABASE PASSWORD 'ed' ROLES EDITOR")
+
+
+def _claims(token):
+    body = token.split(".")[1]
+    payload = json.loads(base64.urlsafe_b64decode(body + "=" * (-len(body) % 4)))
+    return {k: v for k, v in payload.items() if k not in ("iat", "exp")}
+
+
+@pytest.fixture()
+def secured():
+    """A reference and a port server over fresh datastores, started
+    without --unauthenticated, each with the record access above."""
+    ref = Served(RefDatastore("memory"), ref_make_server,
+                 unauthenticated=False)
+    port = Served(PortDatastore("memory"), unauthenticated=False)
+    for s in (ref, port):
+        s.ds.query(_ACCESS, ns="t", db="t")
+    try:
+        yield ref, port
+    finally:
+        for s in (ref, port):
+            s.close()
+            s.ds.close()
+
+
+def test_signin_signup_routes_and_bearer(secured):
+    """POST /signup and /signin answer tokens with the same claims; each
+    token then serves as a Bearer header on /sql and /rpc, and a Basic
+    header signs the database user in."""
+    creds = {"NS": "t", "DB": "t", "AC": "account", "name": "al",
+             "pass": "pw"}
+    toks = []
+    for path in ("/signup", "/signin"):
+        r, p = both_req(secured, path, "POST", json.dumps(creds))
+        rj, pj = json.loads(r[2]), json.loads(p[2])
+        assert p[0] == 200 and rj["details"] == pj["details"]
+        assert _claims(rj["token"]) == _claims(pj["token"])
+        toks.append((rj["token"], pj["token"]))
+    r, p = both_req(secured, "/signin", "POST",
+                    json.dumps({**creds, "pass": "no"}))
+    assert p[0] == 401 and json.loads(r[2]) == json.loads(p[2])
+    rtok, ptok = toks[1]
+    sql = ("CREATE note:1 SET owner = $auth.id; CREATE note:2 SET owner = "
+           "user:zed; SELECT * FROM note; RETURN session::ac()")
+    out = []
+    for served, tok in ((secured[0], rtok), (secured[1], ptok)):
+        hdr = {**NSDB, "Authorization": f"Bearer {tok}"}
+        st, _h, raw = req(served.base, "/sql", "POST", sql, hdr)
+        assert st == 200
+        rpc = json.dumps({"id": 1, "method": "query",
+                          "params": ["SELECT id FROM note"]})
+        st2, _h, raw2 = req(served.base, "/rpc", "POST", rpc,
+                            {**hdr, "Content-Type": "application/json"})
+        out.append((untimed(json.loads(raw)), st2,
+                    untimed(json.loads(raw2))))
+    assert out[0] == out[1]
+    assert out[1][0][2]["result"] == [{"id": "note:1", "owner": "user:al"}]
+    basic = {**NSDB, "Authorization": "Basic " + base64.b64encode(
+        b"ed:ed").decode()}
+    r, p = both_req(secured, "/sql", "POST", "CREATE e:1; SELECT * FROM e",
+                    basic)
+    assert untimed(json.loads(r[2])) == untimed(json.loads(p[2]))
+    assert json.loads(p[2])[1]["result"] == [{"id": "e:1"}]
+
+
+@pytest.mark.parametrize("fmt", ["json", "cbor"])
+def test_ws_signin_signup_authenticate(secured, fmt):
+    """The same WebSocket session in both packages: signup, signin,
+    queries as the record user, a second connection authenticating with
+    the first one's token, invalidate."""
+    from surrealdb_tpu.sdk import connect as rconnect
+    from surrealdb_tpu_torch.sdk import connect as pconnect
+
+    creds = {"NS": "t", "DB": "t", "AC": "account", "name": "bo",
+             "pass": "pw"}
+    results = []
+    for served, connect in ((secured[0], rconnect), (secured[1], pconnect)):
+        url = f"ws://127.0.0.1:{served.port}"
+        out = []
+        with connect(url, fmt=fmt) as a, connect(url, fmt=fmt) as b:
+            out.append(_claims(a.signup(**creds)))
+            tok = a.signin(**creds)
+            out.append(_claims(tok))
+            out.append(untimed(norm(a.query(
+                "CREATE note:1 SET owner = $auth.id; SELECT * FROM note; "
+                "RETURN [session::ac(), $auth.id]"))))
+            b.authenticate(tok)
+            out.append(untimed(norm(b.query("SELECT id FROM note"))))
+            b.invalidate()
+            try:
+                out.append(("ok", untimed(norm(b.query("SELECT * FROM "
+                                                       "note")))))
+            except Exception as e:
+                out.append(("err", str(e)))
+            try:
+                b.authenticate("x.y.z")
+                out.append("accepted")
+            except Exception as e:
+                out.append(("err", str(e)))
+        results.append(out)
+    assert results[0][:4] == results[1][:4]
+    assert results[1][3][0]["result"] in ([{"id": ("rid", "note", 1)}],
+                                          [{"id": "note:1"}])
+    assert results[0][5] == results[1][5] == (
+        "err", "There was a problem with authentication")
+    # after invalidate the session is anonymous: the reference answers
+    # what an anonymous session may see (nothing), the port refuses it
+    assert results[0][4] == ("ok", [{"status": "OK", "result": []}])
+    assert results[1][4][0] == "err" and "IAM error" in results[1][4][1]
+
+
+def test_secured_server_refuses_anonymous_statements():
+    """Guest access is off unless SURREAL_CAPS_ALLOW_GUESTS says so: an
+    anonymous statement fails with the IAM error over /sql, /rpc and the
+    WebSocket, and the same one runs once signed in."""
+    from surrealdb_tpu_torch.capabilities import Capabilities
+    from surrealdb_tpu_torch.sdk import connect
+
+    ds = PortDatastore("memory")
+    ds.query("DEFINE USER root ON ROOT PASSWORD 'root' ROLES OWNER; "
+             "CREATE t:1", ns="t", db="t")
+    s = Served(ds, unauthenticated=False)
+    iam_err = "IAM error: Not enough permissions to perform this action"
+    try:
+        st, _h, raw = req(s.base, "/sql", "POST", "SELECT * FROM t; "
+                          "RETURN 1", NSDB)
+        assert st == 200 and [r["result"] for r in json.loads(raw)] == \
+            [iam_err, iam_err]
+        with connect(f"ws://127.0.0.1:{s.port}") as c:
+            c.use("t", "t")
+            with pytest.raises(Exception, match="IAM error"):
+                c.query("SELECT * FROM t")
+            c.signin(user="root", passwd="root")
+            rows = c.query("SELECT * FROM t")[0]["result"]
+            assert [norm(r["id"]) for r in rows] in (["t:1"],
+                                                     [("rid", "t", 1)])
+        hdr = {**NSDB, "Authorization": "Basic " + base64.b64encode(
+            b"root:root").decode()}
+        st, _h, raw = req(s.base, "/sql", "POST", "SELECT * FROM t", hdr)
+        assert json.loads(raw)[0]["result"] == [{"id": "t:1"}]
+        ds.capabilities = Capabilities(guest_access=True)
+        st, _h, raw = req(s.base, "/sql", "POST", "RETURN 1", NSDB)
+        assert json.loads(raw)[0]["result"] == 1
+    finally:
+        s.close()
+        ds.close()
+
+
+def test_start_user_pass_on_a_restarted_store(tmp_path, monkeypatch):
+    """`start --user --pass` over a file:// store twice: the second boot
+    keeps the user the first one wrote, and its password still signs
+    in; the hash is argon2id here, `$scrypt$` without the package."""
+    import surrealdb_tpu_torch.server as SRV
+    from surrealdb_tpu_torch import iam
+    from surrealdb_tpu_torch.__main__ import define_root_user, main
+    from surrealdb_tpu_torch.fnc import misc_fns
+    from surrealdb_tpu_torch.kvs.ds import Session
+
+    seen = []
+
+    def fake_serve(ds, host, port, **kw):
+        s = Session()
+        iam.signin(ds, s, {"user": "admin", "pass": "p w'x"})
+        seen.append(s.auth_level)
+        ds.close()
+
+    monkeypatch.setattr(SRV, "serve", fake_serve)
+    path = f"file://{tmp_path}/db"
+    for _ in range(2):
+        assert main(["start", "--path", path, "--user", "admin", "--pass",
+                     "p w'x", "--device", "off"]) == 0
+    assert seen == ["owner", "owner"]
+    monkeypatch.setattr(misc_fns, "argon2_available", lambda: False)
+    ds = PortDatastore("memory")
+    try:
+        assert define_root_user(ds, "root", "root") == "scrypt"
+    finally:
+        ds.close()

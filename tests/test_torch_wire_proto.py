@@ -120,3 +120,27 @@ def test_frame_caps_match():
     finally:
         a.close()
         b.close()
+
+
+class _F(float):
+    pass
+
+
+_VEC = np.random.default_rng(3).standard_normal(768).astype(np.float32)
+
+# lists at and around the one-call float path: a run of doubles packs
+# and unpacks in one struct call, anything else item by item
+FLOAT_RUNS = [
+    [1.5] * 15, [1.5] * 16, _VEC.tolist(), [float("nan")] * 17,
+    [float("inf"), -0.0] * 10, [1.5] * 16 + [2], [2] + [1.5] * 16,
+    [True] + [1.5] * 16, [1.5] * 20 + ["a"], [[1.5] * 20, [2.5] * 20],
+    [_F(1.5)] * 20, {"emb": _VEC.tolist(), "id": 7},
+]
+
+
+@pytest.mark.parametrize("i", range(len(FLOAT_RUNS)))
+def test_float_runs_encode_and_decode_as_the_reference(i):
+    v = FLOAT_RUNS[i]
+    raw = port_wire.encode(v)
+    assert raw == ref_wire.encode(v)
+    assert repr(port_wire.decode(raw)) == repr(ref_wire.decode(raw))
