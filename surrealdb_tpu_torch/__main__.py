@@ -9,6 +9,10 @@ version).
         [--device off|auto|require|inline]
     python -m surrealdb_tpu_torch validate file.surql
     python -m surrealdb_tpu_torch isready [--conn http://127.0.0.1:8000]
+    python -m surrealdb_tpu_torch ml import --ns t --db t [--path memory]
+        [--name N --version V] model.surml
+    python -m surrealdb_tpu_torch ml export --ns t --db t [--path memory]
+        name version [file]
     python -m surrealdb_tpu_torch version
 
 `start` serves on the card: its device supervisor starts a runner at
@@ -19,8 +23,12 @@ path on the host. `sql` takes the same `--device` and the same
 default. `--user` / `--pass` define the root user at boot
 (`define_root_user`: `DEFINE USER … ON ROOT PASSWORD … ROLES OWNER`);
 clients sign in as it (rpc `signin`, POST /signin, `Basic` auth) and
-without `--unauthenticated` anonymous connections get no access. The
-subcommands export, import, kv, kv-admin, upgrade, fix and ml are not
+without `--unauthenticated` anonymous connections get no access.
+`ml import` stores a `.surml` or ONNX file in a datastore (`ml/__init__.py
+import_model`, printing its name, version and hash) and `ml export` writes
+a stored model's bytes to a file or stdout; `ml::` calls need the `ml`
+experimental capability (`SURREAL_CAPS_ALLOW_EXPERIMENTAL=ml`). The
+subcommands export, import, kv, kv-admin, upgrade and fix are not
 ported: each parses and exits non-zero with a `NotPorted` message
 naming itself.
 """
@@ -34,7 +42,7 @@ import sys
 
 # parsed, then refused with a NotPorted message naming the subcommand;
 # their options are not read, so none is declared
-_NOT_PORTED = ("export", "import", "kv", "kv-admin", "upgrade", "fix", "ml")
+_NOT_PORTED = ("export", "import", "kv", "kv-admin", "upgrade", "fix")
 
 
 def _sql_ident(name: str) -> str:
@@ -126,6 +134,23 @@ def main(argv=None):
     p_rdy = sub.add_parser("isready")
     p_rdy.add_argument("--conn", default="http://127.0.0.1:8000")
 
+    p_ml = sub.add_parser("ml", help="import/export ML models (.surml)")
+    ml_sub = p_ml.add_subparsers(dest="ml_cmd", required=True)
+    p_mli = ml_sub.add_parser("import")
+    p_mli.add_argument("--path", default="memory")
+    p_mli.add_argument("--ns", required=True)
+    p_mli.add_argument("--db", required=True)
+    p_mli.add_argument("--name", default=None)
+    p_mli.add_argument("--version", dest="model_version", default=None)
+    p_mli.add_argument("file")
+    p_mle = ml_sub.add_parser("export")
+    p_mle.add_argument("--path", default="memory")
+    p_mle.add_argument("--ns", required=True)
+    p_mle.add_argument("--db", required=True)
+    p_mle.add_argument("name")
+    p_mle.add_argument("model_version")
+    p_mle.add_argument("file", nargs="?", default="-")
+
     sub.add_parser("version")
     for name in _NOT_PORTED:
         sub.add_parser(name)
@@ -171,6 +196,9 @@ def main(argv=None):
     if args.cmd in _NOT_PORTED:
         return _not_ported(NotPorted(
             f"the {args.cmd} subcommand is not ported"))
+
+    if args.cmd == "ml":
+        return _ml(args)
 
     # before the first get_supervisor(): the supervisor reads
     # SURREAL_DEVICE at construction. With neither the flag nor the
@@ -231,6 +259,34 @@ def main(argv=None):
             else:
                 print(render(r.result))
     ds.close()
+    return 0
+
+
+def _ml(args) -> int:
+    """`ml import` / `ml export` over the datastore at `--path` (the
+    reference's handler)."""
+    from surrealdb_tpu_torch.err import NotPorted
+    from surrealdb_tpu_torch.kvs.ds import Datastore
+
+    try:
+        ds = Datastore(args.path)
+    except NotPorted as e:
+        return _not_ported(e)
+    if args.ml_cmd == "import":
+        from surrealdb_tpu_torch.ml import import_model
+
+        data = open(args.file, "rb").read()
+        d = import_model(ds, args.ns, args.db, data,
+                         name=args.name, version=args.model_version)
+        print(f"imported ml::{d.name}<{d.version}> hash={d.hash}")
+        return 0
+    from surrealdb_tpu_torch.ml import export_model
+
+    raw = export_model(ds, args.ns, args.db, args.name, args.model_version)
+    if args.file == "-":
+        sys.stdout.buffer.write(raw)
+    else:
+        open(args.file, "wb").write(raw)
     return 0
 
 

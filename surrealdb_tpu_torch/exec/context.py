@@ -18,7 +18,7 @@ class Ctx:
         "ds", "session", "txn", "vars", "doc", "doc_id", "parent_doc",
         "executor", "ns", "db", "knn", "record_cache", "deadline",
         "timeout_dur", "write_version", "depth",
-        "perms_enabled", "_cond_consumed", "_cf_seq", "_in_perm_check",
+        "perms_enabled", "version", "_cond_consumed", "_cf_seq", "_in_perm_check",
         "_brute_knn_k", "_strict_readonly", "_stream_cols", "_no_link_fetch", "_script_depth",
         "cancel", "inflight",
     )
@@ -38,6 +38,7 @@ class Ctx:
         self.record_cache: dict = {}
         self.deadline: Optional[float] = None
         self.timeout_dur = None
+        self.version = None  # VERSION clause timestamp
         self.write_version = None  # CREATE/INSERT ... VERSION (epoch ns)
         self.depth = 0
         self.perms_enabled = False  # row-level permissions active
@@ -73,6 +74,7 @@ class Ctx:
         c.record_cache = self.record_cache
         c.deadline = self.deadline
         c.timeout_dur = self.timeout_dur
+        c.version = self.version
         c.write_version = self.write_version
         c.depth = self.depth + 1
         c.perms_enabled = self.perms_enabled

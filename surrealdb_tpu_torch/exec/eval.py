@@ -71,6 +71,26 @@ def version_ns(v) -> int:
     raise SdbError(f"Expected a datetime but found {render(v)}")
 
 
+def fetch_record_at(ctx: Ctx, rid: RecordId, ts: int):
+    """The record document as of `ts` (epoch ns) from the version history;
+    NONE when absent or deleted at that time."""
+    from surrealdb_tpu_torch.kvs.api import deserialize
+
+    ns, db = ctx.need_ns_db()
+    best = None
+    for k, raw in ctx.txn.scan(
+        *K.prefix_range(K.hist_record_prefix(ns, db, rid.tb, rid.id))
+    ):
+        ets = int.from_bytes(k[-8:], "big")
+        if ets <= ts:
+            best = raw
+        else:
+            break
+    if best is None or best == b"":
+        return NONE
+    return deserialize(best)
+
+
 def fetch_record(ctx: Ctx, rid: RecordId):
     """Fetch a record document (NONE if missing); caches within a statement.
     Computed fields are evaluated on read (reference doc/compute.rs)."""
@@ -78,6 +98,17 @@ def fetch_record(ctx: Ctx, rid: RecordId):
         # ORDER BY keys compare pre-FETCH without record-link traversal
         # (reference select/fetch/order_by.surql: city.name sorts as NONE)
         return NONE
+    if ctx.version is not None:
+        ck = (rid.tb, K.enc_value(rid.id), ctx.version)
+        hit = ctx.record_cache.get(ck)
+        if hit is not None:
+            return hit
+        doc = fetch_record_at(ctx, rid, version_ns(ctx.version))
+        if isinstance(doc, dict):
+            ctx.record_cache[ck] = doc
+            doc = apply_computed_fields(rid.tb, doc, rid, ctx)
+        ctx.record_cache[ck] = doc
+        return doc
     ck = (rid.tb, K.enc_value(rid.id))
     hit = ctx.record_cache.get(ck)
     if hit is not None:
@@ -232,7 +263,10 @@ def _e_param(n, ctx):
     if not ctx.db:
         raise SdbError("Specify a database to use")
     key = K.pa_def(ctx.ns, ctx.db, name)
-    pd = ctx.txn.get_val(key)
+    if ctx.version is not None:
+        pd = ctx.txn.get_val_at(key, version_ns(ctx.version))
+    else:
+        pd = ctx.txn.get_val(key)
     if isinstance(pd, ParamDef):
         return pd.value
     return NONE
@@ -887,6 +921,8 @@ def _csr_bag_pair_hop(val, g1, g2, ctx, hops=1):
     pat = _csr_pair_pattern(g1, g2)
     if pat is None:
         return None
+    if ctx.version is not None:
+        return None  # CSR caches HEAD state; VERSION reads use key scans
     edge_tb, node_tb, _dir = pat
     rids = _collect_rids(val, ctx)
     if not rids or any(r.tb != node_tb for r in rids):

@@ -316,7 +316,7 @@ def _scan_table(tb: str, ctx, cond=None, stmt=None):
     if ctx.txn.get(K.tb_def(_ns0, _db0, tb)) is None:
         raise SdbError(f"The table '{tb}' does not exist")
 
-    plan = plan_scan(tb, cond, ctx, stmt)
+    plan = plan_scan(tb, cond, ctx, stmt) if ctx.version is None else None
     if plan is not None:
         yield from plan
         return
@@ -324,6 +324,26 @@ def _scan_table(tb: str, ctx, cond=None, stmt=None):
     from surrealdb_tpu_torch.kvs.api import deserialize
 
     has_computed = bool(computed_fields_of(tb, ctx))
+    if ctx.version is not None:
+        # as-of scan over the version history: last entry <= ts per id
+        from surrealdb_tpu_torch.exec.eval import version_ns
+
+        ts = version_ns(ctx.version)
+        hp = K.hist_prefix(ns, db, tb)
+        cur_id = None
+        best = None
+        for k, raw in ctx.txn.scan(*K.prefix_range(hp)):
+            ident = k[len(hp):-8]
+            ets = int.from_bytes(k[-8:], "big")
+            if ident != cur_id:
+                if cur_id is not None and best:
+                    yield _hist_source(tb, cur_id, best, has_computed, ctx)
+                cur_id, best = ident, None
+            if ets <= ts:
+                best = raw
+        if cur_id is not None and best:
+            yield _hist_source(tb, cur_id, best, has_computed, ctx)
+        return
     pre = K.record_prefix(ns, db, tb)
     beg, end = K.prefix_range(pre)
     plen = len(pre)
@@ -335,6 +355,21 @@ def _scan_table(tb: str, ctx, cond=None, stmt=None):
         if has_computed:
             doc = apply_computed_fields(tb, doc, rid, ctx)
         yield Source(rid=rid, doc=doc)
+
+
+def _hist_source(tb, ident_enc, raw, has_computed, ctx):
+    from surrealdb_tpu_torch.exec.eval import apply_computed_fields
+    from surrealdb_tpu_torch.kvs.api import deserialize
+
+    doc = deserialize(raw)
+    rid = doc.get("id") if isinstance(doc, dict) else None
+    if not isinstance(rid, RecordId):
+        from surrealdb_tpu_torch.key import dec_value
+
+        rid = RecordId(tb, dec_value(ident_enc)[0])
+    if has_computed:
+        doc = apply_computed_fields(tb, doc, rid, ctx)
+    return Source(rid=rid, doc=doc)
 
 
 def _scan_record_range(v: RecordId, ctx):
@@ -589,12 +624,33 @@ def _s_select(n: SelectStmt, ctx: Ctx):
     if n.group is not None:
         _check_group_params(n)
     if n.explain:
-        if n.version is not None:
-            raise NotPorted("VERSION reads are not ported")
         return _explain_select(n, c)
     # VERSION clause
     if n.version is not None:
-        raise NotPorted("VERSION reads are not ported")
+        from surrealdb_tpu_torch.expr.ast import Subquery as _Subq
+
+        if any(isinstance(w, _Subq) for w in n.what):
+            raise SdbError(
+                "Invalid query: VERSION clause cannot be used with a "
+                "subquery source. Place the VERSION clause inside the "
+                "subquery instead."
+            )
+        c.version = evaluate(n.version, ctx)
+        from surrealdb_tpu_torch.exec.eval import version_ns as _vns
+
+        vts = _vns(c.version)
+        for w in n.what:
+            # only bare-ident targets name a table statically; anything
+            # else must NOT be evaluated here (it runs again in
+            # iterate_targets: double side effects)
+            tbn = None
+            if isinstance(w, Idiom) and len(w.parts) == 1 and \
+                    isinstance(w.parts[0], PField):
+                tbn = w.parts[0].name
+            if tbn is not None:
+                ns_v, db_v = c.need_ns_db()
+                if c.txn.get_val_at(K.tb_def(ns_v, db_v, tbn), vts) is None:
+                    raise SdbError(f"The table '{tbn}' does not exist")
     # streaming batched operator engine (execution engine A) for eligible
     # plain-scan shapes; everything else stays on the legacy recursive
     # path (reference plan_or_compute.rs legacy fallback)
@@ -4810,6 +4866,27 @@ def _s_rebuild(n: RebuildIndex, ctx: Ctx):
 # ---------------------------------------------------------------------------
 
 
+class _AtTxn:
+    """Read adapter serving catalog definitions as of a timestamp."""
+
+    def __init__(self, txn, ts: int):
+        self._txn = txn
+        self._ts = ts
+
+    def get_val(self, key):
+        return self._txn.get_val_at(key, self._ts)
+
+    def get(self, key):
+        v = self._txn.get_val_at(key, self._ts)
+        return None if v is None else b"\x01"
+
+    def scan_vals(self, beg, end, limit=None, reverse=False):
+        yield from self._txn.scan_vals_at(beg, end, self._ts)
+
+    def __getattr__(self, name):
+        return getattr(self._txn, name)
+
+
 def _s_info(n: InfoStmt, ctx: Ctx):
     from surrealdb_tpu_torch.exec.render_def import (
         render_access,
@@ -4827,7 +4904,11 @@ def _s_info(n: InfoStmt, ctx: Ctx):
     )
 
     if getattr(n, "version", None) is not None:
-        raise NotPorted("VERSION reads are not ported")
+        from surrealdb_tpu_torch.exec.eval import version_ns
+
+        ts = version_ns(evaluate(n.version, ctx))
+        ctx = ctx.child()
+        ctx.txn = _AtTxn(ctx.txn, ts)
     if n.level == "system":
         import os as _os
 
@@ -4881,9 +4962,12 @@ def _s_info(n: InfoStmt, ctx: Ctx):
             # block-cache counts — the serving-side view of the runner
             "device": dev,
             "metrics": dict(ctx.ds.metrics),
-            # the slow-query log is not ported: its ring stays empty,
-            # as the reference's does at its default threshold of 0
-            "slow_queries": [],
+            # the slow-query log's last 50 entries (kvs/ds.py; threshold
+            # SURREAL_SLOW_QUERY_THRESHOLD_MS)
+            "slow_queries": [
+                {"ms": ms, "statement": label}
+                for ms, label in ctx.ds.slow_log[-50:]
+            ],
             # in-flight (non-LIVE) query registry: each id is a valid
             # KILL <query-id> target (inflight.py)
             "queries": ctx.ds.inflight.snapshot(),

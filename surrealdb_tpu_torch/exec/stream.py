@@ -814,7 +814,7 @@ def build_select_plan(n, ctx):
     if getattr(ctx.session, "planner_strategy", None) == "compute-only":
         return None
     if (
-        n.version is not None
+        n.version is not None or ctx.version is not None
         or n.split or n.fetch or n.omit or n.only
         or n.order == "rand" or len(n.what) != 1
         or not ctx.session.is_owner or ctx.perms_enabled

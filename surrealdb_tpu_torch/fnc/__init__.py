@@ -128,9 +128,31 @@ def call_function(node, ctx):
     name = node.name.lower()
     if name.startswith("fn::"):
         return call_custom(node.name[4:], [evaluate(a, ctx) for a in node.args], ctx)
-    if name.startswith(("mod::", "ml::")):
+    if name.startswith("mod::"):
         raise NotPorted(f"function {node.name}() is not ported "
-                        f"(module and ml:: functions)")
+                        f"(module functions)")
+    if name.startswith("ml::"):
+        caps = getattr(ctx.ds, "capabilities", None)
+        if caps is None or not caps.allows_experimental("ml"):
+            # the reference's default build compiles without the `ml`
+            # feature: the language suite expects this exact error
+            raise SdbError(
+                "Problem with machine learning computation. "
+                "Machine learning computation is not enabled."
+            )
+        from surrealdb_tpu_torch.ml import compute_model
+
+        version = getattr(node, "version", None)
+        if not version:
+            raise SdbError(
+                f"Incorrect arguments for function {name}(). "
+                f"A model version is required: {name}<1.0.0>(...)"
+            )
+        # model names are case-sensitive (unlike builtin fn paths)
+        return compute_model(
+            node.name[4:], version,
+            [evaluate(a, ctx) for a in node.args], ctx,
+        )
     if name == "__future__":
         # futures evaluate lazily; this build evaluates at read time
         return evaluate(node.args[0], ctx)

@@ -79,6 +79,22 @@ def traverse_hop(rids: list, g: PGraph, ctx, ref_field=None) -> list:
         # NO dedupe: a record referencing via several fields appears once
         # per referencing field (reference via_referencing_field.surql)
         return _cond_filter(out, g, ctx)
+    # VERSION-aware traversal: graph keys are HEAD-only, so at a version
+    # each edge record must have existed at that timestamp
+    vts = None
+    if ctx.version is not None:
+        from surrealdb_tpu_torch.exec.eval import version_ns
+
+        vts = version_ns(ctx.version)
+
+    def _alive(dest):
+        if vts is None:
+            return True
+        from surrealdb_tpu_torch.exec.eval import fetch_record_at
+        from surrealdb_tpu_torch.val import NONE as _N
+
+        return fetch_record_at(ctx, dest, vts) is not _N
+
     # key order: IN (\x01) sorts before OUT (\x02), so a `<->` scan
     # yields incoming edges first (reference Dir enum In < Out)
     dirs = []
@@ -99,13 +115,19 @@ def traverse_hop(rids: list, g: PGraph, ctx, ref_field=None) -> list:
                         _ns, _db, _tb, _id, _d, ftb, fk = K.decode_graph(k)
                         if ft in kfilt and not kfilt[ft](fk):
                             continue
-                        out.append(RecordId(ftb, fk))
+                        dest = RecordId(ftb, fk)
+                        if not _alive(dest):
+                            continue
+                        out.append(dest)
             else:
                 pre = K.graph_dir_prefix(ns, db, rid.tb, rid.id, d)
                 beg, end = K.prefix_range(pre)
                 for k in ctx.txn.keys(beg, end):
                     _ns, _db, _tb, _id, _d, ftb, fk = K.decode_graph(k)
-                    out.append(RecordId(ftb, fk))
+                    dest = RecordId(ftb, fk)
+                    if not _alive(dest):
+                        continue
+                    out.append(dest)
     return _cond_filter(out, g, ctx)
 
 

@@ -412,6 +412,32 @@ class Transaction:
         for k, raw in self.btx.scan(beg, end, limit, reverse):
             yield k, deserialize(raw)
 
+    # versioned catalog reads (INFO ... VERSION) ---------------------------
+    def get_val_at(self, key: bytes, ts: int):
+        best = None
+        for k, raw in self.btx.scan(*K.prefix_range(K.cat_hist_prefix(key))):
+            if int.from_bytes(k[-8:], "big") <= ts:
+                best = raw
+            else:
+                break
+        return None if best is None or best == b"" else deserialize(best)
+
+    def scan_vals_at(self, beg, end, ts: int):
+        cur = None
+        best = None
+        for k, raw in self.btx.scan(
+            K.cat_hist_prefix(beg), K.cat_hist_prefix(end)
+        ):
+            okey = k[2:-8]
+            if okey != cur:
+                if cur is not None and best is not None and best != b"":
+                    yield cur, deserialize(best)
+                cur, best = okey, None
+            if int.from_bytes(k[-8:], "big") <= ts:
+                best = raw
+        if cur is not None and best is not None and best != b"":
+            yield cur, deserialize(best)
+
     # savepoints -----------------------------------------------------------
     def new_save_point(self):
         self.btx.new_save_point()

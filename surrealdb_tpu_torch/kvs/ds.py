@@ -12,6 +12,9 @@ cache (`_ft_cache`, a `resource.BudgetedLRU` registered with the memory
 accountant) and the columnar caches of `exec/batch.py` and `col.py`. A file-backed store keeps its
 engines' persisted ANN graphs in `ann_snapshot_dir`
 (`<store>/.ann-cache`), so a restart reloads them instead of rebuilding.
+`ml_cache` holds the parsed models of `ml::` calls, and `slow_log` the
+statements that took `SURREAL_SLOW_QUERY_THRESHOLD_MS` or longer (INFO
+FOR SYSTEM lists its last 50).
 
 `execute()` parses SurrealQL (with a cache of parsed texts) and runs the
 statement loop of `exec/executor.py`, under a `QueryHandle` of the
@@ -204,6 +207,18 @@ class Datastore:
             "transactions": 0, "commits": 0, "cancels": 0,
             "statements": 0, "statement_errors": 0, "slow_queries": 0,
         }
+        # the slow-query log (reference kvs/slowlog.rs): statements at or
+        # past the threshold, as (ms, label) pairs; 0 turns it off
+        try:
+            self.slow_log_threshold_ms = float(
+                os.environ.get("SURREAL_SLOW_QUERY_THRESHOLD_MS", "0") or 0
+            )
+        except ValueError:
+            self.slow_log_threshold_ms = 0.0
+        self.slow_log: list = []
+        # parsed models of `ml::` calls: (ns, db, name, version, hash) ->
+        # SurmlFile (ml/__init__.py compute_model)
+        self.ml_cache: dict = {}
         # parsed-statement cache: repeated query texts (same SQL,
         # different $vars) skip the parser; ASTs hold no execution state
         self._ast_cache: dict = {}
@@ -284,6 +299,12 @@ class Datastore:
         self.metrics["statements"] += 1
         if not ok:
             self.metrics["statement_errors"] += 1
+        ms = time_ns / 1e6
+        if self.slow_log_threshold_ms and ms >= self.slow_log_threshold_ms:
+            self.metrics["slow_queries"] += 1
+            self.slow_log.append((round(ms, 3), label[:200]))
+            if len(self.slow_log) > 1000:
+                del self.slow_log[:500]
 
     # -- execution ----------------------------------------------------------
     def execute(

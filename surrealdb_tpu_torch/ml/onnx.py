@@ -31,9 +31,13 @@ from typing import Any
 
 import numpy as np
 
+from surrealdb_tpu_torch.err import SdbError
 
-class OnnxError(ValueError):
-    """A model the decoder or the executor cannot take."""
+
+class OnnxError(SdbError, ValueError):
+    """A model the decoder or the executor cannot take: a statement's
+    error in an `ml::` call, and a ValueError to a caller running a
+    graph by hand."""
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,16 @@ Stdlib-only: ThreadingHTTPServer for routes, hand-rolled RFC6455 WebSocket
 upgrade on /rpc with live-query notification push (JSON or CBOR).
 
 Routes: /status, /health, /version, /metrics, /telemetry/traces,
-POST /sql, POST /rpc, GET /rpc (the WebSocket), /key/:table[/:id]. The
+POST /sql, POST /rpc, GET /rpc (the WebSocket), /key/:table[/:id],
+POST /ml/import and GET /ml/export/:name/:version (`ml/__init__.py`). The
 admission gate, X-Surreal-Timeout and cancel-on-disconnect guard every
 data route. POST /signin and /signup answer a token (`iam.py`); an
 `Authorization: Bearer <token>` header authenticates the request's
 session (an invalid token is a 401, never an anonymous session) and
 `Basic` signs its user in. Left out, each answering with the reference's
 error envelope for the route and a `NotPorted` message naming it:
-/api/* (`DEFINE API`), /graphql, /export, /import, /ml/* and
-/kv/topology; the flatbuffers format."""
+/api/* (`DEFINE API`), /graphql, /export, /import and /kv/topology;
+the flatbuffers format."""
 
 from __future__ import annotations
 
@@ -346,8 +347,28 @@ class SurrealHandler(BaseHTTPRequestHandler):
         if path == "/rpc":
             self._ws_upgrade()
             return
-        if path.startswith("/ml/"):
-            self._json(400, {"error": _not_ported("/ml/*")})
+        if path.startswith("/ml/export/"):
+            # /ml/export/:name/:version (reference ntw /ml/*)
+            sess = self._session()
+            if sess.auth_level == "none":
+                self._json(401, {"error": "Not authenticated"})
+                return
+            segs = [unquote(x) for x in path.split("/") if x]
+            if len(segs) != 4 or not sess.ns or not sess.db:
+                self._json(400, {"error": "Expected /ml/export/:name/:version with ns/db headers"})
+                return
+            from surrealdb_tpu_torch.ml import export_model
+
+            try:
+                raw = export_model(self.ds, sess.ns, sess.db, segs[2], segs[3])
+            except SdbError as e:
+                self._json(404, {"error": str(e)})
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(raw)))
+            self.end_headers()
+            self.wfile.write(raw)
             return
         if path.startswith("/key/"):
             self._key_route("GET")
@@ -367,9 +388,26 @@ class SurrealHandler(BaseHTTPRequestHandler):
             except SdbError as e:
                 self._json(400, {"error": str(e)})
             return
-        if path.startswith("/ml/") or path == "/import":
-            self._refuse(400, {"error": _not_ported(
-                path if path == "/import" else "/ml/*")})
+        if path == "/ml/import":
+            sess = self._session()
+            if sess.auth_level == "none":
+                self._json(401, {"error": "Not authenticated"})
+                return
+            if not sess.ns or not sess.db:
+                self._json(400, {"error": "Specify ns and db headers"})
+                return
+            from surrealdb_tpu_torch.ml import import_model
+
+            try:
+                d = import_model(self.ds, sess.ns, sess.db, self._body())
+            except SdbError as e:
+                self._json(400, {"error": str(e)})
+                return
+            self._json(200, {"name": d.name, "version": d.version,
+                             "hash": d.hash})
+            return
+        if path == "/import":
+            self._refuse(400, {"error": _not_ported("/import")})
             return
         if path == "/signin":
             from surrealdb_tpu_torch.iam import signin

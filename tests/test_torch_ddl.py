@@ -340,7 +340,6 @@ def test_unported_function_families_stay_in_order():
     from surrealdb_tpu_torch.fnc import unported
 
     assert list(R.FUNCS) == list(P.FUNCS)
-    left = (unported.UNPORTED_AFTER_CRYPTO + unported.UNPORTED_AFTER_SEQUENCE
-            + unported.UNPORTED_AFTER_SEARCH)
+    left = unported.UNPORTED_AFTER_SEARCH
     assert not [n for n in left if n.startswith(("crypto::", "session::",
                                                  "sequence::"))]

@@ -353,18 +353,17 @@ def test_parse_errors_match(both):
 def test_unported_statements_raise(both):
     """What the port leaves out names itself (DEFINE FUNCTION, DEFINE
     EVENT, DEFINE PARAM and crypto:: are ported: tests/test_torch_ddl.py
-    holds them to the reference)."""
+    holds them to the reference; VERSION reads: test_torch_version.py)."""
     both.ok("CREATE x:1")
     out = both.port.execute(
         "SHOW CHANGES FOR TABLE x SINCE 0; "
-        "SELECT * FROM x VERSION "
-        "d'2024-01-01T00:00:00Z'; "
+        "DEFINE CONFIG GRAPHQL AUTO; "
         "RETURN http::get('http://localhost'); DEFINE TABLE v AS SELECT * FROM x; "
         "DEFINE TABLE cf CHANGEFEED 1h; "
         "RETURN function() { return 1; }",
         ns=NS, db=DB)
-    names = ["SHOW CHANGES", "VERSION", "http::get", "views", "CHANGEFEED",
-             "scripting"]
+    names = ["SHOW CHANGES", "DEFINE CONFIG", "http::get", "views",
+             "CHANGEFEED", "scripting"]
     assert len(out) == len(names)
     for r, name in zip(out, names):
         assert r.error is not None and "not ported" in r.error, (name, r)

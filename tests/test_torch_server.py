@@ -896,7 +896,17 @@ def test_left_out_route_answers_not_ported(pair, method, path, code, key,
                                            name):
     """Each left-out route names itself. /signin and /signup are ported:
     with no credentials they answer the reference's authentication
-    failure (the same 401 and `details`)."""
+    failure (the same 401 and `details`). So are /ml/export and
+    /ml/import: a model that does not exist and a body that is no model
+    answer the reference's status and error."""
+    if path.startswith("/ml/"):
+        r, p = both_req(pair, path, method,
+                        b"{}" if method != "GET" else None, NSDB)
+        assert p[0] == r[0] == (404 if method == "GET" else 400)
+        assert json.loads(r[2]) == json.loads(p[2])
+        assert "not ported" not in json.loads(p[2])["error"]
+        assert req(pair[1].base, "/health")[0] == 200
+        return
     if path in ("/signin", "/signup"):
         r, p = both_req(pair, path, method, b"{}", NSDB)
         assert p[0] == code and json.loads(r[2]) == json.loads(p[2]) == {
@@ -1005,8 +1015,23 @@ def test_left_out_rpc_methods(pair, method, fmt):
 ])
 def test_left_out_subcommands(capsys, monkeypatch, argv, name):
     """Each left-out subcommand or engine names itself. `start --user
-    --pass` is ported: it defines the root user and serves."""
+    --pass` is ported: it defines the root user and serves. So is `ml
+    export`: a model missing from the datastore raises the reference's
+    error."""
     from surrealdb_tpu_torch.__main__ import main
+
+    if name == "ml":
+        from surrealdb_tpu.__main__ import main as ref_main
+        from surrealdb_tpu.err import SdbError as RefError
+        from surrealdb_tpu_torch.err import SdbError as PortError
+
+        with pytest.raises(RefError) as r:
+            ref_main(argv)
+        with pytest.raises(PortError) as p:
+            main(argv)
+        assert str(p.value) == str(r.value) == \
+            "The model 'ml::m<1>' does not exist"
+        return
 
     if name == "--user/--pass":
         import surrealdb_tpu_torch.server as SRV
