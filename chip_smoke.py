@@ -141,7 +141,25 @@ exits non-zero):
               VERSION before the import; the bf16 store's three kernels
               launch, no fallback, host routing or numpy descent; at
               most 20 s;
-   server  -- (after ml, on that runner, mode require) knn1m's
+   api     -- (after ml, on its server) root defines DEFINE API
+              "/nearest" FOR post (JSON body middleware, THEN `SELECT id
+              FROM acl WHERE emb <|10,40|> $request.body.q`), INFO FOR DB
+              lists it; 16 threads send 256 POST /api/b/b/nearest
+              requests with root's Bearer token (requests/s, p50, p99),
+              ids equal to in-process root's, recall@10 of 16 >= 0.99,
+              an unknown path answers the reference's 404; api::invoke
+              over the WebSocket answers the same ids; ALTER TABLE acl
+              CHANGEFEED 1h, a CREATE seen first by the next <|1|>
+              probe, SHOW CHANGES SINCE a datetime before it lists that
+              create, then the DELETE too, DROP CHANGEFEED; on a
+              256-row table (host only, as in the reference) a GROUP BY
+              view equal to its SELECT after inserts, 32 updates and 32
+              deletes, a bucket's file::put / file::get round trip and
+              /graphql after DEFINE CONFIG GRAPHQL AUTO answering the
+              SELECT's rows; the bf16 store's three kernels launch in
+              the knn steps, distance_tile never; no fallback, host
+              routing or numpy descent; at most 20 s;
+   server  -- (after api, on that runner, mode require) knn1m's
               datastore behind the port's network server (make_server
               on 127.0.0.1:0, unauthenticated, the default admission
               gate), each step in a launch window of its own: 128
@@ -180,8 +198,10 @@ exits non-zero):
               (idx/segments.py) at bench.py's knn_churn configuration
               (CHURN: 500k x 768 clustered euclidean rows written through
               the KV op log, KNN_SEG_MODE=force with 131,072-row seals,
-              8 rounds of +32,768 / -8,192 rows, each with a k=1 probe
-              of the last committed row and 12 k=10 knn calls, recall@10
+              4 rounds (cut from 8 to pay for phase api; the rounds
+              add whole seals) of +32,768 / -8,192 rows, each with a
+              k=1 probe of the last committed row and 12 k=10 knn
+              calls, recall@10
               >= 0.95 against an f64 oracle on the card every 4th round
               and at the end, no whole-store rebuild, every segment
               ready after drain); every ready segment's runner block
@@ -239,6 +259,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only sql
     python3 chip_smoke.py --only auth
     python3 chip_smoke.py --only ml
+    python3 chip_smoke.py --only api
     python3 chip_smoke.py --only server
     python3 chip_smoke.py --only segments
     python3 chip_smoke.py --only search
@@ -261,6 +282,7 @@ the batcher check over a supervised runner of its own; engine: phase
 4b over rows made here and a runner of its own, which ships the knn10m
 rows itself; sql: the same, then phase 4b' over its datastores; auth: then the auth
 phase over knn1m's; ml: then the auth and ml phases over knn1m's;
+api: then the auth and api phases over knn1m's;
 server: then the auth and server phases over knn1m's;
 segments: phase 4c over a runner of its own; search: phase 4b'' over a
 runner of its own), then stops
@@ -274,6 +296,7 @@ no fused top k, to time that checkout's kernels at the same shapes.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -311,9 +334,12 @@ ANN = dict(n=250_000, dim=768, seed=31, std=0.15, noise=0.075,
 # centres, sigma 0.15) through the KV op log, segments sealed every
 # `seal` rows, `rounds` rounds of +add / -dele rows and nq k=10 queries.
 # n0 is cut from 1M to 500k (still past the 400k segment floor) for the
-# time limit: at 1M the phase took about 480 s beside the rest's 420-460
+# time limit: at 1M the phase took about 480 s beside the rest's 420-460;
+# rounds are cut from 8 to 4 to pay for phase api: the rounds must add
+# whole seals (rounds x add a multiple of seal), or the drained set keeps
+# an unsealed tail the descent check refuses, so 6 rounds cannot serve
 # (PERF.md section 4)
-CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=8,
+CHURN = dict(n0=500_000, dim=768, seed=15, seal=131_072, rounds=4,
              add=32_768, dele=8_192, nq=12)
 
 # bench.py:1230 bench_hybrid: n is cut from 5,000 to 2,048 documents,
@@ -343,6 +369,12 @@ AUTH = dict(clients=128, queries=512)
 # phase ml: the scored `<|10,40|>` queries (their vectors' seed) and the
 # phase's time limit in seconds
 ML = dict(queries=64, seed=43, max_s=20.0)
+# phase api: `threads` clients send `requests` POST /api/b/b/nearest
+# requests (their vectors' seed), recall@10 over the first
+# `recall_queries`; `tally` rows of the host-only table; the phase's time
+# limit in seconds
+API = dict(threads=16, requests=256, seed=47, recall_queries=16, tally=256,
+           max_s=20.0)
 ACL = dict(n=32_768, seed=41, queries=16)
 
 # the supervisor phase: a runner in mode auto over the knn1m store,
@@ -900,6 +932,56 @@ def live_soak(ds, port, sessions=64, frozen=2, writers=4, writes=400,
     }
 
 
+BRUTE_KERNELS = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
+
+
+def launch_window(sup_, counts, phase, name, fn, needs=(),
+                  absent=BRUTE_KERNELS, none=False, out_all=None):
+    """Run one step of a server phase with the runner's launch counts
+    set to 0 just before it and read just after: every kernel in
+    `needs` must have launched, none in `absent`, and with `none` no
+    kernel at all. The counts add to `counts` (the main path's)."""
+    sup_.call("launch_counts", {"reset": True})
+    out = fn()
+    _, m, _ = sup_.call("launch_counts", {})
+    fired = m["launches"]
+    if counts is not None:
+        for kname, v in fired.items():
+            counts[kname] += v
+    for kname in needs:
+        check(fired[kname] > 0,
+              f"{phase} {name}: kernel {kname} was not launched")
+    for kname in absent:
+        check(fired.get(kname, 0) == 0,
+              f"{phase} {name}: kernel {kname} was launched")
+    if none:
+        check(not any(fired.values()), f"{phase} {name}: launched {fired}")
+    emit(f"{phase}_{name}", **out,
+         launches={kn: v for kn, v in fired.items() if v})
+    if out_all is not None:
+        out_all[name] = out
+
+
+def record_ids(rows):
+    return [r["id"].id for r in rows]
+
+
+def http_call(base, path, body=None, headers=None, method="POST"):
+    """One request to a port server on namespace and database b;
+    returns (status, headers, body), also for an error status."""
+    import urllib.error
+    import urllib.request
+
+    r = urllib.request.Request(
+        base + path, data=body, method=method,
+        headers={"surreal-ns": "b", "surreal-db": "b", **(headers or {})})
+    try:
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
 def bound(nbytes, ops, peak):
     """Least time (ms) the card could take: the larger of bytes over
     the HBM rate and operations over the peak rate of their type."""
@@ -1028,7 +1110,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
-              "engine", "sql", "auth", "ml", "server", "segments", "search")
+              "engine", "sql", "auth", "ml", "api", "server", "segments",
+              "search")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -1043,7 +1126,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    # the server of phases auth, ml and server runs as users start one
+    # the server of phases auth, ml, api and server runs as users start one
     # that calls models: with the `ml` experimental capability, which
     # every datastore reads from the environment as it is made
     os.environ["SURREAL_CAPS_ALLOW_EXPERIMENTAL"] = "ml"
@@ -3189,14 +3272,16 @@ def main(argv=None) -> int:
         return out_all
 
     def engine_only(with_sql=False, with_auth=False, with_ml=False,
-                    with_server=False):
+                    with_api=False, with_server=False):
         """`--only engine`: the engine phase over rows made here (the
         knn10m rows shipped by the engine itself), under a supervisor in
         mode require of its own; `--only sql`: the same, then the sql
         phase over the engine's datastores; `--only auth`: then the auth
         phase over knn1m's; `--only ml`: then phase ml over auth's
-        server; `--only server`: then the auth and server phases over
-        knn1m's (the server's writes go to auth's `acl`)."""
+        server; `--only api`: then phase api over auth's server (after
+        ml when both are named); `--only server`: then the auth and
+        server phases over knn1m's (the server's writes go to auth's
+        `acl`)."""
         rng_ = np.random.default_rng(KNN1M["seed"])
         xs1 = rng_.standard_normal((KNN1M["n"], KNN1M["dim"]),
                                    dtype=np.float32)
@@ -3225,9 +3310,11 @@ def main(argv=None) -> int:
                 sql_phase(sup_, data["sql"], keep_knn1m=with_auth)
             if with_auth:
                 knn1m_d = data["sql"].pop("knn1m")
-                auth_phase(sup_, knn1m_d, keep_server=with_ml)
+                auth_phase(sup_, knn1m_d, keep_server=with_ml or with_api)
                 if with_ml:
-                    ml_phase(sup_, knn1m_d)
+                    ml_phase(sup_, knn1m_d, keep_server=with_api)
+                if with_api:
+                    api_phase(sup_, knn1m_d)
                 if with_server:
                     server_phase(sup_, knn1m_d)
         finally:
@@ -3760,8 +3847,6 @@ def main(argv=None) -> int:
         (`d["auth_server"]`: the server and its port), which stops it."""
         import base64
         import threading
-        import urllib.error
-        import urllib.request
 
         from surrealdb_tpu_torch import key as K
         from surrealdb_tpu_torch import server as SRV
@@ -3796,44 +3881,12 @@ def main(argv=None) -> int:
         acl_sql = "SELECT id FROM acl WHERE emb <|10,40|> $q"
         ql = [q.tolist() for q in q_[:64]]
         iam_err = "IAM error: Not enough permissions"
-        brute_ = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
         bf16_ = ("rank_scores_bf16", "select_topk_rows",
                  "gather_rescore_topk")
         out_all, clients, state = {}, [], {}
 
-        def window(name, fn, needs, absent=brute_, none=False):
-            sup_.call("launch_counts", {"reset": True})
-            out = fn()
-            _, m, _ = sup_.call("launch_counts", {})
-            if counts is not None:
-                for kname, v in m["launches"].items():
-                    counts[kname] += v
-            for kname in needs:
-                check(m["launches"][kname] > 0,
-                      f"auth {name}: kernel {kname} was not launched")
-            for kname in absent:
-                check(m["launches"].get(kname, 0) == 0,
-                      f"auth {name}: kernel {kname} was launched")
-            if none:
-                check(not any(m["launches"].values()),
-                      f"auth {name}: launched {m['launches']}")
-            emit(f"auth_{name}", **out,
-                 launches={kn: v for kn, v in m["launches"].items() if v})
-            out_all[name] = out
-
-        def ids(rows):
-            return [r["id"].id for r in rows]
-
-        def http(path, body, headers=None):
-            r = urllib.request.Request(
-                base + path, data=body, method="POST",
-                headers={"surreal-ns": "b", "surreal-db": "b",
-                         **(headers or {})})
-            try:
-                with urllib.request.urlopen(r, timeout=60) as resp:
-                    return resp.status, resp.read()
-            except urllib.error.HTTPError as e:
-                return e.code, e.read()
+        window = functools.partial(launch_window, sup_, counts, "auth",
+                                   out_all=out_all)
 
         def ws_client():
             c = connect(url, fmt="cbor", timeout=120.0)
@@ -3841,8 +3894,8 @@ def main(argv=None) -> int:
             return c
 
         def anonymous():
-            st, b = http("/sql", f"LET $q = {json.dumps(ql[0])}; "
-                         f"{sql}".encode())
+            st, _h, b = http_call(
+                base, "/sql", f"LET $q = {json.dumps(ql[0])}; {sql}".encode())
             rows = json.loads(b) if st == 200 else None
             check(st == 401 or all(r["status"] == "ERR"
                                    and iam_err in r["result"]
@@ -3875,7 +3928,8 @@ def main(argv=None) -> int:
                 auth_clients.append(c)
             authenticate_ms = (time.perf_counter() - t0) * 1e3 / nc
             # the same queries as root in process
-            want = [ids(ds.query_one(sql, ns="b", db="b", vars={"q": q}))
+            want = [record_ids(ds.query_one(sql, ns="b", db="b",
+                                            vars={"q": q}))
                     for q in ql]
             state["want"] = want
             per = AUTH["queries"] // nc
@@ -3890,7 +3944,8 @@ def main(argv=None) -> int:
                     if timed:
                         lat[i] = (time.perf_counter() - t1) * 1e3
                     check(res[0]["status"] == "OK"
-                          and ids(res[0]["result"]) == want[i % len(ql)],
+                          and record_ids(res[0]["result"])
+                          == want[i % len(ql)],
                           f"auth root: answer {res[0]}")
 
             # one untimed query a client (the batched shapes), then the
@@ -3921,15 +3976,17 @@ def main(argv=None) -> int:
                 b"reader:reader-pass").decode()}
             t0 = time.perf_counter()
             for qi in range(4):
-                st, b = http("/sql", f"LET $q = {json.dumps(ql[qi])}; "
-                             f"{sql}".encode(), basic)
+                st, _h, b = http_call(
+                    base, "/sql",
+                    f"LET $q = {json.dumps(ql[qi])}; {sql}".encode(), basic)
                 rows = json.loads(b)[1]["result"]
                 check(st == 200 and [int(r["id"].split(":")[1])
                                      for r in rows] == state["want"][qi],
                       f"auth viewer /sql: {st} {rows}")
             ms = (time.perf_counter() - t0) * 1e3 / 4
-            st, b = http("/sql", f"CREATE tbl:{xs_.shape[0] + 99} SET emb = "
-                         f"{json.dumps(ql[0])}".encode(), basic)
+            st, _h, b = http_call(
+                base, "/sql", f"CREATE tbl:{xs_.shape[0] + 99} SET emb = "
+                f"{json.dumps(ql[0])}".encode(), basic)
             res = json.loads(b)
             check(st == 200 and res[0]["status"] == "ERR"
                   and iam_err in res[0]["result"],
@@ -3994,7 +4051,7 @@ def main(argv=None) -> int:
             aql = [q.tolist() for q in aqs]
             state["aql"] = aql
             t0 = time.perf_counter()
-            roots = [ids(ds.query_one(acl_sql, ns="b", db="b",
+            roots = [record_ids(ds.query_one(acl_sql, ns="b", db="b",
                                         vars={"q": q}))
                      for q in aql]
             out["first_query_s"] = time.perf_counter() - t0  # the ship
@@ -4004,7 +4061,7 @@ def main(argv=None) -> int:
             for parity, name in enumerate(("alice", "bob")):
                 for qi, q in enumerate(aql):
                     res = users[name].query(acl_sql, {"q": q})
-                    got = ids(res[0]["result"])
+                    got = record_ids(res[0]["result"])
                     want = [i for i in roots[qi] if i % 2 == parity]
                     check(res[0]["status"] == "OK" and got == want,
                           f"auth record {name} q{qi}: {got} != {want}")
@@ -4024,7 +4081,7 @@ def main(argv=None) -> int:
             for qi in range(8):
                 res = c0.query("RETURN fn::nearest($q)", {"q": ql[qi]})
                 check(res[0]["status"] == "OK"
-                      and ids(res[0]["result"]) == state["want"][qi],
+                      and record_ids(res[0]["result"]) == state["want"][qi],
                       f"auth fn::nearest q{qi}: {res[0]}")
             return {"calls": 8, "ids_equal_root": True,
                     "ms_per_call": (time.perf_counter() - t0) * 1e3 / 8}
@@ -4048,8 +4105,9 @@ def main(argv=None) -> int:
                   and aud[0]["by"] == RecordId("user", "alice"),
                   f"auth event: audit rows {aud}")
             t0 = time.perf_counter()
-            first = ids(alice.query("SELECT id FROM acl WHERE emb <|10|> $q",
-                                    {"q": v})[0]["result"])
+            first = record_ids(alice.query(
+                "SELECT id FROM acl WHERE emb <|10|> $q",
+                {"q": v})[0]["result"])
             out["probe_ms"] = (time.perf_counter() - t0) * 1e3
             check(first[:1] == [rid], f"auth event: the probe found {first}")
             # the new row is alice's and sits in the store from now on
@@ -4059,7 +4117,7 @@ def main(argv=None) -> int:
         def rebuild():
             aix = ds.vector_indexes[("b", "b", "acl", "ix")]
             old = (aix._dev_key, [aix.version, aix._dev_epoch])
-            before = [ids(ds.query_one(acl_sql, ns="b", db="b",
+            before = [record_ids(ds.query_one(acl_sql, ns="b", db="b",
                                         vars={"q": q}))
                       for q in state["aql"][:4]]
             t0 = time.perf_counter()
@@ -4070,7 +4128,7 @@ def main(argv=None) -> int:
                                              "k": k_}, [aqs[:1]])
             check(t == "stale", f"auth REBUILD: the old store answered {t}")
             t0 = time.perf_counter()
-            after = [ids(ds.query_one(acl_sql, ns="b", db="b",
+            after = [record_ids(ds.query_one(acl_sql, ns="b", db="b",
                                         vars={"q": q}))
                      for q in state["aql"][:4]]
             out["first_query_s"] = time.perf_counter() - t0
@@ -4116,7 +4174,7 @@ def main(argv=None) -> int:
         return out_all
 
     # -- models on the card over phase auth's server (also `--only ml`) -----
-    def ml_phase(sup_, d, counts=None):
+    def ml_phase(sup_, d, counts=None, keep_server=False):
         """Phase auth's server (`d["auth_server"]`, started as `start
         --user root --pass root` with SURREAL_CAPS_ALLOW_EXPERIMENTAL=ml,
         as this script sets it) and its `acl` table, under `sup_` (mode
@@ -4142,9 +4200,8 @@ def main(argv=None) -> int:
         the first document, and INFO FOR DB VERSION <ts before the
         import> lacks the model. No step writes to `acl` or knn1m's
         `tbl`; no fallback, host routing or numpy descent may occur.
-        Stops the server."""
-        import urllib.error
-        import urllib.request
+        Stops the server, unless `keep_server` leaves it serving for
+        phase api, which stops it."""
 
         from surrealdb_tpu_torch import ml as ML_
         from surrealdb_tpu_torch.capabilities import Capabilities
@@ -4170,7 +4227,6 @@ def main(argv=None) -> int:
         ctr0, hd0 = dict(sup_.counters), ix.ann_host_descents
         bf16_ = ("rank_scores_bf16", "select_topk_rows",
                  "gather_rescore_topk")
-        brute_ = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
         # every graph run of the path, with its output's device
         graph_runs = []
         run_graph0 = O.run_graph
@@ -4196,42 +4252,22 @@ def main(argv=None) -> int:
         plain = "SELECT id FROM acl WHERE emb <|10,40|> $q"
 
         def window(name, fn, needs=(), none=False):
-            sup_.call("launch_counts", {"reset": True})
-            runs0 = len(graph_runs)
-            out = fn()
-            _, m, _ = sup_.call("launch_counts", {})
-            if counts is not None:
-                for kname, v in m["launches"].items():
-                    counts[kname] += v
-            for kname in needs:
-                check(m["launches"][kname] > 0,
-                      f"ml {name}: kernel {kname} was not launched")
-            for kname in brute_:
-                check(m["launches"].get(kname, 0) == 0,
-                      f"ml {name}: kernel {kname} was launched")
-            if none:
-                check(not any(m["launches"].values()),
-                      f"ml {name}: launched {m['launches']}")
-            runs = graph_runs[runs0:]
-            check(all(dv == "cuda" for dv in runs),
-                  f"ml {name}: a graph ran on {set(runs)}")
-            emit(f"ml_{name}", **out, graph_runs=len(runs),
-                 launches={kn: v for kn, v in m["launches"].items() if v})
-            out_all[name] = out
+            def run():
+                runs0 = len(graph_runs)
+                out = fn()
+                runs = graph_runs[runs0:]
+                check(all(dv == "cuda" for dv in runs),
+                      f"ml {name}: a graph ran on {set(runs)}")
+                return {**out, "graph_runs": len(runs)}
 
-        def ids(rows):
-            return [r["id"].id for r in rows]
+            launch_window(sup_, counts, "ml", name, run, needs, none=none,
+                          out_all=out_all)
 
         def http(path, body=None, method="POST"):
-            r = urllib.request.Request(
-                base + path, data=body, method=method,
-                headers={"surreal-ns": "b", "surreal-db": "b",
-                         "Authorization": f"Bearer {state['token']}"})
-            try:
-                with urllib.request.urlopen(r, timeout=60) as resp:
-                    return resp.status, resp.read()
-            except urllib.error.HTTPError as e:
-                return e.code, e.read()
+            st, _h, b = http_call(
+                base, path, body, method=method,
+                headers={"Authorization": f"Bearer {state['token']}"})
+            return st, b
 
         def row_vec(i):
             return axs[i] if i < axs.shape[0] else np.asarray(
@@ -4279,9 +4315,10 @@ def main(argv=None) -> int:
         def knn():
             c = state["root"]
             reserved0 = torch.cuda.memory_reserved()
-            want = [ids(ds.query_one(plain, ns="b", db="b", vars={"q": q}))
+            want = [record_ids(ds.query_one(plain, ns="b", db="b",
+                                            vars={"q": q}))
                     for q in mql]
-            unscored = [ids(c.query(plain, {"q": q})[0]["result"])
+            unscored = [record_ids(c.query(plain, {"q": q})[0]["result"])
                         for q in mql]
             check(unscored == want, "ml knn: the unscored ids differ from "
                   "in-process root's")
@@ -4292,10 +4329,11 @@ def main(argv=None) -> int:
                 lat.append((time.perf_counter() - t1) * 1e3)
                 check(res[0]["status"] == "OK", f"ml knn q{qi}: {res[0]}")
                 rows = res[0]["result"]
-                check(ids(rows) == want[qi],
-                      f"ml knn q{qi}: {ids(rows)} != {want[qi]}")
+                check(record_ids(rows) == want[qi],
+                      f"ml knn q{qi}: {record_ids(rows)} != {want[qi]}")
                 err, ok = close([r["s"] for r in rows],
-                                cpu_scores([row_vec(i) for i in ids(rows)]))
+                                cpu_scores([row_vec(i)
+                                            for i in record_ids(rows)]))
                 check(ok, f"ml knn q{qi}: scores off by {err}")
                 errs.append(err)
                 nrows.append(len(rows))
@@ -4434,6 +4472,274 @@ def main(argv=None) -> int:
             O.run_graph = run_graph0
             for c in clients:
                 c.close()
+            if not keep_server:
+                srv.shutdown()
+                srv.server_close()
+                d.pop("auth_server", None)
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
+        return out_all
+
+    # -- DEFINE API, changefeeds, views, buckets and GraphQL over phase
+    # auth's server (also `--only api`) -------------------------------------
+    def api_phase(sup_, d, counts=None):
+        """Phase auth's server (`d["auth_server"]`, `start --user root
+        --pass root`) and its `acl` table, under `sup_` (mode require),
+        each step in a launch window of its own: (a) root defines
+        `DEFINE API "/nearest" FOR post` with the JSON body middleware
+        (api::req::body('json')), whose THEN returns status 200 and
+        `SELECT id FROM acl WHERE emb <|10,40|> $request.body.q`; INFO
+        FOR DB lists it; (b) API["threads"] threads send API["requests"]
+        `POST /api/b/b/nearest` requests with root's Bearer token (query
+        vectors of seed API["seed"]): requests/s, p50 and p99, ids equal
+        to in-process root's `<|10,40|>` answers (taken between the
+        windows, so that (b)'s counts are the requests' own), recall@10
+        of the first API["recall_queries"] >= 0.99 against the f64
+        oracle, the bf16
+        store's three kernels launched and distance_tile never; an
+        unknown path answers the reference's 404 ("Not found"); (c)
+        `RETURN api::invoke("/nearest", {...})` over the WebSocket
+        answers (b)'s ids; (d) `ALTER TABLE acl CHANGEFEED 1h`, a CREATE
+        of one fresh vector, whose next `<|1|>` probe answers it first,
+        `SHOW CHANGES FOR TABLE acl SINCE <before>` lists exactly that
+        create, after the DELETE the create and the delete, then `ALTER
+        TABLE acl DROP CHANGEFEED`: acl is as it was, with no
+        changefeed; (e) on a table `tally` of API["tally"] rows (on the
+        host, as in the reference): the view `tally_by` (GROUP BY g,
+        count() and math::sum(x)) equals the GROUP BY SELECT after the
+        inserts and after 32 updates and 32 deletes, a DEFINE BUCKET
+        round-trips file::put / file::get, and `/graphql` after `DEFINE
+        CONFIG GRAPHQL AUTO` answers the SELECT's rows. No step writes
+        to knn1m's `tbl`; no fallback, host routing or numpy descent
+        may occur; at most API["max_s"] seconds. Stops the server."""
+
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.sdk import connect
+
+        t_0 = time.perf_counter()
+        ds, srv = d["ds"], d["auth_server"][0]
+        port = d["auth_server"][1]
+        url, base = f"ws://127.0.0.1:{port}", f"http://127.0.0.1:{port}"
+        axs = d["acl"]["xs"]
+        n_acl, dim = axs.shape
+        knobs = ("KNN_ANN_MODE", "KNN_HOST_BATCH")
+        saved = {name: getattr(cnf, name) for name in knobs}
+        cnf.KNN_HOST_BATCH = "auto"
+        cnf.KNN_ANN_MODE = "off"
+        old_sup = SV.set_supervisor(sup_)
+        SV.bind_serving()
+        tix = ds.vector_indexes[("b", "b", "tbl", "ix")]
+        store = (tix._dev_key, tix.version, tix._dev_epoch)
+        ctr0 = dict(sup_.counters)
+        hd0 = ds.vector_indexes[("b", "b", "acl", "ix")].ann_host_descents
+        bf16_ = ("rank_scores_bf16", "select_topk_rows",
+                 "gather_rescore_topk")
+        acl_sql = "SELECT id FROM acl WHERE emb <|10,40|> $q"
+        qrng = np.random.default_rng(API["seed"])
+        pqs = qrng.standard_normal((API["requests"], dim), dtype=np.float32)
+        pql = [q.tolist() for q in pqs]
+        out_all, clients, state = {}, [], {}
+
+        window = functools.partial(launch_window, sup_, counts, "api",
+                                   out_all=out_all)
+
+        def http(path, body=None, headers=None):
+            return http_call(base, path, body, headers={
+                "Authorization": f"Bearer {state['token']}",
+                **(headers or {})})
+
+        def root_query(sql_, vars_=None):
+            res = state["root"].query(sql_, vars_ or {})
+            check(all(r["status"] == "OK" for r in res),
+                  f"api: {sql_[:60]} -> {res}")
+            return [r["result"] for r in res]
+
+        def define():
+            c = connect(url, fmt="cbor", timeout=120.0)
+            clients.append(c)
+            state["token"] = c.signin(user="root", passwd="root")
+            c.use("b", "b")
+            state["root"] = c
+            t0 = time.perf_counter()
+            root_query(
+                'DEFINE API "/nearest" FOR post '
+                "MIDDLEWARE api::req::body('json') THEN { RETURN { "
+                "status: 200, body: (SELECT id FROM acl "
+                "WHERE emb <|10,40|> $request.body.q) }; }")
+            define_ms = (time.perf_counter() - t0) * 1e3
+            info = root_query("INFO FOR DB")[0]
+            check(info["apis"].get("/nearest", "").startswith(
+                "DEFINE API '/nearest'"),
+                f"api define: INFO FOR DB apis {info['apis']}")
+            return {"define_ms": define_ms, "info_lists_api": True}
+
+        def requests():
+            want = state["want"]
+            nt, n_ = API["threads"], len(pql)
+            lat = np.zeros(n_)
+            got = [None] * n_
+            hdr = {"Content-Type": "application/json"}
+
+            def client(ti):
+                for i in range(ti, n_, nt):
+                    body = json.dumps({"q": pql[i]}).encode()
+                    t1 = time.perf_counter()
+                    st, h, raw = http("/api/b/b/nearest", body, headers=hdr)
+                    lat[i] = (time.perf_counter() - t1) * 1e3
+                    check(st == 200, f"api request {i}: {st} {raw[:300]}")
+                    got[i] = [int(r["id"].split(":")[1])
+                              for r in json.loads(raw)]
+
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(nt) as ex:
+                list(ex.map(client, range(nt)))
+            wall = time.perf_counter() - t1
+            for i in range(n_):
+                check(got[i] == want[i],
+                      f"api request {i}: ids {got[i]} != {want[i]}")
+            # the oracle over acl's rows and phase auth's new row
+            nq_ = API["recall_queries"]
+            rows_ = axs
+            rid_of = np.arange(n_acl)
+            if "new" in d["acl"]:
+                nid, nv = d["acl"]["new"]
+                rows_ = np.vstack([axs, np.asarray(nv, np.float32)[None]])
+                rid_of = np.append(rid_of, nid)
+            _od, oi = cosine_top(rows_, pqs[:nq_], 10)
+            rec = float(np.mean([
+                len(set(want[qi]) & set(rid_of[oi[qi]].tolist())) / 10
+                for qi in range(nq_)]))
+            check(rec >= 0.99, f"api recall@10 {rec} < 0.99")
+            st, h, raw = http("/api/b/b/nope", b"{}", headers=hdr)
+            check(st == 404 and raw == b"Not found",
+                  f"api unknown path: {st} {raw[:200]}")
+            return {"threads": nt, "requests": n_, "rps": n_ / wall,
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "ids_equal_in_process": True, "recall_at_10": rec,
+                    "unknown_path_status": st}
+
+        def invoke():
+            lat = []
+            for i in range(16):
+                body = json.dumps({"q": pql[i]}).encode()
+                t1 = time.perf_counter()
+                res = root_query(
+                    "RETURN api::invoke('/nearest', { method: 'post', "
+                    "headers: { 'content-type': 'application/json' }, "
+                    "body: $b })", {"b": body})[0]
+                lat.append((time.perf_counter() - t1) * 1e3)
+                check(res["status"] == 200
+                      and record_ids(res["body"]) == state["want"][i],
+                      f"api invoke {i}: {res}")
+            return {"calls": len(lat), "p50_ms": float(np.median(lat)),
+                    "ids_equal_requests": True}
+
+        def changefeed():
+            root_query("ALTER TABLE acl CHANGEFEED 1h")
+            before = root_query("RETURN time::now()")[0]
+            time.sleep(0.003)
+            rid = n_acl + 7
+            v = np.random.default_rng(API["seed"] + 1).standard_normal(
+                dim).astype(np.float32).tolist()
+            t0 = time.perf_counter()
+            root_query("CREATE type::record('acl', $id) SET emb = $v, "
+                       "owner = user:alice", {"id": rid, "v": v})
+            create_ms = (time.perf_counter() - t0) * 1e3
+            first = record_ids(root_query(
+                "SELECT id FROM acl WHERE emb <|1|> $q", {"q": v})[0])
+            check(first == [rid], f"api changefeed: the probe found {first}")
+            show = "SHOW CHANGES FOR TABLE acl SINCE $t"
+            t0 = time.perf_counter()
+            feed = root_query(show, {"t": before})[0]
+            show_ms = (time.perf_counter() - t0) * 1e3
+            ch = [c for e in feed for c in e["changes"]]
+            check(len(ch) == 1 and "update" in ch[0]
+                  and ch[0]["update"]["id"].id == rid,
+                  f"api changefeed: after the CREATE {feed}")
+            root_query("DELETE type::record('acl', $id)", {"id": rid})
+            feed = root_query(show, {"t": before})[0]
+            ch = [c for e in feed for c in e["changes"]]
+            check(len(ch) == 2 and "delete_only" in ch[1]
+                  and ch[1]["delete_only"]["id"].id == rid,
+                  f"api changefeed: after the DELETE {feed}")
+            root_query("ALTER TABLE acl DROP CHANGEFEED")
+            tb = root_query("INFO FOR DB")[0]["tables"]["acl"]
+            check("CHANGEFEED" not in tb, f"api changefeed: {tb}")
+            gone = record_ids(root_query(
+                "SELECT id FROM acl WHERE emb <|1|> $q", {"q": v})[0])
+            check(gone != [rid], "api changefeed: the deleted row answered")
+            return {"create_ms": create_ms, "show_ms": show_ms,
+                    "entries": len(feed), "dropped": True}
+
+        def host_only():
+            n_t = API["tally"]
+            group = ("SELECT g, count() AS n, math::sum(x) AS s FROM tally "
+                     "GROUP BY g ORDER BY g")
+            view = "SELECT g, n, s FROM tally_by ORDER BY g"
+            t0 = time.perf_counter()
+            root_query("DEFINE TABLE tally_by AS SELECT g, count() AS n, "
+                       "math::sum(x) AS s FROM tally GROUP BY g")
+            root_query("INSERT INTO tally $rows RETURN NONE",
+                       {"rows": [{"id": i, "g": i % 8, "x": i}
+                                 for i in range(n_t)]})
+            a, b = root_query(f"{group}; {view}")
+            check(a == b and len(a) == 8, f"api view after inserts: {a} {b}")
+            root_query("FOR $i IN 0..32 { UPDATE type::record('tally', $i) "
+                       "SET x = $i + 1000 }; FOR $i IN 32..64 { DELETE "
+                       "type::record('tally', $i) }")
+            a, b = root_query(f"{group}; {view}")
+            check(a == b and sum(r["n"] for r in a) == n_t - 32,
+                  f"api view after updates and deletes: {a} {b}")
+            view_ms = (time.perf_counter() - t0) * 1e3
+            blob = bytes(range(256)) * 4
+            root_query("DEFINE BUCKET blobs")
+            back = root_query("file::put(f\"blobs:/a.bin\", $b); "
+                              "RETURN file::get(f\"blobs:/a.bin\")",
+                              {"b": blob})[1]
+            check(back == blob, "api bucket: file::get differs")
+            root_query("DEFINE CONFIG GRAPHQL AUTO")
+            t0 = time.perf_counter()
+            gq = '{ tally(order: "x", limit: %d) { x g } }' % n_t
+            st, _h, raw = http("/graphql", json.dumps({"query": gq}).encode(),
+                               headers={"Content-Type": "application/json"})
+            gql_ms = (time.perf_counter() - t0) * 1e3
+            rows = root_query("SELECT x, g FROM tally ORDER BY x")[0]
+            got = json.loads(raw) if st == 200 else raw
+            check(st == 200 and got.get("data", {}).get("tally") == rows,
+                  f"api graphql: {st} {str(got)[:300]}")
+            return {"tally_rows": n_t, "view_ms": view_ms,
+                    "view_equals_group_by": True, "bucket_bytes": len(blob),
+                    "graphql_rows": len(rows), "graphql_ms": gql_ms}
+
+        try:
+            window("define", define, none=True)
+            # in-process root's answers, outside any window, so that
+            # (b)'s counts are the /api requests' own
+            state["want"] = [record_ids(ds.query_one(
+                acl_sql, ns="b", db="b", vars={"q": q})) for q in pql]
+            window("requests", requests, bf16_)
+            window("invoke", invoke, bf16_)
+            window("changefeed", changefeed, bf16_)
+            window("host_only", host_only, none=True)
+            check((tix._dev_key, tix.version, tix._dev_epoch) == store,
+                  "api: knn1m's store was shipped again")
+            ctr = dict(sup_.counters)
+            for name in ("device_fallbacks", "device_host_routed"):
+                check(ctr[name] == ctr0[name],
+                      f"api: {name} moved {ctr0[name]} -> {ctr[name]}")
+            aix = ds.vector_indexes[("b", "b", "acl", "ix")]
+            check(aix.ann_host_descents == hd0, "api: the numpy descent ran")
+            secs = time.perf_counter() - t_0
+            emit("api", mode=sup_.mode, counters=ctr, steps=list(out_all),
+                 seconds=round(secs, 3))
+            check(secs <= API["max_s"],
+                  f"api: {secs:.1f} s > {API['max_s']} s")
+        finally:
+            for c in clients:
+                c.close()
             srv.shutdown()
             srv.server_close()
             d.pop("auth_server", None)
@@ -4467,8 +4773,6 @@ def main(argv=None) -> int:
         one phase auth found. No fallback, host routing or numpy descent
         may occur."""
         import threading
-        import urllib.error
-        import urllib.request
 
         from surrealdb_tpu_torch import server as SRV
         from surrealdb_tpu_torch.device import supervisor as SV
@@ -4492,41 +4796,12 @@ def main(argv=None) -> int:
         url, base = f"ws://127.0.0.1:{port}", f"http://127.0.0.1:{port}"
         sql = "SELECT id FROM tbl WHERE emb <|10,40|> $q"
         ql = [q.tolist() for q in q_[:64]]
-        brute_ = ("distance_tile", "distance_tile_tf32", "distance_tile_simt")
         bf16_ = ("rank_scores_bf16", "select_topk_rows",
                  "gather_rescore_topk")
         out_all, clients, state = {}, [], {"served": True}
 
-        def window(name, fn, needs, absent=brute_):
-            sup_.call("launch_counts", {"reset": True})
-            out = fn()
-            _, m, _ = sup_.call("launch_counts", {})
-            if counts is not None:
-                for kname, v in m["launches"].items():
-                    counts[kname] += v
-            for kname in needs:
-                check(m["launches"][kname] > 0,
-                      f"server {name}: kernel {kname} was not launched")
-            for kname in absent:
-                check(m["launches"].get(kname, 0) == 0,
-                      f"server {name}: kernel {kname} was launched")
-            emit(f"server_{name}", **out,
-                 launches={kn: v for kn, v in m["launches"].items() if v})
-            out_all[name] = out
-
-        def ids(rows):
-            return [r["id"].id for r in rows]
-
-        def http(path, body, headers=None):
-            r = urllib.request.Request(
-                base + path, data=body, method="POST",
-                headers={"surreal-ns": "b", "surreal-db": "b",
-                         **(headers or {})})
-            try:
-                with urllib.request.urlopen(r, timeout=60) as resp:
-                    return resp.status, dict(resp.headers), resp.read()
-            except urllib.error.HTTPError as e:
-                return e.code, dict(e.headers), e.read()
+        window = functools.partial(launch_window, sup_, counts, "server",
+                                   out_all=out_all)
 
         def ws_knn():
             for _ in range(128):
@@ -4568,7 +4843,7 @@ def main(argv=None) -> int:
                                          / out["index_engine_qps"])
             nq_ = 16
             _od, oi = cosine_top(xs_, q_[:nq_], k_)
-            got = [ids(clients[qi].query(sql, {"q": q_[qi].tolist()})[0]
+            got = [record_ids(clients[qi].query(sql, {"q": q_[qi].tolist()})[0]
                        ["result"]) for qi in range(nq_)]
             out["recall_at_10"] = float(np.mean(
                 [len(set(a) & set(b.tolist())) / k_
@@ -4583,13 +4858,13 @@ def main(argv=None) -> int:
             for qi in range(4):
                 want = state["ws_ids"][qi]
                 qv = q_[qi].tolist()
-                st, _h, b = http("/sql", f"LET $q = {json.dumps(qv)}; "
-                                 f"{sql}".encode())
+                st, _h, b = http_call(
+                    base, "/sql", f"LET $q = {json.dumps(qv)}; {sql}".encode())
                 rows = json.loads(b)[1]["result"]
                 check(st == 200 and [int(r["id"].split(":")[1])
                                      for r in rows] == want,
                       f"server /sql: {st} {rows}")
-                st, _h, b = http("/rpc", json.dumps(
+                st, _h, b = http_call(base, "/rpc", json.dumps(
                     {"id": 1, "method": "query",
                      "params": [sql, {"q": qv}]}).encode(),
                     {"Content-Type": "application/json"})
@@ -4620,8 +4895,9 @@ def main(argv=None) -> int:
                   and got[0]["result"]["id"].id == rid,
                   f"server live: notifications {got}")
             t0 = time.perf_counter()
-            first = ids(b.query("SELECT id FROM acl WHERE emb <|10|> $q",
-                                {"q": v})[0]["result"])
+            first = record_ids(b.query(
+                "SELECT id FROM acl WHERE emb <|10|> $q",
+                {"q": v})[0]["result"])
             out["probe_ms"] = (time.perf_counter() - t0) * 1e3
             check(first[:1] == [rid],
                   f"server live: the probe found {first}")
@@ -4684,7 +4960,7 @@ def main(argv=None) -> int:
             td.start()
             while not srv.admission.draining:
                 time.sleep(0.001)
-            st, hdrs, body = http("/sql", b"RETURN 1")
+            st, hdrs, body = http_call(base, "/sql", b"RETURN 1")
             shed = json.loads(body)
             check(st == 503 and shed["code"] == 503
                   and int(hdrs.get("Retry-After", 0)) >= 1,
@@ -4696,7 +4972,7 @@ def main(argv=None) -> int:
             check(dr.get("clean") is True, f"server drain: {dr}")
             rows = res["r"][1]
             check(rows["status"] == "OK" and len(rows["result"]) == k_
-                  and not set(ids(rows["result"])) & set(gone),
+                  and not set(record_ids(rows["result"])) & set(gone),
                   f"server drain: the in-flight query answered {res}")
             check(keeper.shutdowns == 1,
                   f"server drain: supervisor shutdowns {keeper.shutdowns}")
@@ -5443,11 +5719,13 @@ def main(argv=None) -> int:
             entry_check()
         if "batcher" in only:
             batcher_only()
-        if {"engine", "sql", "auth", "ml", "server"} & set(only):
+        if {"engine", "sql", "auth", "ml", "api", "server"} & set(only):
             engine_only(
-                with_sql=bool({"sql", "auth", "ml", "server"} & set(only)),
-                with_auth=bool({"auth", "ml", "server"} & set(only)),
-                with_ml="ml" in only, with_server="server" in only)
+                with_sql=bool({"sql", "auth", "ml", "api", "server"}
+                              & set(only)),
+                with_auth=bool({"auth", "ml", "api", "server"} & set(only)),
+                with_ml="ml" in only, with_api="api" in only,
+                with_server="server" in only)
         if "segments" in only:
             segments_only()
         if "search" in only:
@@ -6573,7 +6851,8 @@ def main(argv=None) -> int:
         # server: signed-in users, then the server's paths ------------------
         knn1m_d = data["sql"].pop("knn1m")
         auth_phase(sup, knn1m_d, launches, keep_server=True)
-        ml_phase(sup, knn1m_d, launches)
+        ml_phase(sup, knn1m_d, launches, keep_server=True)
+        api_phase(sup, knn1m_d, launches)
         server_phase(sup, knn1m_d, launches)
         del knn1m_d
         del data

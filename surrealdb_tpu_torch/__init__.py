@@ -13,7 +13,10 @@ and LIVE SELECT pushes its notifications through `server/fanout.py`.
 `server/` serves a datastore over HTTP and WebSocket RPC (`rpc.py`),
 `sdk/` is its client, and `python -m surrealdb_tpu_torch start` starts
 it. `iam.py` signs users in (root, namespace, database and record
-access) and verifies their tokens.
+access) and verifies their tokens. `api.py` runs DEFINE API endpoints,
+`buc.py` holds DEFINE BUCKET stores, `cf.py` reads and expires
+changefeeds, `exec/views.py` keeps materialised views and `gql.py`
+answers GraphQL.
 
 Importing the package (or any module of it) loads no kernel and never
 initialises CUDA; the entry points run on the card unless the caller

@@ -1,8 +1,8 @@
 """Environment-variable knobs the index engines, the device runner, its
 supervisor, the cross-query batcher, the live-query fan-out and the
-network server read: the KNN, DEVICE, LIVE and HTTP settings of the
-reference package's `cnf.py`, with the same SURREAL_* names and
-defaults."""
+network server and the changefeed GC read: the KNN, DEVICE, LIVE, HTTP
+and CHANGEFEED settings of the reference package's `cnf.py`, with the
+same SURREAL_* names and defaults."""
 
 from __future__ import annotations
 
@@ -255,3 +255,14 @@ LIVE_SWEEP_INTERVAL_S = 30.0
 # embedded in-process notification buffer cap (Datastore.notifications,
 # drained by drain_notifications()); drops are counted, the first warns
 NOTIFY_BUFFER_CAP = 10_000
+
+# -- changefeed GC (cf.py, scheduled by the serving path) --------------------
+# fallback retention for tables/databases whose CHANGEFEED clause
+# carries no duration this build can read (seconds); per-table clauses
+# always win. 0 disables the sweep entirely.
+CHANGEFEED_RETENTION_S = env_float("SURREAL_CHANGEFEED_RETENTION_S",
+                                   3 * 86400.0)
+CHANGEFEED_GC_INTERVAL_S = env_float("SURREAL_CHANGEFEED_GC_INTERVAL_S",
+                                     300.0)
+# changefeed GC: entries examined per database per sweep
+CHANGEFEED_GC_BATCH_SIZE = 1000

@@ -1,16 +1,18 @@
 """Document write pipeline.
 
 Stage order mirrors the reference (doc/mod.rs:12-37): process → alter →
-field(schema) → check(perms) → store → edges → index → event → lives →
-pluck(output). One function per statement kind drives the shared
-pipeline. A table's events (`DEFINE EVENT`) run inside the writing
+field(schema) → check(perms) → store → edges → index → changefeeds → event →
+lives → table(views) → pluck(output). One function per statement kind drives
+the shared pipeline. A table's events (`DEFINE EVENT`) run inside the writing
 transaction (`run_events`: WHEN, then THEN with $event, $before, $after,
 $value and $input bound; an ASYNC event never fails the write and is
 retried up to its RETRY count). Live queries capture each
 committed-to-be mutation here (`notify_lives`) and are matched after the
-commit (server/fanout.py). Changefeeds and materialised views are not
-ported: the statements that would define them raise `NotPorted`, so no
-table reaches the write path with one.
+commit (server/fanout.py). A table or database with a CHANGEFEED logs
+each write under a `#` key (`write_changefeed`, read by SHOW CHANGES in
+`cf.py`); a write to a view's source table refreshes the view
+(`update_views`: the incremental engine of `exec/views.py`, or a rebuild
+by scan for a view shape it refuses).
 """
 
 from __future__ import annotations
@@ -991,8 +993,7 @@ def _single_index_add(idef, rid, doc, ctx):
 
 
 def view_source_tables(sel) -> list:
-    """Table names a view's SELECT reads from (views are not ported;
-    INFO FOR TABLE lists a stored view under its source tables)."""
+    """Table names a view's SELECT reads from."""
     froms = []
     for w in getattr(sel, "what", []):
         if isinstance(w, Idiom) and len(w.parts) == 1 and isinstance(
@@ -1003,7 +1004,7 @@ def view_source_tables(sel) -> list:
 
 
 # ---------------------------------------------------------------------------
-# events / live queries
+# events / changefeeds / live queries / views
 # ---------------------------------------------------------------------------
 
 
@@ -1043,6 +1044,27 @@ def run_events(rid, before, after, action, ctx: Ctx, input_doc=NONE):
             )
 
 
+def write_changefeed(rid, before, after, action, ctx: Ctx):
+    ns, db = ctx.need_ns_db()
+    tdef = ctx.txn.get_val(K.tb_def(ns, db, rid.tb))
+    dbdef = ctx.txn.get_val(K.db_def(ns, db))
+    enabled = (tdef is not None and tdef.changefeed is not None) or (
+        dbdef is not None and dbdef.changefeed is not None
+    )
+    if not enabled:
+        return
+    vs = ctx.ds.next_versionstamp()
+    seq = ctx._cf_seq
+    ctx._cf_seq = seq + 1
+    entry = {
+        "action": action,
+        "rid": rid,
+        "before": before if (tdef and tdef.changefeed_original) else NONE,
+        "after": after,
+    }
+    ctx.txn.set_val(K.changefeed(ns, db, vs, rid.tb, seq), entry)
+
+
 def notify_lives(rid, before, after, action, ctx: Ctx):
     """Live-query CAPTURE (doc/lives.rs:29 process_table_lives).
 
@@ -1070,6 +1092,86 @@ def notify_lives(rid, before, after, action, ctx: Ctx):
         ns, db, rid.tb, rid,
         copy_value(before), copy_value(after), action,
     ))
+
+
+def update_views(rid, before, after, action, ctx: Ctx):
+    """Refresh materialized views that source from this table: the
+    incremental aggregation engine (exec/views.py, reference doc/table.rs)
+    when the view shape supports it, else a scan-based rebuild."""
+    from surrealdb_tpu_torch.exec import views as V
+
+    ns, db = ctx.need_ns_db()
+    for _k, tdef in ctx.txn.scan_vals(*K.prefix_range(K.tb_prefix(ns, db))):
+        if tdef.view is None:
+            continue
+        froms = view_source_tables(tdef.view)
+        if rid.tb not in froms:
+            continue
+        try:
+            analysis = _view_analysis(tdef, ctx)
+        except V.Unsupported:
+            analysis = None
+        if analysis is not None:
+            # aggregate-argument type errors DO fail the source write
+            # (reference: "Argument 1 was the wrong type"); other errors
+            # in view machinery must not break source writes
+            V.process_view(tdef, analysis, rid, before, after, action, ctx)
+        else:
+            try:
+                rebuild_view(tdef, ctx)
+            except SdbError:
+                pass
+
+
+def _view_analysis(tdef, ctx):
+    from surrealdb_tpu_torch.exec import views as V
+
+    return V.analyze_view(tdef.view)
+
+
+def rebuild_view(tdef: TableDef, ctx: Ctx):
+    from surrealdb_tpu_torch.exec.statements import _s_select
+
+    ns, db = ctx.need_ns_db()
+    # clear existing view rows
+    ctx.txn.delete_range(*K.prefix_range(K.record_prefix(ns, db, tdef.name)))
+    # an aggregate view over zero source rows materializes NOTHING — the
+    # GROUP ALL row only appears once source writes contribute (reference
+    # doc/table.rs incremental model; view/removed.surql)
+    empty = True
+    for src in view_source_tables(tdef.view):
+        for _ in ctx.txn.scan(*K.prefix_range(K.record_prefix(ns, db, src)),
+                              limit=1):
+            empty = False
+            break
+        if not empty:
+            break
+    if empty:
+        return
+    rows = _s_select(tdef.view, ctx.child())
+    if not isinstance(rows, list):
+        rows = [rows]
+    group = getattr(tdef.view, "group", None)
+    for i, row in enumerate(rows):
+        if not isinstance(row, dict):
+            continue
+        if group is not None and len(group) > 0:
+            from surrealdb_tpu_torch.exec.statements import expr_name
+
+            gvals = []
+            for g in group:
+                name = expr_name(g)
+                gvals.append(row.get(name, NONE))
+            rid = RecordId(tdef.name, gvals if len(gvals) != 1 else [gvals[0]])
+        elif group is not None:
+            rid = RecordId(tdef.name, [])  # GROUP ALL key
+        elif isinstance(row.get("id"), RecordId):
+            rid = RecordId(tdef.name, row["id"].id)
+        else:
+            rid = RecordId(tdef.name, i)
+        nd = copy_value(row)
+        nd["id"] = rid
+        ctx.txn.set(K.record(ns, db, tdef.name, rid.id), serialize(nd))
 
 
 # ---------------------------------------------------------------------------
@@ -1163,8 +1265,8 @@ def _index_msg_value(v):
 
 
 def _store_record(rid, before, after, ctx: Ctx, action, output, edge=None):
-    """Shared store stages: schema, perms, write, edges, indexes, events,
-    lives, output."""
+    """Shared store stages: schema, perms, write, edges, indexes, cf, events,
+    lives, views, output."""
     ns, db = ctx.need_ns_db()
     # the user-supplied document, before schema/VALUE clauses ($input)
     input_doc = copy_value(after) if isinstance(after, dict) else NONE
@@ -1258,10 +1360,14 @@ def _store_record(rid, before, after, ctx: Ctx, action, output, edge=None):
     index_update(rid, before, after, ctx)
     # record references (REFERENCE fields)
     refs_update(rid, before, after, ctx)
+    # changefeed
+    write_changefeed(rid, before, after, action, ctx)
     # events
     run_events(rid, before, after, action, ctx, input_doc)
     # live queries
     notify_lives(rid, before, after, action, ctx)
+    # views
+    update_views(rid, before, after, action, ctx)
     return shape_output(output, before, after, rid, ctx)
 
 
@@ -1544,8 +1650,10 @@ def delete_one(rid: RecordId, before, output, ctx: Ctx):
                 delete_one(erid, edoc, OutputClause("none"), ctx)
     index_update(rid, before, NONE, ctx)
     refs_update(rid, before, NONE, ctx)
+    write_changefeed(rid, before, NONE, "DELETE", ctx)
     run_events(rid, before, NONE, "DELETE", ctx)
     notify_lives(rid, before, NONE, "DELETE", ctx)
+    update_views(rid, before, NONE, "DELETE", ctx)
     if output is None:
         return NONE
     return shape_output(output, before, NONE, rid, ctx)

@@ -3661,9 +3661,12 @@ def _s_define_db(n: DefineDatabase, ctx):
     if _exists_guard(ctx, K.db_def(ns, n.name), n.name, "database",
                      n.if_not_exists, n.overwrite):
         return NONE
-    if n.changefeed is not None:
-        raise NotPorted("CHANGEFEED is not ported")
     cf = None
+    if n.changefeed is not None:
+        from surrealdb_tpu_torch.val import Duration
+
+        d = evaluate(n.changefeed, ctx)
+        cf = d.ns if isinstance(d, Duration) else int(d)
     ctx.txn.set_val(
         K.db_def(ns, n.name),
         DatabaseDef(n.name, n.comment, cf, strict=getattr(n, "strict", False)),
@@ -3672,16 +3675,17 @@ def _s_define_db(n: DefineDatabase, ctx):
 
 
 def _s_define_table(n: DefineTable, ctx):
-    if n.view is not None:
-        raise NotPorted("DEFINE TABLE ... AS SELECT (views) is not ported")
     _ensure_ns_db(ctx)
     ns, db = ctx.need_ns_db()
     if _exists_guard(ctx, K.tb_def(ns, db, n.name), n.name, "table",
                      n.if_not_exists, n.overwrite):
         return NONE
-    if n.changefeed is not None:
-        raise NotPorted("CHANGEFEED is not ported")
     cf = None
+    if n.changefeed is not None:
+        from surrealdb_tpu_torch.val import Duration
+
+        d = evaluate(n.changefeed, ctx)
+        cf = d.ns if isinstance(d, Duration) else int(d)
     # TYPE defaults: SCHEMAFULL implies NORMAL, otherwise ANY
     # (reference DefineTableStatement); explicit TYPE always wins
     if n.kind is None:
@@ -3728,7 +3732,46 @@ def _s_define_table(n: DefineTable, ctx):
                         name=[PField(fname)], name_str=fname, kind=kk
                     ),
                 )
+    if n.view is not None:
+        _materialize_view(tdef, ctx)
     return NONE
+
+
+def _materialize_view(tdef: TableDef, ctx):
+    """Populate a `DEFINE TABLE ... AS SELECT` view at definition time by
+    feeding every existing source record through the incremental engine
+    (reference doc/table.rs model — leaves per-group aggregation stats in
+    place for later writes). Build errors don't fail the DEFINE."""
+    from surrealdb_tpu_torch.exec import views as V
+    from surrealdb_tpu_torch.exec.document import rebuild_view, view_source_tables
+    from surrealdb_tpu_torch.kvs.api import deserialize
+
+    try:
+        analysis = V.analyze_view(tdef.view)
+    except V.Unsupported:
+        analysis = None
+    if analysis is None:
+        try:
+            rebuild_view(tdef, ctx)
+        except SdbError:
+            pass
+        return
+    ns, db = ctx.need_ns_db()
+    # clear any stale rows + stats for a redefinition
+    ctx.txn.delete_range(*K.prefix_range(K.record_prefix(ns, db, tdef.name)))
+    ctx.txn.delete_range(*K.prefix_range(K.view_meta(ns, db, tdef.name)))
+    try:
+        for src in view_source_tables(tdef.view):
+            beg, end = K.prefix_range(K.record_prefix(ns, db, src))
+            for k, raw in list(ctx.txn.scan(beg, end)):
+                doc = deserialize(raw)
+                rid = doc.get("id") if isinstance(doc, dict) else None
+                if not isinstance(rid, RecordId):
+                    _ns2, _db2, _tb2, idv = K.decode_record_id(k)
+                    rid = RecordId(src, idv)
+                V.process_view(tdef, analysis, rid, NONE, doc, "CREATE", ctx)
+    except SdbError:
+        pass
 
 
 def _kind_all_records(kind) -> bool:
@@ -4509,6 +4552,101 @@ def _s_define_sequence(n: DefineSequence, ctx):
     return NONE
 
 
+def _s_define_config(n: DefineConfig, ctx):
+    from surrealdb_tpu_torch.catalog import (
+        ApiActionDef,
+        ApiDef,
+        BucketDef,
+        ConfigDef,
+    )
+
+    if n.what == "DEFAULT":
+        # KV-level default session namespace/database (INFO FOR KV .defaults)
+        key = K.cfg_def("", "", "DEFAULT")
+        if _exists_guard(ctx, key, "DEFAULT", "config", n.if_not_exists,
+                         n.overwrite):
+            return NONE
+        ctx.txn.set_val(key, dict(n.config))
+        return NONE
+    _ensure_ns_db(ctx)
+    ns, db = ctx.need_ns_db()
+    if n.what == "API_DEF":
+        from surrealdb_tpu_torch.api import validate_define_path
+
+        cfg = n.config
+        validate_define_path(str(cfg["path"]))
+        key = K.api_def(ns, db, cfg["path"])
+        if _exists_guard(ctx, key, cfg["path"], "api", n.if_not_exists,
+                         n.overwrite):
+            return NONE
+        # middleware args are computed at define time (reference:
+        # parameterized/schema/api.surql renders fn::middleware('auth'))
+        def _mw(mw):
+            return [
+                (name, [Literal(evaluate(a, ctx)) for a in args])
+                for name, args in mw
+            ]
+
+        actions = [
+            ApiActionDef(a["methods"], _mw(a["middleware"]), a["permissions"],
+                         a["then"])
+            for a in cfg["actions"]
+        ]
+        comment = cfg.get("comment")
+        if comment is not None and not isinstance(comment, str):
+            comment = evaluate(comment, ctx)
+            if comment is NONE:
+                comment = None
+        ctx.txn.set_val(key, ApiDef(cfg["path"], actions, None, comment))
+        return NONE
+    if n.what == "BUCKET":
+        cfg = n.config
+        key = K.bucket_def(ns, db, cfg["name"])
+        if _exists_guard(ctx, key, cfg["name"], "bucket", n.if_not_exists,
+                         n.overwrite):
+            return NONE
+        comment = cfg.get("comment")
+        if comment is not None and not isinstance(comment, str):
+            comment = evaluate(comment, ctx)
+            if comment is NONE:
+                comment = None
+        from surrealdb_tpu_torch.buc import check_backend_allowed
+
+        backend = cfg.get("backend")
+        if backend is not None and not isinstance(backend, str):
+            backend = evaluate(backend, ctx)
+        check_backend_allowed(backend)
+        ctx.txn.set_val(
+            key,
+            BucketDef(cfg["name"], backend,
+                      cfg.get("readonly", False),
+                      cfg.get("permissions", True), comment),
+        )
+        return NONE
+    key = K.cfg_def(ns, db, n.what)
+    if _exists_guard(ctx, key, n.what, "config", n.if_not_exists, n.overwrite,
+                     msg=f"The config for {n.what.lower()} already exists"):
+        return NONE
+    cd = ConfigDef(n.what)
+    cfg = n.config
+    if "middleware" in cfg:
+        cd.middleware = cfg["middleware"]
+    if "permissions" in cfg:
+        cd.permissions = cfg["permissions"]
+    if "tables" in cfg:
+        cd.tables = cfg["tables"]
+    if "functions" in cfg:
+        cd.functions = cfg["functions"]
+    if "depth" in cfg:
+        cd.depth = cfg["depth"]
+    if "complexity" in cfg:
+        cd.complexity = cfg["complexity"]
+    if "introspection" in cfg:
+        cd.introspection = cfg["introspection"]
+    ctx.txn.set_val(key, cd)
+    return NONE
+
+
 def _s_remove(n: RemoveStmt, ctx: Ctx):
     ns = ctx.session.ns
     db = ctx.session.db
@@ -4543,6 +4681,22 @@ def _s_remove(n: RemoveStmt, ctx: Ctx):
         key = K.tb_def(ns, db, n.name)
         if _guard(key, n.name):
             return NONE
+        # a table with dependent views cannot be removed (reference
+        # catalog guard; view/removed.surql, view/delete_view.surql)
+        from surrealdb_tpu_torch.exec.document import view_source_tables
+
+        dependents = [
+            d.name
+            for _k, d in ctx.txn.scan_vals(*K.prefix_range(K.tb_prefix(ns, db)))
+            if d.view is not None and d.name != n.name
+            and n.name in view_source_tables(d.view)
+        ]
+        if dependents:
+            raise SdbError(
+                f"Invalid query: Cannot delete table `{n.name}` on which a "
+                f"view is defined, table(s) `{'`, `'.join(dependents)}` are "
+                f"defined as a view on this table."
+            )
         ctx.txn.delete(key)
         for kk in (K.fd_prefix, K.ix_prefix, K.ev_prefix, K.lq_prefix):
             ctx.txn.delete_range(*K.prefix_range(kk(ns, db, n.name)))
@@ -4640,7 +4794,27 @@ def _s_remove(n: RemoveStmt, ctx: Ctx):
         ctx.txn.delete(key)
         ctx.ds.sequences.pop((ns, db, n.name), None)
         return NONE
-    if kind in ("config", "api", "bucket", "module"):
+    if kind in ("config", "api", "bucket"):
+        keyf = {"config": K.cfg_def, "api": K.api_def,
+                "bucket": K.bucket_def}[kind]
+        nm = n.name.upper() if kind == "config" else n.name
+        if kind == "config" and nm == "DEFAULT":
+            # DEFINE stores DEFAULT at root level; REMOVE checks there even
+            # when ALTER upserted a DB-level copy (reference behaviour)
+            key = K.cfg_def("", "", "DEFAULT")
+        else:
+            key = keyf(ns, db, nm)
+        if ctx.txn.get(key) is None:
+            if n.if_exists:
+                return NONE
+            if kind == "config":
+                raise SdbError(
+                    f"The config for {n.name.lower()} does not exist"
+                )
+            raise SdbError(f"The {kind} '{nm}' does not exist")
+        ctx.txn.delete(key)
+        return NONE
+    if kind == "module":
         raise NotPorted(f"REMOVE {kind.upper()} is not ported")
     raise SdbError(f"unknown REMOVE kind {kind}")
 
@@ -4681,8 +4855,14 @@ def _s_alter(n: AlterTable, ctx: Ctx):
             if isinstance(c, Node):
                 c = evaluate(c, ctx)
             tdef.comment = None if c is NONE else c
-    if n.changefeed is not None and n.changefeed != "__drop__":
-        raise NotPorted("CHANGEFEED is not ported")
+    if n.changefeed is not None:
+        if n.changefeed == "__drop__":
+            tdef.changefeed = None
+        else:
+            from surrealdb_tpu_torch.val import Duration
+
+            d = evaluate(n.changefeed, ctx)
+            tdef.changefeed = d.ns if isinstance(d, Duration) else int(d)
     ctx.txn.set_val(key, tdef)
     return NONE
 
@@ -4708,7 +4888,37 @@ def _s_alter_other(n: AlterStmt, ctx: Ctx):
                 "The storage layer does not support compaction requests."
             )
         return NONE  # COMPACT is a maintenance hint elsewhere
-    if kind in ("config", "api", "bucket", "module"):
+    if kind == "config":
+        spec = dict(n.changes).get("config_spec") or {}
+        what = n.name.upper()
+        if what == "DEFAULT":
+            # upsert behaviour, stored at DB level (unlike DEFINE, which
+            # stores at root — REMOVE CONFIG DEFAULT checks root and errors)
+            from surrealdb_tpu_torch.catalog import ConfigDef
+
+            key = K.cfg_def(ns, db, "DEFAULT")
+            d = ctx.txn.take_val(key)
+            if not isinstance(d, ConfigDef):
+                d = ConfigDef("DEFAULT")
+            for k2 in ("namespace", "database"):
+                if k2 in spec:
+                    v = spec[k2]
+                    setattr(d, k2, v if isinstance(v, str) else evaluate(v, ctx))
+            ctx.txn.set_val(key, d)
+            return NONE
+        key = K.cfg_def(ns, db, what)
+        d = ctx.txn.take_val(key)
+        if d is None:
+            if n.if_exists:
+                return NONE
+            raise SdbError(f"The config for {what.lower()} does not exist")
+        for k2 in ("middleware", "permissions", "tables", "functions",
+                   "depth", "complexity", "introspection"):
+            if k2 in spec:
+                setattr(d, k2, spec[k2])
+        ctx.txn.set_val(key, d)
+        return NONE
+    if kind == "module":
         raise NotPorted(f"ALTER {kind.upper()} is not ported")
     if kind in ("system", "model"):
         if kind == "system":
@@ -4736,6 +4946,67 @@ def _s_alter_other(n: AlterStmt, ctx: Ctx):
                         ctx.txn.set_val(skey, cfg)
                     else:
                         ctx.txn.delete(skey)
+        return NONE
+    if kind in ("api", "bucket"):
+        keyf = K.api_def if kind == "api" else K.bucket_def
+        key = keyf(ns, db, n.name)
+        d = ctx.txn.take_val(key)
+        if d is None:
+            if n.if_exists:
+                return NONE
+            raise SdbError(f"The {kind} '{n.name}' does not exist")
+        for clause, value in n.changes:
+            if value == "__drop__":
+                if clause == "comment":
+                    d.comment = None
+                elif clause == "readonly":
+                    d.readonly = False
+                continue
+            if clause == "comment":
+                v = value
+                if not isinstance(v, (str, type(None))):
+                    v = evaluate(v, ctx)
+                    if v is NONE:
+                        v = None
+                d.comment = v
+            elif clause == "api_then":
+                methods, body = value
+                from surrealdb_tpu_torch.catalog import ApiActionDef
+
+                if methods == ["any"]:
+                    # the fallback updates in place (it renders first)
+                    for a in d.actions:
+                        if "any" in a.methods:
+                            a.then = body
+                            break
+                    else:
+                        d.actions.append(ApiActionDef(["any"], [], True, body))
+                else:
+                    # an updated method handler moves to the END of the
+                    # action list (the reference removes + re-pushes)
+                    for a in list(d.actions):
+                        if set(a.methods) == set(methods):
+                            d.actions.remove(a)
+                            a.then = body
+                            d.actions.append(a)
+                            break
+                    else:
+                        d.actions.append(ApiActionDef(methods, [], True, body))
+            elif clause == "api_drop_then":
+                methods = value
+                for a in list(d.actions):
+                    if not any(m in a.methods for m in methods):
+                        continue
+                    # selective drop: surviving methods of a multi-method
+                    # group keep the handler under the remaining methods
+                    a.methods = [m for m in a.methods if m not in methods]
+                    if not a.methods:
+                        a.then = None
+                        if not a.middleware:
+                            d.actions.remove(a)
+            elif hasattr(d, clause):
+                setattr(d, clause, value)
+        ctx.txn.set_val(key, d)
         return NONE
     keymap = {
         "field": lambda: K.fd_def(ns, db, n.tb, n.name if isinstance(n.name, str) else _field_name_str(n.name)),
@@ -5218,6 +5489,12 @@ _GRANT_POOL = (
 )
 
 
+def _s_show(n: ShowStmt, ctx: Ctx):
+    from surrealdb_tpu_torch.cf import read_changes
+
+    return read_changes(n, ctx)
+
+
 def _s_live(n: LiveStmt, ctx: Ctx):
     ns, db = ctx.need_ns_db()
     what = _target_value(n.what, ctx)
@@ -5492,7 +5769,7 @@ _STMTS = {
     DefineAccess: _s_define_access,
     DefineModule: _unported("DEFINE MODULE"),
     DefineSequence: _s_define_sequence,
-    DefineConfig: _unported("DEFINE CONFIG"),
+    DefineConfig: _s_define_config,
     RemoveStmt: _s_remove,
     AlterTable: _s_alter,
     AlterStmt: _s_alter_other,
@@ -5501,7 +5778,7 @@ _STMTS = {
     InfoStmt: _s_info,
     LiveStmt: _s_live,
     KillStmt: _s_kill,
-    ShowStmt: _unported("SHOW CHANGES"),
+    ShowStmt: _s_show,
     AccessStmt: _s_access,
 }
 

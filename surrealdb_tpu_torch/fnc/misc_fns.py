@@ -5,9 +5,9 @@ CBOR; byte lengths; haversine distance and bearing, centroid, area and
 geohash; the session's attributes; batch-allocated sequences;
 `value::chain` / `diff` / `patch` over `utils/patch.py`; the full-text
 score, highlight, offsets and analyze functions over `idx/fulltext.py`
-and the rrf and linear fusions). The http::, api:: and file:: families
-are not ported (`fnc/unported.py`): their names register here, at their
-place in the reference's order, and raise `NotPorted`."""
+and the rrf and linear fusions), http:: (behind the `allows_net`
+capability), api::invoke (`api.py`) and file:: over DEFINE BUCKET
+stores (`buc.py`)."""
 
 from __future__ import annotations
 
@@ -20,11 +20,7 @@ from decimal import Decimal
 
 from surrealdb_tpu_torch.err import SdbError
 from surrealdb_tpu_torch.fnc import _str, register
-from surrealdb_tpu_torch.fnc.unported import (
-    UNPORTED_AFTER_SEARCH,
-    register_unported,
-)
-from surrealdb_tpu_torch.val import NONE, Geometry
+from surrealdb_tpu_torch.val import NONE, Geometry, to_json
 
 
 # -- crypto -------------------------------------------------------------------
@@ -1164,5 +1160,264 @@ def _search_linear(args, ctx):
     return res
 
 
-# http::, api::, file:: (not ported)
-register_unported(UNPORTED_AFTER_SEARCH)
+def _http_call(method):
+    def call(args, ctx):
+        from urllib.parse import urlparse
+
+        url = _str(args[0], f"http::{method}", 1)
+        parsed = urlparse(url)
+        host = parsed.hostname or ""
+        target = f"{host}:{parsed.port}" if parsed.port else host
+        caps = getattr(ctx.ds, "capabilities", None)
+        # network access is deny-by-default (reference capability gate)
+        if caps is None or not caps.allows_net(target):
+            raise SdbError(
+                f"Access to network target '{target}' is not allowed"
+            )
+        import json as _json
+        import urllib.request
+
+        body = args[1] if len(args) > 1 else None
+        headers = args[2] if len(args) > 2 else {}
+        data = None
+        req_headers = dict(headers) if isinstance(headers, dict) else {}
+        if body is not None and body is not NONE and method in (
+            "put", "post", "patch"
+        ):
+            if isinstance(body, (dict, list)):
+                data = _json.dumps(to_json(body)).encode()
+                req_headers.setdefault("Content-Type", "application/json")
+            elif isinstance(body, bytes):
+                data = body
+            else:
+                data = str(body).encode()
+        req = urllib.request.Request(
+            url, method=method.upper(), data=data, headers=req_headers
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                raw = resp.read()
+                if method == "head":
+                    return NONE
+                ctype = resp.headers.get("Content-Type", "")
+                if "json" in ctype:
+                    try:
+                        return _json.loads(raw)
+                    except ValueError:
+                        pass
+                try:
+                    return raw.decode()
+                except UnicodeDecodeError:
+                    return raw
+        except Exception as e:
+            raise SdbError(f"There was an error processing a remote HTTP request: {e}")
+
+    return call
+
+
+for _m in ("head", "get", "put", "post", "patch", "delete"):
+    register(f"http::{_m}")(_http_call(_m))
+
+
+@register("api::invoke")
+def _api_invoke(args, ctx):
+    """Invoke a DEFINE API endpoint through the full middleware engine
+    (reference core/src/api/mod.rs)."""
+    from surrealdb_tpu_torch.api import invoke as _invoke
+
+    path = _str(args[0], "api::invoke", 1)
+    opts = args[1] if len(args) > 1 and isinstance(args[1], dict) else {}
+    return _invoke(ctx, path, opts)
+
+
+@register("file::bucket")
+def _file_bucket(args, ctx):
+    from surrealdb_tpu_torch.val import File
+
+    v = args[0]
+    if isinstance(v, File):
+        return v.bucket
+    raise SdbError("Incorrect arguments for function file::bucket(). Expected a file")
+
+
+@register("file::key")
+def _file_key(args, ctx):
+    from surrealdb_tpu_torch.val import File
+
+    v = args[0]
+    if isinstance(v, File):
+        return v.key
+    raise SdbError("Incorrect arguments for function file::key(). Expected a file")
+
+
+# -- file:: bucket operations (reference core/src/buc/ + fnc file ops) ------
+
+
+def _file_arg(args, fname):
+    from surrealdb_tpu_torch.val import File
+
+    v = args[0] if args else NONE
+    if not isinstance(v, File):
+        raise SdbError(
+            f"Incorrect arguments for function file::{fname}(). Expected a file"
+        )
+    return v
+
+
+def _as_bytes(v, fname):
+    if isinstance(v, (bytes, bytearray)):
+        return bytes(v)
+    if isinstance(v, str):
+        return v.encode("utf-8")
+    if isinstance(v, list) and all(
+        isinstance(x, int) and not isinstance(x, bool) and 0 <= x < 256
+        for x in v
+    ):
+        return bytes(v)  # int arrays coerce to bytes (reference file ops)
+    raise SdbError(
+        f"Incorrect arguments for function file::{fname}(). "
+        f"Expected bytes or string data"
+    )
+
+
+@register("file::put")
+def _file_put(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    f = _file_arg(args, "put")
+    get_bucket(f.bucket, ctx, for_write=True).put(
+        f.key, _as_bytes(args[1] if len(args) > 1 else NONE, "put")
+    )
+    return NONE
+
+
+@register("file::put_if_not_exists")
+def _file_put_ine(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    f = _file_arg(args, "put_if_not_exists")
+    get_bucket(f.bucket, ctx, for_write=True).put_if_not_exists(
+        f.key, _as_bytes(args[1] if len(args) > 1 else NONE,
+                         "put_if_not_exists")
+    )
+    return NONE
+
+
+@register("file::get")
+def _file_get(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    f = _file_arg(args, "get")
+    data = get_bucket(f.bucket, ctx).get(f.key)
+    return NONE if data is None else data
+
+
+@register("file::head")
+def _file_head(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    f = _file_arg(args, "head")
+    meta = get_bucket(f.bucket, ctx).head(f.key)
+    return NONE if meta is None else meta
+
+
+@register("file::exists")
+def _file_exists(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    f = _file_arg(args, "exists")
+    return get_bucket(f.bucket, ctx).exists(f.key)
+
+
+@register("file::delete")
+def _file_delete(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    f = _file_arg(args, "delete")
+    get_bucket(f.bucket, ctx, for_write=True).delete(f.key)
+    return NONE
+
+
+def _dst_target(args, fname):
+    """Destination (bucket|None, key): a string stays in the source bucket,
+    a File may point into another bucket (cross-bucket copy/rename)."""
+    v = args[1] if len(args) > 1 else NONE
+    from surrealdb_tpu_torch.val import File as _File
+
+    if isinstance(v, _File):
+        return v.bucket, v.key
+    if isinstance(v, str):
+        return None, (v if v.startswith("/") else "/" + v)
+    raise SdbError(
+        f"Incorrect arguments for function file::{fname}(). Expected a key"
+    )
+
+
+def _copy_like(ctx, f, args, fname, if_not_exists=False,
+               idempotent_missing=False, remove_src=False):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    src = get_bucket(f.bucket, ctx, for_write=remove_src)
+    dbucket, dkey = _dst_target(args, fname)
+    if dbucket is None or dbucket == f.bucket:
+        if remove_src:
+            src.rename(f.key, dkey, if_not_exists=if_not_exists)
+        else:
+            src.copy(f.key, dkey, if_not_exists=if_not_exists,
+                     idempotent_missing=idempotent_missing)
+        return
+    dst = get_bucket(dbucket, ctx, for_write=True)
+    data = src.get(f.key)
+    if data is None:
+        if idempotent_missing:
+            return
+        src._missing_source(f.key)
+    if if_not_exists and dst.exists(dkey):
+        return
+    dst.put(dkey, data)
+    if remove_src:
+        src.delete(f.key)
+
+
+@register("file::copy")
+def _file_copy(args, ctx):
+    f = _file_arg(args, "copy")
+    _copy_like(ctx, f, args, "copy")
+    return NONE
+
+
+@register("file::copy_if_not_exists")
+def _file_copy_ine(args, ctx):
+    f = _file_arg(args, "copy_if_not_exists")
+    _copy_like(ctx, f, args, "copy_if_not_exists", if_not_exists=True,
+               idempotent_missing=True)
+    return NONE
+
+
+@register("file::rename")
+def _file_rename(args, ctx):
+    f = _file_arg(args, "rename")
+    _copy_like(ctx, f, args, "rename", remove_src=True)
+    return NONE
+
+
+@register("file::rename_if_not_exists")
+def _file_rename_ine(args, ctx):
+    f = _file_arg(args, "rename_if_not_exists")
+    _copy_like(ctx, f, args, "rename_if_not_exists", if_not_exists=True,
+               remove_src=True)
+    return NONE
+
+
+@register("file::list")
+def _file_list(args, ctx):
+    from surrealdb_tpu_torch.buc import get_bucket
+
+    name = args[0] if args else NONE
+    if not isinstance(name, str):
+        raise SdbError(
+            "Incorrect arguments for function file::list(). Expected a "
+            "bucket name"
+        )
+    opts = args[1] if len(args) > 1 and isinstance(args[1], dict) else None
+    return get_bucket(name, ctx).list(opts)

@@ -5,14 +5,14 @@ responses). Shared by the WebSocket session actor and the HTTP one-shot
 
 `signin`, `signup` and `authenticate` go through `iam.py`: they change
 the connection's session (its auth level, base, record id and token)
-for every later method. `graphql` needs `gql.py`, which is not ported,
-so it raises `NotPorted` naming itself."""
+for every later method. `graphql` runs a GraphQL query through
+`gql.py`."""
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from surrealdb_tpu_torch.err import NotPorted, SdbError
+from surrealdb_tpu_torch.err import SdbError
 from surrealdb_tpu_torch.kvs.ds import Datastore, Session
 from surrealdb_tpu_torch.val import NONE, RecordId, Table, to_json
 
@@ -253,7 +253,18 @@ class RpcSession:
         return NONE
 
     def rpc_graphql(self, params):
-        raise NotPorted("the rpc method graphql is not ported (no gql)")
+        from surrealdb_tpu_torch.gql import execute_graphql
+
+        if not params:
+            raise RpcError(-32602, "Invalid params")
+        q = params[0]
+        if isinstance(q, dict):
+            query = q.get("query", "")
+            variables = q.get("variables") or {}
+        else:
+            query = str(q)
+            variables = {}
+        return execute_graphql(self.ds, self.session, query, variables)
 
 
 def _thing(v):

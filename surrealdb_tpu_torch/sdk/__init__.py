@@ -21,10 +21,11 @@ negotiation, or one-shot HTTP `/rpc` POSTs.
     lid = db.live("person", lambda n: print(n))
 
 `signin`, `signup` and `authenticate` go through the server's `iam.py`
-(the HTTP engine replays the session's token on each request). Not
-ported: the flatbuffers format (`fmt="fb"`, which needs the
-`flatbuffers` package) and the `remote://` engine raise `NotPorted`;
-`graphql` reaches the server, whose `rpc.py` answers `NotPorted`.
+(the HTTP engine replays the session's token on each request);
+`graphql` reaches the server's `gql.py`. Not ported: the flatbuffers
+format (`fmt="fb"`, which needs the `flatbuffers` package) and the
+`remote://` engine raise `NotPorted`; so do the server's /export,
+/import and /kv/topology routes.
 """
 
 from __future__ import annotations

@@ -12,10 +12,13 @@ admission gate, X-Surreal-Timeout and cancel-on-disconnect guard every
 data route. POST /signin and /signup answer a token (`iam.py`); an
 `Authorization: Bearer <token>` header authenticates the request's
 session (an invalid token is a 401, never an anonymous session) and
-`Basic` signs its user in. Left out, each answering with the reference's
-error envelope for the route and a `NotPorted` message naming it:
-/api/* (`DEFINE API`), /graphql, /export, /import and /kv/topology;
-the flatbuffers format."""
+`Basic` signs its user in. /api/:ns/:db/* answers DEFINE API endpoints
+(`api.py`, through `RETURN api::invoke`), POST /graphql a GraphQL query
+(`gql.py`). A served datastore sweeps expired changefeed entries
+(`cf.py changefeed_gc_tick`) every SURREAL_CHANGEFEED_GC_INTERVAL_S.
+Left out, each answering with the reference's error envelope for the
+route and a `NotPorted` message naming it: /export, /import and
+/kv/topology; the flatbuffers format."""
 
 from __future__ import annotations
 
@@ -172,9 +175,55 @@ class SurrealHandler(BaseHTTPRequestHandler):
         return out
 
     def _api_route(self, method: str):
-        """/api/:ns/:db/<path> serves DEFINE API endpoints, which are
-        not ported: the route's error envelope (404) names it."""
-        self._refuse(404, {"error": _not_ported("/api/* (DEFINE API)")})
+        """Serve DEFINE API endpoints: /api/:ns/:db/<path> (reference
+        server ntw /api/* + core/src/api)."""
+        parsed = urlparse(self.path)
+        segs = [unquote(x) for x in parsed.path.split("/") if x != ""]
+        if len(segs) < 3:
+            self._json(404, {"error": "Not found"})
+            return
+        _, ns, db = segs[0], segs[1], segs[2]
+        apath = "/" + "/".join(segs[3:])
+        sess = self._session()
+        sess.ns, sess.db = ns, db
+        # the engine's body middleware (api::req::body) expects the raw
+        # bytes — parsing here would break every strategy
+        body = self._body()
+        query = {k: (v[0] if len(v) == 1 else v)
+                 for k, v in parse_qs(parsed.query).items()}
+        opts = {
+            "method": method.lower(),
+            "headers": {k.lower(): v for k, v in self.headers.items()},
+            "query": query,
+        }
+        if body:
+            opts["body"] = body
+        res = self.ds.execute(
+            "RETURN api::invoke($p, $o)", session=sess,
+            vars={"p": apath, "o": opts},
+        )[0]
+        if res.error is not None:
+            self._json(404, {"error": res.error})
+            return
+        out = res.result if isinstance(res.result, dict) else {}
+        status = int(out.get("status", 200))
+        hdrs = {str(k).lower(): str(v)
+                for k, v in (out.get("headers") or {}).items()}
+        body_v = out.get("body")
+        if isinstance(body_v, (bytes, bytearray)):
+            payload = bytes(body_v)  # already serialized by api::res::body
+        elif isinstance(body_v, str):
+            payload = body_v.encode()
+            hdrs.setdefault("content-type", "text/plain")
+        else:
+            payload = json.dumps(to_json(body_v)).encode()
+            hdrs.setdefault("content-type", "application/json")
+        self.send_response(status)
+        for k, v in hdrs.items():
+            self.send_header(k, v)
+        self.send_header("Content-Length", str(len(payload)))
+        self.end_headers()
+        self.wfile.write(payload)
 
     # -- admission / deadline / cancellation --------------------------------
     def _deadline(self):
@@ -500,9 +549,18 @@ class SurrealHandler(BaseHTTPRequestHandler):
             self._key_route("POST")
             return
         if path == "/graphql":
-            # the GraphQL route's error envelope
-            self._refuse(200, {"errors": [
-                {"message": _not_ported("/graphql")}]})
+            from surrealdb_tpu_torch.gql import execute_graphql
+
+            sess = self._session()
+            try:
+                req = json.loads(self._body() or b"{}")
+                out = execute_graphql(
+                    self.ds, sess, req.get("query", ""),
+                    req.get("variables") or {},
+                )
+                self._json(200, to_json(out))
+            except SdbError as e:
+                self._json(200, {"errors": [{"message": str(e)}]})
             return
         self._json(404, {"error": "Not found"})
 
@@ -896,6 +954,9 @@ def drain_and_shutdown(srv, ds: Datastore, drain_timeout_s: float) -> bool:
     # the CancelEvent wakers wake parked writers immediately
     ds.fanout.drain(timeout=min(drain_timeout_s, 5.0))
     ds.fanout.close_all()
+    cf_gc = getattr(srv, "cf_gc_handle", None)
+    if cf_gc is not None:
+        cf_gc.cancel()
     srv.shutdown()
     # the device runner holds nothing durable (its caches rebuild from
     # KV truth) — kill it with the server instead of leaving an orphan
@@ -934,6 +995,22 @@ def serve(ds: Datastore, host="127.0.0.1", port=8000, unauthenticated=False,
     # served nodes join the cluster: heartbeat + membership GC loops
     # (reference engine/tasks.rs); embedded datastores stay single-node
     ds.start_node_tasks()
+    # changefeed GC rides the Runtime seam as a served-node background
+    # task (reference engine/tasks.rs:48-56 — it existed but nothing
+    # ever scheduled it); single cluster winner via TaskLease inside
+    from surrealdb_tpu_torch import cf as _cf
+    from surrealdb_tpu_torch.kvs import net as _net
+
+    if cnf.CHANGEFEED_RETENTION_S > 0:
+        def _cf_tick():
+            # drop the purge count: a numeric tick return overrides the
+            # loop's next delay (Runtime.every contract)
+            _cf.changefeed_gc_tick(ds)
+
+        srv.cf_gc_handle = _net.REAL_RUNTIME.every(
+            cnf.CHANGEFEED_GC_INTERVAL_S, _cf_tick,
+            name="surreal-cf-gc",
+        )
     # prewarm the device runner at boot (async): torch/CUDA init happens
     # in the supervised subprocess under the init watchdog while the
     # server is already accepting (in mode auto early queries serve from

@@ -6,8 +6,8 @@ through a reference and a port datastore (`torch_sql_harness.both`):
 results and error texts must be equal. Tolerance: the harness's (floats
 atol 1e-4, rtol 1e-5), and the geo:: cases besides compare their floats
 with `==` (both packages run the same stdlib math in the same order).
-A test of the registry holds its order to the reference's and the
-names left in `fnc/unported.py` to the http::, api:: and file:: ones.
+A test of the registry holds its order to the reference's, with the
+http::, api:: and file:: names ported functions of `fnc/misc_fns.py` too.
 """
 
 import pytest
@@ -225,17 +225,17 @@ def test_cbor_bytes_equal_reference(both):
 
 
 def test_registry_order_and_left_out_names():
-    """The registry's order is the reference's, and the names left in
-    `fnc/unported.py` are exactly the http::, api:: and file:: ones, in
-    the reference's order; the five families are ported functions."""
+    """The registry's order is the reference's; the http::, api:: and
+    file:: names, once left out, are ported functions of
+    `fnc/misc_fns.py` now, as are the five families."""
     import surrealdb_tpu.fnc as R
     import surrealdb_tpu_torch.fnc as P
-    from surrealdb_tpu_torch.fnc import unported
 
     assert list(R.FUNCS) == list(P.FUNCS)
-    left = unported.UNPORTED_AFTER_SEARCH
-    assert list(left) == [n for n in R.FUNCS
-                          if n.startswith(("http::", "api::", "file::"))]
+    left = [n for n in R.FUNCS if n.startswith(("http::", "api::", "file::"))]
+    assert len(left) == 20
+    for n in left:
+        assert P.FUNCS[n].__module__ == "surrealdb_tpu_torch.fnc.misc_fns", n
     fams = ("parse::", "encoding::", "bytes::", "geo::", "value::",
             "string::base64_encode")
     names = [n for n in P.FUNCS if n.startswith(fams)]

@@ -249,10 +249,10 @@ def test_remote_engine_not_ported():
 @pytest.mark.parametrize("method", ["signin", "signup", "authenticate",
                                     "graphql"])
 def test_left_out_methods_name_themselves(servers, engine, method):
-    """graphql names itself. signin, signup and authenticate are ported:
-    through each engine they answer as the reference's SDK does (tokens
-    with the same claims, the same session after them, the same
-    refusal of a bad token)."""
+    """signin, signup, authenticate and graphql are ported: through each
+    engine they answer as the reference's SDK does (tokens with the same
+    claims, the same session after them, the same refusal of a bad
+    token; the same GraphQL answer)."""
     ref, port = servers
 
     def url(srv):
@@ -260,11 +260,19 @@ def test_left_out_methods_name_themselves(servers, engine, method):
                 "http": f"http://127.0.0.1:{srv.port}"}[engine]
 
     if method == "graphql":
-        with pconnect(url(port)) as db:
-            db.use("t", "t")
-            with pytest.raises(SdbError, match="rpc method graphql is not "
-                                               "ported"):
-                db.graphql("{ person { id } }")
+        outs = []
+        for srv, connect in ((ref, rconnect), (port, pconnect)):
+            with connect(url(srv)) as db:
+                db.use("t", "t")
+                db.query("DEFINE TABLE OVERWRITE gqp; "
+                         "DEFINE CONFIG OVERWRITE GRAPHQL AUTO; "
+                         "UPSERT gqp:1 SET n = 1")
+                try:
+                    outs.append(norm(db.graphql("{ gqp { id n } }")))
+                except SdbError as e:
+                    outs.append(("err", str(e)))
+        same(outs[0], outs[1])
+        assert "not ported" not in str(outs[1])
         return
     outs = []
     for srv, connect in ((ref, rconnect), (port, pconnect)):

@@ -898,7 +898,19 @@ def test_left_out_route_answers_not_ported(pair, method, path, code, key,
     with no credentials they answer the reference's authentication
     failure (the same 401 and `details`). So are /ml/export and
     /ml/import: a model that does not exist and a body that is no model
-    answer the reference's status and error."""
+    answer the reference's status and error; /api/* (an endpoint nobody
+    defined: the reference's 404 and body) and /graphql (an empty
+    query: the reference's error envelope)."""
+    if path.startswith("/api/") or path == "/graphql":
+        r, p = both_req(pair, path, method,
+                        b"{}" if method != "GET" else None, NSDB)
+        assert p[0] == code and r[2] == p[2], (r, p)
+        assert r[1].get("Content-Type") == p[1].get("Content-Type")
+        assert b"not ported" not in p[2]
+        if path == "/graphql":
+            assert json.loads(p[2])[key]
+        assert req(pair[1].base, "/health")[0] == 200
+        return
     if path.startswith("/ml/"):
         r, p = both_req(pair, path, method,
                         b"{}" if method != "GET" else None, NSDB)
@@ -977,17 +989,20 @@ _AUTH_PARAMS = {"signin": [{"user": "u", "pass": "p"}],
 @pytest.mark.parametrize("method", ["signin", "signup", "authenticate",
                                     "graphql"])
 def test_left_out_rpc_methods(pair, method, fmt):
-    """graphql names itself; signin, signup and authenticate are ported
-    and answer as the reference's (here, for credentials nobody holds,
-    the same authentication failure)."""
+    """signin, signup, authenticate and graphql are ported and answer as
+    the reference's (here, for credentials nobody holds, the same
+    authentication failure; graphql given no query, the same answer)."""
     if method == "graphql":
-        body, hdrs = _rpc_body(fmt, method, [{"user": "u", "pass": "p"}],
-                               pwire)
-        st, _h, raw = req(pair[1].base, "/rpc", "POST", body,
-                          {**NSDB, **hdrs})
-        out = json.loads(raw) if fmt == "json" else pwire.decode(raw)
-        msg = out["error"]["message"]
-        assert f"rpc method {method}" in msg and "not ported" in msg
+        got = []
+        for served, wire in ((pair[0], rwire), (pair[1], pwire)):
+            body, hdrs = _rpc_body(fmt, method, [{"user": "u", "pass": "p"}],
+                                   wire)
+            st, _h, raw = req(served.base, "/rpc", "POST", body,
+                              {**NSDB, **hdrs})
+            got.append((st, json.loads(raw) if fmt == "json"
+                        else norm(wire.decode(raw))))
+        assert got[0] == got[1]
+        assert "not ported" not in json.dumps(got[1], default=str)
         return
     got = []
     for served, wire in ((pair[0], rwire), (pair[1], pwire)):

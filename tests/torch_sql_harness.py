@@ -10,11 +10,16 @@ definition its class name and fields) and floats compare with atol 1e-4,
 rtol 1e-5; everything else, error texts included, compares exactly.
 KV items compare key for key; values byte for byte, except values
 written by pickle (catalog definitions and index op-log tuples name
-their package's classes), which compare decoded and normalised. Two key
-families hold the wall clock of the write in their last 8 bytes, the
-catalog history (`/%` + the catalog key + time) and a record's version
-history (`/*ns*db*tb%id` + time): both compare without those 8 bytes,
-in the order of the writes, values as above. A full-text index's write
+their package's classes), which compare decoded and normalised. Three key
+families hold the wall clock of the write: the catalog history (`/%` +
+the catalog key + time) and a record's version history (`/*ns*db*tb%id`
++ time) in their last 8 bytes, and a changefeed entry (`/*ns*db#` +
+versionstamp + tb + seq) in the 8 bytes of its versionstamp, which the
+hybrid clock takes from the wall milliseconds. All three compare without
+those 8 bytes, in the order of the writes, values as above. For the same
+reason a SHOW CHANGES result (a list of `{versionstamp, changes}`)
+compares each versionstamp by its rank among the result's versionstamps,
+not by its value. A full-text index's write
 version (`bv`) starts from the wall clock in each package: the fixture
 gives both packages the same base, so the value is the same count of
 writes past it.
@@ -157,21 +162,34 @@ def same(a, b, path="$"):
     assert a == b, f"{path}: {a!r} != {b!r}"
 
 
+def _ranked(v):
+    """A SHOW CHANGES result with each versionstamp replaced by its rank."""
+    if isinstance(v, list) and v and all(
+            isinstance(x, dict) and list(x) == ["versionstamp", "changes"]
+            for x in v):
+        order = sorted({x["versionstamp"] for x in v})
+        return [{"versionstamp": order.index(x["versionstamp"]),
+                 "changes": x["changes"]} for x in v]
+    return v
+
+
 def _results(rs):
-    return [("err", r.error) if r.error is not None else ("ok", norm(r.result))
-            for r in rs]
+    return [("err", r.error) if r.error is not None
+            else ("ok", norm(_ranked(r.result))) for r in rs]
 
 
 def _untimed(k):
-    """A catalog or record history key without its 8 bytes of
-    wall-clock time."""
+    """A catalog or record history key, or a changefeed key, without its
+    8 bytes of wall-clock time."""
     if k.startswith(b"/%"):
         return k[:-8]
     if k.startswith(b"/*"):
         pos = 2
-        for _ in range(3):
+        for i in range(3):
             _s, pos = PK.dec_str(k, pos)
             pos += 1
+            if i == 1 and k[pos - 1:pos] == b"#":
+                return k[:pos] + k[pos + 8:]
         if k[pos - 1:pos] == b"%":
             return k[:-8]
     return k
