@@ -194,6 +194,28 @@ exits non-zero):
               to search::rrf recomputed; ingest seconds, scripts a
               second and the stage split printed; no fallback and no
               host routing may occur;
+   shard   -- (after search, on that runner, mode require) bench.py's
+              knn_sharded at its full shape (SHARD): two KV groups of a
+              primary and a replica, each member a `python -m
+              surrealdb_tpu_torch kv` subprocess, the element keyspace
+              cut at row 30,000 by init_topology, 60,000 x 64 clustered
+              euclidean rows ingested 512 a commit through
+              Datastore("shard://..."), whose two part engines serve
+              their slices from the card; each step in a launch window
+              of its own: 8 threads x 600 `<|10|>` queries (queries/s,
+              p50, p99, fan-out queries/s; every answer full and equal
+              to the f64 oracle, recall@10 1.0, the bf16 store's three
+              kernels launch, no part takes the host ladder), 64 of them
+              with READ AT 30s (follower reads served, the same ids),
+              600 more with group 1's primary SIGKILLed 0.4 s in
+              (KNN_PARTIAL=partial, a 2 s shard budget: 0 wrong answers,
+              full answers again within 30 s), the single-group
+              remote:// oracle (the same ids, its queries/s); kv-admin
+              topology and INFO FOR SYSTEM list two shards; then
+              rank_scores_bf16 and select_topk_rows timed at a part's
+              shape (C=8 over 30,000 x 64) against their plain versions
+              and torch.mm / torch.topk; no fallback and no host
+              routing may occur;
    segments -- (4c, on that runner, mode require) segmented ANN
               (idx/segments.py) at bench.py's knn_churn configuration
               (CHURN: 500k x 768 clustered euclidean rows written through
@@ -263,6 +285,7 @@ package beside it, it exits non-zero before printing any result.
     python3 chip_smoke.py --only server
     python3 chip_smoke.py --only segments
     python3 chip_smoke.py --only search
+    python3 chip_smoke.py --only shard
 
 runs the card and build phases and only the named checks of the
 kernels phase (distance: distance_tile on both routes, its invariances
@@ -285,7 +308,7 @@ phase over knn1m's; ml: then the auth and ml phases over knn1m's;
 api: then the auth and api phases over knn1m's;
 server: then the auth and server phases over knn1m's;
 segments: phase 4c over a runner of its own; search: phase 4b'' over a
-runner of its own), then stops
+runner of its own; shard: phase shard over a runner of its own), then stops
 without a result line. Each kernel row gives the time by CUDA
 events over back-to-back calls and, for the pair select and the
 rescore, the profiler's device time alone. It also runs from an older
@@ -357,6 +380,20 @@ HYBRID_SQL = (
     "WHERE text @1@ 'graph' ORDER BY ft_score DESC LIMIT 10;"
     "RETURN search::rrf([$vs, $ft], 10, 60);"
 )
+
+# phase shard: bench.py:1791 bench_knn_sharded at its full shape (not
+# the quick one): `groups` KV groups of a primary and a replica each
+# (`python -m surrealdb_tpu_torch kv` subprocesses, failover 1.0 s, lease
+# 0.8 s, no fsync), the element keyspace cut at row n / groups, n x dim
+# clustered euclidean rows (nc clusters, std, seed) ingested `chunk` rows
+# a commit through the routing client, `threads` clients sending
+# `queries` `<|k|>` queries spread over nq query vectors, `follower` of
+# them again with READ AT 30s, then `queries` more with group 1's primary
+# SIGKILLed `kill_after_s` into them; full answers must be back within
+# `recover_s`; `part_c` queries a frame at the part kernels' timed shape
+SHARD = dict(n=60_000, dim=64, nc=64, std=0.15, seed=31, groups=2, k=10,
+             nq=16, queries=600, threads=8, chunk=512, follower=64,
+             kill_after_s=0.4, recover_s=30.0, part_c=8)
 
 # phase auth: `clients` SDK clients authenticated with root's token send
 # `queries` of SQL["knn1m"]'s queries; `acl`, the record users' table:
@@ -1111,7 +1148,7 @@ def main(argv=None) -> int:
     checks = ("distance", "csr", "cand", "ann", "pairs", "rescore",
               "supervisor", "hier", "approx", "entry", "onnx", "batcher",
               "engine", "sql", "auth", "ml", "api", "server", "segments",
-              "search")
+              "search", "shard")
     ap.add_argument("--only", default=None,
                     help="comma list of kernels-phase checks to run alone "
                          f"({', '.join(checks)})")
@@ -5194,6 +5231,441 @@ def main(argv=None) -> int:
         finally:
             sup_.shutdown()
 
+    # -- the distributed deployment: a sharded store (also `--only shard`) ---
+    def shard_phase(sup_, counts=None):
+        """bench.py:1791 bench_knn_sharded's configuration through the
+        port (SHARD): `groups` KV groups of a primary and a replica, each
+        member a `python -m surrealdb_tpu_torch kv` subprocess (so the
+        SIGKILL below is a real death), `init_topology` with the element
+        keyspace cut at row n / groups, `Datastore("shard://...")` in
+        this process with its part engines served from the card by
+        `sup_` (mode require). DEFINE INDEX ix ... HNSW DIMENSION 64 DIST
+        EUCLIDEAN TYPE F32, the clustered rows ingested 512 a commit
+        through the routing client (bench.py:1701); then, each step in a
+        launch window of its own: the steady state (`threads` clients,
+        `queries` `<|10|>` queries over nq vectors; every answer full
+        and equal to the f64 oracle, recall@10 1.0; the bf16 store's
+        three kernels launch, no part takes the host ladder, no fallback
+        or host routing); `follower` of the queries with READ AT 30s
+        (follower reads served, ids as the steady state's); then with
+        KNN_PARTIAL=partial and a 2 s shard budget, group 1's primary
+        SIGKILLed `kill_after_s` into `queries` more: no wrong answer,
+        and full answers again within `recover_s`. The single-group
+        oracle: one `remote://` KV process with the same rows and
+        queries (ids equal). `kv-admin topology` and INFO FOR SYSTEM
+        list two index shards. The part kernels are timed here at a
+        part's shape (rank_scores_bf16 and select_topk_rows at C =
+        part_c over n / groups x 64) against their plain versions."""
+        import shutil
+        import signal
+        import socket as _socket
+        import tempfile
+        import threading as _threading
+
+        from surrealdb_tpu_torch import key as PK
+        from surrealdb_tpu_torch.device import supervisor as SV
+        from surrealdb_tpu_torch.idx import vector as PV
+        from surrealdb_tpu_torch.kvs.api import serialize
+        from surrealdb_tpu_torch.kvs.ds import Datastore
+        from surrealdb_tpu_torch.kvs.shard import init_topology
+        from surrealdb_tpu_torch.val import RecordId
+
+        t_0 = time.perf_counter()
+        steps = {}
+        n_, dim_, k_, nq_ = SHARD["n"], SHARD["dim"], SHARD["k"], SHARD["nq"]
+        groups_, threads_ = SHARD["groups"], SHARD["threads"]
+        root = os.path.dirname(os.path.abspath(__file__))
+        xs_, rng_ = clustered_rows(n_, dim_, SHARD["nc"], SHARD["std"],
+                                   SHARD["seed"])
+        qs_ = xs_[rng_.integers(0, n_, nq_)] + 0.05 * rng_.normal(
+            size=(nq_, dim_)).astype(np.float32)
+        # the exact f64 top k (bench.py's single-node oracle)
+        x64 = xs_.astype(np.float64)
+        truth = []
+        for q in qs_:
+            d = np.linalg.norm(x64 - q.astype(np.float64)[None, :], axis=1)
+            truth.append([int(i) for i in np.argsort(d, kind="stable")[:k_]])
+        del x64
+        steps["data_s"] = round(time.perf_counter() - t_0, 3)
+
+        def hek(i):
+            return PK.ix_state("b", "b", "tbl", "ix", b"he", PK.enc_value(i))
+
+        sql = f"SELECT id FROM tbl WHERE emb <|{k_}|> $q"
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-shard-")
+        procs = []
+        saved = {name: getattr(cnf, name) for name in (
+            "KNN_PARTIAL", "KNN_SHARD_TIMEOUT_S", "KNN_HOST_BATCH")}
+        cnf.KNN_HOST_BATCH = "auto"
+        old_sup = SV.set_supervisor(sup_)
+        SV.bind_serving()
+
+        def free_port():
+            with _socket.socket() as so:
+                so.bind(("127.0.0.1", 0))
+                return so.getsockname()[1]
+
+        def spawn_kv(port, role, peers, data_dir):
+            """bench.py:1664 _spawn_kv_proc, through the port's `kv`."""
+            p = subprocess.Popen(
+                [sys.executable, "-m", "surrealdb_tpu_torch", "kv",
+                 "--bind", f"127.0.0.1:{port}", "--role", role,
+                 "--peers", ",".join(peers), "--failover-timeout", "1.0",
+                 "--lease-ttl", "0.8", "--data-dir", data_dir,
+                 "--no-fsync"],
+                cwd=root, env={**os.environ, "SURREAL_DEVICE": "off"},
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            procs.append(p)
+            for _ in range(150):
+                try:
+                    _socket.create_connection(("127.0.0.1", port),
+                                              timeout=0.2).close()
+                    return p
+                except OSError:
+                    time.sleep(0.1)
+            raise SmokeFailure(f"shard: kv {role} on :{port} did not "
+                               f"come up")
+
+        def define(ds):
+            ds.query(f"DEFINE TABLE tbl; DEFINE INDEX ix ON tbl FIELDS emb "
+                     f"HNSW DIMENSION {dim_} DIST EUCLIDEAN TYPE F32",
+                     ns="b", db="b")
+
+        def ingest(ds):
+            """bench.py:1701 _bulk_vectors_sharded: records, index rows
+            and the version through the routing client, `chunk` rows a
+            commit (a chunk across the cut commits by 2PC)."""
+            t1 = time.perf_counter()
+            ch = SHARD["chunk"]
+            for s0 in range(0, n_, ch):
+                txn = ds.transaction(write=True)
+                try:
+                    for i in range(s0, min(s0 + ch, n_)):
+                        txn.set(PK.record("b", "b", "tbl", i),
+                                serialize({"id": RecordId("tbl", i)}))
+                        txn.set_val(hek(i), xs_[i].tobytes())
+                    txn.set_val(PK.ix_state("b", "b", "tbl", "ix", b"vn"),
+                                min(s0 + ch, n_))
+                    txn.commit()
+                except BaseException:
+                    txn.cancel()
+                    raise
+            return time.perf_counter() - t1
+
+        def drive(ds, n_queries, suffix="", lats=None, outcomes=None):
+            """bench.py's _drive: `threads` clients, query i takes qs[i %
+            nq]; outcomes (full / partial / error / wrong, the answer,
+            start, end)."""
+            def one(i):
+                t1 = time.perf_counter()
+                r = ds.execute(sql + suffix, ns="b", db="b",
+                               vars={"q": qs_[i % nq_].tolist()})[-1]
+                t2 = time.perf_counter()
+                if lats is not None:
+                    lats.append(t2 - t1)
+                if outcomes is None:
+                    return
+                if r.error is not None:
+                    outcomes.append(("error", r.error, t1, t2))
+                elif r.partial:
+                    outcomes.append(("partial", r.partial, t1, t2))
+                else:
+                    got = [row["id"].id for row in r.result]
+                    outcomes.append(("full" if got == truth[i % nq_]
+                                     else "wrong", got, t1, t2))
+
+            with ThreadPoolExecutor(threads_) as ex:
+                t1 = time.perf_counter()
+                list(ex.map(one, range(n_queries)))
+                return n_queries / (time.perf_counter() - t1)
+
+        def pct(a, q):
+            a = sorted(a)
+            return a[min(int(len(a) * q), len(a) - 1)] * 1e3 if a else None
+
+        bf16_ = ("rank_scores_bf16", "select_topk_rows",
+                 "gather_rescore_topk")
+        ctr0 = dict(sup_.counters)
+        try:
+            # -- the cluster: `groups` primary + replica pairs -----------
+            t1 = time.perf_counter()
+            group_addrs = []
+            for g_ in range(groups_):
+                ports = [free_port(), free_port()]
+                addrs = [f"127.0.0.1:{p}" for p in ports]
+                spawn_kv(ports[0], "primary", addrs, f"{tmp}/g{g_}p")
+                spawn_kv(ports[1], "replica", addrs, f"{tmp}/g{g_}r")
+                group_addrs.append(addrs)
+            init_topology(group_addrs,
+                          [hek(n_ * g_ // groups_) for g_ in range(1, groups_)])
+            steps["cluster_s"] = round(time.perf_counter() - t1, 3)
+            ds = Datastore(f"shard://{','.join(group_addrs[0])}")
+            define(ds)
+            ingest_s = ingest(ds)
+            steps["ingest_s"] = round(ingest_s, 3)
+            cnf.KNN_PARTIAL = "partial"
+            cnf.KNN_SHARD_TIMEOUT_S = 2.0
+
+            # -- steady state ---------------------------------------------
+            t1 = time.perf_counter()
+            # warm: one query syncs both parts (each range-scans its rows
+            # once) and ships them; then the threads pin their pools. A
+            # cold router under 8 threads would have every query rescan
+            # every part (part_sync converges, it does not wait)
+            drive(ds, 1)
+            drive(ds, threads_ * 2)
+            steps["warm_s"] = round(time.perf_counter() - t1, 3)
+            eng = ds.vector_indexes[("b", "b", "tbl", "ix")]
+            check(len(eng.parts) == groups_,
+                  f"shard: {len(eng.parts)} parts, want {groups_}")
+            ladder = {"calls": 0}
+            for part in eng.parts:
+                check(len(part.engine.rids) >= PV.DEVICE_MIN_ROWS,
+                      f"shard: part {part.label} has "
+                      f"{len(part.engine.rids)} rows, under the device "
+                      f"floor {PV.DEVICE_MIN_ROWS}")
+                host_single = part.engine._host_knn_single
+
+                def counted(qv, kk, _f=host_single):
+                    ladder["calls"] += 1
+                    return _f(qv, kk)
+
+                part.engine._host_knn_single = counted
+            fan0 = ds.telemetry.get("knn_shard_fanout")
+            lats, outcomes = [], []
+            box = {}
+
+            def steady():
+                t2 = time.perf_counter()
+                box["qps"] = drive(ds, SHARD["queries"], "", lats, outcomes)
+                return {"queries": SHARD["queries"], "qps": box["qps"],
+                        "p50_ms": pct(lats, 0.50), "p99_ms": pct(lats, 0.99),
+                        "seconds": round(time.perf_counter() - t2, 3)}
+
+            launch_window(sup_, counts, "shard", "steady", steady,
+                          needs=bf16_, out_all=steps)
+            qps = box["qps"]
+            fanout_qps = (ds.telemetry.get("knn_shard_fanout") - fan0) \
+                * qps / SHARD["queries"]
+            bad = [o for o in outcomes if o[0] != "full"]
+            check(not bad, f"shard: steady state answers {bad[:3]}")
+            hits = 0
+            for iq in range(nq_):
+                got = [r["id"].id for r in ds.query_one(
+                    sql, ns="b", db="b", vars={"q": qs_[iq].tolist()})]
+                hits += len(set(got) & set(truth[iq]))
+            recall = hits / (k_ * nq_)
+            check(recall == 1.0, f"shard: recall@10 {recall}")
+            check(ladder["calls"] == 0,
+                  f"shard: {ladder['calls']} part searches took the host "
+                  f"ladder")
+
+            # -- follower reads (READ AT 30s) -----------------------------
+            fr0 = ds.telemetry.get("follower_reads_served")
+            f_out = []
+
+            def follower():
+                t2 = time.perf_counter()
+                drive(ds, SHARD["follower"], " READ AT 30s", None, f_out)
+                return {"queries": SHARD["follower"],
+                        "seconds": round(time.perf_counter() - t2, 3)}
+
+            launch_window(sup_, counts, "shard", "follower", follower,
+                          needs=bf16_, out_all=steps)
+            served = ds.telemetry.get("follower_reads_served") - fr0
+            check(served > 0, "shard: no follower read was served")
+            bad = [o for o in f_out if o[0] != "full"]
+            check(not bad, f"shard: READ AT answers {bad[:3]}")
+            steps["follower"]["follower_reads_served"] = served
+
+            # -- SIGKILL group 1's primary mid-run ------------------------
+            victim = procs[2]
+            kill_lats, kill_out = [], []
+
+            killed = {}
+
+            def killer():
+                time.sleep(SHARD["kill_after_s"])
+                victim.send_signal(signal.SIGKILL)
+                killed["at"] = time.perf_counter()
+                victim.wait()
+
+            def kill():
+                t2 = time.perf_counter()
+                kt = _threading.Thread(target=killer)
+                kt.start()
+                drive(ds, SHARD["queries"], "", kill_lats, kill_out)
+                kt.join()
+                # recovery: the first full answer to a query sent after
+                # the kill (every query reads the version key, which
+                # group 1 holds: its promoted replica answered it)
+                dead = killed["at"]
+                after = [x[3] - dead for x in kill_out
+                         if x[0] == "full" and x[2] > dead]
+                recovered = min(after) if after else None
+                while recovered is None \
+                        and time.perf_counter() - dead < SHARD["recover_s"]:
+                    t3 = time.perf_counter()
+                    r = ds.execute(sql, ns="b", db="b",
+                                   vars={"q": qs_[0].tolist()})[-1]
+                    if r.error is None and not r.partial and [
+                            row["id"].id for row in r.result] == truth[0]:
+                        recovered = time.perf_counter() - dead
+                        break
+                    time.sleep(0.3)
+                tally = {o: sum(1 for x in kill_out if x[0] == o)
+                         for o in ("full", "partial", "error", "wrong")}
+                errs = sorted({str(x[1])[:120] for x in kill_out
+                               if x[0] == "error"})
+                full_after = sum(1 for x in kill_out
+                                 if x[0] == "full" and x[2] > dead)
+                return {"queries": SHARD["queries"], **tally,
+                        "full_after_kill": full_after,
+                        "errors": errs[:4],
+                        "kill_p50_ms": pct(kill_lats, 0.50),
+                        "kill_p99_ms": pct(kill_lats, 0.99),
+                        "knn_hedged_dispatches":
+                            ds.telemetry.get("knn_hedged_dispatches"),
+                        "knn_partial_results":
+                            ds.telemetry.get("knn_partial_results"),
+                        "recovered_s": (None if recovered is None
+                                        else round(recovered, 3)),
+                        "seconds": round(time.perf_counter() - t2, 3)}
+
+            launch_window(sup_, counts, "shard", "kill", kill,
+                          needs=bf16_, out_all=steps)
+            ko = steps["kill"]
+            check(ko["wrong"] == 0, f"shard: {ko['wrong']} wrong answers "
+                  f"through the kill")
+            check(ko["recovered_s"] is not None,
+                  f"shard: no full answer within {SHARD['recover_s']} s of "
+                  f"the kill")
+            info = ds.query_one("INFO FOR SYSTEM", ns="b", db="b")
+            knn_info = info.get("knn") or [{}]
+            check(len(knn_info[0].get("shards", [])) == groups_,
+                  f"shard: INFO FOR SYSTEM knn {knn_info}")
+            check(len(info.get("shards", {}).get("shards", [])) == groups_,
+                  f"shard: INFO FOR SYSTEM shards {info.get('shards')}")
+            topo = subprocess.run(
+                [sys.executable, "-m", "surrealdb_tpu_torch", "kv-admin",
+                 "topology", "--meta", ",".join(group_addrs[0])],
+                cwd=root, capture_output=True, text=True, timeout=60)
+            check(topo.returncode == 0
+                  and f"{groups_} range(s)" in topo.stdout,
+                  f"shard: kv-admin topology: {topo.stdout} {topo.stderr}")
+            ds.close()
+
+            # -- the single-group oracle (remote://) ----------------------
+            port = free_port()
+            spawn_kv(port, "primary", [f"127.0.0.1:{port}"], f"{tmp}/single")
+            ds1 = Datastore(f"remote://127.0.0.1:{port}")
+            define(ds1)
+            steps["single_ingest_s"] = round(ingest(ds1), 3)
+            t1 = time.perf_counter()
+            drive(ds1, 1)
+            drive(ds1, threads_ * 2)
+            steps["single_warm_s"] = round(time.perf_counter() - t1, 3)
+            o_out = []
+
+            def single():
+                t2 = time.perf_counter()
+                box["single"] = drive(ds1, SHARD["queries"], "", None, o_out)
+                return {"queries": SHARD["queries"], "qps": box["single"],
+                        "seconds": round(time.perf_counter() - t2, 3)}
+
+            launch_window(sup_, counts, "shard", "single", single,
+                          needs=bf16_, out_all=steps)
+            bad = [o for o in o_out if o[0] != "full"]
+            check(not bad, f"shard: the single-group store answers "
+                  f"{bad[:3]}")
+            ds1.close()
+            ctr = dict(sup_.counters)
+            for cname in ("device_fallbacks", "device_host_routed"):
+                check(ctr[cname] == ctr0[cname],
+                      f"shard: {cname} moved {ctr0[cname]} -> {ctr[cname]}")
+        finally:
+            for p in procs:
+                try:
+                    p.kill()
+                    p.wait(timeout=5)
+                except Exception:
+                    pass
+            shutil.rmtree(tmp, ignore_errors=True)
+            SV.bind_serving()
+            SV.set_supervisor(old_sup)
+            for name, v in saved.items():
+                setattr(cnf, name, v)
+
+        # -- the part kernels at a part's shape ---------------------------
+        t1 = time.perf_counter()
+        part_n, pc = n_ // groups_, SHARD["part_c"]
+        kc = max(2 * k_, k_ + 16)
+        px = torch.from_numpy(xs_[:part_n]).to(dev)
+        prank = px.to(torch.bfloat16)
+        px2 = prank.float().square().sum(1)
+        pq = torch.from_numpy(np.ascontiguousarray(qs_[:pc])).to(dev)
+        tol_r = (1e-3, 1e-5)
+        score = T.rank_scores_bf16(prank, pq, "euclidean", px2)
+        err = max_err(score, T.rank_scores_plain(prank, pq, "euclidean", px2),
+                      *tol_r, f"shard rank_scores_bf16 C={pc} N={part_n}")
+        ops = 2 * pc * part_n * dim_
+        rms, rby = bound(2 * part_n * dim_ + 4 * part_n + 4 * pc * dim_
+                         + 4 * pc * part_n, ops, PEAK_BF16)
+        pqb = pq.to(torch.bfloat16)
+        emit("kernel", name="rank_scores_bf16",
+             shape=f"C={pc} N={part_n} D={dim_} euclidean (shard part)",
+             tol=tol_r, max_abs_err=err,
+             ms=cuda_ms(lambda: T.rank_scores_bf16(prank, pq, "euclidean",
+                                                   px2), 20),
+             plain_ms=cuda_ms(lambda: T.rank_scores_plain(
+                 prank, pq, "euclidean", px2), 20),
+             library_ms=cuda_ms(lambda: torch.mm(pqb, prank.T), 20),
+             bound_ms=rms, bound_by=rby)
+        sv_, si_ = T.select_topk_rows(score, kc)
+        pv_, pi_ = T.top_k_smallest_plain(score, kc)
+        check(torch.equal(si_, pi_) and torch.equal(sv_, pv_),
+              f"shard select_topk_rows R={pc} N={part_n} k={kc}")
+        sms, sby = bound(4 * pc * part_n + 8 * pc * kc, pc * part_n,
+                         PEAK_F32)
+        emit("kernel", name="select_topk_rows",
+             shape=f"R={pc} N={part_n} k={kc} (shard part)", tol=[0, 0],
+             max_abs_err=0.0,
+             ms=cuda_ms(lambda: T.select_topk_rows(score, kc), 20),
+             plain_ms=cuda_ms(lambda: T.top_k_smallest_plain(score, kc), 20),
+             library_ms=cuda_ms(lambda: torch.topk(score, kc, dim=1,
+                                                   largest=False), 20),
+             bound_ms=sms, bound_by=sby)
+        del px, prank, px2, pq, pqb, score, sv_, si_, pv_, pi_
+        torch.cuda.empty_cache()
+        steps["part_kernels_s"] = round(time.perf_counter() - t1, 3)
+        emit("shard", mode=sup_.mode, groups=groups_, rows=n_, dim=dim_,
+             qps=qps, fanout_qps=fanout_qps, single_group_qps=box["single"],
+             p50_ms=steps["steady"]["p50_ms"],
+             p99_ms=steps["steady"]["p99_ms"], recall_at_10=recall,
+             ingest_s=ingest_s, follower_reads_served=served,
+             kill_wrong=ko["wrong"], kill_partial=ko["partial"],
+             kill_error=ko["error"], kill_p50_ms=ko["kill_p50_ms"],
+             kill_p99_ms=ko["kill_p99_ms"],
+             knn_hedged_dispatches=ko["knn_hedged_dispatches"],
+             knn_partial_results=ko["knn_partial_results"],
+             recovered_s=ko["recovered_s"],
+             index_shards=len(knn_info[0]["shards"]),
+             counters={c: ctr[c] for c in ("device_fallbacks",
+                                           "device_host_routed")},
+             steps_s={name: (v["seconds"] if isinstance(v, dict) else v)
+                      for name, v in steps.items()},
+             seconds=round(time.perf_counter() - t_0, 3))
+
+    def shard_only():
+        """`--only shard`: the shard phase under a supervisor in mode
+        require of its own."""
+        sup_ = DeviceSupervisor("require", device="cuda")
+        try:
+            sup_.start()
+            shard_phase(sup_)
+        finally:
+            sup_.shutdown()
+
     # -- segmented ANN and the persisted artifacts (also `--only segments`) ---
     def euclid_oracle(xs_, qs_, kk, step=1 << 18):
         """The exact f64 euclidean top kk of qs_ over the host rows xs_
@@ -5730,6 +6202,8 @@ def main(argv=None) -> int:
             segments_only()
         if "search" in only:
             search_only()
+        if "shard" in only:
+            shard_only()
         if "supervisor" in only:
             rng = np.random.default_rng(KNN1M["seed"])  # knn1m's rows
             xs_np = rng.standard_normal((KNN1M["n"], KNN1M["dim"]),
@@ -6858,6 +7332,8 @@ def main(argv=None) -> int:
         del data
         # -- 4b''. full-text + vector search through SurrealQL, same runner
         search_phase(sup, launches)
+        # -- 4b'''. a sharded store over KV subprocesses, same runner ----
+        shard_phase(sup, launches)
         # -- 4c. segmented ANN and the persisted artifacts, same runner ---
         segments_phase(sup, launches)
     finally:

@@ -16,7 +16,11 @@ it. `iam.py` signs users in (root, namespace, database and record
 access) and verifies their tokens. `api.py` runs DEFINE API endpoints,
 `buc.py` holds DEFINE BUCKET stores, `cf.py` reads and expires
 changefeeds, `exec/views.py` keeps materialised views and `gql.py`
-answers GraphQL.
+answers GraphQL. `kvs/remote.py` is the shared KV service and its client
+(`python -m surrealdb_tpu_torch kv`, `Datastore("remote://...")`), and
+`kvs/shard.py` cuts a keyspace over several of its groups
+(`kv-admin`, `Datastore("shard://...")`), where `idx/shardvec.py` serves
+a vector index as one part engine per shard range.
 
 Importing the package (or any module of it) loads no kernel and never
 initialises CUDA; the entry points run on the card unless the caller

@@ -1,6 +1,6 @@
 """CLI (the reference package's `__main__.py`; reference:
 surrealdb/server/src/cli/ — start, sql REPL, isready, validate,
-version).
+version, and the KV service's kv / kv-admin).
 
     python -m surrealdb_tpu_torch start [--bind 127.0.0.1:8000] [--path memory]
         [--user root --pass root] [--unauthenticated]
@@ -13,6 +13,14 @@ version).
         [--name N --version V] model.surml
     python -m surrealdb_tpu_torch ml export --ns t --db t [--path memory]
         name version [file]
+    python -m surrealdb_tpu_torch kv [--bind 127.0.0.1:8100] [--data-dir DIR]
+        [--role primary|replica] [--peers h:p,h:p] [--peer-index N]
+        [--failover-timeout S] [--lease-ttl S] [--no-fsync]
+    python -m surrealdb_tpu_torch kv-admin init --groups 'h:p,h:p;h:p,h:p'
+        [--shard-ranges KEY[,KEY...]]
+    python -m surrealdb_tpu_torch kv-admin split KEY --meta h:p[,h:p]
+        --to h:p[,h:p]
+    python -m surrealdb_tpu_torch kv-admin topology --meta h:p[,h:p]
     python -m surrealdb_tpu_torch version
 
 `start` serves on the card: its device supervisor starts a runner at
@@ -27,10 +35,20 @@ without `--unauthenticated` anonymous connections get no access.
 `ml import` stores a `.surml` or ONNX file in a datastore (`ml/__init__.py
 import_model`, printing its name, version and hash) and `ml export` writes
 a stored model's bytes to a file or stdout; `ml::` calls need the `ml`
-experimental capability (`SURREAL_CAPS_ALLOW_EXPERIMENTAL=ml`). The
-subcommands export, import, kv, kv-admin, upgrade and fix are not
-ported: each parses and exits non-zero with a `NotPorted` message
-naming itself.
+experimental capability (`SURREAL_CAPS_ALLOW_EXPERIMENTAL=ml`).
+
+`kv` runs one member of a replicated KV group (`kvs/remote.py
+serve_kv`): a primary, or a replica that applies the primary's log and
+promotes itself when the primary's lease lapses. `kv-admin init` cuts
+the keyspace over running groups (group 0 holds the shard map), `split`
+moves the upper half of a range onto a new group, and `topology` prints
+the map. Databases reach a cluster as `Datastore("remote://h:p,h:p")`
+(one group) or `Datastore("shard://h:p,h:p")` (the meta group's
+addresses). Neither subcommand imports torch or numpy: a KV process
+starts in well under a second.
+
+The subcommands export, import, upgrade and fix are not ported: each
+parses and exits non-zero with a `NotPorted` message naming itself.
 """
 
 from __future__ import annotations
@@ -42,7 +60,7 @@ import sys
 
 # parsed, then refused with a NotPorted message naming the subcommand;
 # their options are not read, so none is declared
-_NOT_PORTED = ("export", "import", "kv", "kv-admin", "upgrade", "fix")
+_NOT_PORTED = ("export", "import", "upgrade", "fix")
 
 
 def _sql_ident(name: str) -> str:
@@ -151,6 +169,65 @@ def main(argv=None):
     p_mle.add_argument("model_version")
     p_mle.add_argument("file", nargs="?", default="-")
 
+    p_kv = sub.add_parser(
+        "kv", help="run the shared transactional KV service (cluster mode)"
+    )
+    p_kv.add_argument("--bind", default="127.0.0.1:8100")
+    p_kv.add_argument("--data-dir", default=None,
+                      help="persist the keyspace (WAL + snapshot); "
+                           "restarts recover committed state")
+    p_kv.add_argument("--role", choices=("primary", "replica"),
+                      default="primary",
+                      help="replica processes apply the primary's commit "
+                           "log and stand by for lease-based promotion")
+    p_kv.add_argument("--peers", default=None,
+                      help="comma-separated host:port of EVERY replica-set "
+                           "member (including this one), in promotion-rank "
+                           "order; enables replication + failover")
+    p_kv.add_argument("--peer-index", type=int, default=None,
+                      help="this server's index in --peers (inferred from "
+                           "--bind when omitted)")
+    p_kv.add_argument("--failover-timeout", type=float, default=None,
+                      help="seconds without replication traffic before a "
+                           "replica starts the promotion protocol")
+    p_kv.add_argument("--lease-ttl", type=float, default=None,
+                      help="primary lease TTL in seconds")
+    p_kv.add_argument("--no-fsync", action="store_true",
+                      help="skip fsync on WAL appends (replication still "
+                           "guards acked writes; lose the single-node "
+                           "power-failure guarantee)")
+
+    p_adm = sub.add_parser(
+        "kv-admin",
+        help="administer a range-sharded KV cluster (init/split/topology)",
+    )
+    adm = p_adm.add_subparsers(dest="adm_cmd", required=True)
+    a_init = adm.add_parser(
+        "init", help="bootstrap shard topology onto running KV groups"
+    )
+    a_init.add_argument(
+        "--groups", required=True,
+        help="';'-separated replication groups in shard order, each a "
+             "','-separated host:port list; group 0 is the meta shard")
+    a_init.add_argument(
+        "--shard-ranges", default="",
+        help="','-separated split keys (N-1 keys for N groups), UTF-8; "
+             "prefix a key with hex: for raw bytes")
+    a_split = adm.add_parser(
+        "split", help="split the range containing KEY at KEY onto a "
+                      "new (running, empty) group")
+    a_split.add_argument("key",
+                         help="split key (UTF-8; hex: prefix for raw "
+                              "bytes)")
+    a_split.add_argument("--meta", required=True,
+                         help="meta-shard addresses host:port[,host:port]")
+    a_split.add_argument("--to", required=True,
+                         help="','-separated addresses of the group "
+                              "taking the upper range")
+    a_top = adm.add_parser("topology", help="print the current shard map")
+    a_top.add_argument("--meta", required=True,
+                       help="meta-shard addresses host:port[,host:port]")
+
     sub.add_parser("version")
     for name in _NOT_PORTED:
         sub.add_parser(name)
@@ -190,6 +267,24 @@ def main(argv=None):
             pass
         print("Not ready")
         return 1
+
+    if args.cmd == "kv":
+        from surrealdb_tpu_torch.kvs.remote import serve_kv
+
+        host, _, port = args.bind.partition(":")
+        peers = ([p.strip() for p in args.peers.split(",") if p.strip()]
+                 if args.peers else None)
+        serve_kv(host, int(port), block=True,
+                 data_dir=args.data_dir,
+                 fsync=not args.no_fsync,
+                 role=args.role, peers=peers,
+                 self_index=args.peer_index,
+                 failover_timeout_s=args.failover_timeout,
+                 lease_ttl_s=args.lease_ttl)
+        return 0
+
+    if args.cmd == "kv-admin":
+        return _kv_admin(args)
 
     from surrealdb_tpu_torch.err import NotPorted
 
@@ -287,6 +382,36 @@ def _ml(args) -> int:
         sys.stdout.buffer.write(raw)
     else:
         open(args.file, "wb").write(raw)
+    return 0
+
+
+def _kv_admin(args) -> int:
+    """`kv-admin init | split | topology` against running KV groups (the
+    reference's handler: same arguments, same printed map)."""
+    from surrealdb_tpu_torch.kvs import shard as shard_admin
+
+    def _key(s: str) -> bytes:
+        if s.startswith("hex:"):
+            return bytes.fromhex(s[4:])
+        return s.encode("utf-8")
+
+    def _print_map(m):
+        print(f"shard map epoch {m.epoch}: {len(m.shards)} range(s)")
+        for s in m.shards:
+            hi = "inf" if s.end is None else repr(s.end)
+            print(f"  [{s.beg!r}, {hi}) epoch={s.epoch} "
+                  f"group={','.join(s.addrs)}")
+
+    if args.adm_cmd == "init":
+        groups = [[a.strip() for a in g.split(",") if a.strip()]
+                  for g in args.groups.split(";") if g.strip()]
+        splits = [_key(s) for s in args.shard_ranges.split(",") if s]
+        _print_map(shard_admin.init_topology(groups, splits))
+    elif args.adm_cmd == "split":
+        to = [a.strip() for a in args.to.split(",") if a.strip()]
+        _print_map(shard_admin.split_shard(args.meta, _key(args.key), to))
+    else:
+        _print_map(shard_admin.read_topology(args.meta))
     return 0
 
 

@@ -1,7 +1,9 @@
 """Environment-variable knobs the index engines, the device runner, its
-supervisor, the cross-query batcher, the live-query fan-out and the
-network server and the changefeed GC read: the KNN, DEVICE, LIVE, HTTP
-and CHANGEFEED settings of the reference package's `cnf.py`, with the
+supervisor, the cross-query batcher, the live-query fan-out, the
+network server, the changefeed GC, the memory kill switch and the
+distributed KV stack (the remote engine, the shard router and the
+sharded vector router) read: the KNN, DEVICE, LIVE, HTTP, CHANGEFEED,
+MEMORY and KV settings of the reference package's `cnf.py`, with the
 same SURREAL_* names and defaults."""
 
 from __future__ import annotations
@@ -102,6 +104,39 @@ KNN_SEG_FANOUT = env_int("SURREAL_KNN_SEG_FANOUT", 4)
 # a segment's dead + overwritten fraction past which its own graph is
 # rebuilt (its dead rows compacted out)
 KNN_SEG_TOMB_FRAC = env_float("SURREAL_KNN_SEG_TOMB_FRAC", 0.5)
+
+# -- shard-partitioned vector serving (idx/shardvec.py) ---------------------
+# partial-result policy when a shard cannot serve its slice of a KNN
+# query within budget:
+#   error   — the query fails with a typed error naming the shard (safe
+#             default: an application that never opted in can never act
+#             on a silently incomplete candidate set)
+#   partial — answer from the healthy shards, flagged in the response
+#             (QueryResult.partial names every missing shard) and
+#             counted (knn_partial_results) — never silently wrong
+KNN_PARTIAL = env_str("SURREAL_KNN_PARTIAL", "error")
+# per-shard budget (seconds) carved from the query's remaining inflight
+# deadline for one scatter attempt (sync + per-shard search); a sick
+# shard can burn at most this much of the query, not the whole budget
+KNN_SHARD_TIMEOUT_S = env_float("SURREAL_KNN_SHARD_TIMEOUT_S", 1.5)
+# bounded hedged retry: after the first scatter round, every failed
+# shard gets at most this many re-dispatches (through the group's
+# failover-following pool, against a refreshed shard map) before the
+# partial policy applies. 0 disables hedging.
+KNN_SHARD_HEDGES = env_int("SURREAL_KNN_SHARD_HEDGES", 1)
+# per-shard fetch multiplier: each shard answers ceil(k * oversample)
+# candidates. Exact (brute) parts need only 1.0 for an exact global
+# top-k; raising it buys recall when a part serves from its graph
+KNN_SHARD_OVERSAMPLE = env_float("SURREAL_KNN_SHARD_OVERSAMPLE", 1.0)
+# scatter execution:
+#   auto    — per-shard SYNC attempts fan out across worker threads on
+#             real transports (they park on remote I/O, so threads
+#             genuinely overlap), sequential under an injected
+#             transport (a deterministic simulator owns all
+#             interleaving); local per-part searches stay sequential
+#   threads — also fan local searches out (many-core hosts)
+#   seq     — everything sequential
+KNN_SCATTER = env_str("SURREAL_KNN_SCATTER", "auto")
 
 # -- the file-backed KV engine (kvs/file.py) -----------------------------------
 # committed WAL batches between snapshot compactions
@@ -266,3 +301,58 @@ CHANGEFEED_GC_INTERVAL_S = env_float("SURREAL_CHANGEFEED_GC_INTERVAL_S",
                                      300.0)
 # changefeed GC: entries examined per database per sweep
 CHANGEFEED_GC_BATCH_SIZE = 1000
+
+
+# -- memory kill switch (mem.py) ----------------------------------------------
+# reference core/src/mem + cnf MEMORY_THRESHOLD: a statement fails once
+# the process's resident memory passes this many bytes; 0 disables, any
+# other value floors at 1 MiB
+MEMORY_THRESHOLD = env_int("SURREAL_MEMORY_THRESHOLD", 0)
+
+# -- remote KV client: retry / backoff / failover (kvs/remote.py) ------------
+# total deadline for one logical KV operation across retries+failover
+KV_RETRY_DEADLINE_S = env_float("SURREAL_KV_RETRY_DEADLINE_S", 15.0)
+# exponential-backoff schedule: base * 2^attempt, capped at max, with
+# full jitter in [1-KV_RETRY_JITTER, 1] of the computed delay (the cap
+# and the jitter are fixed at the reference's defaults)
+KV_RETRY_BASE_MS = env_float("SURREAL_KV_RETRY_BASE_MS", 25.0)
+KV_RETRY_MAX_MS = 1000.0
+KV_RETRY_JITTER = 0.5
+# per-call socket timeout (a partition must not stall a client forever)
+KV_OP_TIMEOUT_S = env_float("SURREAL_KV_OP_TIMEOUT_S", 30.0)
+KV_CONNECT_TIMEOUT_S = env_float("SURREAL_KV_CONNECT_TIMEOUT_S", 5.0)
+
+# -- remote KV service: replication / failover (kvs/remote.py, node.py) ------
+# primary-lease TTL; the primary renews at TTL/3 through the replicated
+# keyspace, so replicas observe liveness via the lease row itself
+KV_LEASE_TTL_S = env_float("SURREAL_KV_LEASE_TTL_S", 6.0)
+# how long a replica waits without replication traffic before it starts
+# the promotion protocol (lease check -> peer survey -> self-promote)
+KV_FAILOVER_TIMEOUT_S = env_float("SURREAL_KV_FAILOVER_TIMEOUT_S", 8.0)
+
+# -- follower reads: closed-timestamp bounded staleness (kvs/remote.py) ------
+# a read-only transaction carrying a max_staleness bound (READ AT in
+# SQL) may be served by a REPLICA that can prove the requested
+# timestamp is closed: the primary publishes a monotone closed
+# timestamp in every repl frame and on the heartbeat cadence, so a
+# replica's lag is bounded even when writes pause. Unbounded (default,
+# exact) reads stay primary-served.
+KV_FOLLOWER_READS = env_str("SURREAL_KV_FOLLOWER_READS", "on")
+# mutation-test hook: True bypasses the replica-side closed-timestamp
+# proof so a test can show the proof bites; never set outside a test
+KV_FOLLOWER_PROOF_DISABLED = False
+
+# -- range sharding / cross-shard 2PC (kvs/shard.py, kvs/remote.py) ----------
+# versionstamps for a sharded store come in windows leased from the meta
+# shard (PD-style TSO): one meta round-trip hands out this many stamps.
+# A leased window EXPIRES after the TTL: an idle node discards its
+# remainder and re-leases, which bounds how stale a stamp can be
+# relative to other nodes' commits.
+KV_TSO_WINDOW = env_int("SURREAL_KV_TSO_WINDOW", 512)
+KV_TSO_WINDOW_TTL_S = env_float("SURREAL_KV_TSO_WINDOW_TTL_S", 5.0)
+# a staged prepare whose coordinator has been silent this long is an
+# orphan: the participant resolves it through the meta commit log,
+# claiming abort if no decision was recorded (fixed at the reference's
+# defaults)
+KV_2PC_ORPHAN_GRACE_S = 5.0
+KV_2PC_RESOLVE_INTERVAL_S = 0.5

@@ -108,6 +108,7 @@ class Executor:
             tel.end(root)
 
     def _execute(self, stmts: list, vars: dict, tel) -> list[QueryResult]:
+        from surrealdb_tpu_torch import cnf as _cnf
         from surrealdb_tpu_torch import inflight as _inflight
         from surrealdb_tpu_torch.exec.statements import _ensure_ns_db
         from surrealdb_tpu_torch.telemetry import stage_record
@@ -195,6 +196,14 @@ class Executor:
                     )
                 )
                 continue
+            if _cnf.MEMORY_THRESHOLD:
+                from surrealdb_tpu_torch.mem import check_threshold
+
+                try:
+                    check_threshold()
+                except SdbError as e:
+                    results.append(QueryResult(error=str(e)))
+                    continue
             if handle is not None and handle.cancel.is_set():
                 # a KILL / disconnect / drain cancels the REMAINING
                 # statements too — they never start, and an open explicit
@@ -260,6 +269,9 @@ class Executor:
                 ctx.cancel = handle.cancel
                 ctx.inflight = handle
             ctx.vars.update(shared_vars)
+            # per-statement mailbox for the sharded KNN partial flag
+            # (idx/shardvec.py writes it; the QueryResult carries it)
+            self._knn_partial = None
             try:
                 if self.session.auth_level == "none" \
                         and self.session.guests_refused and not getattr(
@@ -321,6 +333,13 @@ class Executor:
                 stage_record("stmt_envelope", max(dt - eval_ns, 0))
                 self.ds.record_statement(True, dt, type(stmt).__name__)
                 qr = QueryResult(result=out, time_ns=dt)
+                if getattr(self, "_knn_partial", None):
+                    # a sharded KNN answered without these index shards
+                    # (SURREAL_KNN_PARTIAL=partial): the flag rides the
+                    # statement result so no client can mistake a
+                    # partial candidate set for a complete one
+                    qr.partial = {"missing_shards": self._knn_partial}
+                    self._knn_partial = None
                 results.append(qr)
                 if not own_txn:
                     buffered.append(len(results) - 1)

@@ -5217,6 +5217,43 @@ def _s_info(n: InfoStmt, ctx: Ctx):
 
         dev = get_supervisor().status()
 
+        # shard topology (kvs/shard.py): ranges, epochs, primaries —
+        # None/absent on unsharded stores. topology() serves the
+        # last-known map without network I/O, so this can't stall INFO;
+        # SdbError only covers the never-initialised-map edge.
+        from surrealdb_tpu_torch.err import (
+            QueryCancelled as _QC, QueryTimeout as _QT,
+        )
+
+        try:
+            shard_topo = ctx.ds.backend.topology()
+        except (_QC, _QT):
+            raise  # cancellation must never be absorbed by INFO
+        except SdbError:
+            shard_topo = None
+        # follower-read serving state (kvs/remote.py closed-timestamp
+        # protocol): per-group closed_ts/lag/era observations plus the
+        # session floor and the served/rejected/fallback counters —
+        # cache-only, same no-network discipline as topology()
+        repl_info = None
+        repl_fn = getattr(ctx.ds.backend, "replication_info", None)
+        if repl_fn is not None:
+            try:
+                repl_info = {
+                    "groups": repl_fn(),
+                    "counters": {
+                        k: ctx.ds.telemetry.get(k) for k in (
+                            "follower_reads_served",
+                            "follower_read_fallbacks",
+                        )
+                    },
+                    "closed_ts_lag_s":
+                        ctx.ds.backend.replication_lag_s(),
+                }
+            except (_QC, _QT):
+                raise
+            except SdbError:
+                repl_info = None
         out = {
             "available_parallelism": _os.cpu_count() or 1,
             "cpu_usage": 0.0,
@@ -5257,17 +5294,27 @@ def _s_info(n: InfoStmt, ctx: Ctx):
             # store builds/hits/bytes, fused-KNN and pushdown tallies
             "columnar": _columnar_snapshot(ctx.ds),
         }
+        if shard_topo is not None:
+            out["shards"] = shard_topo
+        if repl_info is not None:
+            out["replication"] = repl_info
         # vector index residency — rows, host bytes, ANN state, sync
-        # version, mesh width (device_sharded, device/mesh.py) — so an
-        # operator can see where each index is serving (the store is
-        # unsharded: no "shards" key, as the reference's on such a store)
+        # version, mesh width (device_sharded, device/mesh.py), and for
+        # shard-partitioned serving (idx/shardvec.py) the per-shard
+        # slices + replica addresses — so an operator can see which
+        # slice of which index is serving where
         knn_status = []
         for ixkey, eng in list(ctx.ds.vector_indexes.items()):
-            res_fn = getattr(eng, "residency", None)
-            if res_fn is None:
-                continue
-            knn_status.append({"index": ".".join(str(x) for x in ixkey),
-                               "residency": res_fn()})
+            ent = {"index": ".".join(str(x) for x in ixkey)}
+            status_fn = getattr(eng, "shards_status", None)
+            if status_fn is not None:
+                ent["shards"] = status_fn()
+            else:
+                res_fn = getattr(eng, "residency", None)
+                if res_fn is None:
+                    continue
+                ent["residency"] = res_fn()
+            knn_status.append(ent)
         if knn_status:
             out["knn"] = knn_status
         return out

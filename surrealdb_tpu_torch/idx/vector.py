@@ -212,10 +212,19 @@ class _Coalescer(DeviceBatcher):
 class TpuVectorIndex:
     """Per-(ns,db,tb,ix) device block cache + search engine."""
 
-    def __init__(self, ns, db, tb, ix, params: dict):
+    def __init__(self, ns, db, tb, ix, params: dict, key_range=None,
+                 label: str = ""):
         self.key = (ns, db, tb, ix)
         self.params = params
         self.dim = params["dimension"]
+        # optional [lo, hi) clamp over the `he` element keyspace: a
+        # shard-partitioned index (idx/shardvec.py) builds one engine
+        # per shard range, each covering only its slice of the rows
+        self.key_range = (
+            None if key_range is None
+            else (bytes(key_range[0]), bytes(key_range[1]))
+        )
+        self.label = label  # display name for residency/partial reports
         from surrealdb_tpu_torch.ops.metrics import normalize_metric
 
         self.metric, self.mink_p = normalize_metric(
@@ -297,10 +306,17 @@ class TpuVectorIndex:
         # rank stats (a trivial recompute). Bound methods: the
         # accountant holds them weakly, so a discarded engine is
         # pruned, never pinned.
-        acct_label = f"{tb}.{ix}"
+        acct_label = f"{tb}.{ix}" + (f"[{label}]" if label else "")
+        # shard-part engines (key_range set) are TRACKED but their host
+        # rows are not byte-evictable: the scatter router syncs and
+        # searches a part in separate steps, and a background eviction
+        # between them could merge a silently short answer. Their
+        # ann/rank-stats overlays (safe to drop mid-flight) stay
+        # evictable.
         self._mem_vec = resource.register(
             "vec", acct_label, self._vec_mem_bytes,
-            evict=self._mem_evict_vec, owner=self,
+            evict=self._mem_evict_vec if key_range is None else None,
+            owner=self,
         )
         self._mem_ann = resource.register(
             "ann", acct_label, self._ann_mem_bytes,
@@ -526,12 +542,24 @@ class TpuVectorIndex:
         self.rank_mode = None
         self._host_stats = None
 
-    def _scan_rows(self, ctx):
-        """Read this engine's rows from KV truth. Pure I/O, no index
-        locks; the caller installs the snapshot under the write lock."""
+    def _he_range(self) -> tuple[bytes, bytes, bytes]:
+        """(prefix, begin, end) of this engine's element keyspace —
+        clamped to `key_range` for a shard part."""
         ns, db, tb, ix = self.key
         pre = K.ix_state(ns, db, tb, ix, b"he")
         beg, end = K.prefix_range(pre)
+        if self.key_range is not None:
+            beg = max(beg, self.key_range[0])
+            end = min(end, self.key_range[1])
+        return pre, beg, end
+
+    def _scan_rows(self, ctx):
+        """Read this engine's rows from KV truth (range-clamped). Pure
+        I/O, no index locks, so the scatter paths can park on a remote
+        scan without wedging concurrent searchers; the caller installs
+        the snapshot under the write lock."""
+        pre, beg, end = self._he_range()
+        tb = self.key[2]
         rids = []
         rows = []
         index = {}
@@ -573,16 +601,84 @@ class TpuVectorIndex:
     def _rebuild(self, ctx):
         ns, db, tb, ix = self.key
         self._install_rows(*self._scan_rows(ctx))
-        # trim the consumed op log when we can write (bounds log growth)
-        if getattr(ctx.txn, "write", False):
+        # trim the consumed op log when we can write (bounds log growth);
+        # shard parts never trim: the router owns the shared log
+        if self.key_range is None and getattr(ctx.txn, "write", False):
             ver = ctx.txn.get_val(K.ix_state(ns, db, tb, ix, b"vn")) or 0
             beg = K.ix_state(ns, db, tb, ix, b"hl", K.enc_u64(0))
             end = K.ix_state(ns, db, tb, ix, b"hl", K.enc_u64(ver)) + b"\x00"
             ctx.txn.delete_range(beg, end)
 
+    # -- shard-part serving (driven by idx/shardvec.py) ---------------------
+
+    def part_sync(self, ctx, ver: int, entries):
+        """Bring ONE shard part up to global mutation version `ver`.
+
+        The router read `vn` once and fetched the shared op log once;
+        `entries` is this part's share — ascending `(gver, op, idv,
+        raw)` tuples — or None when the log cannot cover the gap (full
+        range rebuild). Lock discipline differs from the unsharded
+        `sync`: all KV I/O (the rebuild scan) runs OUTSIDE the index
+        locks, so a scatter attempt parked on a sick shard's scan never
+        wedges searchers of the healthy parts; installs re-check the
+        version under the lock, so two racing syncs converge instead of
+        regressing."""
+        if ver <= self.version:
+            return
+        if entries is not None and self.version >= 0:
+            frag = 0.0
+            with self.lock, self.rw.write():
+                if ver > self.version:
+                    self._apply_entries([
+                        (op, idv, raw) for g, op, idv, raw in entries
+                        if g > self.version
+                    ])
+                    self.version = ver
+                if len(self.valid):
+                    frag = 1.0 - (self.valid.sum() / len(self.valid))
+            if frag <= 0.25:
+                self._maybe_maintain()
+                return
+        rids, rows, index = self._scan_rows(ctx)  # KV I/O: no locks held
+        with self.lock, self.rw.write():
+            if ver >= self.version:
+                self._install_rows(rids, rows, index)
+                self.version = ver
+        self._maybe_maintain()
+
+    def search_topk(self, qv: np.ndarray, k: int):
+        """Per-part scatter entry: top-k over this part's (already
+        synced) rows — exact, or graph descent + exact re-rank when the
+        part grew past the ANN floor. Pure compute: by the lock
+        discipline above it can never block on a remote shard.
+
+        Routing: device-bound parts ride the cross-query coalescer
+        (concurrent queries share one batched kernel per part block);
+        host-routed parts call the batched engine entry directly."""
+        with self.lock:
+            self._pins += 1  # pin: eviction must not race this search
+        try:
+            n = int(self.valid.sum()) if len(self.valid) else 0
+            if n == 0:
+                return []
+            k = min(k, n)
+            if len(self.rids) < DEVICE_MIN_ROWS:
+                # tiny part: the exact host ladder, bit for bit the
+                # unsharded small-store path
+                with self.rw.read():
+                    return self._host_knn_single(qv, k)
+            if self._use_device():
+                return self.coalescer.search(qv, k)
+            with self.rw.read():
+                return self.knn_batch(np.asarray(qv)[None, :], k)[0]
+        finally:
+            with self.lock:
+                self._pins -= 1
+
     def residency(self) -> dict:
-        """Index-serving residency (rows, bytes, the ANN state and, on a
-        segmented engine, its segments and mutable tail)."""
+        """Index-serving residency (rows, bytes, the ANN state, on a
+        segmented engine its segments and mutable tail, and on a shard
+        part its range)."""
         out = {
             "rows": int(self.valid.sum()) if len(self.valid) else 0,
             "bytes": int(self.vecs.nbytes),
@@ -604,6 +700,8 @@ class TpuVectorIndex:
             out["segments"] = st["segments"]
             out["segments_ready"] = st["ready"]
             out["tail_rows"] = st["tail_rows"]
+        if self.label:
+            out["range"] = self.label
         return out
 
     # -- segmented LSM-style serving (idx/segments.py) ----------------------
@@ -788,10 +886,10 @@ class TpuVectorIndex:
 
         ns, db, tb, ix = self.key
         # filename: readable stem + a collision-proof tag (names may
-        # contain bytes a filesystem rejects); the "" is the
-        # reference's label of an unsharded engine, so both packages
-        # name the same file
-        ident = repr((ns, db, tb, ix, ""))
+        # contain bytes a filesystem rejects; parts add their range, and
+        # the ident is the reference's, so both packages name the same
+        # file)
+        ident = repr((ns, db, tb, ix, self.label))
         tag = hashlib.sha256(ident.encode()).hexdigest()[:16]
         stem = "".join(
             c if c.isalnum() else "_" for c in f"{ns}.{db}.{tb}.{ix}"
@@ -1419,12 +1517,23 @@ class TpuVectorIndex:
 def get_vector_index(idef, ctx):
     """The serving engine for one vector index (an `IndexDef` with an
     HNSW definition: `dimension`, `distance`, `vector_type`), cached on
-    the datastore. The reference's range-sharded branch is not ported."""
+    the datastore: a node-local TpuVectorIndex, or — on a range-sharded
+    store — the scatter-gather router (idx/shardvec.py) that partitions
+    the index along the shard map and merges per-shard top-k."""
     ns, db = ctx.need_ns_db()
     key = (ns, db, idef.tb, idef.name)
     eng = ctx.ds.vector_indexes.get(key)
     if eng is None:
-        eng = TpuVectorIndex(ns, db, idef.tb, idef.name, idef.hnsw)
+        from surrealdb_tpu_torch.kvs.shard import ShardedBackend
+
+        if isinstance(ctx.ds.backend, ShardedBackend):
+            from surrealdb_tpu_torch.idx.shardvec import ShardedVectorIndex
+
+            eng = ShardedVectorIndex(ns, db, idef.tb, idef.name,
+                                     idef.hnsw, ctx.ds.backend,
+                                     telemetry=ctx.ds.telemetry)
+        else:
+            eng = TpuVectorIndex(ns, db, idef.tb, idef.name, idef.hnsw)
         eng.snapshot_dir = getattr(ctx.ds, "ann_snapshot_dir", None)
         ctx.ds.vector_indexes[key] = eng
     return eng

@@ -81,6 +81,12 @@ class Backend:
     def close(self) -> None:
         pass
 
+    def topology(self):
+        """Shard topology of this backend, or None for an unsharded
+        store. The range-sharded router (kvs/shard.py) overrides this;
+        INFO FOR SYSTEM and the /kv/topology route surface it."""
+        return None
+
 
 # ---------------------------------------------------------------------------
 # Value (de)serialization for stored records & catalog structs.

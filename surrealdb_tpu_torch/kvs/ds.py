@@ -29,8 +29,19 @@ per-session outboxes), the bounded in-process buffer `notifications`
 with `drain_notifications()`, the embedded `notification_handlers`, and
 `gc_session_lives` for a session that went away without KILL. A served
 datastore starts the node's heartbeat and membership tasks
-(`start_node_tasks`, `node.py`). Changefeeds and the remote, sharded
-and LSM engines are not ported.
+(`start_node_tasks`, `node.py`).
+
+The distributed paths: `remote://host:port[,host:port...]` opens a
+stateless node over one replicated KV group (`kvs/remote.py`; the list
+names a replica set, and the client follows its failovers), and
+`shard://host:port[,...]` a node over a range-sharded cluster whose
+meta group those addresses name (`kvs/shard.py`). Over either, a
+read-only statement with `READ AT` may be served by a replica that
+proves its staleness bound, versionstamps come from TSO windows leased
+from the meta shard on a sharded store, and a vector index is served by
+the scatter-gather router (`idx/shardvec.py`), whose partial answers
+`QueryResult.partial` names. The LSM and native memtable engines are
+not ported.
 """
 
 from __future__ import annotations
@@ -97,7 +108,11 @@ class QueryResult:
         self.result = result
         self.error = error
         self.time_ns = time_ns
-        self.partial = None  # a sharded KNN's missing shards (not ported)
+        # typed partial-result marker (SURREAL_KNN_PARTIAL=partial): a
+        # scatter-gather KNN answered without one or more index shards.
+        # None = complete; else {"missing_shards": [names]} — a partial
+        # answer is always FLAGGED, never silently short (idx/shardvec)
+        self.partial = None
 
     @property
     def ok(self):
@@ -133,13 +148,15 @@ def _bind_serving():
 
 
 class Datastore:
-    """An embedded datastore over one storage backend: `memory` or a
-    directory (`file://path`, `skv://path`)."""
+    """A datastore over one storage backend: `memory`, a directory
+    (`file://path`, `skv://path`), a remote KV group (`remote://...`), a
+    range-sharded cluster (`shard://...`), or a pre-built `backend`."""
 
     STORAGE_VERSION = 1  # on-disk format version (reference kvs/version/)
 
     def __init__(self, path: str = "memory", strict: bool = False,
-                 capabilities=None, check_version: bool = True):
+                 capabilities=None, check_version: bool = True,
+                 backend=None):
         from surrealdb_tpu_torch.capabilities import Capabilities
         from surrealdb_tpu_torch.inflight import InflightRegistry
         from surrealdb_tpu_torch.telemetry import Telemetry
@@ -147,11 +164,17 @@ class Datastore:
         self.path = path
         self.strict = strict
         self.capabilities = capabilities or Capabilities.from_env()
+        # created before the backend: the remote engine records its
+        # retry/failover counters here
         self.telemetry = Telemetry()
         # persisted ANN artifacts (idx/cagra.py save_index): only a
         # disk-backed store has a place for them
         self.ann_snapshot_dir = None
-        if path in ("memory", "mem://", "mem", "pymem", "pymem://"):
+        if backend is not None:
+            # pre-built backend injection (a simulator mounts a real
+            # Datastore on a ShardedBackend with its own transport)
+            self.backend = backend
+        elif path in ("memory", "mem://", "mem", "pymem", "pymem://"):
             from surrealdb_tpu_torch.kvs.mem import MemBackend
 
             self.backend = MemBackend()
@@ -164,9 +187,28 @@ class Datastore:
                 else os.path.dirname(os.path.abspath(store))
             # beside the data: a restart reloads a graph build in seconds
             self.ann_snapshot_dir = os.path.join(base, ".ann-cache")
-        else:
+        elif path.startswith("remote://"):
+            # distributed mode: stateless database node over a shared
+            # transactional KV service (reference kvs/tikv/mod.rs:32);
+            # a comma-separated address list names a replica set — the
+            # client follows primary failovers automatically
+            from surrealdb_tpu_torch.kvs.remote import RemoteBackend
+
+            self.backend = RemoteBackend(path.split("://", 1)[1],
+                                         telemetry=self.telemetry)
+        elif path.startswith("shard://"):
+            # range-sharded distributed mode: the address list names the
+            # META group (shard 0); the shard map is read from there and
+            # reads/commits route by key range (kvs/shard.py)
+            from surrealdb_tpu_torch.kvs.shard import ShardedBackend
+
+            self.backend = ShardedBackend(path.split("://", 1)[1],
+                                          telemetry=self.telemetry)
+        elif path.startswith("lsm://"):
             raise NotPorted(f"datastore path {path!r} is not ported "
-                            f"(only 'memory', 'file://' and 'skv://')")
+                            f"(the LSM engine)")
+        else:
+            raise SdbError(f"unknown datastore path: {path!r}")
         self.lock = threading.RLock()
         # live subscriptions, indexed by (ns,db,tb): the write path
         # gates on count_for() instead of scanning every subscription
@@ -250,9 +292,38 @@ class Datastore:
         from surrealdb_tpu_torch.exec.batch import counters as _col_counters
 
         self._columnar_counters = _col_counters(self)
-        # shared decoded-catalog cache (version, dict)
+        # index-serving shard count across all sharded vector indexes
+        # (0 on unsharded stores; pairs with the knn_shard_fanout /
+        # knn_partial_results / knn_hedged_dispatches counters)
+        self.telemetry.register_gauge(
+            "knn_index_shards",
+            lambda: sum(
+                len(getattr(eng, "parts", ()) or ())
+                for eng in list(self.vector_indexes.values())
+            ),
+        )
+        # shared decoded-catalog cache (version, dict); local backends
+        # only — a remote keyspace can change under us without a local
+        # commit, so remote datastores skip it
         self._catalog_ver = 0
         self._catalog_shared = (0, {})
+        from surrealdb_tpu_torch.kvs.remote import RemoteBackend as _RB
+        from surrealdb_tpu_torch.kvs.shard import ShardedBackend as _SB
+
+        self._local_catalog_cache = not isinstance(self.backend, (_RB, _SB))
+        if not self._local_catalog_cache:
+            # follower-read observability: worst observed closed-ts lag
+            # across replica-set members (-1 until a follower read runs)
+            self.telemetry.register_gauge(
+                "repl_closed_ts_lag_s",
+                lambda: round(self.backend.replication_lag_s(), 3),
+            )
+        # TSO window state (sharded stores lease versionstamp windows
+        # from the meta shard instead of running a local HLC); windows
+        # expire so an idle node can't stamp far in the logical past
+        self._tso_next = 0
+        self._tso_end = 0
+        self._tso_expiry = 0.0
         self._stamp_storage_version(check_version)
 
     # -- resource accounting (resource.py) ------------------------------------
@@ -278,14 +349,26 @@ class Datastore:
     # -- transactions -------------------------------------------------------
     def transaction(self, write: bool = True,
                     max_staleness: Optional[float] = None) -> Transaction:
-        """Open a transaction. A local store serves the latest state,
-        so `max_staleness` never changes what a read sees."""
+        """Open a transaction. `max_staleness` (seconds, read-only
+        transactions only) opts into closed-timestamp follower reads on
+        replicated backends: the read may be served by a replica that
+        can PROVE it is at most that stale. Local backends serve latest
+        — trivially within any bound — and never see the parameter."""
         self.metrics["transactions"] += 1
-        with self.lock:
-            t = Transaction(self.backend.transaction(write), write)
-            t._ds = self
-            t._shared_cat = self._catalog_shared
-        return t
+        if max_staleness is not None and not write \
+                and getattr(self.backend, "supports_staleness", False):
+            return Transaction(
+                self.backend.transaction(write,
+                                         max_staleness=max_staleness),
+                write,
+            )
+        if self._local_catalog_cache:
+            with self.lock:
+                t = Transaction(self.backend.transaction(write), write)
+                t._ds = self
+                t._shared_cat = self._catalog_shared
+            return t
+        return Transaction(self.backend.transaction(write), write)
 
     def context(self, ns: str, db: str, write: bool = False):
         """A context over a fresh transaction, for the engines' direct
@@ -476,7 +559,42 @@ class Datastore:
     def next_versionstamp(self) -> int:
         """Hybrid logical clock versionstamp (reference kvs/clock.rs
         HlcTimeStamp): [44-bit wall millis | 20-bit logical counter],
-        monotonic even when the wall clock stalls or steps back."""
+        monotonic even when the wall clock stalls or steps back.
+
+        Sharded stores instead draw from a sequence window leased from
+        the meta shard (PD-style TSO, kvs/shard.py): per-node HLCs
+        could interleave inconsistently across shards, but windows off
+        one counter keep `SHOW CHANGES` ordering globally consistent.
+        Window starts embed wall millis in the same [44|20] layout, so
+        stamps stay comparable to datetime-derived bounds."""
+        tso = getattr(self.backend, "tso_window", None)
+        if tso is not None:
+            now = time.monotonic()
+            with self.lock:
+                if self._tso_next < self._tso_end \
+                        and now < self._tso_expiry:
+                    v = self._tso_next
+                    self._tso_next += 1
+                    return v
+                # an expired window is abandoned, not drained: a
+                # changefeed cursor may already have advanced past it,
+                # and stamps issued behind the cursor would be silently
+                # skipped by SHOW CHANGES consumers — staleness is
+                # bounded by the window TTL
+                self._tso_end = 0
+            # refill outside ds.lock: one meta round-trip per window
+            start, end = tso(cnf.KV_TSO_WINDOW)
+            with self.lock:
+                if self._tso_next >= self._tso_end:
+                    # windows are disjoint and strictly increasing, so
+                    # adopting a fresh one never regresses; a racing
+                    # refill that lost simply wastes its window
+                    self._tso_next, self._tso_end = start, end
+                    self._tso_expiry = (time.monotonic()
+                                        + cnf.KV_TSO_WINDOW_TTL_S)
+                v = self._tso_next
+                self._tso_next += 1
+                return v
         with self.lock:
             wall = int(time.time() * 1000)
             if wall > self._hlc_wall:
@@ -497,6 +615,9 @@ class Datastore:
             self.node_tasks.stop()
         self.fanout.close_all()
         for eng in list(self.vector_indexes.values()):
-            if getattr(eng, "_segs", None) is not None:
-                eng._segs.close()
+            # a sharded index's router holds one engine per part
+            for part_eng in [eng] + [p.engine for p in
+                                     getattr(eng, "parts", ())]:
+                if getattr(part_eng, "_segs", None) is not None:
+                    part_eng._segs.close()
         self.backend.close()

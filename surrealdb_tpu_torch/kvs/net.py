@@ -1,33 +1,48 @@
-"""The clock and runtime seam (the reference package's `kvs/net.py`,
-without its transport: the remote KV engines are not ported).
+"""The clock, runtime and transport seam of the distributed KV stack
+(the reference package's `kvs/net.py`).
 
-- ``Clock``   — ``monotonic()`` (deadlines, idle timers), ``wall()``
-                (lease rows and heartbeats: values that land in the
-                keyspace and must be comparable between nodes),
-                ``sleep()``.
-- ``Runtime`` — owns background execution: ``every()`` runs a
-                cancellable periodic *tick* (the live fan-out's
-                dead-session sweep), ``spawn()`` a one-shot task,
-                ``rlock()`` the locks that may be held across blocking
-                calls.
+- ``Clock``     — ``monotonic()`` (deadlines, idle timers), ``wall()``
+                  (lease rows, TSO stamps, heartbeats: values that land
+                  in the keyspace or cross the wire and must be
+                  comparable between nodes), ``sleep()``.
+- ``Runtime``   — owns background execution: ``every()`` runs a
+                  cancellable periodic *tick* (replication heartbeats,
+                  lease renewal, the live fan-out's dead-session sweep),
+                  ``spawn()`` a one-shot task, ``rlock()`` the locks
+                  that may be held across blocking transport calls.
+- ``Transport`` — outbound connections (``connect`` → a channel with
+                  ``call``/``close``) and the ``status_of`` probe, over
+                  4-byte length-prefixed CBOR frames (``send_frame`` /
+                  ``recv_frame``), byte for byte the reference's.
 
 The default implementations are the real ones (``time``, daemon
-threads). A simulator installs a virtual clock for the extent of a run
-with ``use_clock`` and hands its own ``Runtime`` to the objects that
-take one (`server.fanout.FanoutHub(runtime=...)`).
+threads, TCP sockets). A simulator installs a virtual clock for the
+extent of a run with ``use_clock`` and hands its own ``Runtime`` and
+``Transport`` to the objects that take one (`kvs/remote.py`,
+`kvs/shard.py`, `server.fanout.FanoutHub(runtime=...)`).
+
+This module is the only place in the distributed stack that calls
+``time.time()``, ``time.sleep()`` or makes sockets itself.
 
 The AMBIENT clock: free functions that coordinate through the KV but
-have no object to hang a clock on (`node.py`'s lease and heartbeat
+have no object to hang a clock on (`node.py`'s lease, TSO and heartbeat
 helpers) read the process-wide ambient clock via ``wall()`` / ``mono()``
 / ``sleep_s()``.
 """
 
 from __future__ import annotations
 
+import socket
+import struct
 import threading
 import time
 from contextlib import contextmanager
-from typing import Callable
+from typing import Callable, Optional
+
+from surrealdb_tpu_torch.err import SdbError
+
+_HDR = struct.Struct(">I")
+MAX_FRAME = 256 << 20
 
 #: sentinel a periodic tick returns to stop its loop for good
 STOP = object()
@@ -41,8 +56,8 @@ STOP = object()
 class Clock:
     """Time source. ``monotonic`` feeds deadlines/idle timers (never
     compared across processes); ``wall`` feeds values that land in the
-    keyspace and must be comparable between nodes (lease expiries,
-    heartbeats)."""
+    keyspace and must be comparable between nodes (lease expiries, TSO
+    stamps)."""
 
     def monotonic(self) -> float:
         raise NotImplementedError
@@ -88,7 +103,7 @@ def sleep_s(s: float) -> None:
 @contextmanager
 def use_clock(clock: Clock):
     """Install `clock` as the process ambient clock for the dynamic
-    extent of the block."""
+    extent of the block (a simulator wraps every run in this)."""
     global _ambient
     prev = _ambient
     _ambient = clock
@@ -112,7 +127,7 @@ class LoopHandle:
 
 class Runtime:
     """Owns background execution and the locks that may be held across
-    blocking calls."""
+    blocking transport calls."""
 
     def every(self, interval_s: float, tick: Callable[[], object],
               name: str = "tick", immediate: bool = False) -> LoopHandle:
@@ -138,7 +153,8 @@ class _RealLoopHandle(LoopHandle):
 
 
 class RealRuntime(Runtime):
-    """Daemon threads + Event waits."""
+    """Daemon threads + Event waits — exactly the loops kvs/remote.py
+    used to hand-roll, factored behind the seam."""
 
     def every(self, interval_s, tick, name="tick", immediate=False):
         stop = threading.Event()
@@ -169,3 +185,132 @@ class RealRuntime(Runtime):
 
 
 REAL_RUNTIME = RealRuntime()
+
+
+# ---------------------------------------------------------------------------
+# transport (real TCP implementation)
+# ---------------------------------------------------------------------------
+
+
+def parse_addr(addr: str) -> tuple[str, int]:
+    host, _, port = addr.rpartition(":")
+    if not host or not port.isdigit():
+        raise SdbError(f"kv address must be host:port, got {addr!r}")
+    return host, int(port)
+
+
+def send_frame(sock, payload: bytes):
+    sock.sendall(_HDR.pack(len(payload)) + payload)
+
+
+def recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("kv peer closed")
+        buf.extend(chunk)
+    return bytes(buf)
+
+
+def recv_frame(sock) -> bytes:
+    (n,) = _HDR.unpack(recv_exact(sock, 4))
+    if n > MAX_FRAME:
+        raise SdbError(f"kv frame too large: {n}")
+    return recv_exact(sock, n)
+
+
+def _encode(msg) -> bytes:
+    from surrealdb_tpu_torch import wire
+
+    return wire.encode(msg)
+
+
+def _decode(b: bytes):
+    from surrealdb_tpu_torch import wire
+
+    return wire.decode(b)
+
+
+class _Conn:
+    """One authenticated client connection to a KV server (real TCP)."""
+
+    def __init__(self, addr, secret: Optional[str],
+                 timeout: Optional[float] = None,
+                 connect_timeout: Optional[float] = None):
+        from surrealdb_tpu_torch import cnf
+
+        op_timeout = cnf.KV_OP_TIMEOUT_S if timeout is None else timeout
+        # connect under the (short) connect timeout — a SYN-black-holed
+        # peer must not eat the whole op timeout before discovery can
+        # even run — then widen to the op timeout for the data path
+        self.sock = socket.create_connection(
+            addr,
+            timeout=op_timeout if connect_timeout is None
+            else connect_timeout,
+        )
+        self.sock.settimeout(op_timeout)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.epoch = -1  # pool failover epoch tag
+        if secret:
+            self.call(["auth", secret])
+
+    def call(self, msg):
+        send_frame(self.sock, _encode(msg))
+        resp = _decode(recv_frame(self.sock))
+        if resp[0] == "err":
+            raise SdbError(resp[1])
+        return resp[1]
+
+    def close(self):
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+class Transport:
+    """Outbound-connection factory. ``connect`` returns a channel with
+    ``call(msg)`` / ``close()`` / a writable ``epoch`` attribute."""
+
+    def connect(self, addr, secret: Optional[str] = None,
+                timeout: Optional[float] = None,
+                connect_timeout: Optional[float] = None):
+        raise NotImplementedError
+
+    def status_of(self, addr, secret,
+                  timeout: float = 1.0) -> Optional[dict]:
+        """Probe one server's status; None when unreachable/sick."""
+        try:
+            c = self.connect(addr, secret, timeout=timeout)
+        except (OSError, SdbError):
+            return None
+        try:
+            st = c.call(["status"])
+            return st if isinstance(st, dict) else None
+        except Exception:
+            return None
+        finally:
+            c.close()
+
+    def make_lock(self):
+        """Lock factory for client-side locks that may be held across
+        blocking calls on this transport (the pool's discovery lock)."""
+        return threading.Lock()
+
+    def queue_get(self, q, timeout: float):
+        """Dequeue with a bounded wait (raises queue.Empty on expiry).
+        The real implementation blocks event-driven — a release wakes
+        the waiter immediately; a simulator overrides it to park in
+        virtual time (a real block would freeze the kernel)."""
+        return q.get(timeout=timeout)
+
+
+class RealTransport(Transport):
+    def connect(self, addr, secret=None, timeout=None,
+                connect_timeout=None):
+        return _Conn(addr, secret, timeout=timeout,
+                     connect_timeout=connect_timeout)
+
+
+REAL_TRANSPORT = RealTransport()

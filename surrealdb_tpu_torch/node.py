@@ -1,14 +1,14 @@
-"""Cluster node registry, heartbeats, task leases, dead-node GC (the
-reference package's `node.py`, without the KV service's own store-level
-leases and sequence windows: the remote and sharded engines are not
-ported).
+"""Cluster node registry, heartbeats, task leases, dead-node GC, and
+the KV service's own store-level leases and TSO windows (the reference
+package's `node.py`).
 
 Reference: core/src/dbs/node.rs:17-25 (node rows + heartbeat),
 surrealdb/src/engine/tasks.rs:48-56 (membership refresh / check /
 cleanup background loops), core/src/kvs/tasklease.rs:44 (single-winner
-cluster task leases). Everything here coordinates THROUGH the KV — no
-node-to-node RPC, exactly like the reference — and reads time through
-the ambient clock of `kvs/net.py`.
+cluster task leases). Nodes are stateless database processes over the
+shared KV (kvs/remote.py); everything here coordinates THROUGH the KV —
+no node-to-node RPC, exactly like the reference — and reads time
+through the ambient clock of `kvs/net.py`.
 """
 
 from __future__ import annotations
@@ -50,6 +50,113 @@ class TaskLease:
         except SdbError:
             txn.cancel()
             return False
+
+
+# -- store-level leases (KV-service failover) -------------------------------
+# The KV primary/replica layer (kvs/remote.py) rides the SAME lease rows
+# as TaskLease, but operates on a raw VersionedStore: the KV service IS
+# the coordination substrate, so its own election can't go through a
+# Datastore client. Row format is identical — (holder, expiry) under
+# K.task_lease(name) — which means DB-level observers can read the KV
+# primary lease with ordinary transactions.
+
+KV_PRIMARY_LEASE = "kv-primary"
+
+
+def store_lease_read(vs, name: str):
+    """Read (holder, expiry) for a lease row straight off a
+    VersionedStore, or None when absent."""
+    from surrealdb_tpu_torch.kvs.api import deserialize
+
+    snap = vs.snapshot()
+    try:
+        raw = vs.read(K.task_lease(name), snap)
+    finally:
+        vs.release(snap)
+    if raw is None:
+        return None
+    try:
+        row = deserialize(raw)
+        return (row[0], float(row[1]))
+    except Exception:
+        return None
+
+
+def store_lease_acquire(vs, name: str, holder: str, ttl_s: float) -> bool:
+    """Single-winner lease acquire/renew over a raw VersionedStore:
+    wins only when the row is absent, expired, or already ours; an
+    optimistic commit conflict means another contender won the race.
+    Same semantics as TaskLease.try_acquire, one layer down."""
+    from surrealdb_tpu_torch.kvs.api import deserialize, serialize
+
+    now = net.wall()
+    key = K.task_lease(name)
+    snap = vs.snapshot()
+    committing = False
+    try:
+        raw = vs.read(key, snap)
+        if raw is not None:
+            try:
+                row = deserialize(raw)
+                cur_holder, expiry = row[0], float(row[1])
+            except Exception:
+                cur_holder, expiry = None, 0.0  # corrupt row: claimable
+            if cur_holder is not None and cur_holder != holder \
+                    and expiry > now:
+                return False
+        # commit() releases the snapshot itself, success OR conflict —
+        # releasing again could drop another txn's pin at the same version
+        committing = True
+        vs.commit({key: serialize((holder, now + ttl_s))}, snap)
+        return True
+    except SdbError:
+        return False
+    finally:
+        if not committing:
+            vs.release(snap)
+
+
+# -- TSO sequence windows (sharded versionstamps) ---------------------------
+# A sharded datastore can't run per-node HLC versionstamps: two nodes'
+# clocks would interleave inconsistently across shards and break SHOW
+# CHANGES ordering. Instead every node leases a WINDOW of stamps from a
+# single counter row on the meta shard (PD-style TSO, reference role:
+# PD's timestamp oracle). Window starts embed wall-clock millis in the
+# same [44-bit ms | 20-bit counter] layout as the HLC, so stamps remain
+# comparable to datetime-derived changefeed bounds.
+
+KV_TSO_KEY = b"\x00!tso"  # meta-shard counter row: last handed-out stamp
+
+
+def lease_tso_window(txn_factory, n: int, retries: int = 32):
+    """Allocate `n` globally-unique, strictly-increasing versionstamps
+    via one optimistic read-bump-commit on the meta shard. Returns
+    [start, end) — windows never overlap, and a window start never
+    regresses below wall-clock millis << 20. Conflicts (other nodes
+    refilling concurrently) retry bounded; transport errors surface
+    through the caller's retry policy."""
+    last_err = None
+    for _attempt in range(retries):
+        txn = txn_factory()
+        try:
+            raw = txn.get(KV_TSO_KEY)
+            last = int(raw.decode()) if raw else 0
+            start = max(int(net.wall() * 1000) << 20, last + 1)
+            txn.set(KV_TSO_KEY, str(start + n).encode())
+            txn.commit()
+            return start, start + n
+        except SdbError as e:
+            try:
+                txn.cancel()
+            except SdbError:
+                pass
+            if "conflict" not in str(e).lower():
+                raise
+            last_err = e
+    raise SdbError(
+        f"kv tso: window lease lost {retries} optimistic races; "
+        f"last error: {last_err}"
+    )
 
 
 def heartbeat(ds) -> None:

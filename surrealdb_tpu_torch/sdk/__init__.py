@@ -22,10 +22,11 @@ negotiation, or one-shot HTTP `/rpc` POSTs.
 
 `signin`, `signup` and `authenticate` go through the server's `iam.py`
 (the HTTP engine replays the session's token on each request);
-`graphql` reaches the server's `gql.py`. Not ported: the flatbuffers
-format (`fmt="fb"`, which needs the `flatbuffers` package) and the
-`remote://` engine raise `NotPorted`; so do the server's /export,
-/import and /kv/topology routes.
+`graphql` reaches the server's `gql.py`. `remote://host:port[,...]`
+embeds a datastore over the shared KV service (`kvs/remote.py`). Not
+ported: the flatbuffers format (`fmt="fb"`, which needs the
+`flatbuffers` package) raises `NotPorted`; so do the server's /export
+and /import routes.
 """
 
 from __future__ import annotations
@@ -570,6 +571,7 @@ def connect(url: str = "mem://", fmt: str = "cbor",
 
     mem:// | memory        embedded, in-memory
     file://p | skv://p     embedded, persistent
+    remote://host:port     embedded compute over the shared KV service
     ws://host:port         WebSocket RPC (cbor by default)
     http://host:port       one-shot HTTP RPC
     """
@@ -579,9 +581,7 @@ def connect(url: str = "mem://", fmt: str = "cbor",
     scheme = u.scheme or "mem"
     if scheme in ("mem", "memory"):
         return Surreal(LocalEngine("memory"))
-    if scheme == "remote":
-        raise NotPorted("the remote:// engine is not ported")
-    if scheme in ("file", "skv"):
+    if scheme in ("file", "skv", "remote"):
         return Surreal(LocalEngine(url))
     if scheme == "ws":
         return Surreal(

@@ -16,9 +16,10 @@ session (an invalid token is a 401, never an anonymous session) and
 (`api.py`, through `RETURN api::invoke`), POST /graphql a GraphQL query
 (`gql.py`). A served datastore sweeps expired changefeed entries
 (`cf.py changefeed_gc_tick`) every SURREAL_CHANGEFEED_GC_INTERVAL_S.
-Left out, each answering with the reference's error envelope for the
-route and a `NotPorted` message naming it: /export, /import and
-/kv/topology; the flatbuffers format."""
+GET /kv/topology answers a sharded store's shard map (`{}` on any other
+store). Left out, each answering with the reference's error envelope
+for the route and a `NotPorted` message naming it: /export and
+/import; the flatbuffers format."""
 
 from __future__ import annotations
 
@@ -387,8 +388,18 @@ class SurrealHandler(BaseHTTPRequestHandler):
             self._json(200, self.ds.telemetry.recent_traces())
             return
         if path == "/kv/topology":
-            # the sharded KV engine is not ported
-            self._json(503, {"error": _not_ported("/kv/topology")})
+            # shard topology (ranges, epochs, primaries) of a sharded
+            # store; {} when the backend is unsharded. Gated like
+            # /metrics: topology leaks deployment shape.
+            if self._session().auth_level == "none":
+                self._json(401, {"error": "Not authenticated"})
+                return
+            try:
+                topo = self.ds.backend.topology()
+            except SdbError as e:
+                self._json(503, {"error": str(e)})
+                return
+            self._json(200, topo if topo is not None else {})
             return
         if path == "/export":
             self._json(400, {"error": _not_ported("/export")})

@@ -241,8 +241,29 @@ def test_flatbuffers_format_not_ported(url, fmt):
 
 
 def test_remote_engine_not_ported():
-    with pytest.raises(NotPorted, match="remote:// engine is not ported"):
-        pconnect("remote://127.0.0.1:1")
+    """The `remote://` engine is ported (the name is from when it was
+    left out): both packages' SDKs embed a datastore over the port's KV
+    server and answer alike."""
+    from surrealdb_tpu.sdk import connect as rconnect
+    from surrealdb_tpu_torch.kvs.remote import serve_kv
+
+    srv = serve_kv("127.0.0.1", 0, block=False, fsync=False)
+    got = []
+    try:
+        for i, connect in enumerate((rconnect, pconnect)):
+            db = connect(f"remote://127.0.0.1:{srv.server_address[1]}")
+            try:
+                db.use("t", f"t{i}")
+                db.create("person:1", {"name": "a"})
+                got.append([r["result"] for r in db.query(
+                    "SELECT name FROM person; SELECT VALUE id FROM person")])
+            finally:
+                db.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert repr(got[0]) == repr(got[1])
+    assert got[1][0] == [{"name": "a"}]
 
 
 @pytest.mark.parametrize("engine", ["local", "ws", "http"])

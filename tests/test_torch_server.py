@@ -919,6 +919,14 @@ def test_left_out_route_answers_not_ported(pair, method, path, code, key,
         assert "not ported" not in json.loads(p[2])["error"]
         assert req(pair[1].base, "/health")[0] == 200
         return
+    if path == "/kv/topology":
+        # ported: the reference's answer (`{}` on an unsharded store;
+        # the sharded cases are in test_torch_shard.py)
+        r, p = both_req(pair, path, method, None, NSDB)
+        assert (p[0], json.loads(p[2])) == (r[0], json.loads(r[2]))
+        assert b"not ported" not in p[2]
+        assert req(pair[1].base, "/health")[0] == 200
+        return
     if path in ("/signin", "/signup"):
         r, p = both_req(pair, path, method, b"{}", NSDB)
         assert p[0] == code and json.loads(r[2]) == json.loads(p[2]) == {
@@ -1032,8 +1040,41 @@ def test_left_out_subcommands(capsys, monkeypatch, argv, name):
     """Each left-out subcommand or engine names itself. `start --user
     --pass` is ported: it defines the root user and serves. So is `ml
     export`: a model missing from the datastore raises the reference's
-    error."""
+    error. So are `kv` (it starts the KV service with the reference's
+    settings), `kv-admin` and the `remote://` engine (with nothing at
+    the address, both packages fail with the same retryable error)."""
     from surrealdb_tpu_torch.__main__ import main
+
+    if name == "kv":
+        import surrealdb_tpu.kvs.remote as RR
+        import surrealdb_tpu_torch.kvs.remote as PR
+        from surrealdb_tpu.__main__ import main as ref_main
+
+        calls = []
+        for mod in (RR, PR):
+            monkeypatch.setattr(mod, "serve_kv",
+                                lambda *a, **kw: calls.append((a, kw)))
+        assert ref_main(argv) == 0 and main(argv) == 0
+        assert calls[0] == calls[1] and calls[1][0] == ("127.0.0.1", 8100)
+        return
+    if name in ("kv-admin", "remote://"):
+        from surrealdb_tpu import cnf as rcnf
+        from surrealdb_tpu.__main__ import main as ref_main
+        from surrealdb_tpu_torch import cnf as pcnf
+
+        for c in (rcnf, pcnf):
+            monkeypatch.setattr(c, "KV_RETRY_DEADLINE_S", 0.3)
+        errs = []
+        for fn, args in ((ref_main, argv), (main, [*argv, "--device", "off"]
+                                            if argv[0] == "start" else argv)):
+            with pytest.raises(Exception) as e:
+                fn(args)
+            errs.append((type(e.value).__name__,
+                         str(e.value).split("): ")[-1]))
+        assert errs[0] == errs[1] == (
+            "RetryableKvError",
+            "kv service unreachable: [Errno 111] Connection refused")
+        return
 
     if name == "ml":
         from surrealdb_tpu.__main__ import main as ref_main
